@@ -1,0 +1,14 @@
+"""metrics_tpu_torch — the PyTorch/CUDA port of ``metrics_tpu``.
+
+Metrics run eagerly on an NVIDIA GPU (Hopper, ``sm_90a``) by default, with
+tensor state on an explicit ``torch.device``; ``device="cpu"`` runs them on
+the CPU. The JAX package's Pallas tie-group scan is a hand-written CUDA
+kernel here (``csrc/tie_scan.cu``), built with ``nvcc`` at first use.
+
+This slice ports Accuracy, exact binary AUROC/AP, the ``Metric`` core and
+``MetricCollection``.
+"""
+from metrics_tpu_torch.info import __version__  # noqa: F401
+from metrics_tpu_torch.metric import Metric  # noqa: F401
+from metrics_tpu_torch.classification import AUROC, Accuracy  # noqa: F401
+from metrics_tpu_torch.collections import MetricCollection  # noqa: F401

@@ -1,0 +1,2 @@
+from metrics_tpu_torch.classification.accuracy import Accuracy  # noqa: F401
+from metrics_tpu_torch.classification.auroc import AUROC  # noqa: F401

@@ -1,0 +1,2 @@
+from metrics_tpu_torch.functional.classification.accuracy import accuracy  # noqa: F401
+from metrics_tpu_torch.functional.classification.auroc import auroc  # noqa: F401

@@ -1,0 +1,184 @@
+"""Exact binary AUROC / average precision: one co-sort plus O(N) scans.
+
+Port of ``metrics_tpu/ops/auroc_kernel.py``. The integral over deduped
+curve points equals a sum over tie groups, each closing one segment from the
+previous group's cumulative counts; those previous-group counts are
+forward-filled with a ``cummax`` (cumulative counts never decrease). So the
+whole computation is one sort plus scans: no gather of curve points, no
+host round-trip.
+
+Where the tensors are decides the path:
+
+* CUDA: the co-sort (a library radix sort, ``torch.sort``, as ``lax.sort``
+  was in the JAX package), then the hand-written tie-scan kernel
+  (:func:`~metrics_tpu_torch.ops.tie_scan.tie_group_reduce`), then
+  :func:`~metrics_tpu_torch.ops.tie_scan.auroc_ap_from_stats`.
+* CPU: the plain group formulas (:func:`_sorted_tie_groups`,
+  :func:`_auroc_from_groups`, :func:`_ap_from_groups`).
+
+The sort key is the JAX package's total-order map, computed in int32
+(:func:`_sortable_key`): ascending key == descending score, ``-0.0`` and
+``+0.0`` share one key, NaN sorts last. :func:`_descending_key` gives its
+uint32 form, bit-identical to the JAX package's key.
+"""
+from typing import Optional, Tuple
+
+import torch
+
+from metrics_tpu_torch.ops.tie_scan import auroc_ap_from_stats, tie_group_reduce
+
+_INT32_MIN = -(2**31)
+_INT32_MAX = 2**31 - 1
+
+
+def _sortable_key(preds: torch.Tensor) -> torch.Tensor:
+    """int32 sort key: ascending key == descending f32 score.
+
+    The standard bit-level monotone map of f32 onto signed int32, inverted.
+    ``-0.0`` is mapped to ``+0.0`` first (in bit space) so equal scores share
+    one key, i.e. one tie group; NaN scores sort last.
+    """
+    p = preds.to(torch.float32).contiguous()
+    b = p.view(torch.int32)
+    b = torch.where(b == _INT32_MIN, 0, b)
+    ascending = torch.where(b >= 0, b, b ^ _INT32_MAX)
+    return torch.where(torch.isnan(p), _INT32_MAX, ~ascending)
+
+
+def _descending_key(preds: torch.Tensor) -> torch.Tensor:
+    """uint32 sort key, bit-identical to ``metrics_tpu``'s: ascending key ==
+    descending score. It is :func:`_sortable_key` with the sign bit flipped."""
+    return (_sortable_key(preds) ^ _INT32_MIN).view(torch.uint32)
+
+
+def _score_from_key(key: torch.Tensor) -> torch.Tensor:
+    """Invert :func:`_descending_key`: the f32 score of a uint32 key. Exact
+    for every float except the canonicalized ones: ``-0.0`` comes back as
+    ``+0.0`` and NaNs come back as *a* NaN."""
+    ascending = ~(key.view(torch.int32) ^ _INT32_MIN)
+    b = torch.where(ascending >= 0, ascending, ascending ^ _INT32_MAX)
+    return b.view(torch.float32)
+
+
+def _payload(rel: torch.Tensor, weight: Optional[torch.Tensor]) -> torch.Tensor:
+    """The packed ``rel + 2*weight`` payload (both in {0, 1}): only 3 and 2
+    move counts, so weight-0 (masked) elements are inert wherever they sort."""
+    return rel + 2.0 * (torch.ones_like(rel) if weight is None else weight)
+
+
+def _co_sort(preds: torch.Tensor, rel: torch.Tensor, weight: Optional[torch.Tensor] = None):
+    """Sort the keys, carry the payload along: ``(key_s int32, payload_s f32)``.
+
+    Unstable on purpose: every consumer reads counts only at tie-group
+    boundaries, which no permutation within a group can change."""
+    key_s, order = torch.sort(_sortable_key(preds))
+    return key_s, _payload(rel, weight)[order]
+
+
+def _sorted_tie_groups(preds: torch.Tensor, rel: torch.Tensor, weight: Optional[torch.Tensor] = None):
+    """Co-sort by descending score; return cumulative counts + tie masks.
+
+    Returns ``(tps, fps, is_last, tps_prev, fps_prev)`` where ``*_prev`` are
+    the cumulative counts *before* each element's tie group, forward-filled
+    to the whole group: valid at group firsts, -inf elsewhere; ``cummax``
+    fills forward because cumulative counts are non-decreasing.
+
+    ``weight`` (default all-ones) must be binary {0, 1}: it is a validity
+    mask. Zero-weight elements are counted nowhere, so they cannot affect the
+    result wherever their (arbitrary, even ±inf) score sorts them.
+    """
+    key_s, payload_s = _co_sort(preds, rel, weight)
+    pos_w = (payload_s == 3.0).to(torch.float32)
+    neg_w = (payload_s == 2.0).to(torch.float32)
+    # count in i32, not f32: an f32 cumsum of {0,1} sticks at 2^24
+    tps = torch.cumsum(pos_w.to(torch.int32), 0, dtype=torch.int32).to(torch.float32)
+    fps = torch.cumsum(neg_w.to(torch.int32), 0, dtype=torch.int32).to(torch.float32)
+
+    boundary = key_s[1:] != key_s[:-1]
+    one = torch.ones(1, dtype=torch.bool, device=key_s.device)
+    is_first = torch.cat([one, boundary])
+    is_last = torch.cat([boundary, one])
+
+    tps_prev = torch.cummax(torch.where(is_first, tps - pos_w, float("-inf")), 0).values
+    fps_prev = torch.cummax(torch.where(is_first, fps - neg_w, float("-inf")), 0).values
+    return tps, fps, is_last, tps_prev, fps_prev
+
+
+def _auroc_from_groups(tps, fps, is_last, tps_prev, fps_prev) -> torch.Tensor:
+    """Tie-corrected trapezoid area over groups → normalized AUROC (NaN when
+    a class is absent)."""
+    area = torch.sum(torch.where(is_last, 0.5 * (tps + tps_prev) * (fps - fps_prev), 0.0))
+    n_pos = tps[-1]
+    n_neg = fps[-1]
+    return torch.where(n_pos * n_neg == 0, float("nan"), area / torch.clamp_min(n_pos * n_neg, 1.0))
+
+
+def _ap_from_groups(tps, fps, is_last, tps_prev) -> torch.Tensor:
+    """Per-threshold ``ΔR·P`` sum over groups → average precision (NaN when
+    no positives)."""
+    n_pos = tps[-1]
+    precision = tps / torch.clamp_min(tps + fps, 1.0)
+    ap = torch.sum(torch.where(is_last, (tps - tps_prev) * precision, 0.0)) / torch.clamp_min(n_pos, 1.0)
+    return torch.where(n_pos == 0, float("nan"), ap)
+
+
+def _auroc_ap(
+    preds: torch.Tensor, rel: torch.Tensor, weight: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(AUROC, AP) of one 1-d stream, on the device its tensors are on."""
+    if preds.device.type == "cuda":
+        key_s, payload_s = _co_sort(preds, rel, weight)
+        return auroc_ap_from_stats(tie_group_reduce(key_s, payload_s))
+    if preds.device.type != "cpu":
+        raise ValueError(f"exact AUROC/AP runs on CUDA or CPU tensors, got a tensor on {preds.device}")
+    tps, fps, is_last, tps_prev, fps_prev = _sorted_tie_groups(preds, rel, weight)
+    return _auroc_from_groups(tps, fps, is_last, tps_prev, fps_prev), _ap_from_groups(tps, fps, is_last, tps_prev)
+
+
+def _relevance(target: torch.Tensor, pos_label: int) -> torch.Tensor:
+    return (target == pos_label).to(torch.float32)
+
+
+def binary_auroc(preds: torch.Tensor, target: torch.Tensor, pos_label: int = 1) -> torch.Tensor:
+    """Exact AUROC of 1-d scores vs binary targets (NaN for a single class).
+
+    Tie-correct: tied scores form one ROC point (the tie group's chord), as
+    in sklearn's ``roc_auc_score``.
+
+    Example:
+        >>> binary_auroc(torch.tensor([0.1, 0.4, 0.35, 0.8]), torch.tensor([0, 0, 1, 1]))
+        tensor(0.7500)
+    """
+    return _auroc_ap(preds, _relevance(target, pos_label))[0]
+
+
+def binary_average_precision(preds: torch.Tensor, target: torch.Tensor, pos_label: int = 1) -> torch.Tensor:
+    """Exact average precision of 1-d scores vs binary targets.
+
+    Tie-correct: AP = sum over distinct thresholds of ``(R_k - R_{k-1}) * P_k``.
+    Targets with no positive sample yield NaN.
+
+    Example:
+        >>> round(float(binary_average_precision(
+        ...     torch.tensor([0.1, 0.4, 0.35, 0.8]), torch.tensor([0, 0, 1, 1]))), 4)
+        0.8333
+    """
+    return _auroc_ap(preds, _relevance(target, pos_label))[1]
+
+
+def masked_binary_auroc(
+    preds: torch.Tensor, target: torch.Tensor, mask: torch.Tensor, pos_label: int = 1
+) -> torch.Tensor:
+    """Exact AUROC over the ``mask``-valid subset, static shape.
+
+    Invalid entries get weight 0 in the cumulative counts — no score
+    sentinel, so even valid ``±inf`` scores (raw logits) stay exact.
+    """
+    return _auroc_ap(preds, _relevance(target, pos_label), mask.to(torch.float32))[0]
+
+
+def masked_binary_average_precision(
+    preds: torch.Tensor, target: torch.Tensor, mask: torch.Tensor, pos_label: int = 1
+) -> torch.Tensor:
+    """Exact average precision over the ``mask``-valid subset."""
+    return _auroc_ap(preds, _relevance(target, pos_label), mask.to(torch.float32))[1]

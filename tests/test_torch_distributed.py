@@ -1,0 +1,104 @@
+"""``TorchDistributedBackend`` over a real ``torch.distributed`` process group,
+one spawned process per rank joined over ``tcp://localhost``: on gloo (CPU
+states) here, and on NCCL (one card per rank) where the machine has two or
+more CUDA devices. This file imports neither JAX nor the JAX package, so the
+worker processes start quickly and the NCCL case runs on a machine that has
+only PyTorch: ``python -m pytest --noconftest -m cuda tests/test_torch_distributed.py``.
+"""
+import multiprocessing
+import socket
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from metrics_tpu_torch import AUROC, Accuracy, MetricCollection
+from metrics_tpu_torch.parallel.backend import TorchDistributedBackend, get_sync_backend
+
+
+def _rows(rank):
+    return 3 + 2 * rank  # uneven first dims, so the gather pads and trims
+
+
+def _data(rank):
+    rng = np.random.default_rng(rank)
+    n = 300 + 200 * rank  # uneven cat states
+    p = rng.random(n).astype(np.float32)
+    t = (rng.random(n) < p).astype(np.int64)
+    return torch.from_numpy(p), torch.from_numpy(t)
+
+
+def _worker(rank, world, port, device_type, queue):
+    device = torch.device(device_type, rank) if device_type == "cuda" else torch.device("cpu")
+    if device_type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(
+        TorchDistributedBackend.process_group_backend(device),
+        init_method=f"tcp://localhost:{port}", rank=rank, world_size=world,
+    )
+    try:
+        backend = get_sync_backend()
+        assert isinstance(backend, TorchDistributedBackend) and backend.world_size == world
+        gathered = backend.gather(torch.full((_rows(rank), 2), float(rank), device=device))
+        shapes = [tuple(g.shape) for g in gathered]
+        values = [float(g.sum()) for g in gathered]
+        scalars = [float(s) for s in backend.gather(torch.tensor(rank + 0.5, device=device))]
+        coll = MetricCollection([Accuracy(device=device), AUROC(pos_label=1, device=device)])
+        coll.update(*_data(rank))
+        synced = {k: float(v) for k, v in coll.compute().items()}
+        queue.put((rank, shapes, values, scalars, synced))
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _run_world(world, device_type):
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_worker, args=(r, world, port, device_type, queue)) for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in range(world):
+            rank, *rest = queue.get(timeout=180)
+            results[rank] = rest
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+    assert not any(p.is_alive() for p in procs)
+    assert all(p.exitcode == 0 for p in procs)
+
+    for rank in range(world):
+        shapes, values, scalars, _ = results[rank]
+        assert shapes == [(_rows(r), 2) for r in range(world)]
+        assert values == [float(r * _rows(r) * 2) for r in range(world)]
+        assert scalars == [r + 0.5 for r in range(world)]
+    single = MetricCollection([Accuracy(device="cpu"), AUROC(pos_label=1, device="cpu")])
+    for rank in range(world):
+        single.update(*_data(rank))
+    want = {k: float(v) for k, v in single.compute().items()}
+    for rank in range(world):
+        synced = results[rank][3]
+        assert synced == results[0][3]
+        assert synced["Accuracy"] == want["Accuracy"]
+        assert abs(synced["AUROC"] - want["AUROC"]) < 1e-6
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_gloo_sync_pads_uneven_shapes_and_equals_one_process(world):
+    _run_world(world, "cpu")
+
+
+@pytest.mark.cuda
+def test_nccl_sync_across_the_cards_equals_one_process():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    _run_world(torch.cuda.device_count(), "cuda")
