@@ -4,28 +4,51 @@ Run from the root of a checkout, on a machine with a CUDA device::
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero before the result line):
+It uses one card: the first one ``CUDA_VISIBLE_DEVICES`` names, card 0 when
+that is unset. Phases (any failure exits non-zero before the result line):
 
 1. build every CUDA kernel of ``metrics_tpu_torch/csrc`` with ``nvcc``, all
    sources at once;
-2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it and at the hazards (block edges, one tie
-   group, masking, bucket offsets, a positive class above 2^24), and the
-   1M-element AUROC/AP against float64 numpy oracles;
-3. the main path: ``MetricCollection([Accuracy(), AUROC(pos_label=1)])`` on
-   ``cuda``, 10 forward batches of 100,000 seeded predictions, then
-   ``compute()``, checked against numpy, with the kernel's launch count;
-4. times on the card: the kernel, its plain version and both co-sort forms
-   at 1M (CUDA events over launches queued behind a device sleep, so host
-   overhead does not show), a forward batch and the whole compute step (host
-   clock ending in a synchronize).
+2. hold each kernel against its plain PyTorch version on the card:
 
-Prints the card's name and power limit (``nvidia-smi``), a ``{"timings":
-...}`` line, a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
-"device": {...}}``. Exits with 1 and prints no result when no CUDA device
-is available.
+   a. the one-stream scan (``tie_scan``) at the shapes the binary path gives
+      it and at the hazards (block edges, one tie group, masking, bucket
+      offsets, a positive class above 2^24), and the 1M-element AUROC/AP
+      against float64 numpy oracles;
+   b. the class-batched scan (``tie_scan_rows``) at ``(1, 1)``,
+      ``(3, 4097)``, ``(7, 32769)``, ``(80, 40504)`` and ``(1000, 50000)``,
+      with a one-group row, a row without positives and a signed-zero row,
+      and at more than 65535 rows (several launch groups); every row must
+      also equal the one-stream scan of that row, bit for bit;
+
+3. the binary main path: ``MetricCollection([Accuracy(), AUROC(pos_label=1)])``
+   on ``cuda``, 10 forward batches of 100,000 seeded predictions, then
+   ``compute()``, checked against numpy, with the kernel's launch count;
+4. the multi-class main path at the ImageNet-1k validation shape (ILSVRC2012
+   val: 50,000 images, 1,000 classes, 50 per class):
+   ``MetricCollection([Accuracy(), AUROC(num_classes=1000),
+   AveragePrecision(num_classes=1000)])`` on ``cuda``, 10 update batches of
+   5,000 seeded softmax scores, then ``compute()``: Accuracy equal to
+   numpy's, macro AUROC and every class's AP against float64 oracles, and
+   exactly one batched launch per AUROC and per AP compute; then one
+   ``forward``; then per-label AUROC at the MS-COCO 2014 val shape (40,504
+   images, 80 labels) against the oracles;
+5. times on the card (CUDA events over launches queued behind a device
+   sleep, so host overhead does not show, or the host clock ending in a
+   synchronize for whole steps): the one-stream kernel, its plain version
+   and both co-sort forms at 1M; the batched kernel, its plain version, the
+   same rows as 1,000 one-stream launches and both co-sort forms at
+   ``(1000, 50000)``; a forward batch and both compute steps;
+6. where the time goes: ``torch.profiler`` over a binary forward batch plus
+   compute, over one batched kernel call and over one multi-class compute.
+
+Prints the card's name and power limit (``nvidia-smi``), ``{"timings": ...}``
+and ``{"profile": ...}`` lines, a ``{"kernels": [...]}`` line and, last,
+``{"ok": true, "device": {...}}``. Exits with 1 and prints no result when no
+CUDA device is available.
 """
 import json
+import os
 import subprocess
 import sys
 import time
@@ -40,6 +63,16 @@ TIE_HEAVY_N = 1_000_003
 BIG_N = 20_000_000  # with 90% positives the positive class exceeds 2^24
 EDGE_SIZES = (1, 7, 32767, 32768, 32769, BATCH)
 
+# the class-batched scan: (rows, n) shapes, the last that of the multi-class
+# main path, and a batch of more rows than one launch group (65535) takes
+ROW_SHAPES = ((1, 1), (3, 4097), (7, 32769), (80, 40504), (1000, 50000))
+CHUNKED_ROWS = (131_073, 3)
+# ILSVRC2012 val: 50,000 images, 1,000 classes, 50 images per class
+IMAGENET_N, IMAGENET_C = 50_000, 1_000
+MC_BATCHES = 10
+# MS-COCO 2014 val: 40,504 images, 80 labels
+COCO_N, COCO_C = 40_504, 80
+
 # H100 SXM data sheet: HBM bandwidth and the float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -52,9 +85,18 @@ SCORE_TOL = 1e-6
 ORACLE_TOL = 1e-5
 
 
-def _card_line() -> str:
+def _pin_one_card() -> str:
+    """Make the run see one card, the first visible one; returns its
+    ``nvidia-smi`` index (or UUID). Must run before CUDA initializes."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    first = "0" if visible is None else visible.split(",")[0].strip()
+    os.environ["CUDA_VISIBLE_DEVICES"] = first
+    return first
+
+
+def _card_line(card: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", "-i", card, "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
@@ -114,17 +156,44 @@ def _host_ms(torch, fn, trials: int = 5) -> float:
     return float(np.median(times))
 
 
+def _bound(n_elements: int, groups: int, outputs: int):
+    """(bound ms, what bounds it) of one scan: 8 bytes read per element and
+    16 bytes written per output; 5 operations per element (compare, decode,
+    prefix) and 10 per group start (the f32 terms)."""
+    bytes_ms = (8 * n_elements + 16 * outputs) / HBM_BYTES_PER_S * 1e3
+    ops_ms = (5 * n_elements + 10 * groups) / F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def _saved(collection) -> dict:
+    """The collection's states as they are now: list states are copied, so
+    later updates, which append to the live lists, do not reach them."""
+    return {k: list(v) if isinstance(v, list) else v for k, v in collection.state_dict().items()}
+
+
+def _device_ms_by_kernel(torch, prof, key: str) -> dict:
+    return {
+        e.key: getattr(e, key) / 1e3
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and getattr(e, key) > 0
+    }
+
+
 def main() -> int:
+    card_index = _pin_one_card()
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
 
-    from metrics_tpu_torch import AUROC, Accuracy, MetricCollection
+    from metrics_tpu_torch import AUROC, Accuracy, AveragePrecision, MetricCollection
+    from metrics_tpu_torch.functional import auroc as functional_auroc
     from metrics_tpu_torch.ops import _native, tie_scan
     from metrics_tpu_torch.ops.auroc_kernel import (
         _co_sort,
+        _co_sort_rows,
+        _ovr_relevance,
         _payload,
         _sortable_key,
         binary_auroc,
@@ -133,16 +202,19 @@ def main() -> int:
     )
 
     dev = torch.device("cuda")
-    card = _card_line()
+    if torch.cuda.device_count() != 1:
+        raise AssertionError(f"expected one visible card, got {torch.cuda.device_count()}")
+    card = _card_line(card_index)
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    t_start = time.perf_counter()
 
     # ---- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
     built = _native.build()
     print(f"build: {sorted(built)} in {time.perf_counter() - t0:.2f} s")
 
-    # ---- 2. each kernel against its plain version ------------------------
+    # ---- 2a. the one-stream kernel against its plain version --------------
     rng = np.random.default_rng(SEED)
     max_err = 0.0
 
@@ -206,7 +278,64 @@ def main() -> int:
     print(f"kernel vs plain: ok, max |d score| {max_err:.3g}; 1M AUROC {auroc_1m:.7f} (oracle {oracle_auroc:.7f}),"
           f" AP {ap_1m:.7f} (oracle {oracle_ap:.7f})")
 
-    # ---- 3. the main path -----------------------------------------------
+    # ---- 2b. the class-batched kernel against its plain version ----------
+    max_err_rows = 0.0
+
+    def hold_rows(label, scores, rel):
+        """Batched launch vs plain version (counts exact, area/AP and the
+        scores within SCORE_TOL, NaN where the plain version has NaN) and
+        vs one one-stream launch per row (bit for bit)."""
+        nonlocal max_err_rows
+        rows = scores.shape[0]
+        preds = torch.from_numpy(scores).to(dev)
+        rel_t = torch.from_numpy(rel.astype(np.float32)).to(dev)
+        key_s, pay_s = _co_sort_rows(_sortable_key(preds), _payload(rel_t, None))
+        want = tie_scan.tie_group_reduce_rows_reference(key_s, pay_s)
+        got = tie_scan.tie_group_reduce_rows(key_s, pay_s)
+        singles = torch.stack([tie_scan.tie_group_reduce(key_s[r], pay_s[r]) for r in range(rows)])
+        torch.cuda.synchronize()
+        bad = (got[:, 2:] != want[:, 2:]).any(1).nonzero().flatten()
+        if bad.numel():
+            r = int(bad[0])
+            raise AssertionError(f"{label}: row {r} counts {got[r, 2:].tolist()} != plain {want[r, 2:].tolist()}")
+        rel_err = (got[:, :2].double() - want[:, :2].double()).abs() / want[:, :2].double().abs().clamp_min(1.0)
+        if float(rel_err.max()) > SCORE_TOL:
+            raise AssertionError(f"{label}: area/ap rel err {float(rel_err.max())} > {SCORE_TOL}")
+        for g, w in zip(tie_scan.auroc_ap_from_stats(got), tie_scan.auroc_ap_from_stats(want)):
+            if not torch.equal(torch.isnan(g), torch.isnan(w)):
+                raise AssertionError(f"{label}: NaN rows differ from the plain version's")
+            d = (g - w).abs()[~torch.isnan(w)]
+            if d.numel():
+                if float(d.max()) > SCORE_TOL:
+                    raise AssertionError(f"{label}: score diff {float(d.max())} > {SCORE_TOL}")
+                max_err_rows = max(max_err_rows, float(d.max()))
+        if not torch.equal(got, singles):
+            r = int((got != singles).any(1).nonzero().flatten()[0])
+            raise AssertionError(f"{label}: row {r} {got[r].tolist()} != one-stream launch {singles[r].tolist()}")
+        return want
+
+    def row_case(rows, n):
+        """Seeded rows: tie-heavy (rounded) and tie-free rows alternate; rows
+        0, 1 and 2 (where present) are one tie group, without positives, and
+        signed zeros."""
+        scores = rng.random((rows, n), dtype=np.float32)
+        scores[::2] = np.round(scores[::2], 2)
+        rel = rng.random((rows, n)) < 0.3
+        if rows >= 3:
+            scores[0] = 0.25
+            rel[1] = False
+            scores[2] = np.where(np.arange(n) % 2 == 0, np.float32(0.0), np.float32(-0.0))
+        return scores, rel
+
+    for rows, n in ROW_SHAPES:
+        want = hold_rows(f"rows {rows}x{n}", *row_case(rows, n))
+        if rows >= 3 and not (want[1, 2].item() == 0 and want[0, 3].item() > 0):
+            raise AssertionError(f"rows {rows}x{n}: the special rows are not what they should be")
+    hold_rows(f"rows {CHUNKED_ROWS[0]}x{CHUNKED_ROWS[1]} (launch groups)", *row_case(*CHUNKED_ROWS))
+    print(f"batched kernel vs plain and vs one-stream launches: ok at {list(ROW_SHAPES) + [CHUNKED_ROWS]},"
+          f" max |d score| {max_err_rows:.3g}")
+
+    # ---- 3. the binary main path -----------------------------------------
     preds_np = rng.random(MAIN_N, dtype=np.float32)
     target_np = (rng.random(MAIN_N) < preds_np).astype(np.int64)
     preds = torch.from_numpy(preds_np).to(dev)
@@ -214,6 +343,7 @@ def main() -> int:
     collection = MetricCollection([Accuracy(), AUROC(pos_label=1)])
     torch.cuda.synchronize()
     tie_scan.tie_group_reduce.launches = 0
+    tie_scan.tie_group_reduce_rows.launches = 0
     t0 = time.perf_counter()
     for b in range(BATCHES):
         step = collection(preds[b * BATCH:(b + 1) * BATCH], target[b * BATCH:(b + 1) * BATCH])
@@ -223,7 +353,9 @@ def main() -> int:
     main_path_s = time.perf_counter() - t0
     launches = tie_scan.tie_group_reduce.launches
     if launches == 0:
-        raise AssertionError("the main path never launched the tie_scan kernel")
+        raise AssertionError("the binary main path never launched the tie_scan kernel")
+    if tie_scan.tie_group_reduce_rows.launches != 0:
+        raise AssertionError("the binary main path launched the class-batched kernel")
     values = {k: v.item() for k, v in result.items()}
     for k, v in list(values.items()) + [(k, v.item()) for k, v in step.items()]:
         if not np.isfinite(v):
@@ -235,10 +367,87 @@ def main() -> int:
         raise AssertionError(f"main path: Accuracy {values['Accuracy']} != numpy {want_acc}")
     if abs(values["AUROC"] - want_auroc) > ORACLE_TOL:
         raise AssertionError(f"main path: AUROC {values['AUROC']} vs oracle {want_auroc}")
-    print(f"main path: {values} (numpy: Accuracy {want_acc}, AUROC {want_auroc:.7f}),"
+    print(f"binary main path: {values} (numpy: Accuracy {want_acc}, AUROC {want_auroc:.7f}),"
           f" tie_scan launches {launches}, {main_path_s:.3f} s including first calls")
 
-    # ---- 4. times --------------------------------------------------------
+    # ---- 4. the multi-class main path, ImageNet-1k val shape --------------
+    mc_target_np = rng.permutation(np.repeat(np.arange(IMAGENET_C), IMAGENET_N // IMAGENET_C))
+    logits = rng.standard_normal((IMAGENET_N, IMAGENET_C), dtype=np.float32)
+    logits[np.arange(IMAGENET_N), mc_target_np] += np.float32(3.0)
+    logits -= logits.max(axis=1, keepdims=True)
+    np.exp(logits, out=logits)
+    mc_scores_np = logits / logits.sum(axis=1, keepdims=True)
+    del logits
+    mc_preds = torch.from_numpy(mc_scores_np).to(dev)
+    mc_target = torch.from_numpy(mc_target_np).to(dev)
+    mc_batch = IMAGENET_N // MC_BATCHES
+
+    def mc_collection():
+        return MetricCollection(
+            [Accuracy(), AUROC(num_classes=IMAGENET_C), AveragePrecision(num_classes=IMAGENET_C)]
+        )
+
+    mc = mc_collection()
+    torch.cuda.synchronize()
+    tie_scan.tie_group_reduce.launches = 0
+    tie_scan.tie_group_reduce_rows.launches = 0
+    t0 = time.perf_counter()
+    for b in range(MC_BATCHES):
+        mc.update(mc_preds[b * mc_batch:(b + 1) * mc_batch], mc_target[b * mc_batch:(b + 1) * mc_batch])
+    mc_result = mc.compute()
+    torch.cuda.synchronize()
+    mc_path_s = time.perf_counter() - t0
+    rows_launches = tie_scan.tie_group_reduce_rows.launches
+    if rows_launches != 2 or tie_scan.tie_group_reduce.launches != 0:
+        raise AssertionError(
+            f"multi-class path: {rows_launches} batched and {tie_scan.tie_group_reduce.launches} one-stream"
+            " launches; want exactly one batched launch per AUROC and per AP compute"
+        )
+    mc_acc = mc_result["Accuracy"].item()
+    mc_auroc = mc_result["AUROC"].item()
+    mc_ap = torch.stack(mc_result["AveragePrecision"]).cpu().numpy().astype(np.float64)
+    want_mc_acc = float(
+        np.float32(np.sum(np.argmax(mc_scores_np, axis=1) == mc_target_np)) / np.float32(IMAGENET_N)
+    )
+    if mc_acc != want_mc_acc:
+        raise AssertionError(f"multi-class path: Accuracy {mc_acc} != numpy {want_mc_acc}")
+    columns = np.ascontiguousarray(mc_scores_np.T)
+    oracle_aurocs = np.array([_oracle_auroc(columns[c], mc_target_np == c) for c in range(IMAGENET_C)])
+    oracle_aps = np.array([_oracle_ap(columns[c], mc_target_np == c) for c in range(IMAGENET_C)])
+    if not np.isfinite(mc_auroc) or abs(mc_auroc - oracle_aurocs.mean()) > ORACLE_TOL:
+        raise AssertionError(f"multi-class path: macro AUROC {mc_auroc} vs oracle {oracle_aurocs.mean()}")
+    ap_err = np.abs(mc_ap - oracle_aps)
+    if mc_ap.shape != (IMAGENET_C,) or not np.all(ap_err <= ORACLE_TOL):
+        raise AssertionError(f"multi-class path: AP of class {int(np.nanargmax(ap_err))} off by {np.nanmax(ap_err)}")
+    mc.persistent(True)
+    mc_saved = _saved(mc)
+    mc_step = mc(mc_preds[:mc_batch], mc_target[:mc_batch])  # a batch may lack classes: NaN is allowed
+    torch.cuda.synchronize()
+    if len(mc_step["AveragePrecision"]) != IMAGENET_C or mc_step["AUROC"].shape != ():
+        raise AssertionError("multi-class forward: unexpected output shapes")
+    print(f"multi-class main path: Accuracy {mc_acc} (numpy {want_mc_acc}), macro AUROC {mc_auroc:.7f}"
+          f" (oracle {oracle_aurocs.mean():.7f}), mean AP {mc_ap.mean():.7f} (oracle {oracle_aps.mean():.7f}),"
+          f" max |d AP| {ap_err.max():.3g}; tie_scan_rows launches {rows_launches}, {mc_path_s:.3f} s"
+          " including first calls; one forward: ok")
+
+    # multi-label, MS-COCO 2014 val shape: per-label AUROC against the oracle
+    prevalence = rng.uniform(0.005, 0.2, COCO_C)
+    ml_target_np = rng.random((COCO_N, COCO_C)) < prevalence
+    ml_scores_np = (1.0 / (1.0 + np.exp(-(rng.standard_normal((COCO_N, COCO_C)) + 2.0 * ml_target_np)))).astype(
+        np.float32
+    )
+    ml = functional_auroc(
+        torch.from_numpy(ml_scores_np).to(dev), torch.from_numpy(ml_target_np.astype(np.int64)).to(dev),
+        num_classes=COCO_C, average=None,
+    )
+    ml = torch.stack(ml).cpu().numpy().astype(np.float64)
+    ml_oracle = np.array([_oracle_auroc(ml_scores_np[:, c], ml_target_np[:, c]) for c in range(COCO_C)])
+    ml_err = np.abs(ml - ml_oracle)
+    if not np.all(ml_err <= ORACLE_TOL):
+        raise AssertionError(f"multi-label: AUROC of label {int(np.nanargmax(ml_err))} off by {np.nanmax(ml_err)}")
+    print(f"multi-label {COCO_N}x{COCO_C}: per-label AUROC ok, max |d| {ml_err.max():.3g}")
+
+    # ---- 5. times ---------------------------------------------------------
     all_preds = torch.cat(list(collection["AUROC"].preds))
     all_rel = (torch.cat(list(collection["AUROC"].target)) == 1).to(torch.float32)
     key = _sortable_key(all_preds)
@@ -250,29 +459,51 @@ def main() -> int:
     sort_gather_ms = _queued_ms(torch, lambda: payload[torch.sort(key)[1]])
     sort_packed_ms = _queued_ms(torch, lambda: torch.sort((key.long() << 2) | payload.long()).values)
 
-    collection.persistent(True)
-    saved = collection.state_dict()
+    # the multi-class compute's rows, (1000, 50000): its batches in order are the whole set
+    rows_key = _sortable_key(mc_preds.T)
+    rows_payload = _payload(_ovr_relevance(mc_target, IMAGENET_C), None)
+    rows_key_s, rows_pay_s = _co_sort_rows(rows_key, rows_payload)
+    rows_groups = int((rows_key_s[:, 1:] != rows_key_s[:, :-1]).sum()) + IMAGENET_C
+    rows_kernel_ms = _queued_ms(torch, lambda: tie_scan.tie_group_reduce_rows(rows_key_s, rows_pay_s))
+    rows_plain_ms = _queued_ms(
+        torch, lambda: tie_scan.tie_group_reduce_rows_reference(rows_key_s, rows_pay_s), launches=2, trials=3
+    )
+    rows_single_ms = _queued_ms(
+        torch, lambda: [tie_scan.tie_group_reduce(rows_key_s[r], rows_pay_s[r]) for r in range(IMAGENET_C)],
+        launches=1, trials=5,
+    )
+    rows_sort_ms = _queued_ms(torch, lambda: _co_sort_rows(rows_key, rows_payload), launches=10)
+    flat_key = (torch.arange(IMAGENET_C, device=dev)[:, None] << 32) | (rows_key.long() + 2**31)
+    flat_payload = rows_payload.reshape(-1)
+    rows_flat_sort_ms = _queued_ms(
+        torch, lambda: flat_payload[torch.sort(flat_key.reshape(-1))[1]], launches=10
+    )
 
-    def compute_fresh():
+    collection.persistent(True)
+    saved = _saved(collection)
+
+    def compute_fresh(make, state):
         # a collection restored from the saved states, so compute() has no cached value
-        fresh = MetricCollection([Accuracy(), AUROC(pos_label=1)])
-        fresh.load_state_dict(saved, strict=True)
+        fresh = make()
+        fresh.load_state_dict(state, strict=True)
         torch.cuda.synchronize()
         t = time.perf_counter()
         fresh.compute()
         torch.cuda.synchronize()
         return (time.perf_counter() - t) * 1e3
 
-    compute_fresh()
-    compute_ms = float(np.median([compute_fresh() for _ in range(5)]))
+    def binary_collection():
+        return MetricCollection([Accuracy(), AUROC(pos_label=1)])
+
+    compute_fresh(binary_collection, saved)
+    compute_ms = float(np.median([compute_fresh(binary_collection, saved) for _ in range(5)]))
+    compute_fresh(mc_collection, mc_saved)
+    mc_compute_ms = float(np.median([compute_fresh(mc_collection, mc_saved) for _ in range(5)]))
     forward_ms = _host_ms(torch, lambda: collection(preds[:BATCH], target[:BATCH]))
-    n = key_s.numel()
-    bytes_moved = n * (key_s.element_size() + pay_s.element_size()) + 4 * 4
-    ops = 5 * n + 10 * groups  # compare/decode/prefix per element, the f32 terms per group start
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_OPS_PER_S * 1e3
+    bound_ms, bound_by = _bound(key_s.numel(), groups, 1)
+    rows_bound_ms, rows_bound_by = _bound(rows_key_s.numel(), rows_groups, IMAGENET_C)
     timings = {
-        "n": n,
+        "n": key_s.numel(),
         "tie_groups": groups,
         "kernel_ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -281,22 +512,33 @@ def main() -> int:
         "forward_batch_ms": forward_ms,
         "compute_step_ms": compute_ms,
         "forward_10_batches_first_run_s": t_forward,
-        "kernel_bytes": bytes_moved,
-        "bytes_bound_ms": bytes_ms,
-        "ops_bound_ms": ops_ms,
+        "kernel_bytes": 8 * key_s.numel() + 16,
+        "bound_ms": bound_ms,
+        "rows_shape": list(rows_key_s.shape),
+        "rows_tie_groups": rows_groups,
+        "rows_kernel_ms": rows_kernel_ms,
+        "rows_plain_ms": rows_plain_ms,
+        "rows_as_1000_one_stream_launches_ms": rows_single_ms,
+        "rows_co_sort_segmented_sort_gather_ms": rows_sort_ms,
+        "rows_co_sort_flat_int64_sort_gather_ms": rows_flat_sort_ms,
+        "rows_kernel_bytes": 8 * rows_key_s.numel() + 16 * IMAGENET_C,
+        "rows_bound_ms": rows_bound_ms,
+        "multiclass_compute_step_ms": mc_compute_ms,
+        "multiclass_update_10_batches_and_compute_first_run_s": mc_path_s,
         "card": card,
     }
     print(json.dumps({"timings": timings}))
 
-    # ---- 5. where the time goes: one forward batch + compute, profiled ----
+    # ---- 6. where the time goes -------------------------------------------
     from torch.profiler import ProfilerActivity, profile
 
-    fresh = MetricCollection([Accuracy(), AUROC(pos_label=1)])
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    fresh = binary_collection()
     fresh.load_state_dict(saved, strict=True)
     fresh(preds[:BATCH], target[:BATCH])  # first-call costs stay out of the window
     fresh.load_state_dict(saved, strict=True)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         t = time.perf_counter()
         fresh(preds[:BATCH], target[:BATCH])
         fresh.compute()
@@ -304,21 +546,39 @@ def main() -> int:
         window_ms = (time.perf_counter() - t) * 1e3
     averages = prof.key_averages()
     sort_key = "self_device_time_total" if hasattr(averages[0], "self_device_time_total") else "self_cuda_time_total"
-    device_ms = sum(
-        getattr(e, sort_key) for e in averages if e.device_type == torch.autograd.DeviceType.CUDA
-    ) / 1e3
+    device_ms = sum(_device_ms_by_kernel(torch, prof, sort_key).values())
     print(averages.table(sort_by=sort_key, row_limit=15, max_name_column_width=48))
     print(averages.table(sort_by="self_cpu_time_total", row_limit=15, max_name_column_width=48))
     # the plain version at 1M, by ATen kernel
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_plain:
+    with profile(activities=activities) as prof_plain:
         tie_scan.tie_group_reduce_reference(key_s, pay_s)
         torch.cuda.synchronize()
     print(prof_plain.key_averages().table(sort_by=sort_key, row_limit=10, max_name_column_width=48))
+    # the batched kernel at (1000, 50000), by launch of its four kernels
+    with profile(activities=activities) as prof_rows:
+        tie_scan.tie_group_reduce_rows(rows_key_s, rows_pay_s)
+        torch.cuda.synchronize()
+    rows_split = _device_ms_by_kernel(torch, prof_rows, sort_key)
+    # one multi-class compute step, restored from the saved states
+    fresh_mc = mc_collection()
+    fresh_mc.load_state_dict(mc_saved, strict=True)
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof_mc:
+        t = time.perf_counter()
+        fresh_mc.compute()
+        torch.cuda.synchronize()
+        mc_window_ms = (time.perf_counter() - t) * 1e3
+    mc_split = _device_ms_by_kernel(torch, prof_mc, sort_key)
+    print(prof_mc.key_averages().table(sort_by=sort_key, row_limit=15, max_name_column_width=48))
     print(json.dumps({"profile": {
         "window": "one forward batch of 100k + compute at 1.1M, under torch.profiler",
         "window_ms": window_ms,
         "device_kernel_ms": device_ms,
         "device_busy_share": device_ms / window_ms,
+        "rows_kernel_device_ms_by_kernel": rows_split,
+        "multiclass_compute_window_ms": mc_window_ms,
+        "multiclass_compute_device_ms": sum(mc_split.values()),
+        "multiclass_compute_device_ms_by_kernel": dict(sorted(mc_split.items(), key=lambda kv: -kv[1])[:12]),
     }}))
     kernels = [
         {
@@ -330,16 +590,28 @@ def main() -> int:
             "max_abs_err": max_err,
             "ms": kernel_ms,
             "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
             "library_ms": None,
-        }
+        },
+        {
+            "name": "tie_scan_rows",
+            "route": "cuda",
+            "source": "metrics_tpu_torch/csrc/tie_scan.cu",
+            "replaces": "metrics_tpu/ops/tie_scan_pallas.py:80",
+            "launches": rows_launches,
+            "max_abs_err": max_err_rows,
+            "ms": rows_kernel_ms,
+            "plain_ms": rows_plain_ms,
+            "bound_ms": rows_bound_ms,
+            "bound_by": rows_bound_by,
+            "library_ms": None,
+        },
     ]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check")
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({
-        "ok": True,
-        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
-    }))
+    # the run used one card (pinned above)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}))
     return 0
 
 

@@ -5,10 +5,12 @@ tensor state on an explicit ``torch.device``; ``device="cpu"`` runs them on
 the CPU. The JAX package's Pallas tie-group scan is a hand-written CUDA
 kernel here (``csrc/tie_scan.cu``), built with ``nvcc`` at first use.
 
-This slice ports Accuracy, exact binary AUROC/AP, the ``Metric`` core and
-``MetricCollection``.
+Ported so far: Accuracy; exact AUROC and AveragePrecision of binary inputs
+and, with every class in one batched kernel launch, of one-vs-rest
+multi-class (AUROC, AP) and multi-label (AUROC) inputs; the ``Metric`` core
+and ``MetricCollection``.
 """
 from metrics_tpu_torch.info import __version__  # noqa: F401
 from metrics_tpu_torch.metric import Metric  # noqa: F401
-from metrics_tpu_torch.classification import AUROC, Accuracy  # noqa: F401
+from metrics_tpu_torch.classification import AUROC, Accuracy, AveragePrecision  # noqa: F401
 from metrics_tpu_torch.collections import MetricCollection  # noqa: F401

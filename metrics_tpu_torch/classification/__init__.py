@@ -1,2 +1,3 @@
 from metrics_tpu_torch.classification.accuracy import Accuracy  # noqa: F401
 from metrics_tpu_torch.classification.auroc import AUROC  # noqa: F401
+from metrics_tpu_torch.classification.average_precision import AveragePrecision  # noqa: F401

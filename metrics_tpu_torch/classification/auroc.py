@@ -15,7 +15,10 @@ class AUROC(Metric):
 
     The states are lists of every batch's predictions and targets; compute
     concatenates them and runs the exact co-sort + tie-scan path (binary
-    inputs; see :mod:`metrics_tpu_torch.functional.classification.auroc`).
+    inputs, or every class or label of multi-class and multi-label inputs in
+    one batched launch; see
+    :mod:`metrics_tpu_torch.functional.classification.auroc`). Multi-dim
+    inputs are flattened to ``(N, C)`` at update.
 
     Example:
         >>> preds = torch.tensor([0.13, 0.26, 0.08, 0.19, 0.34])

@@ -1,19 +1,22 @@
-"""Exact binary AUROC / average precision: one co-sort plus O(N) scans.
+"""Exact AUROC / average precision: one co-sort plus O(N) scans.
 
-Port of ``metrics_tpu/ops/auroc_kernel.py``. The integral over deduped
-curve points equals a sum over tie groups, each closing one segment from the
-previous group's cumulative counts; those previous-group counts are
-forward-filled with a ``cummax`` (cumulative counts never decrease). So the
-whole computation is one sort plus scans: no gather of curve points, no
-host round-trip.
+Port of ``metrics_tpu/ops/auroc_kernel.py``: binary streams, and C streams
+at once for one-vs-rest multi-class and multi-label inputs. The integral
+over deduped curve points equals a sum over tie groups, each closing one
+segment from the previous group's cumulative counts; those previous-group
+counts are forward-filled with a ``cummax`` (cumulative counts never
+decrease). So the whole computation is one sort plus scans: no gather of
+curve points, no host round-trip.
 
 Where the tensors are decides the path:
 
 * CUDA: the co-sort (a library radix sort, ``torch.sort``, as ``lax.sort``
-  was in the JAX package), then the hand-written tie-scan kernel
-  (:func:`~metrics_tpu_torch.ops.tie_scan.tie_group_reduce`), then
+  was in the JAX package; along ``dim=1`` for ``(C, N)`` rows), then the
+  hand-written tie-scan kernel, one launch for one stream or for all C rows
+  (:func:`~metrics_tpu_torch.ops.tie_scan.tie_group_reduce`,
+  :func:`~metrics_tpu_torch.ops.tie_scan.tie_group_reduce_rows`), then
   :func:`~metrics_tpu_torch.ops.tie_scan.auroc_ap_from_stats`.
-* CPU: the plain group formulas (:func:`_sorted_tie_groups`,
+* CPU: the plain group formulas along the last dim (:func:`_tie_groups`,
   :func:`_auroc_from_groups`, :func:`_ap_from_groups`).
 
 The sort key is the JAX package's total-order map, computed in int32
@@ -25,7 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from metrics_tpu_torch.ops.tie_scan import auroc_ap_from_stats, tie_group_reduce
+from metrics_tpu_torch.ops.tie_scan import auroc_ap_from_stats, tie_group_reduce, tie_group_reduce_rows
 
 _INT32_MIN = -(2**31)
 _INT32_MAX = 2**31 - 1
@@ -63,76 +66,138 @@ def _score_from_key(key: torch.Tensor) -> torch.Tensor:
 def _payload(rel: torch.Tensor, weight: Optional[torch.Tensor]) -> torch.Tensor:
     """The packed ``rel + 2*weight`` payload (both in {0, 1}): only 3 and 2
     move counts, so weight-0 (masked) elements are inert wherever they sort."""
-    return rel + 2.0 * (torch.ones_like(rel) if weight is None else weight)
+    return rel + 2.0 if weight is None else rel + 2.0 * weight
 
 
 def _co_sort(preds: torch.Tensor, rel: torch.Tensor, weight: Optional[torch.Tensor] = None):
     """Sort the keys, carry the payload along: ``(key_s int32, payload_s f32)``.
 
     Unstable on purpose: every consumer reads counts only at tie-group
-    boundaries, which no permutation within a group can change."""
+    boundaries, which no permutation within a group can change. ``weight``
+    (default all-ones) must be binary {0, 1}: it is a validity mask, and
+    zero-weight elements are counted nowhere, so they cannot affect the
+    result wherever their (arbitrary, even ±inf) score sorts them."""
     key_s, order = torch.sort(_sortable_key(preds))
     return key_s, _payload(rel, weight)[order]
 
 
-def _sorted_tie_groups(preds: torch.Tensor, rel: torch.Tensor, weight: Optional[torch.Tensor] = None):
-    """Co-sort by descending score; return cumulative counts + tie masks.
+def _co_sort_rows(keys: torch.Tensor, payload: torch.Tensor):
+    """The segmented co-sort of ``(C, N)`` rows: each row of int32 ``keys``
+    sorted on its own (a library sort along ``dim=1``, as ``lax.sort`` under
+    ``jax.vmap`` was), its payload row gathered along."""
+    key_s, order = torch.sort(keys, dim=1)
+    return key_s, torch.gather(payload, 1, order)
+
+
+def _tie_groups(key_s: torch.Tensor, payload_s: torch.Tensor):
+    """Cumulative counts + tie masks of key-sorted streams along the last
+    dim (one ``(N,)`` stream or ``(C, N)`` rows).
 
     Returns ``(tps, fps, is_last, tps_prev, fps_prev)`` where ``*_prev`` are
     the cumulative counts *before* each element's tie group, forward-filled
     to the whole group: valid at group firsts, -inf elsewhere; ``cummax``
     fills forward because cumulative counts are non-decreasing.
-
-    ``weight`` (default all-ones) must be binary {0, 1}: it is a validity
-    mask. Zero-weight elements are counted nowhere, so they cannot affect the
-    result wherever their (arbitrary, even ±inf) score sorts them.
     """
-    key_s, payload_s = _co_sort(preds, rel, weight)
     pos_w = (payload_s == 3.0).to(torch.float32)
     neg_w = (payload_s == 2.0).to(torch.float32)
     # count in i32, not f32: an f32 cumsum of {0,1} sticks at 2^24
-    tps = torch.cumsum(pos_w.to(torch.int32), 0, dtype=torch.int32).to(torch.float32)
-    fps = torch.cumsum(neg_w.to(torch.int32), 0, dtype=torch.int32).to(torch.float32)
+    tps = torch.cumsum(pos_w.to(torch.int32), -1, dtype=torch.int32).to(torch.float32)
+    fps = torch.cumsum(neg_w.to(torch.int32), -1, dtype=torch.int32).to(torch.float32)
 
-    boundary = key_s[1:] != key_s[:-1]
-    one = torch.ones(1, dtype=torch.bool, device=key_s.device)
-    is_first = torch.cat([one, boundary])
-    is_last = torch.cat([boundary, one])
+    boundary = key_s[..., 1:] != key_s[..., :-1]
+    one = torch.ones(*key_s.shape[:-1], 1, dtype=torch.bool, device=key_s.device)
+    is_first = torch.cat([one, boundary], -1)
+    is_last = torch.cat([boundary, one], -1)
 
-    tps_prev = torch.cummax(torch.where(is_first, tps - pos_w, float("-inf")), 0).values
-    fps_prev = torch.cummax(torch.where(is_first, fps - neg_w, float("-inf")), 0).values
+    tps_prev = torch.cummax(torch.where(is_first, tps - pos_w, float("-inf")), -1).values
+    fps_prev = torch.cummax(torch.where(is_first, fps - neg_w, float("-inf")), -1).values
     return tps, fps, is_last, tps_prev, fps_prev
 
 
 def _auroc_from_groups(tps, fps, is_last, tps_prev, fps_prev) -> torch.Tensor:
-    """Tie-corrected trapezoid area over groups → normalized AUROC (NaN when
-    a class is absent)."""
-    area = torch.sum(torch.where(is_last, 0.5 * (tps + tps_prev) * (fps - fps_prev), 0.0))
-    n_pos = tps[-1]
-    n_neg = fps[-1]
+    """Tie-corrected trapezoid area over groups → normalized AUROC per
+    stream (NaN when a class is absent)."""
+    area = torch.sum(torch.where(is_last, 0.5 * (tps + tps_prev) * (fps - fps_prev), 0.0), -1)
+    n_pos = tps[..., -1]
+    n_neg = fps[..., -1]
     return torch.where(n_pos * n_neg == 0, float("nan"), area / torch.clamp_min(n_pos * n_neg, 1.0))
 
 
 def _ap_from_groups(tps, fps, is_last, tps_prev) -> torch.Tensor:
-    """Per-threshold ``ΔR·P`` sum over groups → average precision (NaN when
-    no positives)."""
-    n_pos = tps[-1]
+    """Per-threshold ``ΔR·P`` sum over groups → average precision per
+    stream (NaN when no positives)."""
+    n_pos = tps[..., -1]
     precision = tps / torch.clamp_min(tps + fps, 1.0)
-    ap = torch.sum(torch.where(is_last, (tps - tps_prev) * precision, 0.0)) / torch.clamp_min(n_pos, 1.0)
+    ap = torch.sum(torch.where(is_last, (tps - tps_prev) * precision, 0.0), -1) / torch.clamp_min(n_pos, 1.0)
     return torch.where(n_pos == 0, float("nan"), ap)
+
+
+def _scores(key_s: torch.Tensor, payload_s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(AUROC, AP) of co-sorted streams, one ``(N,)`` or ``(C, N)`` rows,
+    on the device their tensors are on: the kernel on CUDA (one launch for
+    all rows), the plain group formulas on the CPU."""
+    if key_s.device.type == "cuda":
+        reduce = tie_group_reduce if key_s.ndim == 1 else tie_group_reduce_rows
+        return auroc_ap_from_stats(reduce(key_s, payload_s))
+    if key_s.device.type != "cpu":
+        raise ValueError(f"exact AUROC/AP runs on CUDA or CPU tensors, got a tensor on {key_s.device}")
+    tps, fps, is_last, tps_prev, fps_prev = _tie_groups(key_s, payload_s)
+    return _auroc_from_groups(tps, fps, is_last, tps_prev, fps_prev), _ap_from_groups(tps, fps, is_last, tps_prev)
 
 
 def _auroc_ap(
     preds: torch.Tensor, rel: torch.Tensor, weight: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(AUROC, AP) of one 1-d stream, on the device its tensors are on."""
-    if preds.device.type == "cuda":
-        key_s, payload_s = _co_sort(preds, rel, weight)
-        return auroc_ap_from_stats(tie_group_reduce(key_s, payload_s))
-    if preds.device.type != "cpu":
-        raise ValueError(f"exact AUROC/AP runs on CUDA or CPU tensors, got a tensor on {preds.device}")
-    tps, fps, is_last, tps_prev, fps_prev = _sorted_tie_groups(preds, rel, weight)
-    return _auroc_from_groups(tps, fps, is_last, tps_prev, fps_prev), _ap_from_groups(tps, fps, is_last, tps_prev)
+    return _scores(*_co_sort(preds, rel, weight))
+
+
+def _auroc_ap_rows(preds: torch.Tensor, rel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(C,)`` AUROC and AP of C streams given as ``(C, N)`` score and
+    relevance rows: one segmented co-sort and one batched tie scan."""
+    return _scores(*_co_sort_rows(_sortable_key(preds), _payload(rel, None)))
+
+
+def _ovr_relevance(target: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """``(C, N)`` one-vs-rest relevance rows of ``(N,)`` labels, built in the
+    class-major layout the batched scan takes (no ``(N, C)`` one-hot)."""
+    classes = torch.arange(num_classes, device=target.device)
+    return (target.reshape(1, -1) == classes[:, None]).to(torch.float32)
+
+
+def multiclass_auroc_ovr(preds: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Per-class one-vs-rest AUROC of ``(N, C)`` scores vs ``(N,)`` labels.
+
+    One segmented sort and one batched tie-scan launch for all C classes,
+    as the JAX package's ``jax.vmap`` over classes is one program. Classes
+    absent from ``target`` (or covering all of it) yield NaN.
+
+    Example:
+        >>> preds = torch.tensor([[0.5, 0.3, 0.2], [0.2, 0.5, 0.3], [0.1, 0.3, 0.6], [0.4, 0.4, 0.2], [0.3, 0.2, 0.5]])
+        >>> multiclass_auroc_ovr(preds, torch.tensor([0, 1, 2, 1, 1]))
+        tensor([1.0000, 0.6667, 1.0000])
+    """
+    return _auroc_ap_rows(preds.T, _ovr_relevance(target, preds.shape[1]))[0]
+
+
+def multiclass_average_precision(preds: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Per-class exact average precision of ``(N, C)`` scores vs ``(N,)``
+    labels, batched like :func:`multiclass_auroc_ovr` (the JAX package's
+    ``jax.vmap`` of ``binary_average_precision`` over classes). Classes
+    absent from ``target`` yield NaN.
+
+    Example:
+        >>> preds = torch.tensor([[0.5, 0.3, 0.2], [0.2, 0.5, 0.3], [0.1, 0.3, 0.6], [0.4, 0.4, 0.2], [0.3, 0.2, 0.5]])
+        >>> multiclass_average_precision(preds, torch.tensor([0, 1, 2, 1, 1]))
+        tensor([1.0000, 0.8667, 1.0000])
+    """
+    return _auroc_ap_rows(preds.T, _ovr_relevance(target, preds.shape[1]))[1]
+
+
+def multilabel_auroc(preds: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Per-label AUROC of ``(N, C)`` scores vs ``(N, C)`` binary targets
+    (label 1 is relevant), batched like :func:`multiclass_auroc_ovr`."""
+    return _auroc_ap_rows(preds.T, (target.T == 1).to(torch.float32))[0]
 
 
 def _relevance(target: torch.Tensor, pos_label: int) -> torch.Tensor:

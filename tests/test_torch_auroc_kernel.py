@@ -121,7 +121,7 @@ def test_group_formulas_match_the_jax_epilogue():
     """The plain group formulas, term for term against the JAX XLA epilogue."""
     preds, target = _case(3000, 9, ties=True)
     rel = target.astype(np.float32)
-    t = tak._sorted_tie_groups(torch.from_numpy(preds), torch.from_numpy(rel))
+    t = tak._tie_groups(*tak._co_sort(torch.from_numpy(preds), torch.from_numpy(rel)))
     j = jak._sorted_tie_groups(jnp.asarray(preds), jnp.asarray(rel))
     # tps/fps and the forward-filled *_prev are sums over whole tie groups,
     # so they agree at group ends whatever order the unstable sorts left

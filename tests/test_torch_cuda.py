@@ -1,5 +1,6 @@
-"""Tests of the port that need a CUDA device: the tie-scan kernel against its
-plain PyTorch version, and the GPU entry points against their CPU runs.
+"""Tests of the port that need a CUDA device: the tie-scan kernel (one stream
+and class-batched) against its plain PyTorch version, and the GPU entry
+points against their CPU runs.
 
 Every test here is marked ``cuda`` and skips without a card. This file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -10,15 +11,24 @@ import numpy as np
 import pytest
 import torch
 
-from metrics_tpu_torch import AUROC, Accuracy, MetricCollection
+from metrics_tpu_torch import AUROC, Accuracy, AveragePrecision, MetricCollection
+from metrics_tpu_torch.functional import auroc, average_precision
 from metrics_tpu_torch.ops.auroc_kernel import (
     _co_sort,
+    _co_sort_rows,
+    _payload,
+    _sortable_key,
     binary_auroc,
     binary_average_precision,
     masked_binary_auroc,
     masked_binary_average_precision,
 )
-from metrics_tpu_torch.ops.tie_scan import tie_group_reduce, tie_group_reduce_reference
+from metrics_tpu_torch.ops.tie_scan import (
+    tie_group_reduce,
+    tie_group_reduce_reference,
+    tie_group_reduce_rows,
+    tie_group_reduce_rows_reference,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -100,3 +110,115 @@ def test_metrics_default_to_the_card(cuda_device):
     assert all(t.device.type == "cuda" for t in on_card["AUROC"].preds)
     assert float(got["Accuracy"]) == float(want["Accuracy"])
     assert abs(float(got["AUROC"]) - float(want["AUROC"])) < 1e-5
+
+
+def _rows(rows, n, seed, device):
+    """Co-sorted (rows, n) streams: tie-heavy and tie-free rows alternate;
+    row 0 is one tie group and row 1 has no positive, where present."""
+    rng = np.random.default_rng(seed)
+    scores = rng.random((rows, n), dtype=np.float32)
+    scores[::2] = np.round(scores[::2], 2)
+    rel = rng.random((rows, n)) < 0.3
+    if rows >= 2:
+        scores[0] = 0.5
+        rel[1] = False
+    keys = _sortable_key(torch.from_numpy(scores).to(device))
+    return _co_sort_rows(keys, _payload(torch.from_numpy(rel.astype(np.float32)).to(device), None))
+
+
+# (rows, n): one row, tile edges, the ImageNet-1k val shape, and more rows
+# than one launch group (65535) holds
+ROW_SHAPES = [(1, 1), (2, 4096), (5, 4097), (3, 33000), (1000, 50000), (70_000, 2), (65_535, 5)]
+
+
+@pytest.mark.parametrize("rows, n", ROW_SHAPES)
+def test_batched_kernel_matches_plain_version(cuda_device, rows, n):
+    key_s, pay_s = _rows(rows, n, rows + n, cuda_device)
+    before = tie_group_reduce_rows.launches
+    got = tie_group_reduce_rows(key_s, pay_s, offsets=(3.0, 4.0))
+    assert tie_group_reduce_rows.launches == before + 1
+    want = tie_group_reduce_rows_reference(key_s, pay_s, offsets=(3.0, 4.0))
+    torch.cuda.synchronize()
+    assert got.shape == (rows, 4)
+    assert torch.equal(got[:, 2:], want[:, 2:])  # counts are exact
+    torch.testing.assert_close(got[:, :2], want[:, :2], rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("rows, n", [(7, 32769), (70_000, 2)])
+def test_batched_kernel_rows_equal_one_stream_launches(cuda_device, rows, n):
+    key_s, pay_s = _rows(rows, n, 3, cuda_device)
+    got = tie_group_reduce_rows(key_s, pay_s)
+    picked = list(range(min(rows, 7))) + [65_534, 65_535, rows - 1] if rows > 65_535 else range(rows)
+    for r in picked:
+        # each row runs the same code on the same tiles in the same order
+        assert torch.equal(got[r], tie_group_reduce(key_s[r], pay_s[r])), r
+
+
+def test_batched_kernel_is_deterministic(cuda_device):
+    key_s, pay_s = _rows(300, 40_000, 1, cuda_device)
+    first = tie_group_reduce_rows(key_s, pay_s)
+    for _ in range(3):
+        assert torch.equal(tie_group_reduce_rows(key_s, pay_s), first)
+
+
+def test_batched_kernel_rejects_what_it_does_not_take(cuda_device):
+    key = torch.zeros(2, 8, dtype=torch.int32, device=cuda_device)
+    pay = torch.zeros(2, 8, device=cuda_device)
+    with pytest.raises(TypeError):
+        tie_group_reduce_rows(key.float(), pay)
+    with pytest.raises(TypeError):
+        tie_group_reduce_rows(key, pay.double())
+    with pytest.raises(ValueError):
+        tie_group_reduce_rows(key, pay.cpu())  # payload on the CPU
+    with pytest.raises(ValueError):
+        tie_group_reduce_rows(key[0], pay[0])  # one stream: tie_group_reduce takes it
+    with pytest.raises(ValueError):
+        tie_group_reduce_rows(key, pay[:, :4])  # shapes differ
+    with pytest.raises(ValueError):
+        tie_group_reduce_rows(key.T, pay.T)  # not contiguous
+    assert tie_group_reduce_rows(key[:0], pay[:0]).shape == (0, 4)
+
+
+def _multiclass(n, c, seed):
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((n, c)).astype(np.float32)
+    target = rng.integers(0, c, n)
+    logits[np.arange(n), target] += 2.0
+    e = np.exp(logits - logits.max(1, keepdims=True))
+    return torch.from_numpy(e / e.sum(1, keepdims=True)), torch.from_numpy(target)
+
+
+def test_gpu_multiclass_scores_match_the_cpu_path(cuda_device):
+    preds, target = _multiclass(20_000, 37, 5)
+    target[target == 3] = 4  # class 3 is absent: NaN on both paths
+    for fn, kwargs in ((auroc, {"average": None}), (auroc, {"average": "weighted"}), (average_precision, {})):
+        gpu = fn(preds.to(cuda_device), target.to(cuda_device), num_classes=37, **kwargs)
+        cpu = fn(preds, target, num_classes=37, **kwargs)
+        gpu = torch.stack(gpu).cpu() if isinstance(gpu, list) else gpu.cpu()
+        cpu = torch.stack(cpu) if isinstance(cpu, list) else cpu
+        torch.testing.assert_close(gpu, cpu, rtol=0.0, atol=1e-5, equal_nan=True)
+
+
+def test_gpu_multilabel_auroc_matches_the_cpu_path(cuda_device):
+    rng = np.random.default_rng(6)
+    target = torch.from_numpy((rng.random((30_000, 12)) < 0.2).astype(np.int64))
+    preds = torch.from_numpy(np.round(0.8 * rng.random((30_000, 12)), 3).astype(np.float32)) + 0.2 * target
+    gpu = torch.stack(auroc(preds.to(cuda_device), target.to(cuda_device), num_classes=12, average=None))
+    cpu = torch.stack(auroc(preds, target, num_classes=12, average=None))
+    torch.testing.assert_close(gpu.cpu(), cpu, rtol=0.0, atol=1e-5)
+
+
+def test_multiclass_compute_launches_the_batched_kernel_once(cuda_device):
+    preds, target = _multiclass(10_000, 50, 7)
+    on_card = MetricCollection([AUROC(num_classes=50), AveragePrecision(num_classes=50)])
+    on_cpu = MetricCollection([AUROC(num_classes=50, device="cpu"), AveragePrecision(num_classes=50, device="cpu")])
+    for chunk in range(4):
+        sl = slice(chunk * 2_500, (chunk + 1) * 2_500)
+        on_card.update(preds[sl], target[sl])
+        on_cpu.update(preds[sl], target[sl])
+    before = tie_group_reduce_rows.launches
+    got, want = on_card.compute(), on_cpu.compute()
+    assert tie_group_reduce_rows.launches == before + 2  # one per metric, not one per class
+    assert abs(float(got["AUROC"]) - float(want["AUROC"])) < 1e-5
+    torch.testing.assert_close(torch.stack(got["AveragePrecision"]).cpu(), torch.stack(want["AveragePrecision"]),
+                               rtol=0.0, atol=1e-5)

@@ -211,9 +211,10 @@ def test_auroc_mode_change_raises_like_jax():
 
 
 def test_branches_left_for_later_slices_raise_not_implemented():
+    # multi-class scores without `num_classes` go to the curve path in the JAX package
     p3, t3 = _batches("multiclass_probs", seed=22, n_batches=1)[0]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        auroc(_tt(p3), _tt(t3), num_classes=4)
+        auroc(_tt(p3), _tt(t3))
     p1, t1 = _batches("binary", seed=22, n_batches=1)[0]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         auroc(_tt(p1), _tt(t1), max_fpr=0.5)
