@@ -20,10 +20,30 @@ that is unset. Phases (any failure exits non-zero before the result line):
       with a one-group row, a row without positives and a signed-zero row,
       and at more than 65535 rows (several launch groups); every row must
       also equal the one-stream scan of that row, bit for bit;
+   c. the weighted one-stream scan (``tie_scan_w``) at the edge sizes and at
+      45,840,617 elements (the Criteo Display Advertising Challenge
+      training set's rows), lognormal weights; zero weights against the
+      masked unweighted scan, unit weights against the unweighted scan
+      (within 1e-6), and tiny totals, which must not read as degenerate;
+   c′. the bucket-offset form on its path: a 1M stream cut into 4 key-range
+      buckets at the sample sort's own splitter rule, ``_tie_stats`` /
+      ``_tie_stats_w`` on each bucket with its lower-bucket class totals as
+      offsets; the buckets must sum to the one-stream result within 1e-6;
+   d. the weighted batched scan (``tie_scan_rows_w``) at the row shapes of
+      b; every row must equal the weighted one-stream scan of that row, bit
+      for bit;
 
 3. the binary main path: ``MetricCollection([Accuracy(), AUROC(pos_label=1)])``
    on ``cuda``, 10 forward batches of 100,000 seeded predictions, then
    ``compute()``, checked against numpy, with the kernel's launch count;
+3b. the sharded binary path: ``MetricCollection([ShardedAUROC(...),
+   ShardedAveragePrecision(...)])`` with ``capacity_per_device=45,840,617``
+   and ``with_sample_weights=True`` on ``cuda``, seeded scores, labels with
+   P(1) = score and lognormal weights appended in batches of 4,194,304 (the
+   last short), then ``compute()``: against float64 numpy oracles, exactly
+   one weighted launch per metric compute and no plain-version call on the
+   card; the unweighted ``ShardedAUROC`` of the same stream equal to
+   ``AUROC(pos_label=1)`` within 1e-6;
 4. the multi-class main path at the ImageNet-1k validation shape (ILSVRC2012
    val: 50,000 images, 1,000 classes, 50 per class):
    ``MetricCollection([Accuracy(), AUROC(num_classes=1000),
@@ -33,14 +53,22 @@ that is unset. Phases (any failure exits non-zero before the result line):
    exactly one batched launch per AUROC and per AP compute; then one
    ``forward``; then per-label AUROC at the MS-COCO 2014 val shape (40,504
    images, 80 labels) against the oracles;
+4b. the sharded one-vs-rest path at the same shape and data with lognormal
+   sample weights: ``ShardedAUROC`` and ``ShardedAveragePrecision`` with
+   ``num_classes=1000``, ``capacity_per_device=50,000``,
+   ``with_sample_weights=True`` and ``average="weighted"``; against float64
+   oracles, exactly one weighted batched launch per metric compute;
 5. times on the card (CUDA events over launches queued behind a device
    sleep, so host overhead does not show, or the host clock ending in a
    synchronize for whole steps): the one-stream kernel, its plain version
    and both co-sort forms at 1M; the batched kernel, its plain version, the
    same rows as 1,000 one-stream launches and both co-sort forms at
-   ``(1000, 50000)``; a forward batch and both compute steps;
+   ``(1000, 50000)``; a forward batch and both compute steps; the weighted
+   kernels and their plain versions at 45,840,617 and at ``(1000, 50000)``,
+   the offset form at 1M, and both sharded compute steps;
 6. where the time goes: ``torch.profiler`` over a binary forward batch plus
-   compute, over one batched kernel call and over one multi-class compute.
+   compute, over one batched kernel call, over one multi-class compute and
+   over one weighted sharded binary compute.
 
 Prints the card's name and power limit (``nvidia-smi``), ``{"timings": ...}``
 and ``{"profile": ...}`` lines, a ``{"kernels": [...]}`` line and, last,
@@ -67,15 +95,21 @@ EDGE_SIZES = (1, 7, 32767, 32768, 32769, BATCH)
 # main path, and a batch of more rows than one launch group (65535) takes
 ROW_SHAPES = ((1, 1), (3, 4097), (7, 32769), (80, 40504), (1000, 50000))
 CHUNKED_ROWS = (131_073, 3)
+# the Criteo Display Advertising Challenge training set: 45,840,617 rows,
+# held as one weighted evaluation stream, appended in batches of 2^22
+CRITEO_N = 45_840_617
+SHARDED_BATCH = 4_194_304
 # ILSVRC2012 val: 50,000 images, 1,000 classes, 50 images per class
 IMAGENET_N, IMAGENET_C = 50_000, 1_000
 MC_BATCHES = 10
 # MS-COCO 2014 val: 40,504 images, 80 labels
 COCO_N, COCO_C = 40_504, 80
 
-# H100 SXM data sheet: HBM bandwidth and the float32 rate outside the tensor cores
+# H100 SXM data sheet: HBM bandwidth, and the float32 and float64 rates
+# outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
 
 # kernel vs plain version: exact counts; the two sum the same f32 terms in
 # f64 in other orders (and nvcc may contract to FMA), so the normalized
@@ -124,6 +158,21 @@ def _oracle_ap(scores: np.ndarray, rel: np.ndarray) -> float:
     return float(np.sum((tp - prev) * (tp / (tp + fp))) / tp[-1])
 
 
+def _oracle_weighted(scores: np.ndarray, rel: np.ndarray, weights: np.ndarray):
+    """Tie-corrected weighted (AUROC, AP) in float64: one point per
+    distinct score, as sklearn's ``sample_weight``."""
+    s = scores.astype(np.float64)
+    order = np.argsort(-s)
+    s, r, w = s[order], rel[order], weights[order].astype(np.float64)
+    last = np.r_[s[1:] != s[:-1], True]
+    tp = np.cumsum(np.where(r, w, 0.0))[last]
+    fp = np.cumsum(np.where(r, 0.0, w))[last]
+    tp_prev, fp_prev = np.r_[0.0, tp[:-1]], np.r_[0.0, fp[:-1]]
+    auroc = float(np.sum(0.5 * (tp + tp_prev) * (fp - fp_prev)) / (tp[-1] * fp[-1]))
+    ap = float(np.sum((tp - tp_prev) * tp / np.maximum(tp + fp, 1e-300)) / tp[-1])
+    return auroc, ap
+
+
 def _queued_ms(torch, fn, launches: int = 50, trials: int = 7) -> float:
     """Device time of one call: ``launches`` calls queued behind a device
     sleep (so they run back to back), timed with CUDA events; median of
@@ -156,12 +205,13 @@ def _host_ms(torch, fn, trials: int = 5) -> float:
     return float(np.median(times))
 
 
-def _bound(n_elements: int, groups: int, outputs: int):
-    """(bound ms, what bounds it) of one scan: 8 bytes read per element and
-    16 bytes written per output; 5 operations per element (compare, decode,
-    prefix) and 10 per group start (the f32 terms)."""
-    bytes_ms = (8 * n_elements + 16 * outputs) / HBM_BYTES_PER_S * 1e3
-    ops_ms = (5 * n_elements + 10 * groups) / F32_OPS_PER_S * 1e3
+def _bound(n_elements: int, groups: int, outputs: int, weighted: bool = False):
+    """(bound ms, what bounds it) of one scan: 8 bytes read per element (12
+    weighted) and 16 bytes written per output; 5 operations per element
+    (compare, decode, prefix) and 10 per group start (the terms: f32, or
+    f64 weighted)."""
+    bytes_ms = ((12 if weighted else 8) * n_elements + 16 * outputs) / HBM_BYTES_PER_S * 1e3
+    ops_ms = (5 * n_elements + 10 * groups) / (F64_OPS_PER_S if weighted else F32_OPS_PER_S) * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
@@ -187,7 +237,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
 
-    from metrics_tpu_torch import AUROC, Accuracy, AveragePrecision, MetricCollection
+    from metrics_tpu_torch import (
+        AUROC,
+        Accuracy,
+        AveragePrecision,
+        MetricCollection,
+        ShardedAUROC,
+        ShardedAveragePrecision,
+    )
     from metrics_tpu_torch.functional import auroc as functional_auroc
     from metrics_tpu_torch.ops import _native, tie_scan
     from metrics_tpu_torch.ops.auroc_kernel import (
@@ -200,6 +257,28 @@ def main() -> int:
         binary_average_precision,
         masked_binary_auroc,
     )
+    from metrics_tpu_torch.parallel.sample_sort import _R, _sample_idx, _tie_stats, _tie_stats_w
+
+    def zero_counts():
+        for wrapper in (tie_scan.tie_group_reduce, tie_scan.tie_group_reduce_rows):
+            wrapper.launches = wrapper.weighted_launches = 0
+        tie_scan.tie_group_reduce.offset_launches = 0
+
+    def counts():
+        one, rows = tie_scan.tie_group_reduce, tie_scan.tie_group_reduce_rows
+        return {"tie_scan": one.launches, "tie_scan_w": one.weighted_launches, "offsets": one.offset_launches,
+                "tie_scan_rows": rows.launches, "tie_scan_rows_w": rows.weighted_launches}
+
+    # calls of the plain version on the card (the main paths must make none)
+    plain_on_card = {"calls": 0, "watch": False}
+    scan_reference = tie_scan._scan_reference
+
+    def watched_scan_reference(key, *args):
+        if plain_on_card["watch"] and key.device.type == "cuda":
+            plain_on_card["calls"] += 1
+        return scan_reference(key, *args)
+
+    tie_scan._scan_reference = watched_scan_reference
 
     dev = torch.device("cuda")
     if torch.cuda.device_count() != 1:
@@ -314,13 +393,13 @@ def main() -> int:
             raise AssertionError(f"{label}: row {r} {got[r].tolist()} != one-stream launch {singles[r].tolist()}")
         return want
 
-    def row_case(rows, n):
+    def row_case(rows, n, gen=rng):
         """Seeded rows: tie-heavy (rounded) and tie-free rows alternate; rows
         0, 1 and 2 (where present) are one tie group, without positives, and
         signed zeros."""
-        scores = rng.random((rows, n), dtype=np.float32)
+        scores = gen.random((rows, n), dtype=np.float32)
         scores[::2] = np.round(scores[::2], 2)
-        rel = rng.random((rows, n)) < 0.3
+        rel = gen.random((rows, n)) < 0.3
         if rows >= 3:
             scores[0] = 0.25
             rel[1] = False
@@ -335,6 +414,124 @@ def main() -> int:
     print(f"batched kernel vs plain and vs one-stream launches: ok at {list(ROW_SHAPES) + [CHUNKED_ROWS]},"
           f" max |d score| {max_err_rows:.3g}")
 
+    # ---- 2c. the weighted one-stream kernel against its plain version -----
+    # the phases this slice added draw from their own generator, so the
+    # earlier phases keep their inputs
+    rng_w = np.random.default_rng(SEED + 1)
+    max_err_w = 0.0
+
+    def check_stats(label, got, want, tol=SCORE_TOL):
+        """Sums within tol relative; scores within tol, NaN where the plain
+        version has NaN. Returns the largest score difference."""
+        rel_err = float(((got.double() - want.double()).abs() / want.double().abs().clamp_min(1e-30)).max())
+        if rel_err > tol:
+            raise AssertionError(f"{label}: {got.tolist()} vs {want.tolist()} (rel err {rel_err})")
+        worst = 0.0
+        for g, w in zip(tie_scan.auroc_ap_from_stats(got), tie_scan.auroc_ap_from_stats(want)):
+            if not torch.equal(torch.isnan(g), torch.isnan(w)):
+                raise AssertionError(f"{label}: NaN scores differ")
+            d = (g - w).abs()[~torch.isnan(w)]
+            if d.numel():
+                worst = max(worst, float(d.max()))
+        if worst > tol:
+            raise AssertionError(f"{label}: scores differ by {worst}")
+        return worst
+
+    def hold_weighted(label, scores, rel, weights, mask=None):
+        nonlocal max_err_w
+        m = None if mask is None else torch.from_numpy(mask.astype(np.float32)).to(dev)
+        streams = _co_sort(torch.from_numpy(scores).to(dev), torch.from_numpy(rel.astype(np.float32)).to(dev), m,
+                           torch.from_numpy(weights).to(dev))
+        got = tie_scan.tie_group_reduce(*streams[:2], weights_s=streams[2])
+        want = tie_scan.tie_group_reduce_reference(*streams[:2], None, streams[2])
+        torch.cuda.synchronize()
+        max_err_w = max(max_err_w, check_stats(label, got, want))
+        return streams, got
+
+    for n in EDGE_SIZES:
+        hold_weighted(f"weighted n={n}", np.round(rng_w.standard_normal(n), 1).astype(np.float32), rng_w.random(n) < 0.5,
+                      rng_w.lognormal(size=n).astype(np.float32))
+    # the sharded binary path's stream: seeded scores, P(1) = score, lognormal weights
+    cr_preds_np = rng_w.random(CRITEO_N, dtype=np.float32)
+    cr_target_np = (rng_w.random(CRITEO_N) < cr_preds_np).astype(np.int32)
+    cr_w_np = rng_w.lognormal(size=CRITEO_N).astype(np.float32)
+    cr_streams, _ = hold_weighted("weighted 45,840,617", cr_preds_np, cr_target_np.astype(bool), cr_w_np)
+    w_mask = mask.astype(np.float32)
+    hold_weighted("weighted masked 1M", garbage, rel, np.where(mask, rng_w.lognormal(size=TIE_HEAVY_N), 0.0)
+                  .astype(np.float32), mask)
+    # zero weights equal masking; unit weights equal no weights; tiny totals are not degenerate
+    unit = np.ones(TIE_HEAVY_N, np.float32)
+    s1, r1, m1 = (torch.from_numpy(x).to(dev) for x in (scores, rel.astype(np.float32), w_mask))
+    zero_streams = _co_sort(s1, r1, None, m1)
+    zero_w = tie_scan.tie_group_reduce(*zero_streams[:2], weights_s=zero_streams[2])
+    masked_u = tie_scan.tie_group_reduce(*_co_sort(s1, r1, m1))
+    max_err_w = max(max_err_w, check_stats("zero weights vs masking", zero_w, masked_u))
+    unit_streams = _co_sort(s1, r1, None, torch.from_numpy(unit).to(dev))
+    unit_w = tie_scan.tie_group_reduce(*unit_streams[:2], weights_s=unit_streams[2])
+    plain_u = tie_scan.tie_group_reduce(*unit_streams[:2])
+    max_err_w = max(max_err_w, check_stats("unit weights vs no weights", unit_w, plain_u))
+    if not torch.equal(unit_w[2:], plain_u[2:]):
+        raise AssertionError(f"unit weights: totals {unit_w[2:].tolist()} != counts {plain_u[2:].tolist()}")
+    tiny = tie_scan.tie_group_reduce(*unit_streams[:2], weights_s=unit_streams[2] * 1e-26)
+    tiny_auroc, tiny_ap = (float(x) for x in tie_scan.auroc_ap_from_stats(tiny))
+    if np.isnan(tiny_auroc) or abs(tiny_ap - float(tie_scan.auroc_ap_from_stats(plain_u)[1])) > ORACLE_TOL:
+        raise AssertionError(f"tiny totals {tiny[2:].tolist()}: AUROC {tiny_auroc}, AP {tiny_ap}")
+    torch.cuda.synchronize()
+    print(f"weighted kernel vs plain: ok at {list(EDGE_SIZES) + [CRITEO_N]}, masked, zero, unit and tiny weights;"
+          f" max |d score| {max_err_w:.3g}")
+
+    # ---- 2c′. the bucket-offset form, on the sample sort's bucket epilogue --
+    zero_counts()
+    off_w_t = torch.from_numpy(rng_w.lognormal(size=TIE_HEAVY_N).astype(np.float32)).to(dev)
+    shards = s1.chunk(4)  # four ranks' shards; their samples give the splitters
+    samples = torch.cat([torch.sort(_sortable_key(x)).values[_sample_idx(x.numel(), dev)] for x in shards])
+    splitters = torch.sort(samples).values[torch.arange(1, 4, device=dev) * _R]
+    max_err_off = 0.0
+    bucket_sizes = []
+    for weights in (None, off_w_t):
+        streams = _co_sort(s1, r1, None, weights)
+        bounds = [0, *torch.searchsorted(streams[0], splitters, right=True).tolist(), TIE_HEAVY_N]
+        area = ap_sum = off_p = off_n = 0.0
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            part = [x[lo:hi] for x in streams]
+            stats = _tie_stats(*part, off_p, off_n) if weights is None else _tie_stats_w(*part, off_p, off_n)
+            plain = tie_scan.tie_group_reduce_reference(*part[:2], (off_p, off_n), *part[2:]).double()
+            plain[0] += off_p * plain[3]  # the area's offset term, as _tie_stats adds it
+            check_stats(f"bucket [{lo}, {hi}) vs plain", torch.stack(stats), plain)
+            area, ap_sum = area + float(stats[0]), ap_sum + float(stats[1])
+            off_p, off_n = off_p + float(stats[2]), off_n + float(stats[3])
+        whole = tie_scan.tie_group_reduce(*streams[:2], weights_s=None if weights is None else streams[2]).double()
+        buckets = (area / (off_p * off_n), ap_sum / off_p)
+        one = (float(whole[0] / (whole[2] * whole[3])), float(whole[1] / whole[2]))
+        max_err_off = max(max_err_off, *(abs(a - b) for a, b in zip(buckets, one)))
+        if max_err_off > SCORE_TOL:
+            raise AssertionError(f"buckets {buckets} vs one stream {one}")
+        bucket_sizes.append(np.diff(bounds).tolist())
+    torch.cuda.synchronize()
+    offset_launches = counts()["offsets"]
+    if offset_launches != 8:
+        raise AssertionError(f"the bucket epilogue made {offset_launches} offset launches, want 8 (4 buckets x 2)")
+    print(f"bucket-offset form: 4 buckets {bucket_sizes[0]} sum to the one-stream AUROC/AP within"
+          f" {max_err_off:.3g}, weighted and not; {offset_launches} offset launches")
+
+    # ---- 2d. the weighted class-batched kernel against its plain version ---
+    max_err_rows_w = 0.0
+    for rows, n in ROW_SHAPES:
+        sc, rl = row_case(rows, n, rng_w)
+        wt = torch.from_numpy(rng_w.lognormal(size=(rows, n)).astype(np.float32)).to(dev)
+        key_s, pay_s, w_s = _co_sort_rows(_sortable_key(torch.from_numpy(sc).to(dev)),
+                                          _payload(torch.from_numpy(rl.astype(np.float32)).to(dev), None), wt)
+        got = tie_scan.tie_group_reduce_rows(key_s, pay_s, weights_s=w_s)
+        want = tie_scan.tie_group_reduce_rows_reference(key_s, pay_s, None, w_s)
+        singles = torch.stack([tie_scan.tie_group_reduce(key_s[r], pay_s[r], weights_s=w_s[r]) for r in range(rows)])
+        torch.cuda.synchronize()
+        max_err_rows_w = max(max_err_rows_w, check_stats(f"weighted rows {rows}x{n}", got, want))
+        if not torch.equal(got, singles):
+            r = int((got != singles).any(1).nonzero().flatten()[0])
+            raise AssertionError(f"weighted rows {rows}x{n}: row {r} {got[r].tolist()} != {singles[r].tolist()}")
+    print(f"weighted batched kernel vs plain and vs one-stream launches: ok at {list(ROW_SHAPES)},"
+          f" max |d score| {max_err_rows_w:.3g}")
+
     # ---- 3. the binary main path -----------------------------------------
     preds_np = rng.random(MAIN_N, dtype=np.float32)
     target_np = (rng.random(MAIN_N) < preds_np).astype(np.int64)
@@ -342,8 +539,7 @@ def main() -> int:
     target = torch.from_numpy(target_np).to(dev)
     collection = MetricCollection([Accuracy(), AUROC(pos_label=1)])
     torch.cuda.synchronize()
-    tie_scan.tie_group_reduce.launches = 0
-    tie_scan.tie_group_reduce_rows.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     for b in range(BATCHES):
         step = collection(preds[b * BATCH:(b + 1) * BATCH], target[b * BATCH:(b + 1) * BATCH])
@@ -370,6 +566,52 @@ def main() -> int:
     print(f"binary main path: {values} (numpy: Accuracy {want_acc}, AUROC {want_auroc:.7f}),"
           f" tie_scan launches {launches}, {main_path_s:.3f} s including first calls")
 
+    # ---- 3b. the sharded binary path: one weighted stream of Criteo's rows --
+    cr_preds = torch.from_numpy(cr_preds_np).to(dev)
+    cr_target = torch.from_numpy(cr_target_np).to(dev).long()
+    cr_w = torch.from_numpy(cr_w_np).to(dev)
+    cr_batches = [slice(b, b + SHARDED_BATCH) for b in range(0, CRITEO_N, SHARDED_BATCH)]
+
+    def only(launched, **want):
+        return all(v == want.get(k, 0) for k, v in launched.items())
+
+    sharded = MetricCollection([
+        ShardedAUROC(capacity_per_device=CRITEO_N, with_sample_weights=True),
+        ShardedAveragePrecision(capacity_per_device=CRITEO_N, with_sample_weights=True),
+    ])
+    torch.cuda.synchronize()
+    zero_counts()
+    plain_on_card.update(calls=0, watch=True)
+    t0 = time.perf_counter()
+    for sl in cr_batches:
+        sharded.update(cr_preds[sl], cr_target[sl], sample_weights=cr_w[sl])
+    sh_result = sharded.compute()
+    torch.cuda.synchronize()
+    sharded_path_s = time.perf_counter() - t0
+    plain_on_card["watch"] = False
+    sh_launches = counts()
+    if not only(sh_launches, tie_scan_w=2) or plain_on_card["calls"]:
+        raise AssertionError(
+            f"sharded binary path: launches {sh_launches}, {plain_on_card['calls']} plain-version calls on the"
+            " card; want exactly one weighted launch per metric compute and no plain version"
+        )
+    sh_values = {k: v.item() for k, v in sh_result.items()}
+    cr_oracle = _oracle_weighted(cr_preds_np, cr_target_np.astype(bool), cr_w_np)
+    for k, want in zip(("ShardedAUROC", "ShardedAveragePrecision"), cr_oracle):
+        if not abs(sh_values[k] - want) <= ORACLE_TOL:
+            raise AssertionError(f"sharded binary path: {k} {sh_values[k]} vs float64 oracle {want}")
+    # without weights, the sharded metric is AUROC of the same stream
+    pair = MetricCollection([ShardedAUROC(capacity_per_device=CRITEO_N), AUROC(pos_label=1)])
+    for sl in cr_batches:
+        pair.update(cr_preds[sl], cr_target[sl])
+    pair_values = {k: v.item() for k, v in pair.compute().items()}
+    if not abs(pair_values["ShardedAUROC"] - pair_values["AUROC"]) <= SCORE_TOL:
+        raise AssertionError(f"unweighted ShardedAUROC {pair_values['ShardedAUROC']} != AUROC {pair_values['AUROC']}")
+    del pair
+    print(f"sharded binary path at {CRITEO_N}: {sh_values} (float64 oracle {cr_oracle}), launches {sh_launches},"
+          f" {sharded_path_s:.3f} s including first calls; unweighted ShardedAUROC {pair_values['ShardedAUROC']:.7f}"
+          f" = AUROC {pair_values['AUROC']:.7f}")
+
     # ---- 4. the multi-class main path, ImageNet-1k val shape --------------
     mc_target_np = rng.permutation(np.repeat(np.arange(IMAGENET_C), IMAGENET_N // IMAGENET_C))
     logits = rng.standard_normal((IMAGENET_N, IMAGENET_C), dtype=np.float32)
@@ -389,8 +631,7 @@ def main() -> int:
 
     mc = mc_collection()
     torch.cuda.synchronize()
-    tie_scan.tie_group_reduce.launches = 0
-    tie_scan.tie_group_reduce_rows.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     for b in range(MC_BATCHES):
         mc.update(mc_preds[b * mc_batch:(b + 1) * mc_batch], mc_target[b * mc_batch:(b + 1) * mc_batch])
@@ -447,6 +688,39 @@ def main() -> int:
         raise AssertionError(f"multi-label: AUROC of label {int(np.nanargmax(ml_err))} off by {np.nanmax(ml_err)}")
     print(f"multi-label {COCO_N}x{COCO_C}: per-label AUROC ok, max |d| {ml_err.max():.3g}")
 
+    # ---- 4b. the sharded one-vs-rest path, weighted, at the same shape ----
+    mc_w_np = rng_w.lognormal(size=IMAGENET_N).astype(np.float32)
+    mc_w = torch.from_numpy(mc_w_np).to(dev)
+    ovr_kwargs = dict(num_classes=IMAGENET_C, capacity_per_device=IMAGENET_N, with_sample_weights=True,
+                      average="weighted")
+    ovr = MetricCollection([ShardedAUROC(**ovr_kwargs), ShardedAveragePrecision(**ovr_kwargs)])
+    torch.cuda.synchronize()
+    zero_counts()
+    plain_on_card.update(calls=0, watch=True)
+    t0 = time.perf_counter()
+    for b in range(MC_BATCHES):
+        sl = slice(b * mc_batch, (b + 1) * mc_batch)
+        ovr.update(mc_preds[sl], mc_target[sl], sample_weights=mc_w[sl])
+    ovr_result = ovr.compute()
+    torch.cuda.synchronize()
+    ovr_path_s = time.perf_counter() - t0
+    plain_on_card["watch"] = False
+    ovr_launches = counts()
+    if not only(ovr_launches, tie_scan_rows_w=2) or plain_on_card["calls"]:
+        raise AssertionError(
+            f"sharded one-vs-rest path: launches {ovr_launches}, {plain_on_card['calls']} plain-version calls on"
+            " the card; want exactly one weighted batched launch per metric compute and no plain version"
+        )
+    ovr_values = {k: v.item() for k, v in ovr_result.items()}
+    support = np.bincount(mc_target_np, weights=mc_w_np.astype(np.float64), minlength=IMAGENET_C)
+    per_class = np.array([_oracle_weighted(columns[c], mc_target_np == c, mc_w_np) for c in range(IMAGENET_C)])
+    ovr_oracle = (per_class * support[:, None]).sum(0) / support.sum()
+    for k, want in zip(("ShardedAUROC", "ShardedAveragePrecision"), ovr_oracle):
+        if not abs(ovr_values[k] - want) <= ORACLE_TOL:
+            raise AssertionError(f"sharded one-vs-rest path: {k} {ovr_values[k]} vs float64 oracle {want}")
+    print(f"sharded one-vs-rest path {IMAGENET_N}x{IMAGENET_C}, weighted average: {ovr_values} (float64 oracle"
+          f" {ovr_oracle.tolist()}), launches {ovr_launches}, {ovr_path_s:.3f} s including first calls")
+
     # ---- 5. times ---------------------------------------------------------
     all_preds = torch.cat(list(collection["AUROC"].preds))
     all_rel = (torch.cat(list(collection["AUROC"].target)) == 1).to(torch.float32)
@@ -479,6 +753,44 @@ def main() -> int:
         torch, lambda: flat_payload[torch.sort(flat_key.reshape(-1))[1]], launches=10
     )
 
+    # the weighted kernels and their plain versions, at the sharded paths' shapes
+    cr_key_s, cr_pay_s, cr_w_s = cr_streams
+    cr_groups = int((cr_key_s[1:] != cr_key_s[:-1]).sum()) + 1
+    w_kernel_ms = _queued_ms(torch, lambda: tie_scan.tie_group_reduce(cr_key_s, cr_pay_s, weights_s=cr_w_s),
+                             launches=10, trials=5)
+    w_plain_ms = _queued_ms(torch, lambda: tie_scan.tie_group_reduce_reference(cr_key_s, cr_pay_s, None, cr_w_s),
+                            launches=1, trials=3)
+    rows_w_key_s, rows_w_pay_s, rows_w_s = _co_sort_rows(rows_key, rows_payload, mc_w)
+    w_rows_kernel_ms = _queued_ms(
+        torch, lambda: tie_scan.tie_group_reduce_rows(rows_w_key_s, rows_w_pay_s, weights_s=rows_w_s), launches=20
+    )
+    w_rows_plain_ms = _queued_ms(
+        torch, lambda: tie_scan.tie_group_reduce_rows_reference(rows_w_key_s, rows_w_pay_s, None, rows_w_s),
+        launches=1, trials=3,
+    )
+    # the offset form at 1M
+    offsets = (1234.0, 777.0)
+    off_kernel_ms = _queued_ms(torch, lambda: tie_scan.tie_group_reduce(key_s, pay_s, offsets))
+    off_plain_ms = _queued_ms(torch, lambda: tie_scan.tie_group_reduce_reference(key_s, pay_s, offsets),
+                              launches=2, trials=3)
+
+    def recompute_ms(coll, trials=5):
+        """Host ms of compute() ending in a synchronize, the cached values
+        dropped first; median of ``trials`` after one more call."""
+        times = []
+        for _ in range(trials + 1):
+            for metric in coll.values():
+                metric._computed = None
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            coll.compute()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(times[1:]))
+
+    sharded_compute_ms = recompute_ms(sharded)
+    ovr_compute_ms = recompute_ms(ovr)
+
     collection.persistent(True)
     saved = _saved(collection)
 
@@ -502,6 +814,8 @@ def main() -> int:
     forward_ms = _host_ms(torch, lambda: collection(preds[:BATCH], target[:BATCH]))
     bound_ms, bound_by = _bound(key_s.numel(), groups, 1)
     rows_bound_ms, rows_bound_by = _bound(rows_key_s.numel(), rows_groups, IMAGENET_C)
+    w_bound_ms, w_bound_by = _bound(CRITEO_N, cr_groups, 1, weighted=True)
+    w_rows_bound_ms, w_rows_bound_by = _bound(rows_w_key_s.numel(), rows_groups, IMAGENET_C, weighted=True)
     timings = {
         "n": key_s.numel(),
         "tie_groups": groups,
@@ -525,6 +839,22 @@ def main() -> int:
         "rows_bound_ms": rows_bound_ms,
         "multiclass_compute_step_ms": mc_compute_ms,
         "multiclass_update_10_batches_and_compute_first_run_s": mc_path_s,
+        "weighted_n": CRITEO_N,
+        "weighted_tie_groups": cr_groups,
+        "weighted_kernel_ms": w_kernel_ms,
+        "weighted_plain_ms": w_plain_ms,
+        "weighted_kernel_bytes": 12 * CRITEO_N + 16,
+        "weighted_bound_ms": w_bound_ms,
+        "weighted_rows_kernel_ms": w_rows_kernel_ms,
+        "weighted_rows_plain_ms": w_rows_plain_ms,
+        "weighted_rows_kernel_bytes": 12 * rows_w_key_s.numel() + 16 * IMAGENET_C,
+        "weighted_rows_bound_ms": w_rows_bound_ms,
+        "offsets_kernel_ms": off_kernel_ms,
+        "offsets_plain_ms": off_plain_ms,
+        "sharded_binary_compute_step_ms": sharded_compute_ms,
+        "sharded_binary_updates_and_compute_first_run_s": sharded_path_s,
+        "sharded_ovr_compute_step_ms": ovr_compute_ms,
+        "sharded_ovr_updates_and_compute_first_run_s": ovr_path_s,
         "card": card,
     }
     print(json.dumps({"timings": timings}))
@@ -570,6 +900,17 @@ def main() -> int:
         mc_window_ms = (time.perf_counter() - t) * 1e3
     mc_split = _device_ms_by_kernel(torch, prof_mc, sort_key)
     print(prof_mc.key_averages().table(sort_by=sort_key, row_limit=15, max_name_column_width=48))
+    # one weighted sharded binary compute (both metrics) at 45,840,617
+    for metric in sharded.values():
+        metric._computed = None
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof_sh:
+        t = time.perf_counter()
+        sharded.compute()
+        torch.cuda.synchronize()
+        sh_window_ms = (time.perf_counter() - t) * 1e3
+    sh_split = _device_ms_by_kernel(torch, prof_sh, sort_key)
+    print(prof_sh.key_averages().table(sort_by=sort_key, row_limit=15, max_name_column_width=48))
     print(json.dumps({"profile": {
         "window": "one forward batch of 100k + compute at 1.1M, under torch.profiler",
         "window_ms": window_ms,
@@ -579,6 +920,9 @@ def main() -> int:
         "multiclass_compute_window_ms": mc_window_ms,
         "multiclass_compute_device_ms": sum(mc_split.values()),
         "multiclass_compute_device_ms_by_kernel": dict(sorted(mc_split.items(), key=lambda kv: -kv[1])[:12]),
+        "sharded_binary_compute_window_ms": sh_window_ms,
+        "sharded_binary_compute_device_ms": sum(sh_split.values()),
+        "sharded_binary_compute_device_ms_by_kernel": dict(sorted(sh_split.items(), key=lambda kv: -kv[1])[:12]),
     }}))
     kernels = [
         {
@@ -605,6 +949,46 @@ def main() -> int:
             "plain_ms": rows_plain_ms,
             "bound_ms": rows_bound_ms,
             "bound_by": rows_bound_by,
+            "library_ms": None,
+        },
+        {
+            "name": "tie_scan_w",
+            "route": "cuda",
+            "source": "metrics_tpu_torch/csrc/tie_scan.cu",
+            "replaces": "metrics_tpu/ops/tie_scan_pallas.py:80",
+            "launches": sh_launches["tie_scan_w"],
+            "max_abs_err": max_err_w,
+            "ms": w_kernel_ms,
+            "plain_ms": w_plain_ms,
+            "bound_ms": w_bound_ms,
+            "bound_by": w_bound_by,
+            "library_ms": None,
+        },
+        {
+            "name": "tie_scan_rows_w",
+            "route": "cuda",
+            "source": "metrics_tpu_torch/csrc/tie_scan.cu",
+            "replaces": "metrics_tpu/ops/tie_scan_pallas.py:80",
+            "launches": ovr_launches["tie_scan_rows_w"],
+            "max_abs_err": max_err_rows_w,
+            "ms": w_rows_kernel_ms,
+            "plain_ms": w_rows_plain_ms,
+            "bound_ms": w_rows_bound_ms,
+            "bound_by": w_rows_bound_by,
+            "library_ms": None,
+        },
+        {
+            # the sample sort's bucket epilogue (phase 2c′), its path on one card
+            "name": "tie_scan offsets",
+            "route": "cuda",
+            "source": "metrics_tpu_torch/csrc/tie_scan.cu",
+            "replaces": "metrics_tpu/ops/tie_scan_pallas.py:80",
+            "launches": offset_launches,
+            "max_abs_err": max_err_off,
+            "ms": off_kernel_ms,
+            "plain_ms": off_plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
             "library_ms": None,
         },
     ]

@@ -7,10 +7,20 @@ kernel here (``csrc/tie_scan.cu``), built with ``nvcc`` at first use.
 
 Ported so far: Accuracy; exact AUROC and AveragePrecision of binary inputs
 and, with every class in one batched kernel launch, of one-vs-rest
-multi-class (AUROC, AP) and multi-label (AUROC) inputs; the ``Metric`` core
+multi-class (AUROC, AP) and multi-label (AUROC) inputs; their sharded forms
+with bounded per-rank state and optional sample weights (``ShardedAUROC``,
+``ShardedAveragePrecision``: the weighted scan on one card, the splitter
+sample sort over ``torch.distributed`` across cards); the ``Metric`` core
 and ``MetricCollection``.
 """
 from metrics_tpu_torch.info import __version__  # noqa: F401
 from metrics_tpu_torch.metric import Metric  # noqa: F401
-from metrics_tpu_torch.classification import AUROC, Accuracy, AveragePrecision  # noqa: F401
+from metrics_tpu_torch.classification import (  # noqa: F401
+    AUROC,
+    Accuracy,
+    AveragePrecision,
+    ShardedAUROC,
+    ShardedAveragePrecision,
+    ShardedCurveMetric,
+)
 from metrics_tpu_torch.collections import MetricCollection  # noqa: F401

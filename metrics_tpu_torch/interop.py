@@ -7,6 +7,13 @@ result with ``load_state_dict`` on the matching metric or collection of this
 package, on any device: an epoch accumulated by the JAX package then
 computes the same values here. This module imports neither JAX nor the JAX
 package; it reads only numpy arrays.
+
+A JAX sharded metric (``ShardedAUROC``, ...) holds its streams as global
+``(capacity, ...)`` arrays laid out over a mesh of ``world`` devices, with
+``(world,)`` fill counts. The port holds one shard per rank, so
+``state_from_jax(state, rank=r, world=W)`` gives rank ``r`` its shard: slots
+``[r·cap, (r+1)·cap)`` of every stream and ``counts[r]`` at index ``r`` of
+its counts. With ``world=1`` and a one-device mesh this is the identity.
 """
 from typing import Any, Dict, Union
 
@@ -26,11 +33,34 @@ def _tensor(value: Any) -> torch.Tensor:
     return torch.from_numpy(array)
 
 
-def state_from_jax(state_dict: Dict[str, Any]) -> Dict[str, StateValue]:
+def _shard(state: Dict[str, torch.Tensor], rank: int, world: int) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s shard of every sharded metric's state in ``state``:
+    each ``<prefix>counts`` marks one, whose ``<prefix>buf_*`` streams are
+    cut to the rank's slots."""
+    out = dict(state)
+    for key, counts in state.items():
+        if key.rsplit(".", 1)[-1] != "counts" or not isinstance(counts, torch.Tensor):
+            continue
+        if counts.shape != (world,):
+            raise ValueError(f"{key} holds the fills of {counts.shape[0]} devices, not of a world of {world}")
+        prefix = key[: -len("counts")]
+        own = torch.zeros_like(counts)
+        own[rank] = counts[rank]
+        out[key] = own
+        for name, value in state.items():
+            if name.startswith(prefix + "buf_") and "." not in name[len(prefix):]:
+                cap = value.shape[0] // world
+                out[name] = value[rank * cap:(rank + 1) * cap].clone()
+    return out
+
+
+def state_from_jax(state_dict: Dict[str, Any], rank: int = 0, world: int = 1) -> Dict[str, StateValue]:
     """Convert a JAX ``state_dict`` of numpy arrays (or lists of them) into
     this package's state dict of CPU tensors (or lists of them), key for key
-    and dtype for dtype."""
-    return {
+    and dtype for dtype. Sharded metrics' states are cut to rank ``rank``'s
+    shard of a world of ``world`` ranks (module docstring)."""
+    converted = {
         key: [_tensor(v) for v in value] if isinstance(value, (list, tuple)) else _tensor(value)
         for key, value in state_dict.items()
     }
+    return converted if world == 1 else _shard(converted, rank, world)

@@ -11,13 +11,15 @@ curve points, no host round-trip.
 Where the tensors are decides the path:
 
 * CUDA: the co-sort (a library radix sort, ``torch.sort``, as ``lax.sort``
-  was in the JAX package; along ``dim=1`` for ``(C, N)`` rows), then the
-  hand-written tie-scan kernel, one launch for one stream or for all C rows
+  was in the JAX package; along ``dim=1`` for ``(C, N)`` rows; per-sample
+  weights gathered beside the payload), then the hand-written tie-scan
+  kernel, one launch for one stream or for all C rows, weighted or not
   (:func:`~metrics_tpu_torch.ops.tie_scan.tie_group_reduce`,
   :func:`~metrics_tpu_torch.ops.tie_scan.tie_group_reduce_rows`), then
   :func:`~metrics_tpu_torch.ops.tie_scan.auroc_ap_from_stats`.
 * CPU: the plain group formulas along the last dim (:func:`_tie_groups`,
-  :func:`_auroc_from_groups`, :func:`_ap_from_groups`).
+  :func:`_auroc_from_groups`, :func:`_ap_from_groups`); weighted streams
+  take the kernel's plain version.
 
 The sort key is the JAX package's total-order map, computed in int32
 (:func:`_sortable_key`): ascending key == descending score, ``-0.0`` and
@@ -69,24 +71,35 @@ def _payload(rel: torch.Tensor, weight: Optional[torch.Tensor]) -> torch.Tensor:
     return rel + 2.0 if weight is None else rel + 2.0 * weight
 
 
-def _co_sort(preds: torch.Tensor, rel: torch.Tensor, weight: Optional[torch.Tensor] = None):
-    """Sort the keys, carry the payload along: ``(key_s int32, payload_s f32)``.
+def _co_sort(
+    preds: torch.Tensor, rel: torch.Tensor, mask: Optional[torch.Tensor] = None, weights: Optional[torch.Tensor] = None
+):
+    """Sort the keys, carry the payload (and the weights) along:
+    ``(key_s int32, payload_s f32)``, or ``(key_s, payload_s, weights_s f32)``
+    when per-sample ``weights`` are given.
 
-    Unstable on purpose: every consumer reads counts only at tie-group
-    boundaries, which no permutation within a group can change. ``weight``
-    (default all-ones) must be binary {0, 1}: it is a validity mask, and
-    zero-weight elements are counted nowhere, so they cannot affect the
-    result wherever their (arbitrary, even ±inf) score sorts them."""
+    Unstable on purpose: every consumer reads sums only at tie-group
+    boundaries, which no permutation within a group can change. ``mask``
+    (default all-ones) must be binary {0, 1}: masked elements are counted
+    nowhere, so they cannot affect the result wherever their (arbitrary,
+    even ±inf) score sorts them."""
     key_s, order = torch.sort(_sortable_key(preds))
-    return key_s, _payload(rel, weight)[order]
+    payload_s = _payload(rel, mask)[order]
+    if weights is None:
+        return key_s, payload_s
+    return key_s, payload_s, weights.to(torch.float32)[order]
 
 
-def _co_sort_rows(keys: torch.Tensor, payload: torch.Tensor):
+def _co_sort_rows(keys: torch.Tensor, payload: torch.Tensor, weights: Optional[torch.Tensor] = None):
     """The segmented co-sort of ``(C, N)`` rows: each row of int32 ``keys``
     sorted on its own (a library sort along ``dim=1``, as ``lax.sort`` under
-    ``jax.vmap`` was), its payload row gathered along."""
+    ``jax.vmap`` was), its payload row (and the ``(N,)`` per-sample
+    ``weights``, the same for every row) gathered along."""
     key_s, order = torch.sort(keys, dim=1)
-    return key_s, torch.gather(payload, 1, order)
+    payload_s = torch.gather(payload, 1, order)
+    if weights is None:
+        return key_s, payload_s
+    return key_s, payload_s, torch.gather(weights.to(torch.float32).expand_as(payload), 1, order)
 
 
 def _tie_groups(key_s: torch.Tensor, payload_s: torch.Tensor):
@@ -132,12 +145,17 @@ def _ap_from_groups(tps, fps, is_last, tps_prev) -> torch.Tensor:
     return torch.where(n_pos == 0, float("nan"), ap)
 
 
-def _scores(key_s: torch.Tensor, payload_s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _scores(
+    key_s: torch.Tensor, payload_s: torch.Tensor, weights_s: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """(AUROC, AP) of co-sorted streams, one ``(N,)`` or ``(C, N)`` rows,
     on the device their tensors are on: the kernel on CUDA (one launch for
-    all rows), the plain group formulas on the CPU."""
+    all rows), the plain group formulas on the CPU. Weighted streams take
+    the weighted kernel on CUDA and its plain version on the CPU."""
+    reduce = tie_group_reduce if key_s.ndim == 1 else tie_group_reduce_rows
+    if weights_s is not None:
+        return auroc_ap_from_stats(reduce(key_s, payload_s, weights_s=weights_s))
     if key_s.device.type == "cuda":
-        reduce = tie_group_reduce if key_s.ndim == 1 else tie_group_reduce_rows
         return auroc_ap_from_stats(reduce(key_s, payload_s))
     if key_s.device.type != "cpu":
         raise ValueError(f"exact AUROC/AP runs on CUDA or CPU tensors, got a tensor on {key_s.device}")
@@ -146,16 +164,29 @@ def _scores(key_s: torch.Tensor, payload_s: torch.Tensor) -> Tuple[torch.Tensor,
 
 
 def _auroc_ap(
-    preds: torch.Tensor, rel: torch.Tensor, weight: Optional[torch.Tensor] = None
+    preds: torch.Tensor,
+    rel: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    weights: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(AUROC, AP) of one 1-d stream, on the device its tensors are on."""
-    return _scores(*_co_sort(preds, rel, weight))
+    """(AUROC, AP) of one 1-d stream over its ``mask``-valid elements,
+    weighted by ``weights`` where given, on the device its tensors are on.
+    A masked element's weight is never read, whatever it holds."""
+    return _scores(*_co_sort(preds, rel, mask, weights))
 
 
-def _auroc_ap_rows(preds: torch.Tensor, rel: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _auroc_ap_rows(
+    preds: torch.Tensor,
+    rel: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    weights: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(C,)`` AUROC and AP of C streams given as ``(C, N)`` score and
-    relevance rows: one segmented co-sort and one batched tie scan."""
-    return _scores(*_co_sort_rows(_sortable_key(preds), _payload(rel, None)))
+    relevance rows, over the ``(N,)`` ``mask``-valid columns and weighted by
+    the ``(N,)`` ``weights`` where given: one segmented co-sort and one
+    batched tie scan (the weighted one with weights) for all rows."""
+    payload = _payload(rel, None if mask is None else mask.to(torch.float32))
+    return _scores(*_co_sort_rows(_sortable_key(preds), payload, weights))
 
 
 def _ovr_relevance(target: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -247,3 +278,21 @@ def masked_binary_average_precision(
 ) -> torch.Tensor:
     """Exact average precision over the ``mask``-valid subset."""
     return _auroc_ap(preds, _relevance(target, pos_label), mask.to(torch.float32))[1]
+
+
+def masked_weighted_binary_auroc(
+    preds: torch.Tensor, target: torch.Tensor, mask: torch.Tensor, weights: torch.Tensor, pos_label: int = 1
+) -> torch.Tensor:
+    """Exact AUROC over the ``mask``-valid subset with non-negative
+    per-sample ``weights``: one co-sort and one weighted tie-scan launch.
+    Masked entries move nothing, whatever their score or weight. NaN when
+    either class has zero total weight."""
+    return _auroc_ap(preds, _relevance(target, pos_label), mask.to(torch.float32), weights)[0]
+
+
+def masked_weighted_binary_average_precision(
+    preds: torch.Tensor, target: torch.Tensor, mask: torch.Tensor, weights: torch.Tensor, pos_label: int = 1
+) -> torch.Tensor:
+    """Exact average precision over the ``mask``-valid subset with
+    non-negative per-sample ``weights`` (NaN when the positives weigh 0)."""
+    return _auroc_ap(preds, _relevance(target, pos_label), mask.to(torch.float32), weights)[1]

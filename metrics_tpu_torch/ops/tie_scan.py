@@ -5,21 +5,24 @@ Port of ``metrics_tpu/ops/tie_scan_pallas.py``. On CUDA tensors,
 ``(C, N)`` batch of streams, the JAX package's ``jax.vmap`` over classes)
 launch the hand-written kernel in ``csrc/tie_scan.cu`` (reduce-then-scan
 over 4096-element tiles with the row as a grid dimension; its source note
-gives the design and its bound). On CPU tensors they run
-:func:`tie_group_reduce_reference` / :func:`tie_group_reduce_rows_reference`,
-the plain PyTorch version of the same formula. There is no other path: a
-CUDA launch that fails raises.
+gives the design and its bound), its weighted entries when ``weights_s`` is
+given. On CPU tensors they run :func:`tie_group_reduce_reference` /
+:func:`tie_group_reduce_rows_reference`, the plain PyTorch version of the
+same formula. There is no other path: a CUDA launch that fails raises.
 
 Formulation (as in the JAX package): walking the key-sorted stream, each
 tie-group *start* (``key != prev key``) closes the previous group, whose end
-counts are the exclusive prefix counts at the start; the group-before-that's
-end counts are the latest earlier start's prefix counts (a cummax
-forward-fill — counts never decrease). Each closed group adds AUROC's
+sums are the exclusive prefix sums at the start; the group-before-that's
+end sums are the latest earlier start's prefix sums (a cummax forward-fill:
+sums of non-negative terms never decrease). Each closed group adds AUROC's
 trapezoid chord and AP's ``ΔR·P`` term; the last group is closed after the
-stream. Counts are int32: an f32 cumulant sticks at 2^24.
+stream. Unweighted, the sums are int32 counts (an f32 cumulant sticks at
+2^24) and the terms f32; weighted, they are float64 weight sums and the
+terms float64, with a ``1e-30`` denominator floor instead of 1.
 
-The payload is ``rel + 2*weight`` (f32): only 3 (relevant, valid) and 2
-(irrelevant, valid) move counts; 0 and 1 (weight 0 — masked) are inert.
+The payload is ``rel + 2*valid`` (f32): only 3 (relevant, valid) and 2
+(irrelevant, valid) move the sums; 0 and 1 (masked) are inert, whatever
+their weight.
 """
 import ctypes
 import functools
@@ -43,17 +46,32 @@ def _offsets(offsets: Offsets) -> Tuple[float, float]:
 
 
 def _scan_reference(key: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor, offsets: Offsets) -> torch.Tensor:
-    """The formula in plain tensor ops along ``dim=1`` of ``(R, N)`` rows:
-    i32 cumsums, a cummax forward-fill, f32 terms (summed in f64, as the
-    kernel accumulates them). Returns ``(R, 4)``."""
+    """The formula in plain tensor ops along ``dim=1`` of ``(R, N)`` rows.
+    ``pos``/``neg`` are bool masks (counts: i32 cumsums, f32 terms summed in
+    f64, as the kernel accumulates them) or float64 weights (f64 cumsums
+    made monotone by a cummax, f64 terms, the ``1e-30`` floor). Returns
+    ``(R, 4)`` float32."""
     off_p, off_n = _offsets(offsets)
     rows, n = key.shape
     if n == 0:
         return torch.zeros(rows, 4, dtype=torch.float32, device=key.device)
-    pos = pos.to(torch.int32)
-    neg = neg.to(torch.int32)
-    tp = torch.cumsum(pos, 1, dtype=torch.int32) - pos  # exclusive prefix counts
-    fp = torch.cumsum(neg, 1, dtype=torch.int32) - neg
+    weighted = pos.dtype == torch.float64
+    if weighted:
+        # reassociated float prefix sums may dip by an ulp; cummax repairs it
+        tp_incl = torch.cummax(torch.cumsum(pos, 1), 1).values
+        fp_incl = torch.cummax(torch.cumsum(neg, 1), 1).values
+        zero = tp_incl.new_zeros(rows, 1)
+        tp = torch.cat([zero, tp_incl[:, :-1]], 1)  # exclusive prefix sums
+        fp = torch.cat([zero, fp_incl[:, :-1]], 1)
+        t_pos, t_neg = tp_incl[:, -1], fp_incl[:, -1]
+        term, floor = torch.float64, 1e-30
+    else:
+        pos = pos.to(torch.int32)
+        neg = neg.to(torch.int32)
+        tp = torch.cumsum(pos, 1, dtype=torch.int32) - pos  # exclusive prefix counts
+        fp = torch.cumsum(neg, 1, dtype=torch.int32) - neg
+        t_pos, t_neg = tp[:, -1] + pos[:, -1], fp[:, -1] + neg[:, -1]
+        term, floor = torch.float32, 1.0
     is_first = torch.ones(rows, n, dtype=torch.bool, device=key.device)
     is_first[:, 1:] = key[:, 1:] != key[:, :-1]
     # latest group-start prefix at or before each element; shifted by one it
@@ -61,23 +79,22 @@ def _scan_reference(key: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor, off
     tp_fill = torch.cummax(torch.where(is_first, tp, 0), 1).values
     fp_fill = torch.cummax(torch.where(is_first, fp, 0), 1).values
     zero = tp_fill.new_zeros(rows, 1)
-    mt = torch.cat([zero, tp_fill[:, :-1]], 1).to(torch.float32)
-    mf = torch.cat([zero, fp_fill[:, :-1]], 1).to(torch.float32)
-    tpf = tp.to(torch.float32)
-    fpf = fp.to(torch.float32)
+    mt = torch.cat([zero, tp_fill[:, :-1]], 1).to(term)
+    mf = torch.cat([zero, fp_fill[:, :-1]], 1).to(term)
+    tpf = tp.to(term)
+    fpf = fp.to(term)
     chord = torch.where(is_first, 0.5 * (tpf + mt) * (fpf - mf), 0.0)
-    prec = (tpf + off_p) / torch.clamp_min(tpf + fpf + off_p + off_n, 1.0)
+    prec = (tpf + off_p) / torch.clamp_min(tpf + fpf + off_p + off_n, floor)
     ap_term = torch.where(is_first, (tpf - mt) * prec, 0.0)
     # close each row's last group
-    t_pos = (tp[:, -1] + pos[:, -1]).to(torch.float32)
-    t_neg = (fp[:, -1] + neg[:, -1]).to(torch.float32)
-    mt_last = tp_fill[:, -1].to(torch.float32)
-    mf_last = fp_fill[:, -1].to(torch.float32)
+    t_pos, t_neg = t_pos.to(term), t_neg.to(term)
+    mt_last = tp_fill[:, -1].to(term)
+    mf_last = fp_fill[:, -1].to(term)
     area_close = 0.5 * (t_pos + mt_last) * (t_neg - mf_last)
-    ap_close = (t_pos - mt_last) * ((t_pos + off_p) / torch.clamp_min(t_pos + t_neg + off_p + off_n, 1.0))
+    ap_close = (t_pos - mt_last) * ((t_pos + off_p) / torch.clamp_min(t_pos + t_neg + off_p + off_n, floor))
     area = chord.sum(1, dtype=torch.float64) + area_close.double()
     ap_sum = ap_term.sum(1, dtype=torch.float64) + ap_close.double()
-    return torch.stack([area.float(), ap_sum.float(), t_pos, t_neg], 1)
+    return torch.stack([area, ap_sum, t_pos.double(), t_neg.double()], 1).float()
 
 
 def _as_int32(key_s: torch.Tensor) -> torch.Tensor:
@@ -85,53 +102,66 @@ def _as_int32(key_s: torch.Tensor) -> torch.Tensor:
 
 
 def tie_group_reduce_rows_reference(
-    key_s: torch.Tensor, payload_s: torch.Tensor, offsets: Offsets = None
+    key_s: torch.Tensor, payload_s: torch.Tensor, offsets: Offsets = None, weights_s: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`tie_group_reduce_rows`, on any device."""
-    return _scan_reference(_as_int32(key_s), payload_s == 3.0, payload_s == 2.0, offsets)
+    pos, neg = payload_s == 3.0, payload_s == 2.0
+    if weights_s is not None:
+        w = weights_s.to(torch.float64)
+        pos, neg = torch.where(pos, w, 0.0), torch.where(neg, w, 0.0)
+    return _scan_reference(_as_int32(key_s), pos, neg, offsets)
 
 
 def tie_group_reduce_reference(
-    key_s: torch.Tensor, payload_s: torch.Tensor, offsets: Offsets = None
+    key_s: torch.Tensor, payload_s: torch.Tensor, offsets: Offsets = None, weights_s: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`tie_group_reduce`, on any device: the
     batch of one row."""
-    return tie_group_reduce_rows_reference(key_s[None], payload_s[None], offsets)[0]
+    weights_rows = None if weights_s is None else weights_s[None]
+    return tie_group_reduce_rows_reference(key_s[None], payload_s[None], offsets, weights_rows)[0]
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _native.load("tie_scan")
     # pointers and the stream as c_void_p: a bare Python int would be cut to 32 bits
-    buffers = [ctypes.c_void_p] * 4  # scratch, partial, out, stream
-    lib.tie_scan.argtypes = [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float, ctypes.c_float,
-        *buffers,
-    ]
-    lib.tie_scan.restype = ctypes.c_int
-    lib.tie_scan_rows.argtypes = [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_float,
-        ctypes.c_float, *buffers,
-    ]
-    lib.tie_scan_rows.restype = ctypes.c_int
+    ptr, size, off = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
+    tail = [off, off] + [ptr] * 4  # off_p, off_n; scratch, partial, out, stream
+    signatures = {
+        "tie_scan": [ptr, ptr, size],
+        "tie_scan_rows": [ptr, ptr, size, size],
+        "tie_scan_w": [ptr, ptr, ptr, size],
+        "tie_scan_rows_w": [ptr, ptr, ptr, size, size],
+    }
+    for entry, streams in signatures.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_int, *streams, *tail]
+        fn.restype = ctypes.c_int
     lib.tie_scan_tile_elems.argtypes = []
     lib.tie_scan_tile_elems.restype = ctypes.c_int
     return lib
 
 
-def _check_cuda_inputs(fn: str, key_s: torch.Tensor, payload_s: torch.Tensor, ndim: int) -> Tuple[int, ...]:
-    """Validate what the kernel takes; returns the inputs' shape."""
-    if key_s.device.type != "cuda" or payload_s.device != key_s.device:
-        raise ValueError(
-            f"{fn}: `key_s` and `payload_s` must be on one CUDA device or both on the CPU,"
-            f" got {key_s.device} and {payload_s.device}"
-        )
+def _streams(key_s: torch.Tensor, payload_s: torch.Tensor, weights_s: Optional[torch.Tensor]):
+    return (key_s, payload_s) if weights_s is None else (key_s, payload_s, weights_s)
+
+
+def _check_cuda_inputs(fn: str, streams: Sequence[torch.Tensor], ndim: int) -> Tuple[int, ...]:
+    """Validate what the kernel takes (``key_s``, ``payload_s`` and, weighted,
+    ``weights_s``); returns their shape."""
+    named = list(zip(("key_s", "payload_s", "weights_s"), streams))
+    key_s = streams[0]
+    if key_s.device.type != "cuda" or any(t.device != key_s.device for _, t in named):
+        devices = ", ".join(str(t.device) for _, t in named)
+        raise ValueError(f"{fn}: {', '.join(f'`{a}`' for a, _ in named)} must be on one CUDA device or all on"
+                         f" the CPU, got {devices}")
     if key_s.dtype not in (torch.uint32, torch.int32):
         raise TypeError(f"{fn}: `key_s` must be uint32 or int32, got {key_s.dtype}")
-    if payload_s.dtype != torch.float32:
-        raise TypeError(f"{fn}: `payload_s` must be float32, got {payload_s.dtype}")
+    for arg, t in named[1:]:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{fn}: `{arg}` must be float32, got {t.dtype}")
     shape = tuple(key_s.shape)
-    for arg, t in (("key_s", key_s), ("payload_s", payload_s)):
+    for arg, t in named:
         if t.ndim != ndim or tuple(t.shape) != shape:
             raise ValueError(f"{fn}: `{arg}` must be {ndim}-d of the keys' shape {shape}, got {tuple(t.shape)}")
         if not t.is_contiguous():
@@ -143,61 +173,80 @@ def _check_cuda_inputs(fn: str, key_s: torch.Tensor, payload_s: torch.Tensor, nd
     return shape
 
 
-def _buffers(rows: int, n: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _buffers(
+    rows: int, n: int, weighted: bool, device: torch.device
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Scratch, partials and output of one launch over ``rows`` streams of
     ``n``; the caller holds them until the launch is queued."""
     tiles = max(1, -(-n // _library().tie_scan_tile_elems()))
-    scratch = torch.empty(rows * (8 * tiles + 4), dtype=torch.int32, device=device)
+    scratch = torch.empty(rows * (8 * tiles + 4), dtype=torch.float64 if weighted else torch.int32, device=device)
     partial = torch.empty(rows * 2 * tiles, dtype=torch.float64, device=device)
     out = torch.empty(rows, 4, dtype=torch.float32, device=device)
     return scratch, partial, out
 
 
-def _launch_tail(buffers: Sequence[torch.Tensor], device: torch.device) -> Tuple[int, ...]:
-    """The trailing arguments of both entry points: buffer pointers, stream."""
-    return (*(t.data_ptr() for t in buffers), torch.cuda.current_stream(device).cuda_stream)
-
-
-def _raise_on(err: int, entry: str) -> None:
+def _launch(entry: str, streams: Sequence[torch.Tensor], sizes: Tuple[int, ...], offsets: Offsets) -> torch.Tensor:
+    """Launch ``entry`` on PyTorch's current stream of the tensors' device;
+    returns its ``(rows, 4)`` output. ``sizes`` is ``(n,)`` or ``(rows, n)``."""
+    device = streams[0].device
+    rows, n = (1, *sizes) if len(sizes) == 1 else sizes
+    buffers = _buffers(rows, n, len(streams) == 3, device)
+    err = getattr(_library(), entry)(
+        device.index, *(t.data_ptr() for t in streams), *sizes, *_offsets(offsets),
+        *(t.data_ptr() for t in buffers), torch.cuda.current_stream(device).cuda_stream,
+    )
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed with CUDA error {err}")
+    return buffers[2]
 
 
-def tie_group_reduce(key_s: torch.Tensor, payload_s: torch.Tensor, offsets: Offsets = None) -> torch.Tensor:
+def tie_group_reduce(
+    key_s: torch.Tensor, payload_s: torch.Tensor, offsets: Offsets = None, weights_s: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """AUROC area + AP sum + class totals of a key-sorted stream.
 
     Args:
         key_s: ``(N,)`` uint32 keys (or int32 keys; only equality is read),
             already sorted.
-        payload_s: ``(N,)`` float32 ``rel + 2*weight`` co-sorted payload;
-            only 3 (relevant, valid) and 2 (irrelevant, valid) move counts.
-        offsets: optional ``[off_p, off_n]`` global class counts in all
+        payload_s: ``(N,)`` float32 ``rel + 2*valid`` co-sorted payload;
+            only 3 (relevant, valid) and 2 (irrelevant, valid) move the sums.
+        offsets: optional ``[off_p, off_n]`` global class totals in all
             strictly-lower key ranges; they shift the AP precision ratio,
-            the caller adds ``off_p * n_neg`` to the area.
+            the caller adds ``off_p * neg`` to the area.
+        weights_s: optional ``(N,)`` non-negative float32 weights, co-sorted
+            with the keys: the sums become weight sums (float64 in the
+            kernel) and the denominator floor ``1e-30``.
 
     Returns:
-        ``(4,)`` float32 ``[area, ap_sum, n_pos, n_neg]`` on the input's device.
+        ``(4,)`` float32 ``[area, ap_sum, pos, neg]`` on the input's device.
 
-    ``tie_group_reduce.launches`` counts the kernel's launches.
+    ``tie_group_reduce.launches`` counts the unweighted kernel's launches,
+    ``.weighted_launches`` the weighted kernel's, and ``.offset_launches``
+    those of either that were given ``offsets``.
     """
     if key_s.device.type == "cpu" and payload_s.device.type == "cpu":
-        return tie_group_reduce_reference(key_s, payload_s, offsets)
-    (n,) = _check_cuda_inputs("tie_group_reduce", key_s, payload_s, 1)
-    off_p, off_n = _offsets(offsets)
-    device = key_s.device
-    buffers = _buffers(1, n, device)
-    err = _library().tie_scan(
-        device.index, key_s.data_ptr(), payload_s.data_ptr(), n, off_p, off_n, *_launch_tail(buffers, device)
-    )
-    tie_group_reduce.launches += 1
-    _raise_on(err, "tie_scan")
-    return buffers[2][0]
+        return tie_group_reduce_reference(key_s, payload_s, offsets, weights_s)
+    streams = _streams(key_s, payload_s, weights_s)
+    shape = _check_cuda_inputs("tie_group_reduce", streams, 1)
+    weighted = weights_s is not None
+    out = _launch("tie_scan_w" if weighted else "tie_scan", streams, shape, offsets)
+    if weighted:
+        tie_group_reduce.weighted_launches += 1
+    else:
+        tie_group_reduce.launches += 1
+    if offsets is not None:
+        tie_group_reduce.offset_launches += 1
+    return out[0]
 
 
 tie_group_reduce.launches = 0
+tie_group_reduce.weighted_launches = 0
+tie_group_reduce.offset_launches = 0
 
 
-def tie_group_reduce_rows(key_s: torch.Tensor, payload_s: torch.Tensor, offsets: Offsets = None) -> torch.Tensor:
+def tie_group_reduce_rows(
+    key_s: torch.Tensor, payload_s: torch.Tensor, offsets: Offsets = None, weights_s: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """:func:`tie_group_reduce` of every row of a ``(C, N)`` batch, in one launch.
 
     The class-batched call shape: the JAX package gets it from ``jax.vmap``
@@ -209,29 +258,31 @@ def tie_group_reduce_rows(key_s: torch.Tensor, payload_s: torch.Tensor, offsets:
         payload_s: ``(C, N)`` float32 co-sorted payloads, as in
             :func:`tie_group_reduce`.
         offsets: optional ``[off_p, off_n]``, the same for every row.
+        weights_s: optional ``(C, N)`` float32 co-sorted weights.
 
     Returns:
-        ``(C, 4)`` float32, row ``c`` = ``[area, ap_sum, n_pos, n_neg]`` of row ``c``.
+        ``(C, 4)`` float32, row ``c`` = ``[area, ap_sum, pos, neg]`` of row ``c``.
 
-    ``tie_group_reduce_rows.launches`` counts the kernel's launches.
+    ``tie_group_reduce_rows.launches`` counts the unweighted kernel's
+    launches, ``.weighted_launches`` the weighted kernel's.
     """
     if key_s.device.type == "cpu" and payload_s.device.type == "cpu":
-        return tie_group_reduce_rows_reference(key_s, payload_s, offsets)
-    rows, n = _check_cuda_inputs("tie_group_reduce_rows", key_s, payload_s, 2)
-    if rows == 0:
+        return tie_group_reduce_rows_reference(key_s, payload_s, offsets, weights_s)
+    streams = _streams(key_s, payload_s, weights_s)
+    shape = _check_cuda_inputs("tie_group_reduce_rows", streams, 2)
+    if shape[0] == 0:
         return torch.zeros(0, 4, dtype=torch.float32, device=key_s.device)
-    off_p, off_n = _offsets(offsets)
-    device = key_s.device
-    buffers = _buffers(rows, n, device)
-    err = _library().tie_scan_rows(
-        device.index, key_s.data_ptr(), payload_s.data_ptr(), rows, n, off_p, off_n, *_launch_tail(buffers, device)
-    )
-    tie_group_reduce_rows.launches += 1
-    _raise_on(err, "tie_scan_rows")
-    return buffers[2]
+    weighted = weights_s is not None
+    out = _launch("tie_scan_rows_w" if weighted else "tie_scan_rows", streams, shape, offsets)
+    if weighted:
+        tie_group_reduce_rows.weighted_launches += 1
+    else:
+        tie_group_reduce_rows.launches += 1
+    return out
 
 
 tie_group_reduce_rows.launches = 0
+tie_group_reduce_rows.weighted_launches = 0
 
 
 def auroc_ap_from_stats(stats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -2,7 +2,8 @@
 
 Port of ``metrics_tpu/parallel/backend.py``. Each process holds replica
 metric state; a :class:`SyncBackend` supplies ``world_size`` and an
-all-gather. :class:`TorchDistributedBackend` takes the place of the JAX
+all-gather, and, for the sharded metrics that hold one shard per process,
+the process's ``rank`` and an ``all_to_all``. :class:`TorchDistributedBackend` takes the place of the JAX
 package's ``MultiHostBackend``: it gathers over ``torch.distributed`` (NCCL
 for CUDA tensors, gloo for CPU tensors; the process group's backend decides,
 see :meth:`TorchDistributedBackend.process_group_backend`).
@@ -10,7 +11,7 @@ see :meth:`TorchDistributedBackend.process_group_backend`).
 ``process_group`` in the reference maps to the ``group`` argument here.
 """
 from abc import ABC, abstractmethod
-from typing import Any, List, Optional, Union
+from typing import Any, List, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -29,9 +30,30 @@ class SyncBackend(ABC):
     def gather(self, x: torch.Tensor, group: Optional[Any] = None) -> List[torch.Tensor]:
         """Return ``[x_rank0, x_rank1, ...]``, identical on every rank."""
 
+    def size(self, group: Optional[Any] = None) -> int:
+        """The number of ranks in ``group`` (default: the world)."""
+        return self.world_size
+
+    def rank(self, group: Optional[Any] = None) -> int:
+        """This process's rank in ``group``."""
+        if self.size(group) == 1:
+            return 0
+        raise NotImplementedError(f"{type(self).__name__} does not say which rank this process is")
+
+    def all_to_all(
+        self, x: torch.Tensor, send_splits: Sequence[int], recv_splits: Sequence[int], group: Optional[Any] = None
+    ) -> torch.Tensor:
+        """Send the next ``send_splits[j]`` rows of ``x`` to rank ``j``;
+        return the rows received, ``recv_splits[i]`` from rank ``i``,
+        concatenated in rank order."""
+        if self.size(group) == 1:
+            return x
+        raise NotImplementedError(f"{type(self).__name__} has no all_to_all")
+
 
 class SingleProcessBackend(SyncBackend):
-    """Trivial backend for one process: gather returns ``[x]``."""
+    """Trivial backend for one process: gather returns ``[x]``, all_to_all
+    returns ``x``."""
 
     @property
     def world_size(self) -> int:
@@ -58,6 +80,23 @@ class TorchDistributedBackend(SyncBackend):
     @property
     def world_size(self) -> int:
         return dist.get_world_size()
+
+    def size(self, group: Optional[Any] = None) -> int:
+        return dist.get_world_size(group)
+
+    def rank(self, group: Optional[Any] = None) -> int:
+        return dist.get_rank(group)
+
+    def all_to_all(
+        self, x: torch.Tensor, send_splits: Sequence[int], recv_splits: Sequence[int], group: Optional[Any] = None
+    ) -> torch.Tensor:
+        """``all_to_all_single`` with per-rank split sizes along dim 0: no
+        padding to a common block size."""
+        out = x.new_empty((sum(recv_splits), *x.shape[1:]))
+        dist.all_to_all_single(
+            out, x.contiguous(), output_split_sizes=list(recv_splits), input_split_sizes=list(send_splits), group=group
+        )
+        return out
 
     def gather(self, x: torch.Tensor, group: Optional[Any] = None) -> List[torch.Tensor]:
         x = x.contiguous()

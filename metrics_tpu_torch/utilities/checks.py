@@ -401,3 +401,25 @@ def _input_format_classification(
         is_multiclass=is_multiclass,
     )
     return preds_c, target_c, case
+
+
+def _check_sample_weights_range(sample_weights: torch.Tensor) -> None:
+    """Eager value probe shared by every weighted state design: reject
+    negative, NaN (via the min >= 0 comparison) and infinite weights. A
+    negative weight breaks the monotone-cumulant designs, an infinite one
+    silently poisons the cumulants. Min and max are read to the host in one
+    device-to-host copy; an empty tensor is not probed."""
+    if not sample_weights.numel():
+        return
+    lo, hi = torch.stack([sample_weights.min(), sample_weights.max()]).double().tolist()
+    if not (lo >= 0 and np.isfinite(hi)):
+        raise ValueError(f"sample_weights must be non-negative finite, got range [{lo}, {hi}]")
+
+
+def _guard_sample_weights(sample_weights: torch.Tensor) -> torch.Tensor:
+    """Validate sample weights; returns them unchanged. Tensors here are
+    always concrete, so the eager range check (which raises) runs on every
+    call: the JAX package's in-graph NaN guard for traced weights has no
+    counterpart."""
+    _check_sample_weights_range(sample_weights)
+    return sample_weights

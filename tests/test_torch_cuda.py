@@ -1,6 +1,6 @@
 """Tests of the port that need a CUDA device: the tie-scan kernel (one stream
-and class-batched) against its plain PyTorch version, and the GPU entry
-points against their CPU runs.
+and class-batched, unweighted and weighted) against its plain PyTorch
+version, and the GPU entry points against their CPU runs.
 
 Every test here is marked ``cuda`` and skips without a card. This file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -22,8 +22,11 @@ from metrics_tpu_torch.ops.auroc_kernel import (
     binary_average_precision,
     masked_binary_auroc,
     masked_binary_average_precision,
+    masked_weighted_binary_auroc,
+    masked_weighted_binary_average_precision,
 )
 from metrics_tpu_torch.ops.tie_scan import (
+    auroc_ap_from_stats,
     tie_group_reduce,
     tie_group_reduce_reference,
     tie_group_reduce_rows,
@@ -222,3 +225,117 @@ def test_multiclass_compute_launches_the_batched_kernel_once(cuda_device):
     assert abs(float(got["AUROC"]) - float(want["AUROC"])) < 1e-5
     torch.testing.assert_close(torch.stack(got["AveragePrecision"]).cpu(), torch.stack(want["AveragePrecision"]),
                                rtol=0.0, atol=1e-5)
+
+
+# ---- the weighted entries (tie_scan_w, tie_scan_rows_w) ----------------------
+
+
+def _weighted_stream(n, seed, device):
+    """Co-sorted tie-heavy stream with lognormal weights and 20% masked."""
+    preds, rel, mask = _stream(n, seed, device, masked=True)
+    rng = np.random.default_rng(seed + 1)
+    w = torch.from_numpy(rng.lognormal(size=n).astype(np.float32)).to(device)
+    return _co_sort(preds, rel, mask, torch.where(mask.bool(), w, 0.0))
+
+
+def _assert_weighted_close(got, want):
+    # the same f64 sums in other orders, each cast to f32 once
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("n", [1, 7, 4095, 4096, 4097, 32769, 1_000_003])
+def test_weighted_kernel_matches_plain_version(cuda_device, n):
+    key_s, pay_s, w_s = _weighted_stream(n, n, cuda_device)
+    before = tie_group_reduce.weighted_launches
+    got = tie_group_reduce(key_s, pay_s, offsets=(3.5, 4.25), weights_s=w_s)
+    assert tie_group_reduce.weighted_launches == before + 1
+    want = tie_group_reduce_reference(key_s, pay_s, offsets=(3.5, 4.25), weights_s=w_s)
+    torch.cuda.synchronize()
+    _assert_weighted_close(got, want)
+
+
+def test_weighted_kernel_hazards(cuda_device):
+    n = 300_000
+    preds, rel, _ = _stream(n, 21, cuda_device)
+    rng = np.random.default_rng(21)
+    keep = torch.from_numpy(rng.random(n) < 0.6).to(cuda_device)
+    # zero weights are inert: the stream with weight-0 elements equals the
+    # unweighted masked stream of the kept ones
+    key_s, pay_s, w_s = _co_sort(preds, rel, None, keep.float())
+    key_m, pay_m = _co_sort(preds, rel, keep.float())
+    torch.testing.assert_close(tie_group_reduce(key_s, pay_s, weights_s=w_s), tie_group_reduce(key_m, pay_m),
+                               rtol=1e-6, atol=0.0)
+    # unit weights give the unweighted result; integer weights give exact totals
+    key_s, pay_s, w_s = _co_sort(preds, rel, None, torch.ones(n, device=cuda_device))
+    unit, plain = tie_group_reduce(key_s, pay_s, weights_s=w_s), tie_group_reduce(key_s, pay_s)
+    torch.testing.assert_close(unit, plain, rtol=1e-6, atol=0.0)
+    assert torch.equal(unit[2:], plain[2:])
+    # a NaN weight on a masked element is never read
+    nan_w = torch.where(keep, 1.0, float("nan"))
+    key_s, pay_s, w_s = _co_sort(preds, rel, keep.float(), nan_w)
+    assert bool(torch.isfinite(tie_group_reduce(key_s, pay_s, weights_s=w_s)).all())
+    # tiny totals (1e-20 per side) are not degenerate
+    key_s, pay_s, w_s = _co_sort(preds, rel, None, torch.full((n,), 1e-20, device=cuda_device))
+    tiny = tie_group_reduce(key_s, pay_s, weights_s=w_s)
+    auroc_tiny, ap_tiny = auroc_ap_from_stats(tiny)
+    auroc_one, ap_one = auroc_ap_from_stats(plain)
+    assert abs(float(auroc_tiny) - float(auroc_one)) < 1e-5 and abs(float(ap_tiny) - float(ap_one)) < 1e-5
+
+
+def test_weighted_kernel_is_deterministic(cuda_device):
+    key_s, pay_s, w_s = _weighted_stream(2_000_000, 2, cuda_device)
+    first = tie_group_reduce(key_s, pay_s, weights_s=w_s)
+    for _ in range(3):
+        assert torch.equal(tie_group_reduce(key_s, pay_s, weights_s=w_s), first)
+
+
+def _weighted_rows(rows, n, seed, device):
+    key_s, pay_s = _rows(rows, n, seed, device)
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy(rng.lognormal(size=(rows, n)).astype(np.float32)).to(device)
+    return key_s, pay_s, w
+
+
+@pytest.mark.parametrize("rows, n", ROW_SHAPES)
+def test_weighted_batched_kernel_matches_plain_version(cuda_device, rows, n):
+    key_s, pay_s, w_s = _weighted_rows(rows, n, rows + n, cuda_device)
+    before = tie_group_reduce_rows.weighted_launches
+    got = tie_group_reduce_rows(key_s, pay_s, offsets=(3.0, 4.0), weights_s=w_s)
+    assert tie_group_reduce_rows.weighted_launches == before + 1
+    want = tie_group_reduce_rows_reference(key_s, pay_s, offsets=(3.0, 4.0), weights_s=w_s)
+    torch.cuda.synchronize()
+    assert got.shape == (rows, 4)
+    _assert_weighted_close(got, want)
+
+
+@pytest.mark.parametrize("rows, n", [(7, 32769), (70_000, 2)])
+def test_weighted_batched_rows_equal_one_stream_launches(cuda_device, rows, n):
+    key_s, pay_s, w_s = _weighted_rows(rows, n, 4, cuda_device)
+    got = tie_group_reduce_rows(key_s, pay_s, weights_s=w_s)
+    picked = list(range(min(rows, 7))) + [65_534, 65_535, rows - 1] if rows > 65_535 else range(rows)
+    for r in picked:
+        assert torch.equal(got[r], tie_group_reduce(key_s[r], pay_s[r], weights_s=w_s[r])), r
+
+
+def test_weighted_kernel_rejects_what_it_does_not_take(cuda_device):
+    key = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    pay = torch.zeros(8, device=cuda_device)
+    with pytest.raises(TypeError):
+        tie_group_reduce(key, pay, weights_s=torch.ones(8, dtype=torch.float64, device=cuda_device))
+    with pytest.raises(ValueError):
+        tie_group_reduce(key, pay, weights_s=torch.ones(8))  # weights on the CPU
+    with pytest.raises(ValueError):
+        tie_group_reduce(key, pay, weights_s=torch.ones(7, device=cuda_device))
+    with pytest.raises(ValueError):
+        tie_group_reduce_rows(key.reshape(2, 4), pay.reshape(2, 4), weights_s=torch.ones(4, 2, device=cuda_device).T)
+
+
+@pytest.mark.parametrize("fn", [masked_weighted_binary_auroc, masked_weighted_binary_average_precision])
+def test_gpu_weighted_scores_match_the_cpu_path(cuda_device, fn):
+    preds, rel, mask = _stream(300_000, 8, cuda_device, masked=True)
+    w = torch.from_numpy(np.random.default_rng(8).lognormal(size=300_000).astype(np.float32)).to(cuda_device)
+    args = (preds, rel.to(torch.int64), mask.bool(), w)
+    gpu = fn(*args)
+    cpu = fn(*(a.cpu() for a in args))
+    assert gpu.device.type == "cuda"
+    assert abs(float(gpu) - float(cpu)) < 1e-6

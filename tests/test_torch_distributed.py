@@ -2,9 +2,15 @@
 one spawned process per rank joined over ``tcp://localhost``: on gloo (CPU
 states) here, and on NCCL (one card per rank) where the machine has two or
 more CUDA devices. This file imports neither JAX nor the JAX package, so the
-worker processes start quickly and the NCCL case runs on a machine that has
-only PyTorch: ``python -m pytest --noconftest -m cuda tests/test_torch_distributed.py``.
+worker processes start quickly and the NCCL cases run on a machine that has
+only PyTorch: ``python -m pytest --noconftest -m cuda -s tests/test_torch_distributed.py``.
+
+The NCCL cases include the sharded metrics across the cards: the splitter
+sample sort (binary, weighted or not) and the class transpose by
+``all_to_all`` (one-vs-rest), each rank holding an uneven slice, against the
+same stream in one process.
 """
+import json
 import multiprocessing
 import socket
 
@@ -15,6 +21,7 @@ import torch.distributed as dist
 
 from metrics_tpu_torch import AUROC, Accuracy, MetricCollection
 from metrics_tpu_torch.parallel.backend import TorchDistributedBackend, get_sync_backend
+from tests.torch_workers import run_world, sharded_metric_values
 
 
 def _rows(rank):
@@ -102,3 +109,54 @@ def test_nccl_sync_across_the_cards_equals_one_process():
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         pytest.skip("needs two or more CUDA devices")
     _run_world(torch.cuda.device_count(), "cuda")
+
+
+def _sharded_specs(world, binary_per_rank=2**22, classes=1000, ovr_total=50_000):
+    """Uneven fills: rank r holds up to ``binary_per_rank`` binary samples and
+    about ``ovr_total / world`` one-vs-rest rows."""
+    binary = [binary_per_rank - (r % 3) * binary_per_rank // 4 - r * (binary_per_rank // 340) for r in range(world)]
+    ovr = [ovr_total // world + (r % 3 - 1) * ovr_total // (8 * world) for r in range(world)]
+    weighted = {"with_sample_weights": True}
+    return [
+        {"name": "binary_auroc", "metric": "auroc", "kwargs": {}, "seed": 1, "fills": binary},
+        {"name": "binary_weighted_auroc", "metric": "auroc", "kwargs": weighted, "seed": 2, "fills": binary},
+        {"name": "binary_weighted_ap", "metric": "ap", "kwargs": weighted, "seed": 3, "fills": binary},
+        {"name": "ovr_weighted_auroc", "metric": "auroc", "seed": 4, "fills": ovr, "classes": classes,
+         "kwargs": {"num_classes": classes, "average": "weighted", **weighted}},
+        {"name": "ovr_macro_ap", "metric": "ap", "seed": 5, "fills": ovr, "classes": classes,
+         "kwargs": {"num_classes": classes, "average": "macro"}},
+    ]
+
+
+def _assert_sharded_world(specs, ranks, one):
+    for spec in specs:
+        name = spec["name"]
+        assert all(ranks[r][name]["bits"] == ranks[0][name]["bits"] for r in ranks), name
+        assert abs(ranks[0][name]["value"] - one[name]["value"]) <= 1e-6, (name, ranks[0][name], one[name])
+
+
+def test_gloo_sharded_metrics_equal_one_process():
+    specs = _sharded_specs(2, binary_per_rank=3000, classes=7, ovr_total=400)
+    ranks = run_world(2, sharded_metric_values, specs)
+    _assert_sharded_world(specs, ranks, sharded_metric_values(0, 1, torch.device("cpu"), specs))
+
+
+@pytest.mark.cuda
+def test_nccl_sharded_metrics_across_the_cards_equal_one_process():
+    """The sample sort and the one-vs-rest ``all_to_all`` over NCCL, one rank
+    per card, at 2^22 binary samples per rank (uneven fills) and ImageNet-1k
+    val's 50,000 x 1,000 split unevenly: every rank returns the same bits,
+    within 1e-6 of one process holding the whole stream on one card."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    world = torch.cuda.device_count()
+    specs = _sharded_specs(world)
+    ranks = run_world(world, sharded_metric_values, specs, device_type="cuda", timeout=900)
+    one = sharded_metric_values(0, 1, torch.device("cuda", 0), specs)
+    print(json.dumps({"nccl_sharded": {
+        "world": world, "card": torch.cuda.get_device_name(0),
+        "fills": {s["name"]: s["fills"] for s in specs},
+        "ranks": {n: {k: v for k, v in r.items() if k != "bits"} for n, r in ranks[0].items()},
+        "one_process": {n: {k: v for k, v in r.items() if k != "bits"} for n, r in one.items()},
+    }}))
+    _assert_sharded_world(specs, ranks, one)

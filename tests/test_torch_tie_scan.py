@@ -163,3 +163,113 @@ def test_counts_stay_exact_past_2_pow_24():
     payload[:5] = 2.0
     stats = tie_group_reduce_reference(key, payload)
     assert int(stats[2].item()) == n - 5 and int(stats[3].item()) == 5
+
+
+# ---- the weighted scan (weights_s=) ---------------------------------------------
+# The plain weighted version against the Pallas kernel's weighted body in
+# interpret mode. JAX carries f32 sums; the port float64, so area and AP sum
+# agree to 1e-5 relative, and class totals exactly where the weights are
+# integers.
+
+W_TOL = 1e-5
+
+
+def _weighted_sorted(preds, rel, w):
+    key_s, pay_s, w_s = lax.sort(
+        (jax_descending_key(jnp.asarray(preds, jnp.float32)), jnp.asarray(rel, jnp.float32) + 2.0,
+         jnp.asarray(w, jnp.float32)),
+        num_keys=1, is_stable=False,
+    )
+    return np.array(key_s), np.array(pay_s), np.array(w_s)
+
+
+def _both_weighted(preds, rel, w, offsets=(0.0, 0.0)):
+    key_s, pay_s, w_s = _weighted_sorted(preds, rel, w)
+    want = np.asarray(jax_tie_group_reduce(
+        jnp.asarray(key_s), jnp.asarray(pay_s), offsets=jnp.asarray(offsets, jnp.float32),
+        weights_s=jnp.asarray(w_s), interpret=True,
+    ))
+    got = tie_group_reduce(torch.from_numpy(key_s), torch.from_numpy(pay_s), offsets, torch.from_numpy(w_s))
+    return got.numpy(), want
+
+
+def _assert_weighted(got, want, exact_totals=False):
+    assert got.dtype == np.float32 and got.shape == (4,)
+    np.testing.assert_allclose(got[:2], want[:2], rtol=W_TOL, atol=0.0)
+    if exact_totals:
+        np.testing.assert_array_equal(got[2:], want[2:])
+    else:
+        np.testing.assert_allclose(got[2:], want[2:], rtol=W_TOL, atol=0.0)
+
+
+@pytest.mark.parametrize("n", [1, 7, 32767, 32768, 32769, 100003])
+def test_weighted_scan_matches_the_pallas_kernel(n):
+    rng = np.random.default_rng(100 + n)
+    preds = np.round(rng.random(n), 2)  # tie-heavy
+    rel = (rng.random(n) < preds).astype(np.float32)
+    w = rng.lognormal(size=n).astype(np.float32)
+    _assert_weighted(*_both_weighted(preds, rel, w))
+
+
+def test_weighted_scan_integer_weights_give_exact_totals():
+    rng = np.random.default_rng(2)
+    n = 40000
+    preds = np.round(rng.standard_normal(n), 1)
+    rel = rng.integers(0, 2, n)
+    _assert_weighted(*_both_weighted(preds, rel, rng.integers(0, 5, n).astype(np.float32)), exact_totals=True)
+
+
+def test_weighted_scan_zero_weights_are_inert():
+    """Weight-0 elements equal masked elements of the unweighted scan,
+    whatever their scores."""
+    rng = np.random.default_rng(4)
+    n = 5000
+    preds = np.round(rng.random(n), 2)
+    rel = rng.integers(0, 2, n)
+    keep = (rng.random(n) < 0.6).astype(np.float32)
+    got, want = _both_weighted(preds, rel, keep)
+    _assert_weighted(got, want, exact_totals=True)
+    masked, _ = _both_stats(preds, rel, keep)
+    np.testing.assert_allclose(got, masked.numpy(), rtol=1e-6, atol=0.0)
+    garbage = np.where(keep > 0, preds, 1e30)
+    np.testing.assert_allclose(_both_weighted(garbage, rel, keep)[0], got, rtol=1e-6, atol=0.0)
+
+
+def test_weighted_scan_unit_weights_equal_the_unweighted_scan():
+    rng = np.random.default_rng(7)
+    n = 33000  # spans Pallas blocks and the port's tiles
+    preds = np.round(rng.random(n) * 20) / 20
+    rel = (rng.random(n) < 0.4).astype(np.float32)
+    got, _ = _both_weighted(preds, rel, np.ones(n, np.float32))
+    unweighted, _ = _both_stats(preds, rel)
+    np.testing.assert_allclose(got, unweighted.numpy(), rtol=1e-6, atol=0.0)
+    np.testing.assert_array_equal(got[2:], unweighted.numpy()[2:])
+
+
+@pytest.mark.parametrize("offsets", [(37.5, 52.25), (1234.0, 777.0)])
+def test_weighted_offsets_shift_only_the_ap_ratio(offsets):
+    rng = np.random.default_rng(11)
+    n = 2048
+    preds = np.round(rng.random(n) * 10) / 10
+    rel = (rng.random(n) < 0.5).astype(np.float32)
+    w = rng.random(n).astype(np.float32)
+    got, want = _both_weighted(preds, rel, w, offsets)
+    _assert_weighted(got, want)
+    plain, _ = _both_weighted(preds, rel, w)
+    assert got[0] == plain[0] and np.array_equal(got[2:], plain[2:])  # the area stays local
+    assert got[1] != plain[1]
+
+
+def test_weighted_tiny_totals_are_not_degenerate():
+    """Weights of 1e-20 per side: the product of the totals underflows f32,
+    and the factor-wise degeneracy test still gives a number."""
+    got, want = _both_weighted([0.9, 0.1, 0.6, 0.3], [1, 0, 0, 1], np.full(4, 1e-20, np.float32))
+    # the area, ~1e-40, is below f32's normal range: JAX's f32 sum flushes it
+    # to 0 where the port's f64 sum keeps a subnormal
+    assert abs(got[0]) < np.finfo(np.float32).tiny and abs(want[0]) < np.finfo(np.float32).tiny
+    np.testing.assert_allclose(got[1:], want[1:], rtol=W_TOL, atol=0.0)
+    (pa, pp), (ja, jp) = _scores(torch.from_numpy(got), want)
+    assert not np.isnan(pa) and not np.isnan(ja) and not np.isnan(pp)
+    assert abs(pp - jp) < 1e-6
+    for w_pos, w_neg in ((0.0, 1e-20), (1e-20, 0.0)):
+        assert np.isnan(float(auroc_ap_from_stats(torch.tensor([0.0, 0.0, w_pos, w_neg]))[0]))
