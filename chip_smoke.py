@@ -25,13 +25,15 @@ that is unset. Phases (any failure exits non-zero before the result line):
       training set's rows), lognormal weights; zero weights against the
       masked unweighted scan, unit weights against the unweighted scan
       (within 1e-6), and tiny totals, which must not read as degenerate;
+      10 more launches at 45,840,617 must give the same bits (the tiles'
+      look-back windows differ from launch to launch);
    c′. the bucket-offset form on its path: a 1M stream cut into 4 key-range
       buckets at the sample sort's own splitter rule, ``_tie_stats`` /
       ``_tie_stats_w`` on each bucket with its lower-bucket class totals as
       offsets; the buckets must sum to the one-stream result within 1e-6;
    d. the weighted batched scan (``tie_scan_rows_w``) at the row shapes of
       b; every row must equal the weighted one-stream scan of that row, bit
-      for bit;
+      for bit, and 10 more launches at ``(1000, 50000)`` the same bits;
 
 3. the binary main path: ``MetricCollection([Accuracy(), AUROC(pos_label=1)])``
    on ``cuda``, 10 forward batches of 100,000 seeded predictions, then
@@ -67,8 +69,9 @@ that is unset. Phases (any failure exits non-zero before the result line):
    kernels and their plain versions at 45,840,617 and at ``(1000, 50000)``,
    the offset form at 1M, and both sharded compute steps;
 6. where the time goes: ``torch.profiler`` over a binary forward batch plus
-   compute, over one batched kernel call, over one multi-class compute and
-   over one weighted sharded binary compute.
+   compute, over one batched kernel call, over one multi-class compute, over
+   one weighted sharded binary compute, and over one call of each weighted
+   kernel, which must show one kernel and the memset of its scratch.
 
 Prints the card's name and power limit (``nvidia-smi``), ``{"timings": ...}``
 and ``{"profile": ...}`` lines, a ``{"kernels": [...]}`` line and, last,
@@ -102,6 +105,8 @@ SHARDED_BATCH = 4_194_304
 # ILSVRC2012 val: 50,000 images, 1,000 classes, 50 images per class
 IMAGENET_N, IMAGENET_C = 50_000, 1_000
 MC_BATCHES = 10
+# launches of a weighted kernel that must repeat the first one's bits
+REPEATS = 10
 # MS-COCO 2014 val: 40,504 images, 80 labels
 COCO_N, COCO_C = 40_504, 80
 
@@ -455,7 +460,11 @@ def main() -> int:
     cr_preds_np = rng_w.random(CRITEO_N, dtype=np.float32)
     cr_target_np = (rng_w.random(CRITEO_N) < cr_preds_np).astype(np.int32)
     cr_w_np = rng_w.lognormal(size=CRITEO_N).astype(np.float32)
-    cr_streams, _ = hold_weighted("weighted 45,840,617", cr_preds_np, cr_target_np.astype(bool), cr_w_np)
+    cr_streams, cr_stats = hold_weighted("weighted 45,840,617", cr_preds_np, cr_target_np.astype(bool), cr_w_np)
+    cr_repeats = [tie_scan.tie_group_reduce(*cr_streams[:2], weights_s=cr_streams[2]) for _ in range(REPEATS)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(r, cr_stats) for r in cr_repeats):
+        raise AssertionError("weighted 45,840,617: a repeated launch gave other bits")
     w_mask = mask.astype(np.float32)
     hold_weighted("weighted masked 1M", garbage, rel, np.where(mask, rng_w.lognormal(size=TIE_HEAVY_N), 0.0)
                   .astype(np.float32), mask)
@@ -478,7 +487,7 @@ def main() -> int:
         raise AssertionError(f"tiny totals {tiny[2:].tolist()}: AUROC {tiny_auroc}, AP {tiny_ap}")
     torch.cuda.synchronize()
     print(f"weighted kernel vs plain: ok at {list(EDGE_SIZES) + [CRITEO_N]}, masked, zero, unit and tiny weights;"
-          f" max |d score| {max_err_w:.3g}")
+          f" max |d score| {max_err_w:.3g}; {REPEATS} repeats at {CRITEO_N} bit-equal")
 
     # ---- 2c′. the bucket-offset form, on the sample sort's bucket epilogue --
     zero_counts()
@@ -529,8 +538,13 @@ def main() -> int:
         if not torch.equal(got, singles):
             r = int((got != singles).any(1).nonzero().flatten()[0])
             raise AssertionError(f"weighted rows {rows}x{n}: row {r} {got[r].tolist()} != {singles[r].tolist()}")
+        if (rows, n) == ROW_SHAPES[-1]:
+            repeats = [tie_scan.tie_group_reduce_rows(key_s, pay_s, weights_s=w_s) for _ in range(REPEATS)]
+            torch.cuda.synchronize()
+            if not all(torch.equal(r, got) for r in repeats):
+                raise AssertionError(f"weighted rows {rows}x{n}: a repeated launch gave other bits")
     print(f"weighted batched kernel vs plain and vs one-stream launches: ok at {list(ROW_SHAPES)},"
-          f" max |d score| {max_err_rows_w:.3g}")
+          f" max |d score| {max_err_rows_w:.3g}; {REPEATS} repeats at {ROW_SHAPES[-1]} bit-equal")
 
     # ---- 3. the binary main path -----------------------------------------
     preds_np = rng.random(MAIN_N, dtype=np.float32)
@@ -911,6 +925,19 @@ def main() -> int:
         sh_window_ms = (time.perf_counter() - t) * 1e3
     sh_split = _device_ms_by_kernel(torch, prof_sh, sort_key)
     print(prof_sh.key_averages().table(sort_by=sort_key, row_limit=15, max_name_column_width=48))
+    # one call of each weighted kernel: one launch and the memset of its scratch
+    weighted_splits = {}
+    for label, call in (
+        ("weighted", lambda: tie_scan.tie_group_reduce(cr_key_s, cr_pay_s, weights_s=cr_w_s)),
+        ("weighted_rows", lambda: tie_scan.tie_group_reduce_rows(rows_w_key_s, rows_w_pay_s, weights_s=rows_w_s)),
+    ):
+        with profile(activities=activities) as prof_w:
+            call()
+            torch.cuda.synchronize()
+        split = _device_ms_by_kernel(torch, prof_w, sort_key)
+        if len([k for k in split if "tie_scan_w_kernel" in k]) != 1 or len(split) > 2:
+            raise AssertionError(f"one {label} call ran {sorted(split)}; want one kernel and its memset")
+        weighted_splits[label] = split
     print(json.dumps({"profile": {
         "window": "one forward batch of 100k + compute at 1.1M, under torch.profiler",
         "window_ms": window_ms,
@@ -923,6 +950,8 @@ def main() -> int:
         "sharded_binary_compute_window_ms": sh_window_ms,
         "sharded_binary_compute_device_ms": sum(sh_split.values()),
         "sharded_binary_compute_device_ms_by_kernel": dict(sorted(sh_split.items(), key=lambda kv: -kv[1])[:12]),
+        "weighted_kernel_device_ms_by_kernel": weighted_splits["weighted"],
+        "weighted_rows_kernel_device_ms_by_kernel": weighted_splits["weighted_rows"],
     }}))
     kernels = [
         {

@@ -3,12 +3,14 @@
 Port of ``metrics_tpu/ops/tie_scan_pallas.py``. On CUDA tensors,
 :func:`tie_group_reduce` (one stream) and :func:`tie_group_reduce_rows` (a
 ``(C, N)`` batch of streams, the JAX package's ``jax.vmap`` over classes)
-launch the hand-written kernel in ``csrc/tie_scan.cu`` (reduce-then-scan
-over 4096-element tiles with the row as a grid dimension; its source note
-gives the design and its bound), its weighted entries when ``weights_s`` is
-given. On CPU tensors they run :func:`tie_group_reduce_reference` /
-:func:`tie_group_reduce_rows_reference`, the plain PyTorch version of the
-same formula. There is no other path: a CUDA launch that fails raises.
+launch the hand-written kernels in ``csrc/tie_scan.cu``, whose source note
+gives each design and its bound: unweighted, reduce-then-scan over
+4096-element tiles in four launches; weighted (``weights_s`` given), one
+launch that reads the stream once, with an ordered decoupled look-back
+across its tiles. On CPU tensors they run
+:func:`tie_group_reduce_reference` / :func:`tie_group_reduce_rows_reference`,
+the plain PyTorch version of the same formula. There is no other path: a
+CUDA launch that fails raises.
 
 Formulation (as in the JAX package): walking the key-sorted stream, each
 tie-group *start* (``key != prev key``) closes the previous group, whose end
@@ -126,19 +128,22 @@ def _library() -> ctypes.CDLL:
     lib = _native.load("tie_scan")
     # pointers and the stream as c_void_p: a bare Python int would be cut to 32 bits
     ptr, size, off = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
-    tail = [off, off] + [ptr] * 4  # off_p, off_n; scratch, partial, out, stream
+    # the streams and sizes, then off_p, off_n and the buffers (scratch,
+    # partial for the unweighted entries, out) and the stream
     signatures = {
-        "tie_scan": [ptr, ptr, size],
-        "tie_scan_rows": [ptr, ptr, size, size],
-        "tie_scan_w": [ptr, ptr, ptr, size],
-        "tie_scan_rows_w": [ptr, ptr, ptr, size, size],
+        "tie_scan": [ptr, ptr, size, off, off] + [ptr] * 4,
+        "tie_scan_rows": [ptr, ptr, size, size, off, off] + [ptr] * 4,
+        "tie_scan_w": [ptr, ptr, ptr, size, off, off] + [ptr] * 3,
+        "tie_scan_rows_w": [ptr, ptr, ptr, size, size, off, off] + [ptr] * 3,
     }
-    for entry, streams in signatures.items():
+    for entry, args in signatures.items():
         fn = getattr(lib, entry)
-        fn.argtypes = [ctypes.c_int, *streams, *tail]
+        fn.argtypes = [ctypes.c_int, *args]
         fn.restype = ctypes.c_int
     lib.tie_scan_tile_elems.argtypes = []
     lib.tie_scan_tile_elems.restype = ctypes.c_int
+    lib.tie_scan_w_scratch_bytes.argtypes = [size, size]
+    lib.tie_scan_w_scratch_bytes.restype = size
     return lib
 
 
@@ -173,15 +178,18 @@ def _check_cuda_inputs(fn: str, streams: Sequence[torch.Tensor], ndim: int) -> T
     return shape
 
 
-def _buffers(
-    rows: int, n: int, weighted: bool, device: torch.device
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Scratch, partials and output of one launch over ``rows`` streams of
-    ``n``; the caller holds them until the launch is queued."""
-    tiles = max(1, -(-n // _library().tie_scan_tile_elems()))
-    scratch = torch.empty(rows * (8 * tiles + 4), dtype=torch.float64 if weighted else torch.int32, device=device)
-    partial = torch.empty(rows * 2 * tiles, dtype=torch.float64, device=device)
+def _buffers(rows: int, n: int, weighted: bool, device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """Scratch (and, unweighted, partials) and output of one launch over
+    ``rows`` streams of ``n``; the caller holds them until the launch is
+    queued. The weighted launch fills its scratch itself (the size is the
+    library's, so this module does not copy its layout)."""
+    lib = _library()
     out = torch.empty(rows, 4, dtype=torch.float32, device=device)
+    if weighted:
+        return torch.empty(lib.tie_scan_w_scratch_bytes(rows, n), dtype=torch.uint8, device=device), out
+    tiles = max(1, -(-n // lib.tie_scan_tile_elems()))
+    scratch = torch.empty(rows * (8 * tiles + 4), dtype=torch.int32, device=device)
+    partial = torch.empty(rows * 2 * tiles, dtype=torch.float64, device=device)
     return scratch, partial, out
 
 
@@ -197,7 +205,7 @@ def _launch(entry: str, streams: Sequence[torch.Tensor], sizes: Tuple[int, ...],
     )
     if err != 0:
         raise RuntimeError(f"{entry} kernel launch failed with CUDA error {err}")
-    return buffers[2]
+    return buffers[-1]
 
 
 def tie_group_reduce(

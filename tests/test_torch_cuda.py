@@ -32,6 +32,7 @@ from metrics_tpu_torch.ops.tie_scan import (
     tie_group_reduce_rows,
     tie_group_reduce_rows_reference,
 )
+from metrics_tpu_torch.parallel.sample_sort import _tie_stats_w
 
 pytestmark = pytest.mark.cuda
 
@@ -283,10 +284,25 @@ def test_weighted_kernel_hazards(cuda_device):
 
 
 def test_weighted_kernel_is_deterministic(cuda_device):
-    key_s, pay_s, w_s = _weighted_stream(2_000_000, 2, cuda_device)
+    # 20M elements are about 4,900 tiles, many more than the blocks resident
+    # at once, so each tile's look-back window differs from launch to launch;
+    # alternate repeats start behind a device sleep or run on a second stream
+    # beside the first, which shifts the schedule further
+    key_s, pay_s, w_s = _weighted_stream(20_000_000, 2, cuda_device)
     first = tie_group_reduce(key_s, pay_s, weights_s=w_s)
-    for _ in range(3):
-        assert torch.equal(tie_group_reduce(key_s, pay_s, weights_s=w_s), first)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    repeats = []
+    for i in range(20):
+        if i % 2:
+            with torch.cuda.stream(side):
+                repeats.append(tie_group_reduce(key_s, pay_s, weights_s=w_s))
+        else:
+            torch.cuda._sleep(1_000_000)
+            repeats.append(tie_group_reduce(key_s, pay_s, weights_s=w_s))
+    torch.cuda.synchronize()
+    for i, got in enumerate(repeats):
+        assert torch.equal(got, first), i
 
 
 def _weighted_rows(rows, n, seed, device):
@@ -315,6 +331,49 @@ def test_weighted_batched_rows_equal_one_stream_launches(cuda_device, rows, n):
     picked = list(range(min(rows, 7))) + [65_534, 65_535, rows - 1] if rows > 65_535 else range(rows)
     for r in picked:
         assert torch.equal(got[r], tie_group_reduce(key_s[r], pay_s[r], weights_s=w_s[r])), r
+
+
+@pytest.mark.parametrize("rows, n", [(1000, 50_000), (131_073, 3)])
+def test_weighted_batched_rows_equal_one_stream_launches_at_path_shapes(cuda_device, rows, n):
+    # the one-vs-rest path's shape, and more rows than a grid's y dimension holds
+    key_s, pay_s, w_s = _weighted_rows(rows, n, 5, cuda_device)
+    got = tie_group_reduce_rows(key_s, pay_s, weights_s=w_s)
+    picked = list(range(rows)) if rows <= 1000 else list(range(7)) + [65_534, 65_535, rows - 1]
+    singles = torch.stack([tie_group_reduce(key_s[r], pay_s[r], weights_s=w_s[r]) for r in picked])
+    assert torch.equal(got[picked], singles)
+
+
+def test_weighted_back_to_back_launches_reuse_their_scratch(cuda_device):
+    # queued with no synchronize between them, the launches take the
+    # scratch the previous one freed, whose counters must be zeroed again
+    key_s, pay_s, w_s = _weighted_stream(3_000_000, 9, cuda_device)
+    rows = _weighted_rows(300, 5_000, 9, cuda_device)
+    want_one = tie_group_reduce(key_s, pay_s, weights_s=w_s)
+    want_rows = tie_group_reduce_rows(*rows[:2], weights_s=rows[2])
+    torch.cuda.synchronize()
+    torch.cuda._sleep(10_000_000)
+    got = [(tie_group_reduce(key_s, pay_s, weights_s=w_s), tie_group_reduce_rows(*rows[:2], weights_s=rows[2]))
+           for _ in range(10)]
+    torch.cuda.synchronize()
+    for one, batch in got:
+        assert torch.equal(one, want_one) and torch.equal(batch, want_rows)
+
+
+def test_weighted_offset_form_matches_plain_version(cuda_device):
+    # the sample sort's bucket epilogue: buckets start mid-row (misaligned
+    # for the copies) and carry the lower buckets' weighted class totals
+    key_s, pay_s, w_s = _weighted_stream(1_000_003, 12, cuda_device)
+    bounds = [0, 250_001, 500_002, 777_777, 1_000_003]
+    off_p = off_n = 0.0
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        part = [x[lo:hi] for x in (key_s, pay_s, w_s)]
+        before = tie_group_reduce.offset_launches
+        got = torch.stack(_tie_stats_w(*part, off_p, off_n))
+        assert tie_group_reduce.offset_launches == before + 1
+        plain = tie_group_reduce_reference(*part[:2], (off_p, off_n), part[2]).double()
+        plain[0] += off_p * plain[3]  # the area's offset term, as _tie_stats_w adds it
+        torch.testing.assert_close(got, plain, rtol=1e-6, atol=0.0)
+        off_p, off_n = off_p + float(got[2]), off_n + float(got[3])
 
 
 def test_weighted_kernel_rejects_what_it_does_not_take(cuda_device):
