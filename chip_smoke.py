@@ -18,8 +18,9 @@ that is unset. Phases (any failure exits non-zero before the result line):
    b. the class-batched scan (``tie_scan_rows``) at ``(1, 1)``,
       ``(3, 4097)``, ``(7, 32769)``, ``(80, 40504)`` and ``(1000, 50000)``,
       with a one-group row, a row without positives and a signed-zero row,
-      and at more than 65535 rows (several launch groups); every row must
-      also equal the one-stream scan of that row, bit for bit;
+      and at ``(131073, 3)``, more rows than a grid's y dimension holds;
+      every row must also equal the one-stream scan of that row, bit for
+      bit;
    c. the weighted one-stream scan (``tie_scan_w``) at the edge sizes and at
       45,840,617 elements (the Criteo Display Advertising Challenge
       training set's rows), lognormal weights; zero weights against the
@@ -63,15 +64,18 @@ that is unset. Phases (any failure exits non-zero before the result line):
 5. times on the card (CUDA events over launches queued behind a device
    sleep, so host overhead does not show, or the host clock ending in a
    synchronize for whole steps): the one-stream kernel, its plain version
-   and both co-sort forms at 1M; the batched kernel, its plain version, the
+   and both co-sort forms at 1M; the one-stream kernel at the 20M stream of
+   phase 2a; the batched kernel, its plain version, the
    same rows as 1,000 one-stream launches and both co-sort forms at
    ``(1000, 50000)``; a forward batch and both compute steps; the weighted
    kernels and their plain versions at 45,840,617 and at ``(1000, 50000)``,
    the offset form at 1M, and both sharded compute steps;
 6. where the time goes: ``torch.profiler`` over a binary forward batch plus
-   compute, over one batched kernel call, over one multi-class compute, over
-   one weighted sharded binary compute, and over one call of each weighted
-   kernel, which must show one kernel and the memset of its scratch.
+   compute, over one multi-class compute, over one weighted sharded binary
+   compute, and over one call of each kernel entry (one stream at 1M,
+   batched at ``(1000, 50000)``, and the two weighted ones at their paths'
+   shapes), each of which must show one kernel and at most the memset of
+   its scratch.
 
 Prints the card's name and power limit (``nvidia-smi``), ``{"timings": ...}``
 and ``{"profile": ...}`` lines, a ``{"kernels": [...]}`` line and, last,
@@ -95,7 +99,7 @@ BIG_N = 20_000_000  # with 90% positives the positive class exceeds 2^24
 EDGE_SIZES = (1, 7, 32767, 32768, 32769, BATCH)
 
 # the class-batched scan: (rows, n) shapes, the last that of the multi-class
-# main path, and a batch of more rows than one launch group (65535) takes
+# main path, and a batch of more rows than a grid's y dimension (65535) holds
 ROW_SHAPES = ((1, 1), (3, 4097), (7, 32769), (80, 40504), (1000, 50000))
 CHUNKED_ROWS = (131_073, 3)
 # the Criteo Display Advertising Challenge training set: 45,840,617 rows,
@@ -324,7 +328,7 @@ def main() -> int:
                 raise AssertionError(f"{label}: scores ({ga}, {gp}) vs plain ({wa}, {wp})")
             if not np.isnan(a):
                 max_err = max(max_err, abs(a - b))
-        return want
+        return want, key_s, pay_s
 
     for n in EDGE_SIZES:
         hold(f"n={n}", np.round(rng.standard_normal(n), 1).astype(np.float32), rng.random(n) < 0.5)
@@ -338,7 +342,7 @@ def main() -> int:
     hold("masked 1M", garbage, rel, mask)
     hold("offsets 1M", scores, rel, offsets=(1234.0, 777.0))
     big_scores = np.round(rng.random(BIG_N), 3).astype(np.float32)
-    big = hold("20M", big_scores, rng.random(BIG_N) < 0.9)
+    big, big_key_s, big_pay_s = hold("20M", big_scores, rng.random(BIG_N) < 0.9)
     if not big[2].item() > 2**24:
         raise AssertionError(f"20M stream: positive count {big[2].item()} does not exceed 2^24")
     del big_scores
@@ -415,7 +419,7 @@ def main() -> int:
         want = hold_rows(f"rows {rows}x{n}", *row_case(rows, n))
         if rows >= 3 and not (want[1, 2].item() == 0 and want[0, 3].item() > 0):
             raise AssertionError(f"rows {rows}x{n}: the special rows are not what they should be")
-    hold_rows(f"rows {CHUNKED_ROWS[0]}x{CHUNKED_ROWS[1]} (launch groups)", *row_case(*CHUNKED_ROWS))
+    hold_rows(f"rows {CHUNKED_ROWS[0]}x{CHUNKED_ROWS[1]} (past a grid's y dimension)", *row_case(*CHUNKED_ROWS))
     print(f"batched kernel vs plain and vs one-stream launches: ok at {list(ROW_SHAPES) + [CHUNKED_ROWS]},"
           f" max |d score| {max_err_rows:.3g}")
 
@@ -746,6 +750,9 @@ def main() -> int:
     plain_ms = _queued_ms(torch, lambda: tie_scan.tie_group_reduce_reference(key_s, pay_s))
     sort_gather_ms = _queued_ms(torch, lambda: payload[torch.sort(key)[1]])
     sort_packed_ms = _queued_ms(torch, lambda: torch.sort((key.long() << 2) | payload.long()).values)
+    # the one-stream kernel on phase 2a's 20M stream, ~4,900 tiles in several waves
+    big_groups = int((big_key_s[1:] != big_key_s[:-1]).sum()) + 1
+    big_kernel_ms = _queued_ms(torch, lambda: tie_scan.tie_group_reduce(big_key_s, big_pay_s), launches=20, trials=5)
 
     # the multi-class compute's rows, (1000, 50000): its batches in order are the whole set
     rows_key = _sortable_key(mc_preds.T)
@@ -827,6 +834,7 @@ def main() -> int:
     mc_compute_ms = float(np.median([compute_fresh(mc_collection, mc_saved) for _ in range(5)]))
     forward_ms = _host_ms(torch, lambda: collection(preds[:BATCH], target[:BATCH]))
     bound_ms, bound_by = _bound(key_s.numel(), groups, 1)
+    big_bound_ms, _ = _bound(BIG_N, big_groups, 1)
     rows_bound_ms, rows_bound_by = _bound(rows_key_s.numel(), rows_groups, IMAGENET_C)
     w_bound_ms, w_bound_by = _bound(CRITEO_N, cr_groups, 1, weighted=True)
     w_rows_bound_ms, w_rows_bound_by = _bound(rows_w_key_s.numel(), rows_groups, IMAGENET_C, weighted=True)
@@ -842,6 +850,11 @@ def main() -> int:
         "forward_10_batches_first_run_s": t_forward,
         "kernel_bytes": 8 * key_s.numel() + 16,
         "bound_ms": bound_ms,
+        "big_n": BIG_N,
+        "big_tie_groups": big_groups,
+        "big_kernel_ms": big_kernel_ms,
+        "big_kernel_bytes": 8 * BIG_N + 16,
+        "big_bound_ms": big_bound_ms,
         "rows_shape": list(rows_key_s.shape),
         "rows_tie_groups": rows_groups,
         "rows_kernel_ms": rows_kernel_ms,
@@ -898,11 +911,6 @@ def main() -> int:
         tie_scan.tie_group_reduce_reference(key_s, pay_s)
         torch.cuda.synchronize()
     print(prof_plain.key_averages().table(sort_by=sort_key, row_limit=10, max_name_column_width=48))
-    # the batched kernel at (1000, 50000), by launch of its four kernels
-    with profile(activities=activities) as prof_rows:
-        tie_scan.tie_group_reduce_rows(rows_key_s, rows_pay_s)
-        torch.cuda.synchronize()
-    rows_split = _device_ms_by_kernel(torch, prof_rows, sort_key)
     # one multi-class compute step, restored from the saved states
     fresh_mc = mc_collection()
     fresh_mc.load_state_dict(mc_saved, strict=True)
@@ -925,33 +933,38 @@ def main() -> int:
         sh_window_ms = (time.perf_counter() - t) * 1e3
     sh_split = _device_ms_by_kernel(torch, prof_sh, sort_key)
     print(prof_sh.key_averages().table(sort_by=sort_key, row_limit=15, max_name_column_width=48))
-    # one call of each weighted kernel: one launch and the memset of its scratch
-    weighted_splits = {}
-    for label, call in (
-        ("weighted", lambda: tie_scan.tie_group_reduce(cr_key_s, cr_pay_s, weights_s=cr_w_s)),
-        ("weighted_rows", lambda: tie_scan.tie_group_reduce_rows(rows_w_key_s, rows_w_pay_s, weights_s=rows_w_s)),
+    # one call of each kernel entry: one launch and at most the memset of its scratch
+    entry_splits = {}
+    for label, kernel, call in (
+        ("tie_scan", "::tie_scan_kernel(", lambda: tie_scan.tie_group_reduce(key_s, pay_s)),
+        ("tie_scan_rows", "::tie_scan_kernel(", lambda: tie_scan.tie_group_reduce_rows(rows_key_s, rows_pay_s)),
+        ("weighted", "::tie_scan_w_kernel(", lambda: tie_scan.tie_group_reduce(cr_key_s, cr_pay_s, weights_s=cr_w_s)),
+        ("weighted_rows", "::tie_scan_w_kernel(",
+         lambda: tie_scan.tie_group_reduce_rows(rows_w_key_s, rows_w_pay_s, weights_s=rows_w_s)),
     ):
-        with profile(activities=activities) as prof_w:
+        with profile(activities=activities) as prof_entry:
             call()
             torch.cuda.synchronize()
-        split = _device_ms_by_kernel(torch, prof_w, sort_key)
-        if len([k for k in split if "tie_scan_w_kernel" in k]) != 1 or len(split) > 2:
-            raise AssertionError(f"one {label} call ran {sorted(split)}; want one kernel and its memset")
-        weighted_splits[label] = split
+        split = _device_ms_by_kernel(torch, prof_entry, sort_key)
+        others = [k for k in split if kernel not in k]
+        if len(split) - len(others) != 1 or len(others) > 1 or any("Memset" not in k for k in others):
+            raise AssertionError(f"one {label} call ran {sorted(split)}; want one kernel and at most its memset")
+        entry_splits[label] = split
     print(json.dumps({"profile": {
         "window": "one forward batch of 100k + compute at 1.1M, under torch.profiler",
         "window_ms": window_ms,
         "device_kernel_ms": device_ms,
         "device_busy_share": device_ms / window_ms,
-        "rows_kernel_device_ms_by_kernel": rows_split,
         "multiclass_compute_window_ms": mc_window_ms,
         "multiclass_compute_device_ms": sum(mc_split.values()),
         "multiclass_compute_device_ms_by_kernel": dict(sorted(mc_split.items(), key=lambda kv: -kv[1])[:12]),
         "sharded_binary_compute_window_ms": sh_window_ms,
         "sharded_binary_compute_device_ms": sum(sh_split.values()),
         "sharded_binary_compute_device_ms_by_kernel": dict(sorted(sh_split.items(), key=lambda kv: -kv[1])[:12]),
-        "weighted_kernel_device_ms_by_kernel": weighted_splits["weighted"],
-        "weighted_rows_kernel_device_ms_by_kernel": weighted_splits["weighted_rows"],
+        "kernel_device_ms_by_kernel": entry_splits["tie_scan"],
+        "rows_kernel_device_ms_by_kernel": entry_splits["tie_scan_rows"],
+        "weighted_kernel_device_ms_by_kernel": entry_splits["weighted"],
+        "weighted_rows_kernel_device_ms_by_kernel": entry_splits["weighted_rows"],
     }}))
     kernels = [
         {

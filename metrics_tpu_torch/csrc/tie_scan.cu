@@ -19,22 +19,54 @@
 // codes 0 and 1 (masked or padding) are inert, whatever their weight.
 // Offsets into the batch are 64-bit, so rows * n may exceed 2^31.
 //
-// Two designs, one per accumulator. Both work on tiles of 256 threads x 16
-// elements, with no float atomics, so a result repeats bit for bit and a
-// row of a batch equals the one-stream launch of that row.
+// One design, two accumulators. Every entry is one launch (plus one memset
+// of its scratch) that reads each element from device memory once, since a
+// stream the size of the paths' (400-550 MB) does not stay in the 50 MB L2:
+//   * a flattened grid of (row, tile), one 4096-element tile per block, with
+//     no limit on the rows; a block takes its tile from an atomic ticket, so
+//     a tile it waits on is held by a block already running;
+//   * the tile's arrays are copied to shared memory by TMA bulk copies (each
+//     array's 16-byte aligned body) and per-thread cp.async (up to 3 elements
+//     at each end, where a row starts misaligned); each thread takes its 16
+//     elements from there as bit masks (group starts, code 3, code 2);
+//   * each tile publishes its aggregate (its sums and the tile-local prefix
+//     at its last group start), then one warp looks back over its row's
+//     predecessors, 64 per read, until it meets one with its inclusive
+//     carry, folds the aggregates after it onto that carry and publishes its
+//     own inclusive carry;
+//   * the tile then emits from its exclusive carry: each thread sums its
+//     terms in f64 in element order, the block in a fixed tree, into one
+//     (area, ap) partial; the row's last tile sums the row's partials with a
+//     fixed stride and tree and closes the last group.
+// No float atomics and no sum whose order depends on the schedule, so a
+// result repeats bit for bit and a row of a batch equals the one-stream
+// launch of that row.
+// Nothing a tile publishes needs a flag or a fence: the launch fills the
+// scratch with 0xff bytes, each published 8-byte word is written once by a
+// single-copy-atomic store, and a reader takes it once it no longer reads
+// that pattern, which no published word has. Flags written with release
+// semantics would cost each tile two fences, and an arrival counter a fence
+// and an atomic, each a round trip to L2.
 //
 // Unweighted (tie_scan, tie_scan_rows): i32 counts per row (n < 2^31: an f32
-// cumulant stops moving at 2^24), f32 terms, floor 1. Reduce-then-scan in
-// four launches per group of up to 65535 rows (gridDim.y):
-//   (a) tile_summary_kernel: per-tile counts and the tile-local prefix at
-//       the tile's last group start;
-//   (b) tile_scan_kernel, one block per row: each tile's carry;
-//   (c) tile_emit_kernel: rebuilds every element's prefix, one (area, ap)
-//       partial per tile;
-//   (d) finalize_kernel, one block per row: fixed-order sum of the partials
-//       plus the closing term.
-// It reads the stream twice (a and c), so at (1000, 50000) it takes 3.4x its
-// byte bound, and at 1M its launch latency sets its time.
+// cumulant stops moving at 2^24), f32 terms of exact counts, floor 1. What
+// bounds it on an H100 SXM: it reads 8 bytes per element, 0.119 ms at
+// (1000, 50000) and 0.0024 ms at 1M at 3.35 TB/s; its operations (decode and
+// prefix steps, one divide per group start) stay under that. The tile stages
+// 32.8 KB (keys, payloads) and five blocks share an SM, 48 registers a
+// thread (six would leave 40 and spill, and ran slower), so one block's
+// look-back and emit overlap the others' loads. The carry is int32 counts
+// and an int32 max, exact and associative, so the look-back joins its window
+// by a warp tree in any shape and the counts cannot depend on the schedule:
+// no tile walks a serial chain. Each int2 is published as one 8-byte word;
+// an aggregate's "no group start" (-1, -1) is published as last + 1 =
+// (0, 0), so no published word is all ones. The f32 terms, their f64 sums
+// in element order and the fixed trees are those of a reduce-then-scan in
+// separate launches, so the bits do not depend on the design either. What
+// holds it: a tile holds its block while it waits on its predecessors'
+// aggregates, which wait on their loads; on one long row the nearest
+// inclusive carry lies ~65 tiles back, two reads. At 1M (245 tiles, one
+// wave) the launch latency and those reads set its time.
 //
 // Weighted (tie_scan_w, tie_scan_rows_w): one f32 weight per element, pos = w
 // where code 3 and neg = w where code 2. Prefix sums, tile sums and terms are
@@ -45,39 +77,18 @@
 // so 0.164 ms at 45,840,617 elements and 0.179 ms at (1000, 50000) at
 // 3.35 TB/s; its f64 work (about 15 DADD-class operations per element and a
 // reciprocal, about 0.05 ms at 45.8M) stays under that if it overlaps the
-// loads. So it is one launch (plus one memset of its scratch) that reads
-// each element from device memory once:
-//   * a flattened grid of (row, tile), one 4096-element tile per block; a
-//     block takes its tile from an atomic ticket, so a tile it waits on is
-//     held by a block already running;
-//   * the tile (48 KB) is copied to shared memory by TMA bulk copies (its
-//     16-byte aligned body) and per-thread cp.async (up to 3 elements at
-//     each end, where a row starts misaligned), and each thread takes its
-//     16 elements from there once per pass; four blocks fit on an SM, so one
-//     block's look-back overlaps the others' loads;
-//   * each tile publishes its aggregate (f64 sums and the tile-local prefix
-//     at its last group start), then one warp looks back over its row's
-//     predecessors, 64 per read, until it meets one with its inclusive
-//     carry, and folds the aggregates after it LEFT TO RIGHT onto that
-//     carry. f64 + is not associative, so a tree over the window would make
-//     the bits depend on the schedule; the left fold gives exactly
-//     inc(t) = combine(inc(t-1), S_t) whatever the window, the order in
-//     which the Pallas kernel carries its scalars across its grid;
-//   * the tile then emits from its exclusive carry and publishes one
-//     (area, ap) partial; the row's last tile sums the row's partials in
-//     tile order and closes the last group.
-// Nothing a tile publishes needs a flag or a fence: the launch fills the
-// scratch with 0xff bytes, each published double is written once by a
-// single-copy-atomic store, and a reader takes it once it no longer reads
-// that pattern (a NaN no arithmetic produces). Flags written with release
-// semantics would cost each tile two fences, and an arrival counter a fence
-// and an atomic, each a round trip to L2.
-// What holds it on one long row: the carry is a chain of one f64 addition
-// per tile (11,192 at 45.8M) that only one lane can walk, on an FP64 pipe
-// the other blocks keep busy; a tile folds the ~100 aggregates between it
-// and the nearest inclusive carry, so the chain, not the bytes, sets the
-// single stream's time (0.38 ms, 2.3x the bound). A row of a few tiles folds
-// a handful and runs at 1.9x the bound.
+// loads. The tile stages 48 KB and four blocks fit on an SM. f64 + is not
+// associative, so a tree over the look-back window would make the bits
+// depend on the schedule: the aggregates after the inclusive carry found are
+// folded LEFT TO RIGHT onto it, which gives exactly inc(t) = combine(inc(t-1),
+// S_t) whatever the window, the order in which the Pallas kernel carries its
+// scalars across its grid. What holds it on one long row: that fold is a
+// chain of one f64 addition per tile (11,192 at 45.8M) that only one lane
+// can walk, on an FP64 pipe the other blocks keep busy; a tile folds the
+// ~100 aggregates between it and the nearest inclusive carry, so the chain,
+// not the bytes, sets the single stream's time (0.38 ms on an H100 80GB HBM3
+// at 700 W, 2.3x the bound). A row of a few tiles folds a handful and runs
+// at 1.9x the bound.
 // Reassociated prefix sums may dip by an f64 ulp at a thread or tile edge;
 // the forward fill is a max, which repairs that as JAX's cummax does. The
 // "no group start" sentinel is -1 and the fill's identity 0: both lie below
@@ -86,6 +97,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// Phase marks, empty here: scripts/torch_tie_scan_phases.py builds a copy
+// that defines them to record each tile's clock at its phase boundaries and
+// how far its look-back went.
+#ifndef TIE_SCAN_PHASE
+#define TIE_SCAN_PHASE(k)
+#define TIE_SCAN_LOOK_BACK(distance, waits)
+#endif
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -93,6 +112,12 @@ constexpr int kItems = 16;
 constexpr int kTile = kThreads * kItems;          // elements per tile
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+// words per staged array: the tile plus room to shift a misaligned row's
+// body onto a 16-byte boundary (kWords * 4 is a multiple of 16)
+constexpr int kWords = kTile + 4;
+// the first of the threads that copy a tile's unaligned ends (3 + 3 per
+// array) with cp.async
+constexpr int kCopyThread0 = 32;
 
 struct SumOp {
   __device__ __forceinline__ static int2 apply(int2 a, int2 b) { return make_int2(a.x + b.x, a.y + b.y); }
@@ -108,42 +133,86 @@ struct MaxOp {
   }
 };
 
-// Exclusive block scan of a pair under Op, whose identity is `identity`.
-// Writes the block total to *total.
-template <class Op, int NT, class V>
-__device__ V block_exclusive_scan(V v, V identity, V* s_warp, V* total) {
-  constexpr int kW = NT / 32;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  V inc = v;
+// A tile's (or a thread run's) summary: its (pos, neg) sums and the local
+// prefix at its last group start (-1 if it has none).
+template <class V>
+struct Summary {
+  V tot, last;
+};
+
+// A carry: the sums before (exclusive) or through (inclusive) a tile, and
+// the prefix at the latest group start so far (0 if none).
+template <class V>
+struct Carry {
+  V base, m;
+};
+
+// The step of the carry over one tile. Sequential over a row's tiles, it is
+// the Pallas kernel's carry; the max repairs an ulp dip as the fill does.
+template <class V>
+__device__ __forceinline__ Carry<V> combine(const Carry<V>& c, const Summary<V>& s) {
+  return {SumOp::apply(c.base, s.tot), s.last.x >= 0 ? MaxOp::apply(c.m, SumOp::apply(c.base, s.last)) : c.m};
+}
+
+// The same step between two runs or tiles: a, then b.
+template <class V>
+__device__ __forceinline__ Summary<V> join(const Summary<V>& a, const Summary<V>& b) {
+  return {SumOp::apply(a.tot, b.tot), b.last.x >= 0 ? MaxOp::apply(a.last, SumOp::apply(a.tot, b.last)) : a.last};
+}
+
+__device__ __forceinline__ int2 shfl(int2 v, int src) {
+  return make_int2(__shfl_sync(kFull, v.x, src), __shfl_sync(kFull, v.y, src));
+}
+
+__device__ __forceinline__ double2 shfl(double2 v, int src) {
+  return make_double2(__shfl_sync(kFull, v.x, src), __shfl_sync(kFull, v.y, src));
+}
+
+__device__ __forceinline__ int2 shfl_up(int2 v, int d) {
+  return make_int2(__shfl_up_sync(kFull, v.x, d), __shfl_up_sync(kFull, v.y, d));
+}
+
+__device__ __forceinline__ double2 shfl_up(double2 v, int d) {
+  return make_double2(__shfl_up_sync(kFull, v.x, d), __shfl_up_sync(kFull, v.y, d));
+}
+
+__device__ __forceinline__ int2 shfl_xor(int2 v, int d) {
+  return make_int2(__shfl_xor_sync(kFull, v.x, d), __shfl_xor_sync(kFull, v.y, d));
+}
+
+__device__ __forceinline__ double2 shfl_xor(double2 v, int d) {
+  return make_double2(__shfl_xor_sync(kFull, v.x, d), __shfl_xor_sync(kFull, v.y, d));
+}
+
+// Exclusive scan of the threads' run summaries under join, in thread order
+// (a fixed tree, so the same bits every run); writes the tile's summary.
+template <class V>
+__device__ __forceinline__ Summary<V> block_scan_runs(Summary<V> v, Summary<V> identity, Summary<V>* s_warp,
+                                                      Summary<V>* tile) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  Summary<V> inc = v;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    V o;
-    o.x = __shfl_up_sync(kFull, inc.x, d);
-    o.y = __shfl_up_sync(kFull, inc.y, d);
-    if (lane >= d) inc = Op::apply(inc, o);
+    const Summary<V> o = {shfl_up(inc.tot, d), shfl_up(inc.last, d)};
+    if (lane >= d) inc = join(o, inc);
   }
   if (lane == 31) s_warp[warp] = inc;
   __syncthreads();
   if (warp == 0) {
-    V w = lane < kW ? s_warp[lane] : identity;
+    Summary<V> w = lane < kWarps ? s_warp[lane] : identity;
 #pragma unroll
-    for (int d = 1; d < kW; d <<= 1) {
-      V o;
-      o.x = __shfl_up_sync(kFull, w.x, d);
-      o.y = __shfl_up_sync(kFull, w.y, d);
-      if (lane >= d) w = Op::apply(w, o);
+    for (int d = 1; d < kWarps; d <<= 1) {
+      const Summary<V> o = {shfl_up(w.tot, d), shfl_up(w.last, d)};
+      if (lane >= d) w = join(o, w);
     }
-    if (lane < kW) s_warp[lane] = w;
+    if (lane < kWarps) s_warp[lane] = w;
   }
   __syncthreads();
-  V ex;
-  ex.x = __shfl_up_sync(kFull, inc.x, 1);
-  ex.y = __shfl_up_sync(kFull, inc.y, 1);
+  Summary<V> ex = {shfl_up(inc.tot, 1), shfl_up(inc.last, 1)};
   if (lane == 0) ex = identity;
-  if (warp > 0) ex = Op::apply(s_warp[warp - 1], ex);
-  *total = s_warp[kW - 1];
-  __syncthreads();  // s_warp is reused by the next scan
+  if (warp > 0) ex = join(s_warp[warp - 1], ex);
+  *tile = s_warp[kWarps - 1];
+  __syncthreads();
   return ex;
 }
 
@@ -203,356 +272,10 @@ struct Stream {
 
 int tiles_for(long long n) { return n > 0 ? (int)((n + kTile - 1) / kTile) : 1; }
 
-// ---- unweighted: reduce-then-scan in four launches -------------------------
-
-constexpr int kPadded = kTile + kTile / kItems;   // one pad slot per thread run
-constexpr int kScanThreads = 1024;
-constexpr long long kMaxGridY = 65535;  // rows per launch group (gridDim.y)
-
-// shared-memory slot of tile element e: a pad after every 16 elements puts
-// the runs of neighbouring threads in different banks
-__device__ __forceinline__ int slot(int e) { return e + e / kItems; }
-
-// tile t's counts and the tile-local prefix at its last group start (-1 if
-// it has none)
-struct Summary {
-  int2 tot, last;
-};
-
-// the counts before tile t and the prefix at the latest group start before
-// it (0 if none)
-struct Carry {
-  int2 base, m;
-};
-
-// One thread's run of kItems consecutive elements, as bit masks.
-struct Run {
-  unsigned first, pos, neg;
-};
-
-// Stage tile blockIdx.x of one row in shared memory with coalesced loads,
-// then read this thread's run. A group starts at the row's element 0 and
-// wherever the key differs from the previous element's; the previous key
-// across the tile edge is read straight from global memory, and the row's
-// first tile reads none (never the previous row's last key). Elements past
-// n are inert and start nothing.
-__device__ Run load_run(const Stream& in, long long n, int32_t* sk, uint8_t* sc) {
-  const long long base = (long long)blockIdx.x * kTile;
-#pragma unroll 4
-  for (int r = 0; r < kItems; ++r) {
-    const int e = r * kThreads + threadIdx.x;
-    const long long i = base + e;
-    int32_t k = 0;
-    int code = 0;
-    if (i < n) {
-      k = in.key[i];
-      const float p = in.payload[i];
-      code = p == 3.0f ? 3 : (p == 2.0f ? 2 : 0);
-    }
-    sk[slot(e)] = k;
-    sc[slot(e)] = (uint8_t)code;
-  }
-  __syncthreads();
-  const int t0 = threadIdx.x * kItems;
-  const long long g0 = base + t0;
-  int32_t prev = 0;
-  bool have_prev = false;
-  if (threadIdx.x > 0) {
-    prev = sk[slot(t0 - 1)];
-    have_prev = true;
-  } else if (base > 0) {
-    prev = in.key[base - 1];
-    have_prev = true;
-  }
-  Run run = {0u, 0u, 0u};
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    if (g0 + j >= n) break;
-    const int32_t k = sk[slot(t0 + j)];
-    const int code = sc[slot(t0 + j)];
-    if (!have_prev || k != prev) run.first |= 1u << j;
-    if (code == 3) run.pos |= 1u << j;
-    if (code == 2) run.neg |= 1u << j;
-    prev = k;
-    have_prev = true;
-  }
-  return run;
-}
-
-__device__ __forceinline__ int2 step(const Run& run, int j) {
-  return make_int2(run.pos >> j & 1u, run.neg >> j & 1u);
-}
-
-// (a) per tile of row row0 + blockIdx.y: its counts and the tile-local
-// exclusive prefix at its last group start, -1 if it has none.
-__global__ void __launch_bounds__(kThreads)
-    tile_summary_kernel(Stream in, long long n, long long row0, Summary* summary) {
-  __shared__ int32_t sk[kPadded];
-  __shared__ uint8_t sc[kPadded];
-  __shared__ int2 s_warp[kWarps];
-  const long long row = row0 + blockIdx.y;
-  const Run run = load_run(in.row(row, n), n, sk, sc);
-  int2 total;
-  const int2 own = make_int2(__popc(run.pos), __popc(run.neg));
-  const int2 ex = block_exclusive_scan<SumOp, kThreads>(own, make_int2(0, 0), s_warp, &total);
-  // this thread's last group start
-  int2 c = ex;
-  int2 last = make_int2(-1, -1);
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    if (run.first >> j & 1u) last = c;
-    c = SumOp::apply(c, step(run, j));
-  }
-  int2 last_max;
-  block_exclusive_scan<MaxOp, kThreads>(last, make_int2(-1, -1), s_warp, &last_max);
-  if (threadIdx.x == 0) summary[row * gridDim.x + blockIdx.x] = {total, last_max};
-}
-
-// (b) one block per row (row0 + blockIdx.x): each tile's carry, and the
-// row's totals = (pos, neg, the prefix at the row's last group start).
-__global__ void __launch_bounds__(kScanThreads)
-    tile_scan_kernel(const Summary* summary, int num_tiles, long long row0, Carry* carry, int* totals) {
-  __shared__ int2 s_warp[kScanThreads / 32];
-  const long long row = row0 + blockIdx.x;
-  summary += row * num_tiles;
-  carry += row * num_tiles;
-  totals += 4 * row;
-  const int2 zero = make_int2(0, 0);
-  const int per = (num_tiles + kScanThreads - 1) / kScanThreads;
-  const int lo = min(num_tiles, (int)threadIdx.x * per);
-  const int hi = min(num_tiles, lo + per);
-  int2 own = zero;
-  for (int t = lo; t < hi; ++t) own = SumOp::apply(own, summary[t].tot);
-  int2 sum_total;
-  const int2 base0 = block_exclusive_scan<SumOp, kScanThreads>(own, zero, s_warp, &sum_total);
-  int2 base = base0;
-  int2 latest = zero;
-  for (int t = lo; t < hi; ++t) {
-    const Summary s = summary[t];
-    if (s.last.x >= 0) latest = MaxOp::apply(latest, SumOp::apply(base, s.last));
-    base = SumOp::apply(base, s.tot);
-  }
-  int2 latest_total;
-  const int2 incoming = block_exclusive_scan<MaxOp, kScanThreads>(latest, zero, s_warp, &latest_total);
-  base = base0;
-  int2 m = incoming;
-  for (int t = lo; t < hi; ++t) {
-    const Summary s = summary[t];
-    carry[t] = {base, m};
-    if (s.last.x >= 0) m = MaxOp::apply(m, SumOp::apply(base, s.last));
-    base = SumOp::apply(base, s.tot);
-  }
-  if (threadIdx.x == 0) {
-    totals[0] = sum_total.x;
-    totals[1] = sum_total.y;
-    totals[2] = latest_total.x;
-    totals[3] = latest_total.y;
-  }
-}
-
-// (c) per tile of row row0 + blockIdx.y: every group start closes the
-// previous group; the tile's sum of chords and AP terms goes to its partial.
-__global__ void __launch_bounds__(kThreads)
-    tile_emit_kernel(Stream in, long long n, long long row0, const Carry* carry, float off_p, float off_n,
-                     double2* partial) {
-  __shared__ int32_t sk[kPadded];
-  __shared__ uint8_t sc[kPadded];
-  __shared__ int2 s_warp[kWarps];
-  __shared__ double2 s_sum[kWarps];
-  const long long row = row0 + blockIdx.y;
-  const long long tile = row * gridDim.x + blockIdx.x;
-  const Run run = load_run(in.row(row, n), n, sk, sc);
-  const Carry tc = carry[tile];
-  const int2 zero = make_int2(0, 0);
-  int2 total;
-  const int2 own = make_int2(__popc(run.pos), __popc(run.neg));
-  const int2 ex = SumOp::apply(block_exclusive_scan<SumOp, kThreads>(own, zero, s_warp, &total), tc.base);
-  int2 c = ex;
-  int2 last = zero;
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    if (run.first >> j & 1u) last = c;
-    c = SumOp::apply(c, step(run, j));
-  }
-  const int2 in_tile = block_exclusive_scan<MaxOp, kThreads>(last, zero, s_warp, &total);
-  int2 m = MaxOp::apply(in_tile, tc.m);
-  c = ex;
-  double2 acc = make_double2(0.0, 0.0);
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    if (run.first >> j & 1u) {
-      add_terms(c, m, off_p, off_n, acc);
-      m = c;
-    }
-    c = SumOp::apply(c, step(run, j));
-  }
-  const double2 r = block_sum<kThreads>(acc, s_sum);
-  if (threadIdx.x == 0) partial[tile] = r;
-}
-
-// (d) one block per row (row0 + blockIdx.x): fixed-order sum of the row's
-// partials plus the closing term of its last group; out row = [area,
-// ap_sum, pos, neg].
-__global__ void __launch_bounds__(kThreads)
-    finalize_kernel(const double2* partial, int num_tiles, long long row0, const int* totals, float off_p,
-                    float off_n, float* out) {
-  __shared__ double2 s_sum[kWarps];
-  const long long row = row0 + blockIdx.x;
-  partial += row * num_tiles;
-  totals += 4 * row;
-  out += 4 * row;
-  double2 acc = make_double2(0.0, 0.0);
-  for (int t = threadIdx.x; t < num_tiles; t += kThreads) {
-    acc.x += partial[t].x;
-    acc.y += partial[t].y;
-  }
-  const double2 r = block_sum<kThreads>(acc, s_sum);
-  if (threadIdx.x == 0) {
-    const int2 tot = {totals[0], totals[1]};
-    const int2 last = {totals[2], totals[3]};
-    double2 close = make_double2(0.0, 0.0);
-    add_terms(tot, last, off_p, off_n, close);
-    out[0] = (float)(r.x + close.x);
-    out[1] = (float)(r.y + close.y);
-    out[2] = (float)tot.x;
-    out[3] = (float)tot.y;
-  }
-}
-
-int launch(Stream in, long long rows, long long n, float off_p, float off_n, void* scratch, void* partial,
-           void* out, cudaStream_t stream) {
-  const int tiles = tiles_for(n);
-  Summary* summary = static_cast<Summary*>(scratch);
-  Carry* carry = reinterpret_cast<Carry*>(summary + rows * tiles);
-  int* totals = reinterpret_cast<int*>(carry + rows * tiles);
-  double2* parts = static_cast<double2*>(partial);
-  float* result = static_cast<float*>(out);
-  cudaError_t err;
-  for (long long row0 = 0; row0 < rows; row0 += kMaxGridY) {
-    const int group = (int)(rows - row0 < kMaxGridY ? rows - row0 : kMaxGridY);
-    const dim3 grid(tiles, group);
-    tile_summary_kernel<<<grid, kThreads, 0, stream>>>(in, n, row0, summary);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    tile_scan_kernel<<<group, kScanThreads, 0, stream>>>(summary, tiles, row0, carry, totals);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    tile_emit_kernel<<<grid, kThreads, 0, stream>>>(in, n, row0, carry, off_p, off_n, parts);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    finalize_kernel<<<group, kThreads, 0, stream>>>(parts, tiles, row0, totals, off_p, off_n, result);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  return 0;
-}
-
-// ---- weighted: one pass, ordered decoupled look-back -----------------------
-
-// words per staged array: the tile plus room to shift a misaligned row's
-// body onto a 16-byte boundary (kWords * 4 is a multiple of 16)
-constexpr int kWords = kTile + 4;
-constexpr int kWSmemBytes = 3 * kWords * 4;  // key, payload, weight: 49,200 B
-constexpr int kWBlocksPerSM = 4;
-// predecessors a look-back may fold at once, their aggregates kept where
-// the tile's keys were (16 KB)
-constexpr int kWindow = 512;
-// threads that copy a tile's unaligned ends (3 + 3 per array) with cp.async
-constexpr int kCopyThread0 = 32, kCopyThreads = 18;
-// Published values start as this bit pattern (the launch fills its scratch
-// with 0xff bytes, a NaN no arithmetic produces) and are written once, each
-// double by one single-copy-atomic store, so a reader takes a value as soon
-// as it no longer sees the pattern: no flag, and so no fence, is needed.
-constexpr long long kUnset = -1;
-
-// A tile's (or a thread run's) summary: its f64 (pos, neg) sums and the
-// local prefix at its last group start (-1 if it has none).
-struct WSummary {
-  double2 tot, last;
-};
-
-// A carry: the sums before (exclusive) or through (inclusive) a tile, and
-// the prefix at the latest group start so far (0 if none).
-struct WCarry {
-  double2 base, m;
-};
-
-// One tile's published record: its aggregate, its inclusive carry and its
-// (area, ap) partial, each published as soon as it is known.
-struct WTileState {
-  WSummary agg;
-  WCarry inc;
-  double2 partial;
-};
-
-// The fold step. Sequential over tiles, it is the Pallas kernel's carry;
-// the max repairs an ulp dip as the fill does.
-__device__ __forceinline__ WCarry combine(const WCarry& c, const WSummary& s) {
-  WCarry r;
-  r.base = SumOp::apply(c.base, s.tot);
-  r.m = s.last.x >= 0 ? MaxOp::apply(c.m, SumOp::apply(c.base, s.last)) : c.m;
-  return r;
-}
-
-// The same step between two runs within a tile: the run a then the run b.
-__device__ __forceinline__ WSummary join(const WSummary& a, const WSummary& b) {
-  return {SumOp::apply(a.tot, b.tot), b.last.x >= 0 ? MaxOp::apply(a.last, SumOp::apply(a.tot, b.last)) : a.last};
-}
-
-__device__ __forceinline__ double2 shfl(double2 v, int src) {
-  return make_double2(__shfl_sync(kFull, v.x, src), __shfl_sync(kFull, v.y, src));
-}
-
-__device__ __forceinline__ double2 shfl_up(double2 v, int d) {
-  return make_double2(__shfl_up_sync(kFull, v.x, d), __shfl_up_sync(kFull, v.y, d));
-}
-
-__device__ __forceinline__ double2 shfl_xor(double2 v, int d) {
-  return make_double2(__shfl_xor_sync(kFull, v.x, d), __shfl_xor_sync(kFull, v.y, d));
-}
-
-// Exclusive scan of the threads' run summaries under join, in thread order
-// (a fixed tree, so the same bits every run); writes the tile's summary.
-__device__ WSummary block_scan_runs(WSummary v, WSummary* s_warp, WSummary* tile) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const WSummary identity = {make_double2(0.0, 0.0), make_double2(-1.0, -1.0)};
-  WSummary inc = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const WSummary o = {shfl_up(inc.tot, d), shfl_up(inc.last, d)};
-    if (lane >= d) inc = join(o, inc);
-  }
-  if (lane == 31) s_warp[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    WSummary w = lane < kWarps ? s_warp[lane] : identity;
-#pragma unroll
-    for (int d = 1; d < kWarps; d <<= 1) {
-      const WSummary o = {shfl_up(w.tot, d), shfl_up(w.last, d)};
-      if (lane >= d) w = join(o, w);
-    }
-    if (lane < kWarps) s_warp[lane] = w;
-  }
-  __syncthreads();
-  WSummary ex = {shfl_up(inc.tot, 1), shfl_up(inc.last, 1)};
-  if (lane == 0) ex = identity;
-  if (warp > 0) ex = join(s_warp[warp - 1], ex);
-  *tile = s_warp[kWarps - 1];
-  __syncthreads();
-  return ex;
-}
-
-// 1 / d: the hardware's approximate reciprocal refined by one Newton step,
-// far below the f32 ulp the result is rounded to, for a fraction of a
-// correctly rounded divide. d >= 1e-30 is normal.
-__device__ __forceinline__ double reciprocal(double d) {
-  double r;
-  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(d));
-  return fma(r, fma(-d, r, 1.0), r);
-}
-
-__device__ __forceinline__ bool is_set(double2 v) {
-  return __double_as_longlong(v.x) != kUnset && __double_as_longlong(v.y) != kUnset;
-}
+// ---- the one-pass skeleton: ticket, staging, decode, publishing, closing --
 
 // Loads and stores of published values: strong (volatile), so a spin sees a
-// value another block wrote; each double is single-copy atomic.
+// value another block wrote; each 8-byte element is single-copy atomic.
 __device__ __forceinline__ double2 load_published(const double2* p) {
   double2 v;
   asm volatile("ld.volatile.global.v2.f64 {%0, %1}, [%2];" : "=d"(v.x), "=d"(v.y) : "l"(p) : "memory");
@@ -562,6 +285,27 @@ __device__ __forceinline__ double2 load_published(const double2* p) {
 __device__ __forceinline__ void publish(double2* p, double2 v) {
   asm volatile("st.volatile.global.v2.f64 [%0], {%1, %2};" ::"l"(p), "d"(v.x), "d"(v.y) : "memory");
 }
+
+__device__ __forceinline__ ulonglong2 load_published(const ulonglong2* p) {
+  ulonglong2 v;
+  asm volatile("ld.volatile.global.v2.u64 {%0, %1}, [%2];" : "=l"(v.x), "=l"(v.y) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void publish(ulonglong2* p, ulonglong2 v) {
+  asm volatile("st.volatile.global.v2.u64 [%0], {%1, %2};" ::"l"(p), "l"(v.x), "l"(v.y) : "memory");
+}
+
+// Published values start as all-ones words (the launch's memset) and are
+// written once, so a word is there as soon as it no longer reads so.
+constexpr unsigned long long kUnset = ~0ull;
+
+__device__ __forceinline__ bool is_set(double2 v) {
+  return (unsigned long long)__double_as_longlong(v.x) != kUnset &&
+         (unsigned long long)__double_as_longlong(v.y) != kUnset;
+}
+
+__device__ __forceinline__ bool is_set(ulonglong2 v) { return v.x != kUnset && v.y != kUnset; }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -608,12 +352,81 @@ __device__ __forceinline__ void copy4_async(void* dst, const void* src) {
 struct Part {
   const uint32_t* src;
   int pad, head, body;
-  __device__ Part(const void* p, int count) : src(static_cast<const uint32_t*>(p)) {
-    pad = (int)(reinterpret_cast<uintptr_t>(p) >> 2 & 3);
-    head = min((4 - pad) & 3, count);
-    body = (count - head) & ~3;
-  }
 };
+
+// Array a (0 keys, 1 payloads, 2 weights) of a tile of `count` elements
+// from element `first` of stream row s. A select, not an array of parts,
+// so that nothing of it lands in local memory.
+__device__ __forceinline__ Part part_of(const Stream& s, int a, long long first, int count) {
+  Part q;
+  q.src = a == 0 ? reinterpret_cast<const uint32_t*>(s.key + first)
+                 : reinterpret_cast<const uint32_t*>((a == 1 ? s.payload : s.weight) + first);
+  q.pad = (int)(reinterpret_cast<uintptr_t>(q.src) >> 2 & 3);
+  q.head = min((4 - q.pad) & 3, count);
+  q.body = (count - q.head) & ~3;
+  return q;
+}
+
+// The tile a block works on.
+struct Tile {
+  long long row, t;  // its row, and its index within the row
+  long long first;   // its first element, within the row
+  int count;         // its elements (0 for the one tile of an empty row)
+  int32_t before;    // the key before it (read by thread 0; none at a row's start)
+  int pad[3];        // where each staged array's element 0 lies in its buffer
+};
+
+// Take a tile by ticket, in the order the blocks start, and stage its A
+// arrays (keys, payloads and, weighted, weights) in s_words, kWords each:
+// TMA for the aligned bodies, cp.async for the ends. Returns with the tile in
+// shared memory.
+template <int A>
+__device__ __forceinline__ Tile stage_tile(const Stream& in, long long n, long long tiles_per_row, unsigned* ticket,
+                                           uint32_t* s_words) {
+  __shared__ __align__(8) uint64_t s_bar;
+  __shared__ long long s_ticket;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    s_ticket = (unsigned)(atomicAdd(ticket, 1u) + 1u);  // the ticket starts at all ones
+    mbar_init(&s_bar);
+  }
+  __syncthreads();
+  const long long g = s_ticket;
+  TIE_SCAN_PHASE(0);
+  Tile tile;
+  tile.row = g / tiles_per_row;
+  tile.t = g - tile.row * tiles_per_row;
+  tile.first = tile.t * kTile;
+  tile.count = (int)min((long long)kTile, n - tile.first);
+  const Stream rin = in.row(tile.row, n);
+  unsigned bytes = 0;
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    const Part q = part_of(rin, a, tile.first, tile.count);
+    tile.pad[a] = q.pad;
+    bytes += 4u * q.body;
+  }
+  if (tid == 0) {
+    mbar_expect_tx(&s_bar, bytes);
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      const Part q = part_of(rin, a, tile.first, tile.count);
+      if (q.body > 0) bulk_copy(s_words + a * kWords + q.pad + q.head, q.src + q.head, 4u * q.body, &s_bar);
+    }
+  } else if (tid >= kCopyThread0 && tid < kCopyThread0 + 6 * A) {
+    const int a = (tid - kCopyThread0) / 6, k = (tid - kCopyThread0) % 6;
+    const Part q = part_of(rin, a, tile.first, tile.count);
+    const int e = k < 3 ? k : q.head + q.body + (k - 3);
+    if (k < 3 ? e < q.head : e < tile.count) copy4_async(s_words + a * kWords + q.pad + e, q.src + e);
+  }
+  TIE_SCAN_PHASE(1);
+  tile.before = tile.first > 0 && tid == 0 ? rin.key[tile.first - 1] : 0;
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  mbar_wait(&s_bar);
+  __syncthreads();
+  TIE_SCAN_PHASE(2);
+  return tile;
+}
 
 // This thread's 16 words [16 tid, 16 tid + 16) of a staged array. Aligned:
 // four 16-byte reads, rotated so that the 8 threads of a quarter-warp hit 8
@@ -653,6 +466,276 @@ __device__ __forceinline__ void read_run(const uint32_t* buf, int pad, uint32_t 
 #pragma unroll
     for (int j = 0; j < kItems; ++j) v[j] = buf[pad + kItems * tid + j];
   }
+}
+
+// One thread's run of kItems consecutive elements, as bit masks: group
+// starts, code 3 and code 2.
+struct Run {
+  unsigned first, pos, neg;
+};
+
+// This thread's run, elements [16 tid, 16 tid + 16) of the staged tile. A
+// group starts at a row's element 0 and wherever the key differs from the
+// one before; elements past the row's end are inert and start nothing.
+__device__ __forceinline__ Run decode_run(const uint32_t* s_words, const Tile& tile) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  Run run = {0u, 0u, 0u};
+  uint32_t v[kItems];
+  read_run(s_words + kWords, tile.pad[1], v);
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const float p = __uint_as_float(v[j]);
+    run.pos |= (p == 3.0f ? 1u : 0u) << j;
+    run.neg |= (p == 2.0f ? 1u : 0u) << j;
+  }
+  read_run(s_words, tile.pad[0], v);
+  // the key before this run: the previous thread's last; a warp's first
+  // thread reads it from the tile
+  int32_t prev = (int32_t)__shfl_up_sync(kFull, v[kItems - 1], 1);
+  if (lane == 0 && tid > 0) prev = (int32_t)s_words[tile.pad[0] + kItems * tid - 1];
+  const bool start = tid == 0 ? tile.first == 0 || (int32_t)v[0] != tile.before : (int32_t)v[0] != prev;
+  run.first = start ? 1u : 0u;
+#pragma unroll
+  for (int j = 1; j < kItems; ++j) run.first |= (v[j] != v[j - 1] ? 1u : 0u) << j;
+  const int valid = min(max(tile.count - kItems * tid, 0), kItems);
+  const unsigned keep = valid == kItems ? 0xffffu : (1u << valid) - 1u;
+  run.first &= keep;
+  run.pos &= keep;
+  run.neg &= keep;
+  return run;
+}
+
+// The row's last tile: the row's partials summed with a fixed stride and
+// tree (each waited for; they come from older tickets), then the closing
+// term from the row's inclusive carry; out row = [area, ap_sum, pos, neg].
+template <class V>
+__device__ __forceinline__ void close_row(const double2* partial, long long tiles_per_row, const Carry<V>& inc,
+                                          float off_p, float off_n, double2* s_sum, float* out) {
+  __syncthreads();  // s_sum is reused
+  double2 sum = make_double2(0.0, 0.0);
+  for (long long i = threadIdx.x; i < tiles_per_row; i += kThreads) {
+    double2 v = load_published(&partial[i]);
+    while (!is_set(v)) {
+      __nanosleep(64);
+      v = load_published(&partial[i]);
+    }
+    sum = SumOp::apply(sum, v);
+  }
+  const double2 total = block_sum<kThreads>(sum, s_sum);
+  if (threadIdx.x == 0) {
+    double2 close = make_double2(0.0, 0.0);
+    add_terms(inc.base, inc.m, off_p, off_n, close);
+    out[0] = (float)(total.x + close.x);
+    out[1] = (float)(total.y + close.y);
+    out[2] = (float)inc.base.x;
+    out[3] = (float)inc.base.y;
+  }
+}
+
+// ---- unweighted: int32 carries, the look-back joined by a warp tree -------
+
+constexpr int kSmemBytes = 2 * kWords * 4;  // keys, payloads: 32,800 B
+constexpr int kBlocksPerSM = 5;
+
+// One tile's published record, each int2 packed into one 8-byte word: its
+// aggregate (counts; the prefix at its last group start plus one, (0, 0) if
+// none) and its inclusive carry.
+struct TileState {
+  ulonglong2 agg, inc;
+};
+
+__device__ __forceinline__ unsigned long long pack(int2 v) {
+  return (unsigned long long)(unsigned)v.y << 32 | (unsigned)v.x;
+}
+
+__device__ __forceinline__ int2 unpack(unsigned long long w) { return make_int2((int)(unsigned)w, (int)(w >> 32)); }
+
+// The join of a warp's summaries in tile order, a higher lane holding an
+// older tile; every lane ends with the whole join.
+__device__ __forceinline__ Summary<int2> warp_join(Summary<int2> s) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const Summary<int2> o = {shfl_xor(s.tot, d), shfl_xor(s.last, d)};
+    s = lane & d ? join(s, o) : join(o, s);
+  }
+  return s;
+}
+
+// 32 predecessors of a tile as one warp reads them, one per lane.
+struct Window {
+  Carry<int2> inc;    // the lane's inclusive carry, where has_inc
+  Summary<int2> agg;  // its aggregate, where has_agg
+  bool has_inc, has_agg;
+};
+
+// This lane's read of predecessor p of its row (p < 0: before the row's
+// first tile, the identity, as good as inclusive).
+__device__ __forceinline__ Window read_window(const TileState* state, long long p) {
+  const int2 zero = make_int2(0, 0), none = make_int2(-1, -1);
+  Window w = {{zero, zero}, {zero, none}, p < 0, false};
+  if (p >= 0) {
+    const ulonglong2 a = load_published(&state[p].agg), c = load_published(&state[p].inc);
+    w.has_inc = is_set(c);
+    w.has_agg = is_set(a);
+    w.inc = {unpack(c.x), unpack(c.y)};
+    w.agg = {unpack(a.x), SumOp::apply(unpack(a.y), none)};
+  }
+  return w;
+}
+
+// Take one window, lane i at distance d + i: false if a tile nearer than
+// any inclusive one lacks its aggregate (wait); else join its aggregates
+// up to the nearest inclusive lane by a warp tree onto `after` and, where
+// there is one, set `found` and its carry in `c`.
+__device__ __forceinline__ bool take_window(const Window& w, Summary<int2>& after, bool& found, Carry<int2>& c,
+                                            int& k) {
+  const int lane = threadIdx.x & 31;
+  const unsigned inclusive = __ballot_sync(kFull, w.has_inc);
+  const unsigned ready = __ballot_sync(kFull, w.has_inc || w.has_agg);
+  k = inclusive ? __ffs(inclusive) - 1 : 32;  // the nearest inclusive lane
+  const unsigned below = k < 32 ? (1u << k) - 1u : kFull;
+  if ((ready & below) != below) return false;
+  const Summary<int2> identity = {make_int2(0, 0), make_int2(-1, -1)};
+  after = join(warp_join(lane < k ? w.agg : identity), after);
+  found = k < 32;
+  if (found) c = {shfl(w.inc.base, k), shfl(w.inc.m, k)};
+  return true;
+}
+
+// Warp 0 of tile t > 0 of a row: the exclusive carry of tile t (the same in
+// every lane). It reads the row's predecessors 64 per read, nearest first,
+// until one has its inclusive carry and every tile nearer than that its
+// aggregate; joins each window of 32 by a warp tree onto the join of the
+// nearer windows, and combines the whole onto that carry. A predecessor's
+// ticket is older, so its block is running.
+__device__ Carry<int2> look_back(const TileState* state, long long t) {
+  const int lane = threadIdx.x & 31;
+  // the join of the tiles between the windows taken and t
+  Summary<int2> after = {make_int2(0, 0), make_int2(-1, -1)};
+  Carry<int2> c;
+  bool found = false;
+  int k;
+  unsigned pause = 16, waits = 0;
+  for (long long d = 0;;) {  // distance of the next window's nearest tile (0 is t - 1)
+    const Window w0 = read_window(state, t - 1 - (d + lane));
+    const Window w1 = read_window(state, t - 1 - (d + 32 + lane));
+    bool ready = take_window(w0, after, found, c, k);
+    if (ready && !found) {
+      d += 32;
+      ready = take_window(w1, after, found, c, k);
+    }
+    if (found) {
+      TIE_SCAN_LOOK_BACK(d + k, waits);
+      return combine(c, after);
+    }
+    if (ready) {
+      d += 32;
+      continue;
+    }
+    __nanosleep(pause);
+    if (pause < 128) pause *= 2;
+    // over a minute waiting on tiles that take microseconds means one was
+    // never scheduled: fail the launch rather than hang the card
+    if (++waits == 1u << 26) __trap();
+  }
+}
+
+// One tile per block, taken by ticket in the order the blocks start.
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+    tie_scan_kernel(Stream in, long long n, long long tiles_per_row, float off_p, float off_n, void* states,
+                    double2* partial, unsigned* ticket, float* out) {
+  extern __shared__ __align__(128) uint32_t s_words[];  // kWords each: keys, payloads
+  __shared__ __align__(16) Summary<int2> s_warp[kWarps];
+  __shared__ Carry<int2> s_carry, s_inc;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int2 zero = make_int2(0, 0), none = make_int2(-1, -1);
+  const Tile tile = stage_tile<2>(in, n, tiles_per_row, ticket, s_words);
+  const Run run = decode_run(s_words, tile);
+  TIE_SCAN_PHASE(3);
+
+  // ---- the run's counts and the prefix at its last group start, then the
+  // scan over the tile's runs
+  Summary<int2> own = {make_int2(__popc(run.pos), __popc(run.neg)), none};
+  if (run.first) {
+    const unsigned before_last = (1u << (31 - __clz(run.first))) - 1u;
+    own.last = make_int2(__popc(run.pos & before_last), __popc(run.neg & before_last));
+  }
+  Summary<int2> agg;
+  const Summary<int2> ex = block_scan_runs(own, {zero, none}, s_warp, &agg);  // ends in __syncthreads
+  TIE_SCAN_PHASE(4);
+
+  // ---- publish the aggregate, look back, publish the inclusive carry
+  TileState* row_state = static_cast<TileState*>(states) + tile.row * tiles_per_row;
+  if (warp == 0) {
+    Carry<int2> carry = {zero, zero};
+    if (tile.t > 0) {
+      if (lane == 0) {
+        const int2 last = SumOp::apply(agg.last, make_int2(1, 1));  // (0, 0): no group start
+        publish(&row_state[tile.t].agg, make_ulonglong2(pack(agg.tot), pack(last)));
+      }
+      carry = look_back(row_state, tile.t);
+    }
+    if (lane == 0) {
+      const Carry<int2> inc = combine(carry, agg);
+      publish(&row_state[tile.t].inc, make_ulonglong2(pack(inc.base), pack(inc.m)));
+      s_carry = carry;
+      s_inc = inc;
+    }
+  }
+  __syncthreads();
+  const Carry<int2> carry = s_carry;
+  TIE_SCAN_PHASE(5);
+
+  // ---- emit from the exclusive carry: every group start closes the
+  // previous group; the terms are summed in element order
+  int2 c = SumOp::apply(carry.base, ex.tot);
+  int2 m = ex.last.x >= 0 ? MaxOp::apply(carry.m, SumOp::apply(carry.base, ex.last)) : carry.m;
+  double2 acc = make_double2(0.0, 0.0);
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    if (run.first >> j & 1u) {
+      add_terms(c, m, off_p, off_n, acc);
+      m = c;
+    }
+    c = SumOp::apply(c, make_int2(run.pos >> j & 1u, run.neg >> j & 1u));
+  }
+  double2* s_sum = reinterpret_cast<double2*>(s_warp);
+  const double2 part = block_sum<kThreads>(acc, s_sum);
+  double2* row_partial = partial + tile.row * tiles_per_row;
+  if (tid == 0) publish(&row_partial[tile.t], part);
+  TIE_SCAN_PHASE(6);
+  if (tile.t == tiles_per_row - 1) {
+    close_row(row_partial, tiles_per_row, s_inc, off_p, off_n, s_sum, out + 4 * tile.row);
+  }
+  TIE_SCAN_PHASE(7);
+}
+
+// ---- weighted: f64 carries, the look-back folded left to right ------------
+
+constexpr int kWSmemBytes = 3 * kWords * 4;  // key, payload, weight: 49,200 B
+constexpr int kWBlocksPerSM = 4;
+// predecessors a look-back may fold at once, their aggregates kept where
+// the tile's keys were (16 KB)
+constexpr int kWindow = 512;
+
+using WSummary = Summary<double2>;
+using WCarry = Carry<double2>;
+
+// One tile's published record: its aggregate and its inclusive carry, each
+// published as soon as it is known.
+struct WTileState {
+  WSummary agg;
+  WCarry inc;
+};
+
+// 1 / d: the hardware's approximate reciprocal refined by one Newton step,
+// far below the f32 ulp the result is rounded to, for a fraction of a
+// correctly rounded divide. d >= 1e-30 is normal.
+__device__ __forceinline__ double reciprocal(double d) {
+  double r;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(d));
+  return fma(r, fma(-d, r, 1.0), r);
 }
 
 // The element's (pos, neg) weights: a weight is read only where the code is
@@ -726,6 +809,7 @@ __device__ WCarry look_back(WTileState* state, long long t, WSummary* s_window) 
     // never scheduled: fail the launch rather than hang the card
     if (++spins == 1u << 26) __trap();
   }
+  TIE_SCAN_LOOK_BACK(k, spins);
   __syncwarp();
   // the left fold, nearest-last: one lane chains the sums in order (eight
   // read ahead of the chain) and leaves in each window slot the sums before
@@ -766,111 +850,55 @@ __device__ WCarry look_back(WTileState* state, long long t, WSummary* s_window) 
 
 // One tile per block, taken by ticket in the order the blocks start.
 __global__ void __launch_bounds__(kThreads, kWBlocksPerSM)
-    tie_scan_w_kernel(Stream in, long long n, long long tiles_per_row, float off_p, float off_n,
-                      WTileState* state, unsigned* ticket, float* out) {
+    tie_scan_w_kernel(Stream in, long long n, long long tiles_per_row, float off_p, float off_n, void* states,
+                      double2* partial, unsigned* ticket, float* out) {
   extern __shared__ __align__(128) uint32_t s_words[];  // kWords each: keys, payloads, weights
-  __shared__ __align__(8) uint64_t s_bar;
   __shared__ WSummary s_warp[kWarps];
-  __shared__ long long s_tile;
   __shared__ WCarry s_carry, s_inc;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const double2 zero = make_double2(0.0, 0.0), none = make_double2(-1.0, -1.0);
-  if (tid == 0) {
-    s_tile = (unsigned)(atomicAdd(ticket, 1u) + 1u);  // the ticket starts at all ones
-    mbar_init(&s_bar);
-  }
-  __syncthreads();
-  const long long g = s_tile;
-  const long long row = g / tiles_per_row, t = g - row * tiles_per_row;
-  const Stream rin = in.row(row, n);
-  const long long first = t * kTile;  // the tile's first element, within its row
-  const int count = (int)min((long long)kTile, n - first);  // 0 for the one tile of an empty row
-  const Part parts[3] = {Part(rin.key + first, count), Part(rin.payload + first, count),
-                         Part(rin.weight + first, count)};
-
-  // ---- stage the tile: TMA for the aligned bodies, cp.async for the ends
-  if (tid == 0) {
-    mbar_expect_tx(&s_bar, 4u * (parts[0].body + parts[1].body + parts[2].body));
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const Part& q = parts[a];
-      if (q.body > 0) bulk_copy(s_words + a * kWords + q.pad + q.head, q.src + q.head, 4u * q.body, &s_bar);
-    }
-  } else if (tid >= kCopyThread0 && tid < kCopyThread0 + kCopyThreads) {
-    const int a = (tid - kCopyThread0) / 6, k = (tid - kCopyThread0) % 6;
-    const Part q = a == 0 ? parts[0] : (a == 1 ? parts[1] : parts[2]);
-    const int e = k < 3 ? k : q.head + q.body + (k - 3);
-    if (k < 3 ? e < q.head : e < count) copy4_async(s_words + a * kWords + q.pad + e, q.src + e);
-  }
-  // the key before the tile, for its first element (none at a row's start)
-  const int32_t before = first > 0 && tid == 0 ? rin.key[first - 1] : 0;
-  asm volatile("cp.async.wait_all;" ::: "memory");
-  mbar_wait(&s_bar);
-  __syncthreads();
-
-  // ---- this thread's run, elements [16 tid, 16 tid + 16), as bit masks
-  unsigned fmask = 0, pmask = 0, nmask = 0;
-  uint32_t v[kItems];
-  {
-    read_run(s_words + kWords, parts[1].pad, v);
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const float p = __uint_as_float(v[j]);
-      pmask |= (p == 3.0f ? 1u : 0u) << j;
-      nmask |= (p == 2.0f ? 1u : 0u) << j;
-    }
-    read_run(s_words, parts[0].pad, v);
-    // the key before this run: the previous thread's last; a warp's first
-    // thread reads it from the tile; a row's element 0 starts a group
-    int32_t prev = (int32_t)__shfl_up_sync(kFull, v[kItems - 1], 1);
-    if (lane == 0 && tid > 0) prev = (int32_t)s_words[parts[0].pad + kItems * tid - 1];
-    const bool start = tid == 0 ? first == 0 || (int32_t)v[0] != before : (int32_t)v[0] != prev;
-    fmask = start ? 1u : 0u;
-#pragma unroll
-    for (int j = 1; j < kItems; ++j) fmask |= (v[j] != v[j - 1] ? 1u : 0u) << j;
-    // elements past the row's end are inert and start nothing
-    const int valid = min(max(count - kItems * tid, 0), kItems);
-    const unsigned keep = valid == kItems ? 0xffffu : (1u << valid) - 1u;
-    fmask &= keep;
-    pmask &= keep;
-    nmask &= keep;
-  }
+  const Tile tile = stage_tile<3>(in, n, tiles_per_row, ticket, s_words);
+  const Run run = decode_run(s_words, tile);
+  TIE_SCAN_PHASE(3);
 
   // ---- local reduction: the run's sums and its last group start's prefix,
   // then the scan over the tile's runs. The weights are read from the tile
   // here and again for the emit, which spares their registers in between.
-  read_run(s_words + 2 * kWords, parts[2].pad, v);
+  uint32_t v[kItems];
+  read_run(s_words + 2 * kWords, tile.pad[2], v);
   WSummary own = {zero, none};
 #pragma unroll
   for (int j = 0; j < kItems; ++j) {
-    if (fmask >> j & 1u) own.last = own.tot;
-    own.tot = SumOp::apply(own.tot, wstep(pmask, nmask, j, __uint_as_float(v[j])));
+    if (run.first >> j & 1u) own.last = own.tot;
+    own.tot = SumOp::apply(own.tot, wstep(run.pos, run.neg, j, __uint_as_float(v[j])));
   }
   WSummary agg;
-  const WSummary ex = block_scan_runs(own, s_warp, &agg);  // ends in __syncthreads
+  const WSummary ex = block_scan_runs(own, {zero, none}, s_warp, &agg);  // ends in __syncthreads
+  TIE_SCAN_PHASE(4);
 
   // ---- publish the aggregate, look back, publish the inclusive carry; the
   // look-back window lives where the tile's keys were
-  WTileState* row_state = state + row * tiles_per_row;
+  WTileState* row_state = static_cast<WTileState*>(states) + tile.row * tiles_per_row;
   if (warp == 0) {
     WCarry carry = {zero, zero};
-    if (t > 0) {
+    if (tile.t > 0) {
       if (lane == 0) {
-        publish(&row_state[t].agg.tot, agg.tot);
-        publish(&row_state[t].agg.last, agg.last);
+        publish(&row_state[tile.t].agg.tot, agg.tot);
+        publish(&row_state[tile.t].agg.last, agg.last);
       }
-      carry = look_back(row_state, t, reinterpret_cast<WSummary*>(s_words));
+      carry = look_back(row_state, tile.t, reinterpret_cast<WSummary*>(s_words));
     }
     if (lane == 0) {
       const WCarry inc = combine(carry, agg);
-      publish(&row_state[t].inc.base, inc.base);
-      publish(&row_state[t].inc.m, inc.m);
+      publish(&row_state[tile.t].inc.base, inc.base);
+      publish(&row_state[tile.t].inc.m, inc.m);
       s_carry = carry;
       s_inc = inc;
     }
   }
   __syncthreads();
   const WCarry carry = s_carry;
+  TIE_SCAN_PHASE(5);
 
   // ---- emit from the exclusive carry: every group start closes the
   // previous group. Every element's terms are computed and the starts'
@@ -879,74 +907,60 @@ __global__ void __launch_bounds__(kThreads, kWBlocksPerSM)
   double2 c = SumOp::apply(carry.base, ex.tot);
   double2 m = ex.last.x >= 0 ? MaxOp::apply(carry.m, SumOp::apply(carry.base, ex.last)) : carry.m;
   const double op = off_p, opn = (double)off_p + (double)off_n;
-  read_run(s_words + 2 * kWords, parts[2].pad, v);
+  read_run(s_words + 2 * kWords, tile.pad[2], v);
   double2 acc = zero;
 #pragma unroll
   for (int j = 0; j < kItems; ++j) {
-    const bool is_start = fmask >> j & 1u;
+    const bool is_start = run.first >> j & 1u;
     const double rise = is_start ? c.x - m.x : 0.0;
     const double chord = (c.x + m.x) * (c.y - m.y);
     acc.x += is_start ? chord : 0.0;
     acc.y = fma(rise, (c.x + op) * reciprocal(fmax(c.x + c.y + opn, 1e-30)), acc.y);
     m = is_start ? c : m;
-    c = SumOp::apply(c, wstep(pmask, nmask, j, __uint_as_float(v[j])));
+    c = SumOp::apply(c, wstep(run.pos, run.neg, j, __uint_as_float(v[j])));
   }
-  double2 part = block_sum<kThreads>(acc, reinterpret_cast<double2*>(s_warp));
+  double2* s_sum = reinterpret_cast<double2*>(s_warp);
+  double2 part = block_sum<kThreads>(acc, s_sum);
   part.x *= 0.5;
-  if (tid == 0) publish(&row_state[t].partial, part);
-  if (t != tiles_per_row - 1) return;
-
-  // ---- the row's last tile: the row's partials in tile order (each waited
-  // for; they come from older tickets), then the closing term
-  __syncthreads();
-  double2 sum = zero;
-  for (long long i = tid; i < tiles_per_row; i += kThreads) {
-    double2 v = load_published(&row_state[i].partial);
-    while (!is_set(v)) {
-      __nanosleep(64);
-      v = load_published(&row_state[i].partial);
-    }
-    sum = SumOp::apply(sum, v);
+  double2* row_partial = partial + tile.row * tiles_per_row;
+  if (tid == 0) publish(&row_partial[tile.t], part);
+  TIE_SCAN_PHASE(6);
+  if (tile.t == tiles_per_row - 1) {
+    close_row(row_partial, tiles_per_row, s_inc, off_p, off_n, s_sum, out + 4 * tile.row);
   }
-  const double2 total = block_sum<kThreads>(sum, reinterpret_cast<double2*>(s_warp));
-  if (tid == 0) {
-    const WCarry inc = s_inc;
-    double2 close = zero;
-    add_terms(inc.base, inc.m, off_p, off_n, close);
-    float* o = out + 4 * row;
-    o[0] = (float)(total.x + close.x);
-    o[1] = (float)(total.y + close.y);
-    o[2] = (float)inc.base.x;
-    o[3] = (float)inc.base.y;
-  }
+  TIE_SCAN_PHASE(7);
 }
 
-// Scratch of one weighted launch: the tiles' records, then the ticket; the
-// launch fills all of it with 0xff bytes.
-struct WLayout {
-  long long tiles_per_row, tiles, ticket_off;
-  WLayout(long long rows, long long n) {
+// ---- launch -----------------------------------------------------------------
+
+// Scratch of one launch: the tiles' records, their partials, then the
+// ticket; the launch fills all of it with 0xff bytes.
+struct Layout {
+  long long tiles_per_row, tiles, partial_off, ticket_off;
+  Layout(long long rows, long long n, bool weighted) {
     tiles_per_row = tiles_for(n);
     tiles = rows * tiles_per_row;
-    ticket_off = tiles * (long long)sizeof(WTileState);
+    partial_off = tiles * (long long)(weighted ? sizeof(WTileState) : sizeof(TileState));
+    ticket_off = partial_off + tiles * (long long)sizeof(double2);
   }
   long long bytes() const { return ticket_off + (long long)sizeof(unsigned); }
 };
 
-int launch_w(Stream in, long long rows, long long n, float off_p, float off_n, void* scratch, void* out,
-             cudaStream_t stream) {
-  const WLayout layout(rows, n);
+int launch(bool weighted, Stream in, long long rows, long long n, float off_p, float off_n, void* scratch, void* out,
+           cudaStream_t stream) {
+  const Layout layout(rows, n, weighted);
   if (layout.tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   char* base = static_cast<char*>(scratch);
   cudaError_t err = cudaMemsetAsync(scratch, 0xff, layout.bytes(), stream);
   if (err != cudaSuccess) return (int)err;
-  if ((err = cudaFuncSetAttribute(tie_scan_w_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  kWSmemBytes)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(tie_scan_w_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+  const auto kernel = weighted ? tie_scan_w_kernel : tie_scan_kernel;
+  const int smem = weighted ? kWSmemBytes : kSmemBytes;
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                   cudaSharedmemCarveoutMaxShared)) != cudaSuccess)
     return (int)err;
-  tie_scan_w_kernel<<<(unsigned)layout.tiles, kThreads, kWSmemBytes, stream>>>(
-      in, n, layout.tiles_per_row, off_p, off_n, reinterpret_cast<WTileState*>(base),
+  kernel<<<(unsigned)layout.tiles, kThreads, smem, stream>>>(
+      in, n, layout.tiles_per_row, off_p, off_n, base, reinterpret_cast<double2*>(base + layout.partial_off),
       reinterpret_cast<unsigned*>(base + layout.ticket_off), static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
@@ -955,44 +969,46 @@ int launch_w(Stream in, long long rows, long long n, float off_p, float off_n, v
 
 extern "C" {
 
-// Elements per tile; the caller sizes the unweighted buffers from it:
-// scratch holds rows * (8 * tiles + 4) int32, partial rows * 2 * tiles
-// float64, with tiles = max(1, ceil(n / tile_elems)).
+// Elements per tile: a launch over (rows, n) runs rows * max(1, ceil(n /
+// tile)) tiles, one per block.
 int tie_scan_tile_elems(void) { return kTile; }
 
-// Bytes of scratch one weighted launch over (rows, n) takes.
-long long tie_scan_w_scratch_bytes(long long rows, long long n) { return WLayout(rows, n).bytes(); }
+// Bytes of scratch one launch over (rows, n) takes: of the weighted entries
+// if `weighted` is nonzero, else of the unweighted ones.
+long long tie_scan_scratch_bytes(long long rows, long long n, int weighted) {
+  return Layout(rows, n, weighted != 0).bytes();
+}
 
 // key: (rows, n) 4-byte keys, payload: (rows, n) f32, both row-major and
-// sorted by key within each row; out: (rows, 4) f32; all on CUDA device
-// `device`. This library links its own CUDA runtime, whose current device is
-// not the caller's, so each entry selects the tensors' device first. Launches
-// on `stream`; returns the first CUDA error (0 when every launch was
-// accepted).
+// sorted by key within each row; out: (rows, 4) f32; scratch:
+// tie_scan_scratch_bytes(rows, n, 0) bytes; all on CUDA device `device`.
+// This library links its own CUDA runtime, whose current device is not the
+// caller's, so each entry selects the tensors' device first. Launches on
+// `stream`; returns the first CUDA error (0 when the launch was accepted).
 int tie_scan_rows(int device, const void* key, const void* payload, long long rows, long long n, float off_p,
-                  float off_n, void* scratch, void* partial, void* out, void* stream) {
+                  float off_n, void* scratch, void* out, void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Stream in = {static_cast<const int32_t*>(key), static_cast<const float*>(payload), nullptr};
-  return launch(in, rows, n, off_p, off_n, scratch, partial, out, static_cast<cudaStream_t>(stream));
+  return launch(false, in, rows, n, off_p, off_n, scratch, out, static_cast<cudaStream_t>(stream));
 }
 
 // One stream of n elements: the batch of one row.
 int tie_scan(int device, const void* key, const void* payload, long long n, float off_p, float off_n,
-             void* scratch, void* partial, void* out, void* stream) {
-  return tie_scan_rows(device, key, payload, 1, n, off_p, off_n, scratch, partial, out, stream);
+             void* scratch, void* out, void* stream) {
+  return tie_scan_rows(device, key, payload, 1, n, off_p, off_n, scratch, out, stream);
 }
 
 // The weighted variant: weight is a (rows, n) f32 array co-sorted with the
 // keys, non-negative; out row = [area, ap_sum, w_pos, w_neg]; scratch holds
-// tie_scan_w_scratch_bytes(rows, n) bytes.
+// tie_scan_scratch_bytes(rows, n, 1) bytes.
 int tie_scan_rows_w(int device, const void* key, const void* payload, const void* weight, long long rows,
                     long long n, float off_p, float off_n, void* scratch, void* out, void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const Stream in = {static_cast<const int32_t*>(key), static_cast<const float*>(payload),
                      static_cast<const float*>(weight)};
-  return launch_w(in, rows, n, off_p, off_n, scratch, out, static_cast<cudaStream_t>(stream));
+  return launch(true, in, rows, n, off_p, off_n, scratch, out, static_cast<cudaStream_t>(stream));
 }
 
 int tie_scan_w(int device, const void* key, const void* payload, const void* weight, long long n, float off_p,

@@ -3,11 +3,12 @@
 Port of ``metrics_tpu/ops/tie_scan_pallas.py``. On CUDA tensors,
 :func:`tie_group_reduce` (one stream) and :func:`tie_group_reduce_rows` (a
 ``(C, N)`` batch of streams, the JAX package's ``jax.vmap`` over classes)
-launch the hand-written kernels in ``csrc/tie_scan.cu``, whose source note
-gives each design and its bound: unweighted, reduce-then-scan over
-4096-element tiles in four launches; weighted (``weights_s`` given), one
-launch that reads the stream once, with an ordered decoupled look-back
-across its tiles. On CPU tensors they run
+launch the hand-written kernel in ``csrc/tie_scan.cu``, whose source note
+gives its design and bound: one launch (plus one memset of its scratch)
+that reads the stream once in 4096-element tiles, with a decoupled
+look-back across them; unweighted, over int32 counts joined by a warp
+tree, weighted (``weights_s`` given), over float64 sums folded in tile
+order. On CPU tensors they run
 :func:`tie_group_reduce_reference` / :func:`tie_group_reduce_rows_reference`,
 the plain PyTorch version of the same formula. There is no other path: a
 CUDA launch that fails raises.
@@ -128,11 +129,11 @@ def _library() -> ctypes.CDLL:
     lib = _native.load("tie_scan")
     # pointers and the stream as c_void_p: a bare Python int would be cut to 32 bits
     ptr, size, off = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
-    # the streams and sizes, then off_p, off_n and the buffers (scratch,
-    # partial for the unweighted entries, out) and the stream
+    # the streams and sizes, then off_p, off_n, the buffers (scratch, out)
+    # and the stream
     signatures = {
-        "tie_scan": [ptr, ptr, size, off, off] + [ptr] * 4,
-        "tie_scan_rows": [ptr, ptr, size, size, off, off] + [ptr] * 4,
+        "tie_scan": [ptr, ptr, size, off, off] + [ptr] * 3,
+        "tie_scan_rows": [ptr, ptr, size, size, off, off] + [ptr] * 3,
         "tie_scan_w": [ptr, ptr, ptr, size, off, off] + [ptr] * 3,
         "tie_scan_rows_w": [ptr, ptr, ptr, size, size, off, off] + [ptr] * 3,
     }
@@ -140,10 +141,8 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, entry)
         fn.argtypes = [ctypes.c_int, *args]
         fn.restype = ctypes.c_int
-    lib.tie_scan_tile_elems.argtypes = []
-    lib.tie_scan_tile_elems.restype = ctypes.c_int
-    lib.tie_scan_w_scratch_bytes.argtypes = [size, size]
-    lib.tie_scan_w_scratch_bytes.restype = size
+    lib.tie_scan_scratch_bytes.argtypes = [size, size, ctypes.c_int]
+    lib.tie_scan_scratch_bytes.restype = size
     return lib
 
 
@@ -178,19 +177,13 @@ def _check_cuda_inputs(fn: str, streams: Sequence[torch.Tensor], ndim: int) -> T
     return shape
 
 
-def _buffers(rows: int, n: int, weighted: bool, device: torch.device) -> Tuple[torch.Tensor, ...]:
-    """Scratch (and, unweighted, partials) and output of one launch over
-    ``rows`` streams of ``n``; the caller holds them until the launch is
-    queued. The weighted launch fills its scratch itself (the size is the
-    library's, so this module does not copy its layout)."""
-    lib = _library()
-    out = torch.empty(rows, 4, dtype=torch.float32, device=device)
-    if weighted:
-        return torch.empty(lib.tie_scan_w_scratch_bytes(rows, n), dtype=torch.uint8, device=device), out
-    tiles = max(1, -(-n // lib.tie_scan_tile_elems()))
-    scratch = torch.empty(rows * (8 * tiles + 4), dtype=torch.int32, device=device)
-    partial = torch.empty(rows * 2 * tiles, dtype=torch.float64, device=device)
-    return scratch, partial, out
+def _buffers(rows: int, n: int, weighted: bool, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scratch and output of one launch over ``rows`` streams of ``n``; the
+    caller holds them until the launch is queued. The launch fills its
+    scratch itself, and the size is the library's, so this module does not
+    copy its layout."""
+    scratch = torch.empty(_library().tie_scan_scratch_bytes(rows, n, weighted), dtype=torch.uint8, device=device)
+    return scratch, torch.empty(rows, 4, dtype=torch.float32, device=device)
 
 
 def _launch(entry: str, streams: Sequence[torch.Tensor], sizes: Tuple[int, ...], offsets: Offsets) -> torch.Tensor:

@@ -131,7 +131,7 @@ def _rows(rows, n, seed, device):
 
 
 # (rows, n): one row, tile edges, the ImageNet-1k val shape, and more rows
-# than one launch group (65535) holds
+# than a grid's y dimension (65535) holds
 ROW_SHAPES = [(1, 1), (2, 4096), (5, 4097), (3, 33000), (1000, 50000), (70_000, 2), (65_535, 5)]
 
 
@@ -163,6 +163,73 @@ def test_batched_kernel_is_deterministic(cuda_device):
     first = tie_group_reduce_rows(key_s, pay_s)
     for _ in range(3):
         assert torch.equal(tie_group_reduce_rows(key_s, pay_s), first)
+
+
+def test_kernel_is_bit_stable_over_launches(cuda_device):
+    # 20M elements are about 4,900 tiles, many more than the blocks resident
+    # at once, so each tile's look-back window differs from launch to launch;
+    # alternate repeats start behind a device sleep or run on a second stream
+    # beside the first, which shifts the schedule further
+    preds, rel, mask = _stream(20_000_000, 2, cuda_device, masked=True)
+    key_s, pay_s = _co_sort(preds, rel, mask)
+    first = tie_group_reduce(key_s, pay_s)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    repeats = []
+    for i in range(20):
+        if i % 2:
+            with torch.cuda.stream(side):
+                repeats.append(tie_group_reduce(key_s, pay_s))
+        else:
+            torch.cuda._sleep(1_000_000)
+            repeats.append(tie_group_reduce(key_s, pay_s))
+    torch.cuda.synchronize()
+    for i, got in enumerate(repeats):
+        assert torch.equal(got, first), i
+
+
+def test_back_to_back_launches_reuse_their_scratch(cuda_device):
+    # queued with no synchronize between them, the launches take the
+    # scratch the previous one freed, which each must fill again
+    preds, rel, _ = _stream(3_000_000, 9, cuda_device)
+    key_s, pay_s = _co_sort(preds, rel)
+    rows = _rows(300, 5_000, 9, cuda_device)
+    want_one = tie_group_reduce(key_s, pay_s)
+    want_rows = tie_group_reduce_rows(*rows)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(10_000_000)
+    got = [(tie_group_reduce(key_s, pay_s), tie_group_reduce_rows(*rows)) for _ in range(10)]
+    torch.cuda.synchronize()
+    for one, batch in got:
+        assert torch.equal(one, want_one) and torch.equal(batch, want_rows)
+
+
+@pytest.mark.parametrize("rows, n", [(1000, 50_000), (131_073, 3)])
+def test_batched_rows_equal_one_stream_launches_at_path_shapes(cuda_device, rows, n):
+    # the multi-class path's shape, and more rows than a grid's y dimension holds
+    key_s, pay_s = _rows(rows, n, 5, cuda_device)
+    got = tie_group_reduce_rows(key_s, pay_s)
+    picked = list(range(rows)) if rows <= 1000 else list(range(7)) + [65_534, 65_535, rows - 1]
+    singles = torch.stack([tie_group_reduce(key_s[r], pay_s[r]) for r in picked])
+    assert torch.equal(got[picked], singles)
+
+
+def test_kernel_takes_empty_and_misaligned_streams(cuda_device):
+    # n = 0 gives zeros; a bucket slice at an odd offset starts off a
+    # 16-byte boundary, so the tile's copies realign it
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    assert torch.equal(tie_group_reduce(empty, torch.zeros(0, device=cuda_device)),
+                       torch.zeros(4, device=cuda_device))
+    assert torch.equal(tie_group_reduce_rows(empty.reshape(3, 0), torch.zeros(3, 0, device=cuda_device)),
+                       torch.zeros(3, 4, device=cuda_device))
+    preds, rel, mask = _stream(100_003, 13, cuda_device, masked=True)
+    key_s, pay_s = _co_sort(preds, rel, mask)
+    for lo, hi in [(1, 4098), (3, 100_003), (4_097, 60_001), (50_001, 50_002)]:
+        got = tie_group_reduce(key_s[lo:hi], pay_s[lo:hi], offsets=(5.0, 6.0))
+        want = tie_group_reduce_reference(key_s[lo:hi], pay_s[lo:hi], offsets=(5.0, 6.0))
+        torch.cuda.synchronize()
+        assert torch.equal(got[2:], want[2:]), (lo, hi)
+        torch.testing.assert_close(got[:2], want[:2], rtol=1e-6, atol=0.0)
 
 
 def test_batched_kernel_rejects_what_it_does_not_take(cuda_device):
