@@ -47,6 +47,17 @@ that is unset. Phases (any failure exits non-zero before the result line):
    one weighted launch per metric compute and no plain-version call on the
    card; the unweighted ``ShardedAUROC`` of the same stream equal to
    ``AUROC(pos_label=1)`` within 1e-6;
+3c. the binary curves on phase 3's 1M predictions: ``ROC(pos_label=1)`` and
+   ``PrecisionRecallCurve(pos_label=1)`` over the 10 batches, equal in
+   length and thresholds to a float64 numpy oracle and within 1e-6 in
+   their points, then ``AUC()`` of that ROC; ``AUROC(pos_label=1,
+   max_fpr=0.1)`` against the McClish value of the oracle; functional
+   ``auroc`` and ``average_precision`` with lognormal ``sample_weights``
+   against the weighted oracle, one ``tie_scan_w`` launch each and no
+   plain-version call; ``ShardedROC`` / ``ShardedPrecisionRecallCurve`` at
+   world 1 equal to ``ROC`` / ``PrecisionRecallCurve``; the curve of phase
+   2a's 20M stream (1,001 scores, the positive class above 2^24) with int32
+   counts equal to numpy's int64 ones;
 4. the multi-class main path at the ImageNet-1k validation shape (ILSVRC2012
    val: 50,000 images, 1,000 classes, 50 per class):
    ``MetricCollection([Accuracy(), AUROC(num_classes=1000),
@@ -61,6 +72,17 @@ that is unset. Phases (any failure exits non-zero before the result line):
    ``num_classes=1000``, ``capacity_per_device=50,000``,
    ``with_sample_weights=True`` and ``average="weighted"``; against float64
    oracles, exactly one weighted batched launch per metric compute;
+4c. per-class curves on phase 4's data: ``ROC(num_classes=1000)`` and
+   ``PrecisionRecallCurve(num_classes=1000)`` against the oracle for every
+   class; weighted per-class ``auroc`` / ``average_precision``, one
+   ``tie_scan_rows_w`` launch each; multi-label ``average="micro"`` AUROC
+   at the MS-COCO shape, one ``tie_scan`` launch; the host
+   synchronizations of one per-class curve compute, counted with
+   ``torch.cuda.set_sync_debug_mode``, the same at C = 10 and C = 1000;
+4d. the binned curves with 512 bins, binary at 1M and one-vs-rest at
+   50,000 x 1,000, unweighted and weighted: histograms against numpy's
+   counts (exact, or within 1e-5 relative weighted), values within 1e-6 of
+   a float64 evaluation of the same histograms;
 5. times on the card (CUDA events over launches queued behind a device
    sleep, so host overhead does not show, or the host clock ending in a
    synchronize for whole steps): the one-stream kernel, its plain version
@@ -69,10 +91,15 @@ that is unset. Phases (any failure exits non-zero before the result line):
    same rows as 1,000 one-stream launches and both co-sort forms at
    ``(1000, 50000)``; a forward batch and both compute steps; the weighted
    kernels and their plain versions at 45,840,617 and at ``(1000, 50000)``,
-   the offset form at 1M, and both sharded compute steps;
+   the offset form at 1M, and both sharded compute steps; the curve family
+   (host clock ending in a synchronize, one warm-up, median of 5): the ROC
+   and PR-curve compute at 1M and at (1000, 50000), the ``max_fpr`` AUROC
+   and the weighted functional AUROC at 1M, and one binned update at
+   1M x 512 and at 50,000 x 1,000 x 512;
 6. where the time goes: ``torch.profiler`` over a binary forward batch plus
    compute, over one multi-class compute, over one weighted sharded binary
-   compute, and over one call of each kernel entry (one stream at 1M,
+   compute, over one per-class ROC compute at (1000, 50000), and over one
+   call of each kernel entry (one stream at 1M,
    batched at ``(1000, 50000)``, and the two weighted ones at their paths'
    shapes), each of which must show one kernel and at most the memset of
    its scratch.
@@ -87,6 +114,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -126,6 +154,10 @@ F64_OPS_PER_S = 34e12
 SCORE_TOL = 1e-6
 # against the float64 numpy oracles: f32 scores and f32 terms
 ORACLE_TOL = 1e-5
+# curve points against the float64 oracle: rates of exact counts, each cast to f32 once
+CURVE_TOL = 1e-6
+# the binned curves' histogram resolution
+NUM_BINS = 512
 
 
 def _pin_one_card() -> str:
@@ -180,6 +212,87 @@ def _oracle_weighted(scores: np.ndarray, rel: np.ndarray, weights: np.ndarray):
     auroc = float(np.sum(0.5 * (tp + tp_prev) * (fp - fp_prev)) / (tp[-1] * fp[-1]))
     ap = float(np.sum((tp - tp_prev) * tp / np.maximum(tp + fp, 1e-300)) / tp[-1])
     return auroc, ap
+
+
+def _oracle_points(scores: np.ndarray, rel: np.ndarray, weights=None):
+    """One curve point per distinct score, descending: ``(fps, tps,
+    thresholds)`` after a stable descending argsort, int64 counts (float64
+    weight sums)."""
+    order = np.argsort(-scores, kind="stable")
+    s, r = scores[order], rel[order]
+    last = np.r_[s[1:] != s[:-1], True]
+    if weights is None:
+        tps = np.cumsum(r, dtype=np.int64)
+        fps = np.arange(1, s.size + 1, dtype=np.int64) - tps
+    else:
+        w = weights[order].astype(np.float64)
+        tps, fps = np.cumsum(np.where(r, w, 0.0)), np.cumsum(np.where(r, 0.0, w))
+    return fps[last], tps[last], s[last]
+
+
+def _oracle_roc(scores: np.ndarray, rel: np.ndarray):
+    """(fpr, tpr, thresholds) in float64 (thresholds in the scores' dtype),
+    opened by the (0, 0) point at the top score plus one."""
+    fps, tps, thr = _oracle_points(scores, rel)
+    fpr = np.r_[0.0, fps / fps[-1]]
+    tpr = np.r_[0.0, tps / tps[-1]]
+    return fpr, tpr, np.r_[thr[:1] + thr.dtype.type(1), thr]
+
+
+def _oracle_pr(scores: np.ndarray, rel: np.ndarray):
+    """(precision, recall, thresholds): the points up to full recall in
+    ascending threshold order, closed by (1, 0)."""
+    fps, tps, thr = _oracle_points(scores, rel)
+    stop = int(np.argmax(tps == tps[-1])) + 1
+    precision = tps[:stop] / (tps[:stop] + fps[:stop])
+    recall = tps[:stop] / tps[-1]
+    return np.r_[precision[::-1], 1.0], np.r_[recall[::-1], 0.0], thr[:stop][::-1]
+
+
+def _trapezoid(y: np.ndarray, x: np.ndarray, axis: int = -1) -> np.ndarray:
+    dx = np.diff(x, axis=axis)
+    return np.sum(dx * (np.take(y, range(1, y.shape[axis]), axis) + np.take(y, range(y.shape[axis] - 1), axis)) / 2,
+                  axis=axis)
+
+
+def _oracle_partial_auroc(fpr: np.ndarray, tpr: np.ndarray, max_fpr: float) -> float:
+    """McClish-standardized partial AUROC over [0, max_fpr] in float64."""
+    stop = int(np.searchsorted(fpr, max_fpr, side="right"))
+    weight = (max_fpr - fpr[stop - 1]) / (fpr[stop] - fpr[stop - 1])
+    interp = tpr[stop - 1] + weight * (tpr[stop] - tpr[stop - 1])
+    area = float(_trapezoid(np.r_[tpr[:stop], interp], np.r_[fpr[:stop], max_fpr]))
+    min_area = 0.5 * max_fpr**2
+    return 0.5 * (1 + (area - min_area) / (max_fpr - min_area))
+
+
+def _oracle_histograms(scores: np.ndarray, rel: np.ndarray, num_bins: int, weights=None):
+    """``(hist_pos, hist_neg)`` of ``(N,)`` or ``(N, C)`` f32 scores: numpy
+    counts (float64 weight sums) of ``int(score * num_bins)`` clipped to the
+    bins, one row per column."""
+    columns = 1 if scores.ndim == 1 else scores.shape[1]
+    bins = np.clip((scores * np.float32(num_bins)).astype(np.int64), 0, num_bins - 1)
+    if scores.ndim == 2:
+        bins = bins + num_bins * np.arange(columns)
+    w = np.ones(scores.shape) if weights is None else np.broadcast_to(
+        weights.astype(np.float64).reshape(-1, *([1] * (scores.ndim - 1))), scores.shape)
+    pos = np.bincount(bins[rel], weights=w[rel], minlength=columns * num_bins).reshape(columns, num_bins)
+    neg = np.bincount(bins[~rel], weights=w[~rel], minlength=columns * num_bins).reshape(columns, num_bins)
+    return (pos[0], neg[0]) if scores.ndim == 1 else (pos, neg)
+
+
+def _float64_binned(hist_pos: np.ndarray, hist_neg: np.ndarray):
+    """(AUROC, AP, precision, recall) of histograms along the last axis,
+    evaluated in float64, each class total divided out on its own."""
+    zero = np.zeros((*hist_pos.shape[:-1], 1))
+    tps = np.concatenate([zero, np.cumsum(hist_pos[..., ::-1].astype(np.float64), -1)], -1)
+    fps = np.concatenate([zero, np.cumsum(hist_neg[..., ::-1].astype(np.float64), -1)], -1)
+    tpr = tps / np.where(tps[..., -1:] > 0, tps[..., -1:], 1.0)
+    fpr = fps / np.where(fps[..., -1:] > 0, fps[..., -1:], 1.0)
+    auroc = np.where((tps[..., -1] == 0) | (fps[..., -1] == 0), np.nan, _trapezoid(tpr, fpr))
+    predicted = tps + fps
+    precision = np.where(predicted > 0, tps / np.where(predicted > 0, predicted, 1.0), 1.0)
+    ap = np.where(tps[..., -1] == 0, np.nan, np.sum(np.diff(tpr, axis=-1) * precision[..., 1:], -1))
+    return auroc, ap, precision, tpr
 
 
 def _queued_ms(torch, fn, launches: int = 50, trials: int = 7) -> float:
@@ -247,14 +360,24 @@ def main() -> int:
         return 1
 
     from metrics_tpu_torch import (
+        AUC,
         AUROC,
+        ROC,
         Accuracy,
         AveragePrecision,
+        BinnedAUROC,
+        BinnedAveragePrecision,
+        BinnedPrecisionRecallCurve,
         MetricCollection,
+        PrecisionRecallCurve,
         ShardedAUROC,
         ShardedAveragePrecision,
+        ShardedPrecisionRecallCurve,
+        ShardedROC,
     )
     from metrics_tpu_torch.functional import auroc as functional_auroc
+    from metrics_tpu_torch.functional import average_precision as functional_average_precision
+    from metrics_tpu_torch.functional.classification.precision_recall_curve import _binary_clf_curve
     from metrics_tpu_torch.ops import _native, tie_scan
     from metrics_tpu_torch.ops.auroc_kernel import (
         _co_sort,
@@ -342,10 +465,10 @@ def main() -> int:
     hold("masked 1M", garbage, rel, mask)
     hold("offsets 1M", scores, rel, offsets=(1234.0, 777.0))
     big_scores = np.round(rng.random(BIG_N), 3).astype(np.float32)
-    big, big_key_s, big_pay_s = hold("20M", big_scores, rng.random(BIG_N) < 0.9)
+    big_rel = rng.random(BIG_N) < 0.9
+    big, big_key_s, big_pay_s = hold("20M", big_scores, big_rel)
     if not big[2].item() > 2**24:
         raise AssertionError(f"20M stream: positive count {big[2].item()} does not exceed 2^24")
-    del big_scores
     # masked elements are inert, whatever their scores
     m_t = torch.from_numpy(mask).to(dev)
     r_t = torch.from_numpy(rel.astype(np.int64)).to(dev)
@@ -630,6 +753,96 @@ def main() -> int:
           f" {sharded_path_s:.3f} s including first calls; unweighted ShardedAUROC {pair_values['ShardedAUROC']:.7f}"
           f" = AUROC {pair_values['AUROC']:.7f}")
 
+    # ---- 3c. the binary curves at 1M ---------------------------------------
+    rng_c = np.random.default_rng(SEED + 2)
+
+    def check_curve(label, got, want, tol=CURVE_TOL):
+        """Equal lengths and thresholds, the two value arrays within tol."""
+        g = [x.cpu().numpy() for x in got]
+        if [x.shape for x in g] != [np.shape(x) for x in want]:
+            raise AssertionError(f"{label}: shapes {[x.shape for x in g]} != oracle {[np.shape(x) for x in want]}")
+        if not np.array_equal(g[2], want[2]):
+            raise AssertionError(f"{label}: thresholds differ from the oracle's")
+        err = max(float(np.max(np.abs(a.astype(np.float64) - b), initial=0.0)) for a, b in zip(g[:2], want[:2]))
+        if not err <= tol:
+            raise AssertionError(f"{label}: points off the oracle by {err}")
+        return err
+
+    curves = MetricCollection([ROC(pos_label=1), PrecisionRecallCurve(pos_label=1)])
+    sharded_curves = MetricCollection([ShardedROC(capacity_per_device=MAIN_N),
+                                       ShardedPrecisionRecallCurve(capacity_per_device=MAIN_N)])
+    partial = AUROC(pos_label=1, max_fpr=0.1)
+    torch.cuda.synchronize()
+    zero_counts()
+    plain_on_card.update(calls=0, watch=True)
+    t0 = time.perf_counter()
+    for b in range(BATCHES):
+        sl = slice(b * BATCH, (b + 1) * BATCH)
+        for coll in (curves, sharded_curves, partial):
+            coll.update(preds[sl], target[sl])
+    curve_values = curves.compute()
+    sharded_values = sharded_curves.compute()
+    partial_value = partial.compute().item()
+    area = AUC()
+    area.update(*curve_values["ROC"][:2])
+    area_value = area.compute().item()
+    w_1m_np = rng_c.lognormal(size=MAIN_N).astype(np.float32)
+    w_1m = torch.from_numpy(w_1m_np).to(dev)
+    before = counts()
+    w_auroc_1m = functional_auroc(preds, target, pos_label=1, sample_weights=w_1m).item()
+    w_auroc_launches = {k: v - before[k] for k, v in counts().items()}
+    before = counts()
+    w_ap_1m = functional_average_precision(preds, target, pos_label=1, sample_weights=w_1m).item()
+    w_ap_launches = {k: v - before[k] for k, v in counts().items()}
+    torch.cuda.synchronize()
+    curves_path_s = time.perf_counter() - t0
+    plain_on_card["watch"] = False
+    curve_launches = counts()
+    if not only(w_auroc_launches, tie_scan_w=1) or not only(w_ap_launches, tie_scan_w=1) or plain_on_card["calls"]:
+        raise AssertionError(
+            f"weighted functional AUROC/AP: launches {w_auroc_launches} / {w_ap_launches},"
+            f" {plain_on_card['calls']} plain-version calls on the card; want one tie_scan_w launch each"
+        )
+    curve_err = check_curve("ROC at 1M", curve_values["ROC"], _oracle_roc(preds_np, rel_np))
+    curve_err = max(curve_err, check_curve("PrecisionRecallCurve at 1M", curve_values["PrecisionRecallCurve"],
+                                           _oracle_pr(preds_np, rel_np)))
+    for name, mine in (("ROC", "ShardedROC"), ("PrecisionRecallCurve", "ShardedPrecisionRecallCurve")):
+        if not all(torch.equal(a, b) for a, b in zip(curve_values[name], sharded_values[mine])):
+            raise AssertionError(f"{mine} at world 1 differs from {name}")
+    if abs(area_value - want_auroc) > ORACLE_TOL:
+        raise AssertionError(f"AUC of the 1M ROC {area_value} vs oracle AUROC {want_auroc}")
+    oracle_fpr, oracle_tpr, _ = _oracle_roc(preds_np, rel_np)
+    want_partial = _oracle_partial_auroc(oracle_fpr, oracle_tpr, 0.1)
+    if abs(partial_value - want_partial) > ORACLE_TOL:
+        raise AssertionError(f"AUROC(max_fpr=0.1) {partial_value} vs McClish oracle {want_partial}")
+    w_oracle_1m = _oracle_weighted(preds_np, rel_np, w_1m_np)
+    if abs(w_auroc_1m - w_oracle_1m[0]) > ORACLE_TOL or abs(w_ap_1m - w_oracle_1m[1]) > ORACLE_TOL:
+        raise AssertionError(f"weighted 1M: AUROC {w_auroc_1m} / AP {w_ap_1m} vs float64 oracle {w_oracle_1m}")
+    # the 20M stream of phase 2a (1,001 scores, the positive class above 2^24): exact int32 counts
+    big_fps, big_tps, big_thr = _binary_clf_curve(torch.from_numpy(big_scores).to(dev),
+                                                  torch.from_numpy(big_rel).to(dev))
+    milli = np.rint(big_scores.astype(np.float64) * 1000).astype(np.int64)
+    pos_per = np.bincount(milli[big_rel], minlength=1001)[::-1]
+    all_per = np.bincount(milli, minlength=1001)[::-1]
+    present = all_per > 0
+    value_of = np.zeros(1001, np.float32)
+    value_of[milli] = big_scores
+    want_tps = np.cumsum(pos_per)[present]
+    want_fps = np.cumsum(all_per - pos_per)[present]
+    if big_tps.dtype != torch.int32 or not (np.array_equal(big_tps.cpu().numpy(), want_tps)
+                                             and np.array_equal(big_fps.cpu().numpy(), want_fps)
+                                             and np.array_equal(big_thr.cpu().numpy(), value_of[::-1][present])):
+        raise AssertionError("20M stream: the curve's counts or thresholds differ from numpy's int64 counts")
+    if not want_tps[-1] > 2**24:
+        raise AssertionError(f"20M stream: positive count {want_tps[-1]} does not exceed 2^24")
+    del big_scores, big_rel, milli
+    print(f"binary curves at {MAIN_N}: ROC {len(curve_values['ROC'][0])} points and PR"
+          f" {len(curve_values['PrecisionRecallCurve'][0])} points equal the float64 oracle (max |d| {curve_err:.3g}),"
+          f" sharded curves equal; AUC {area_value:.7f}; AUROC(max_fpr=0.1) {partial_value:.7f} (McClish oracle"
+          f" {want_partial:.7f}); weighted AUROC {w_auroc_1m:.7f} / AP {w_ap_1m:.7f} (oracle {w_oracle_1m[0]:.7f} /"
+          f" {w_oracle_1m[1]:.7f}), one tie_scan_w launch each; 20M curve: {len(want_tps)} points, int32 counts exact"
+          f" (positives {int(want_tps[-1])}); {curves_path_s:.3f} s including first calls")
+
     # ---- 4. the multi-class main path, ImageNet-1k val shape --------------
     mc_target_np = rng.permutation(np.repeat(np.arange(IMAGENET_C), IMAGENET_N // IMAGENET_C))
     logits = rng.standard_normal((IMAGENET_N, IMAGENET_C), dtype=np.float32)
@@ -739,6 +952,146 @@ def main() -> int:
     print(f"sharded one-vs-rest path {IMAGENET_N}x{IMAGENET_C}, weighted average: {ovr_values} (float64 oracle"
           f" {ovr_oracle.tolist()}), launches {ovr_launches}, {ovr_path_s:.3f} s including first calls")
 
+    # ---- 4c. per-class curves at the ImageNet-1k val shape -----------------
+    def host_lists(values):
+        """A per-class list of device tensors as host arrays, one copy."""
+        lengths = [v.numel() for v in values]
+        return np.split(torch.cat(values).cpu().numpy(), np.cumsum(lengths)[:-1])
+
+    mc_curves = MetricCollection([ROC(num_classes=IMAGENET_C), PrecisionRecallCurve(num_classes=IMAGENET_C)])
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    for b in range(MC_BATCHES):
+        sl = slice(b * mc_batch, (b + 1) * mc_batch)
+        mc_curves.update(mc_preds[sl], mc_target[sl])
+    mc_curve_values = mc_curves.compute()
+    torch.cuda.synchronize()
+    mc_curves_s = time.perf_counter() - t0
+    if any(counts().values()):
+        raise AssertionError(f"per-class curves launched a scan kernel: {counts()}")
+    roc_host = [host_lists(v) for v in mc_curve_values["ROC"]]
+    pr_host = [host_lists(v) for v in mc_curve_values["PrecisionRecallCurve"]]
+    mc_curve_err = 0.0
+    for c in range(IMAGENET_C):
+        rel_c = mc_target_np == c
+        for label, got, want in (("ROC", roc_host, _oracle_roc(columns[c], rel_c)),
+                                 ("PR", pr_host, _oracle_pr(columns[c], rel_c))):
+            g = [x[c] for x in got]
+            if [x.shape for x in g] != [x.shape for x in want] or not np.array_equal(g[2], want[2]):
+                raise AssertionError(f"per-class {label} of class {c}: points or thresholds differ from the oracle's")
+            mc_curve_err = max(mc_curve_err, *(float(np.max(np.abs(a - b))) for a, b in zip(g[:2], want[:2])))
+    if not mc_curve_err <= CURVE_TOL:
+        raise AssertionError(f"per-class curves: points off the oracle by {mc_curve_err}")
+    # weighted per-class AUROC / AP: one weighted batched launch each, against 4b's oracles
+    zero_counts()
+    plain_on_card.update(calls=0, watch=True)
+    mc_w_auroc = functional_auroc(mc_preds, mc_target, num_classes=IMAGENET_C, sample_weights=mc_w, average=None)
+    mc_w_auroc_launches = counts()
+    zero_counts()
+    mc_w_ap = functional_average_precision(mc_preds, mc_target, num_classes=IMAGENET_C, sample_weights=mc_w)
+    mc_w_ap_launches = counts()
+    plain_on_card["watch"] = False
+    if (not only(mc_w_auroc_launches, tie_scan_rows_w=1) or not only(mc_w_ap_launches, tie_scan_rows_w=1)
+            or plain_on_card["calls"]):
+        raise AssertionError(f"weighted per-class AUROC/AP: launches {mc_w_auroc_launches} / {mc_w_ap_launches},"
+                             f" {plain_on_card['calls']} plain-version calls; want one tie_scan_rows_w launch each")
+    mc_w_err = max(float(np.max(np.abs(torch.stack(mc_w_auroc).cpu().numpy() - per_class[:, 0]))),
+                   float(np.max(np.abs(torch.stack(mc_w_ap).cpu().numpy() - per_class[:, 1]))))
+    if not mc_w_err <= ORACLE_TOL:
+        raise AssertionError(f"weighted per-class AUROC/AP off the float64 oracles by {mc_w_err}")
+    # multi-label micro at the MS-COCO shape: one stream, one unweighted launch
+    zero_counts()
+    micro = functional_auroc(torch.from_numpy(ml_scores_np).to(dev), torch.from_numpy(ml_target_np.astype(np.int64))
+                             .to(dev), num_classes=COCO_C, average="micro").item()
+    micro_launches = counts()
+    want_micro = _oracle_auroc(ml_scores_np.ravel(), ml_target_np.ravel())
+    if not only(micro_launches, tie_scan=1) or abs(micro - want_micro) > ORACLE_TOL:
+        raise AssertionError(f"micro AUROC {micro} (oracle {want_micro}), launches {micro_launches}; want one tie_scan")
+
+    sync_sites = {}
+
+    def curve_syncs(classes):
+        """Device-to-host synchronizations of one per-class ROC and one PR
+        curve compute over the first ``classes`` columns, after a first
+        compute (first calls may synchronize once more)."""
+        p, t = mc_preds[:, :classes].contiguous(), mc_target % classes
+        found = {}
+        for name, fn in (("roc", ROC), ("pr", PrecisionRecallCurve)):
+            metric = fn(num_classes=classes)
+            metric.update(p, t)
+            metric.compute()
+            metric._computed = None
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    metric.compute()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            sites = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
+            found[name] = len(sites)
+            sync_sites[name] = sites
+        return found
+
+    curve_syncs(10)  # the process's first counted window may see one more, from PyTorch itself
+    syncs = {c: curve_syncs(c) for c in (10, IMAGENET_C)}
+    if syncs[10] != syncs[IMAGENET_C] or not all(syncs[10].values()):
+        raise AssertionError(f"host synchronizations per curve compute grow with the classes: {syncs}")
+    print(f"per-class curves {IMAGENET_N}x{IMAGENET_C}: every class's ROC and PR curve equals the float64 oracle"
+          f" (max |d| {mc_curve_err:.3g}), {mc_curves_s:.3f} s for 10 updates and compute including first calls;"
+          f" weighted per-class AUROC/AP within {mc_w_err:.3g} of the oracles, one tie_scan_rows_w launch each;"
+          f" micro AUROC at {COCO_N}x{COCO_C} {micro:.7f} (oracle {want_micro:.7f}), one tie_scan launch;"
+          f" synchronizations per compute at C=10 and C={IMAGENET_C}: {syncs}, at {sync_sites}")
+
+    # ---- 4d. the binned curves, 512 bins ------------------------------------
+    binned_err = {"hist": 0.0, "values": 0.0}
+
+    def check_binned(label, metrics, scores_np, rel_np_, weights_np):
+        auroc_m, ap_m, pr_m = metrics
+        want_pos, want_neg = _oracle_histograms(scores_np, rel_np_, NUM_BINS, weights_np)
+        got_pos, got_neg = auroc_m.hist_pos.cpu().numpy(), auroc_m.hist_neg.cpu().numpy()
+        for got, want in ((got_pos, want_pos), (got_neg, want_neg)):
+            if weights_np is None:
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"binned {label}: histogram counts differ from numpy's")
+            else:
+                rel_err = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-30)))
+                binned_err["hist"] = max(binned_err["hist"], rel_err)
+                if not rel_err <= 1e-5:
+                    raise AssertionError(f"binned {label}: weighted histograms off numpy's by {rel_err} relative")
+        want_auroc, want_ap, want_precision, want_recall = _float64_binned(got_pos, got_neg)
+        if scores_np.ndim == 2:
+            want_auroc, want_ap = want_auroc.mean(), want_ap.mean()
+        precision, recall, _ = pr_m.compute()
+        errs = [abs(auroc_m.compute().item() - want_auroc), abs(ap_m.compute().item() - want_ap),
+                float(np.max(np.abs(precision.cpu().numpy() - want_precision))),
+                float(np.max(np.abs(recall.cpu().numpy() - want_recall)))]
+        binned_err["values"] = max(binned_err["values"], *errs)
+        if not max(errs) <= CURVE_TOL:
+            raise AssertionError(f"binned {label}: values off the float64 evaluation by {errs}")
+
+    mc_onehot = mc_target_np[:, None] == np.arange(IMAGENET_C)
+    for label, scores_np, t_dev, rel_host, w_np, kwargs in (
+        (f"binary {MAIN_N}", preds_np, target, rel_np, None, {}),
+        (f"binary {MAIN_N} weighted", preds_np, target, rel_np, w_1m_np, {}),
+        (f"{IMAGENET_N}x{IMAGENET_C}", mc_scores_np, mc_target, mc_onehot, None, {"num_classes": IMAGENET_C}),
+        (f"{IMAGENET_N}x{IMAGENET_C} weighted", mc_scores_np, mc_target, mc_onehot, mc_w_np,
+         {"num_classes": IMAGENET_C}),
+    ):
+        metrics = [m(num_bins=NUM_BINS, **kwargs) for m in (BinnedAUROC, BinnedAveragePrecision,
+                                                            BinnedPrecisionRecallCurve)]
+        p_dev = preds if scores_np.ndim == 1 else mc_preds
+        extra = {} if w_np is None else {"sample_weights": torch.from_numpy(w_np).to(dev)}
+        for m in metrics:
+            m.update(p_dev, t_dev, **extra)
+        check_binned(label, metrics, scores_np, rel_host, w_np)
+    del mc_onehot
+    print(f"binned curves, {NUM_BINS} bins, binary at {MAIN_N} and {IMAGENET_N}x{IMAGENET_C}, unweighted and"
+          f" weighted: counts exact, weighted histograms within {binned_err['hist']:.3g} relative, values within"
+          f" {binned_err['values']:.3g} of the float64 evaluation")
+
     # ---- 5. times ---------------------------------------------------------
     all_preds = torch.cat(list(collection["AUROC"].preds))
     all_rel = (torch.cat(list(collection["AUROC"].target)) == 1).to(torch.float32)
@@ -811,6 +1164,22 @@ def main() -> int:
 
     sharded_compute_ms = recompute_ms(sharded)
     ovr_compute_ms = recompute_ms(ovr)
+    # the curve family: host clock ending in a synchronize, one warm-up, median of 5
+    roc_1m_ms = recompute_ms(MetricCollection([curves["ROC"]]))
+    pr_1m_ms = recompute_ms(MetricCollection([curves["PrecisionRecallCurve"]]))
+    roc_mc_ms = recompute_ms(MetricCollection([mc_curves["ROC"]]))
+    pr_mc_ms = recompute_ms(MetricCollection([mc_curves["PrecisionRecallCurve"]]))
+    partial_ms = recompute_ms(MetricCollection([partial]))
+
+    def warm_host_ms(fn):
+        fn()
+        return _host_ms(torch, fn)
+
+    w_auroc_1m_ms = warm_host_ms(lambda: functional_auroc(preds, target, pos_label=1, sample_weights=w_1m))
+    binned_1m = BinnedAUROC(num_bins=NUM_BINS)
+    binned_mc = BinnedAUROC(num_bins=NUM_BINS, num_classes=IMAGENET_C)
+    binned_update_1m_ms = warm_host_ms(lambda: binned_1m.update(preds, target))
+    binned_update_mc_ms = warm_host_ms(lambda: binned_mc.update(mc_preds, mc_target))
 
     collection.persistent(True)
     saved = _saved(collection)
@@ -882,6 +1251,21 @@ def main() -> int:
         "sharded_binary_updates_and_compute_first_run_s": sharded_path_s,
         "sharded_ovr_compute_step_ms": ovr_compute_ms,
         "sharded_ovr_updates_and_compute_first_run_s": ovr_path_s,
+        "roc_compute_1m_ms": roc_1m_ms,
+        "pr_curve_compute_1m_ms": pr_1m_ms,
+        "roc_compute_1000x50000_ms": roc_mc_ms,
+        "pr_curve_compute_1000x50000_ms": pr_mc_ms,
+        "max_fpr_auroc_compute_1m_ms": partial_ms,
+        "weighted_functional_auroc_1m_ms": w_auroc_1m_ms,
+        "binned_update_1m_x512_ms": binned_update_1m_ms,
+        "binned_update_50000x1000_x512_ms": binned_update_mc_ms,
+        "binary_curves_first_run_s": curves_path_s,
+        "per_class_curves_first_run_s": mc_curves_s,
+        "curve_path_launches": {"weighted_auroc_1m": w_auroc_launches, "weighted_ap_1m": w_ap_launches,
+                                "weighted_auroc_1000": mc_w_auroc_launches, "weighted_ap_1000": mc_w_ap_launches,
+                                "micro_auroc_coco": micro_launches, "phase_3c_in_all": curve_launches},
+        "per_class_curve_syncs": {str(k): v for k, v in syncs.items()},
+        "per_class_curve_sync_sites": sync_sites,
         "card": card,
     }
     print(json.dumps({"timings": timings}))
@@ -933,6 +1317,16 @@ def main() -> int:
         sh_window_ms = (time.perf_counter() - t) * 1e3
     sh_split = _device_ms_by_kernel(torch, prof_sh, sort_key)
     print(prof_sh.key_averages().table(sort_by=sort_key, row_limit=15, max_name_column_width=48))
+    # one per-class ROC compute at (1000, 50000)
+    mc_curves["ROC"]._computed = None
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof_roc:
+        t = time.perf_counter()
+        mc_curves["ROC"].compute()
+        torch.cuda.synchronize()
+        roc_window_ms = (time.perf_counter() - t) * 1e3
+    roc_split = _device_ms_by_kernel(torch, prof_roc, sort_key)
+    print(prof_roc.key_averages().table(sort_by=sort_key, row_limit=15, max_name_column_width=48))
     # one call of each kernel entry: one launch and at most the memset of its scratch
     entry_splits = {}
     for label, kernel, call in (
@@ -961,6 +1355,9 @@ def main() -> int:
         "sharded_binary_compute_window_ms": sh_window_ms,
         "sharded_binary_compute_device_ms": sum(sh_split.values()),
         "sharded_binary_compute_device_ms_by_kernel": dict(sorted(sh_split.items(), key=lambda kv: -kv[1])[:12]),
+        "per_class_roc_compute_window_ms": roc_window_ms,
+        "per_class_roc_compute_device_ms": sum(roc_split.values()),
+        "per_class_roc_compute_device_ms_by_kernel": dict(sorted(roc_split.items(), key=lambda kv: -kv[1])[:12]),
         "kernel_device_ms_by_kernel": entry_splits["tie_scan"],
         "rows_kernel_device_ms_by_kernel": entry_splits["tie_scan_rows"],
         "weighted_kernel_device_ms_by_kernel": entry_splits["weighted"],

@@ -1,8 +1,9 @@
-"""Exact AUROC / average precision with bounded, per-rank state.
+"""Exact AUROC / average precision and curves with bounded, per-rank state.
 
 Port of ``metrics_tpu/classification/sharded.py`` (``ShardedCurveMetric``,
 the one-vs-rest compute and averaging, ``ShardedAUROC``,
-``ShardedAveragePrecision``) for one process per device: each rank holds
+``ShardedAveragePrecision``, ``ShardedROC``,
+``ShardedPrecisionRecallCurve``) for one process per device: each rank holds
 ``capacity_per_device`` slots of the prediction, target and (with
 ``with_sample_weights=True``) weight streams on its own device
 (:class:`~metrics_tpu_torch.parallel.sharded_metric.ShardedStreamsMixin`),
@@ -19,7 +20,10 @@ does, with the sample sort and the class transpose over
   receives every rank's rows of its block of classes, then one batched
   launch for them;
 * one-vs-rest, world = 1: one segmented co-sort and one batched launch for
-  all classes over the local buffers.
+  all classes over the local buffers;
+* the curves (``ShardedROC``, ``ShardedPrecisionRecallCurve``): the valid
+  rows of every rank gathered onto each rank's device, and the curve built
+  there (the JAX package gathers them to its host).
 
 Overflow is loud: capacity is a constructor contract, checked on the host
 before a batch is written.
@@ -28,6 +32,8 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from metrics_tpu_torch.functional.classification.precision_recall_curve import _precision_recall_curve_compute
+from metrics_tpu_torch.functional.classification.roc import _roc_compute
 from metrics_tpu_torch.metric import Metric
 from metrics_tpu_torch.ops.auroc_kernel import (
     _auroc_ap_rows,
@@ -40,7 +46,7 @@ from metrics_tpu_torch.ops.auroc_kernel import (
 from metrics_tpu_torch.parallel.backend import get_sync_backend
 from metrics_tpu_torch.parallel.sample_sort import sample_sort_auroc_ap
 from metrics_tpu_torch.parallel.sharded_metric import ShardedStreamsMixin
-from metrics_tpu_torch.utilities.checks import _guard_sample_weights
+from metrics_tpu_torch.utilities.checks import _min_max, _sample_weights
 
 
 def _average_ovr(
@@ -142,14 +148,7 @@ class ShardedCurveMetric(ShardedStreamsMixin, Metric):
                 f" with_sample_weights={self.with_sample_weights},"
                 f" sample_weights={'set' if sample_weights is not None else 'None'})"
             )
-        if sample_weights is not None:
-            sample_weights = torch.as_tensor(sample_weights, dtype=torch.float32, device=self.device)
-            if tuple(sample_weights.shape) != (target.shape[0],):
-                raise ValueError(
-                    f"expected 1-d sample_weights of shape {(target.shape[0],)},"
-                    f" got {tuple(sample_weights.shape)}"
-                )
-            sample_weights = _guard_sample_weights(sample_weights)
+        sample_weights = _sample_weights(sample_weights, target.shape[0], self.device)
         if target.ndim != 1 or tuple(preds.shape) != (target.shape[0], *self.preds_suffix):
             shape_desc = "(n" + "".join(f", {d}" for d in self.preds_suffix) + ")"
             raise ValueError(
@@ -159,7 +158,7 @@ class ShardedCurveMetric(ShardedStreamsMixin, Metric):
         if self.preds_suffix and target.numel():
             # an out-of-range label would silently count as negative in every
             # one-vs-rest column; one device-to-host copy
-            lo, hi = torch.stack([target.min(), target.max()]).tolist()
+            lo, hi = _min_max(target)
             if lo < 0 or hi >= self.preds_suffix[0]:
                 raise ValueError(
                     f"target labels must lie in [0, {self.preds_suffix[0]})"
@@ -301,3 +300,62 @@ class ShardedAveragePrecision(_ShardedOVRMetric):
     _masked_kernel = staticmethod(masked_binary_average_precision)
     _masked_weighted_kernel = staticmethod(masked_weighted_binary_average_precision)
     _output = 1
+
+
+class _ShardedCurve(ShardedCurveMetric):
+    """Shared init and compute of the sharded curves: the valid rows of
+    every rank, gathered in rank order onto this rank's device, then the
+    curve of :mod:`metrics_tpu_torch.functional.classification` there
+    (``_curve``). The curve has a data-dependent number of points, so only
+    the accumulation memory is sharded."""
+
+    _curve = None
+
+    def __init__(
+        self, capacity_per_device: int, pos_label: int = 1, num_classes: Optional[int] = None, **kwargs: Any
+    ):
+        suffix = () if num_classes in (None, 1) else (num_classes,)
+        super().__init__(capacity_per_device, preds_suffix=suffix, **kwargs)
+        self.pos_label = pos_label
+        self.num_classes = num_classes
+
+    def compute(self) -> Tuple[Any, Any, Any]:
+        (preds, target), mask = self._gather_streams()
+        return self._curve(preds[mask], target[mask], num_classes=self.num_classes or 1, pos_label=self.pos_label)
+
+
+class ShardedROC(_ShardedCurve):
+    """Exact ROC curve with bounded, per-rank state.
+
+    Binary scores by default; ``num_classes=C`` accepts ``(N, C)`` score
+    rows with integer labels and returns per-class curve lists, like
+    :class:`~metrics_tpu_torch.ROC`.
+
+    Example:
+        >>> m = ShardedROC(capacity_per_device=8, device="cpu")
+        >>> m.update(torch.tensor([0.1, 0.4, 0.35, 0.8, 0.6, 0.2, 0.9, 0.7]),
+        ...          torch.tensor([0, 0, 1, 1, 1, 0, 1, 0]))
+        >>> fpr, tpr, thresholds = m.compute()
+        >>> tpr
+        tensor([0.0000, 0.2500, 0.5000, 0.5000, 0.7500, 0.7500, 1.0000, 1.0000, 1.0000])
+    """
+
+    _curve = staticmethod(_roc_compute)
+
+
+class ShardedPrecisionRecallCurve(_ShardedCurve):
+    """Exact precision-recall curve with bounded, per-rank state.
+
+    Binary by default; ``num_classes=C`` for per-class curve lists, like
+    :class:`~metrics_tpu_torch.PrecisionRecallCurve`.
+
+    Example:
+        >>> m = ShardedPrecisionRecallCurve(capacity_per_device=8, device="cpu")
+        >>> m.update(torch.tensor([0.1, 0.4, 0.35, 0.8, 0.6, 0.2, 0.9, 0.7]),
+        ...          torch.tensor([0, 0, 1, 1, 1, 0, 1, 0]))
+        >>> precision, recall, thresholds = m.compute()
+        >>> bool(torch.all(recall[:-1] >= recall[1:]))  # recall is non-increasing
+        True
+    """
+
+    _curve = staticmethod(_precision_recall_curve_compute)

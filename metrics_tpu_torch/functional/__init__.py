@@ -1,3 +1,6 @@
 from metrics_tpu_torch.functional.classification.accuracy import accuracy  # noqa: F401
+from metrics_tpu_torch.functional.classification.auc import auc  # noqa: F401
 from metrics_tpu_torch.functional.classification.auroc import auroc  # noqa: F401
 from metrics_tpu_torch.functional.classification.average_precision import average_precision  # noqa: F401
+from metrics_tpu_torch.functional.classification.precision_recall_curve import precision_recall_curve  # noqa: F401
+from metrics_tpu_torch.functional.classification.roc import roc  # noqa: F401

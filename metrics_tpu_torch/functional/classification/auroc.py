@@ -1,26 +1,37 @@
 """Area Under the ROC Curve (functional).
 
-Port of the exact paths of ``metrics_tpu/functional/classification/auroc.py``:
-binary inputs, multi-label inputs and one-vs-rest multi-class inputs go to
-the co-sort + tie-scan path (:mod:`metrics_tpu_torch.ops.auroc_kernel`),
-all classes or labels in one batched launch. What the JAX package computes
-on its curve path (``max_fpr``, ``sample_weights``, multi-label ``micro``,
-multi-class without ``num_classes`` equal to the score columns) raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
+Port of ``metrics_tpu/functional/classification/auroc.py``, routed as the
+JAX package routes it, with every sum on a hand-written tie-scan kernel
+(:mod:`metrics_tpu_torch.ops.auroc_kernel`):
+
+* binary, multi-label and one-vs-rest multi-class inputs: one co-sort and
+  one scan launch, all classes or labels in one batched launch;
+* ``sample_weights``: the weighted scan, one launch for the binary stream or
+  for all classes or labels (the weights shared by every row); equal to the
+  trapezoid over the weighted curve the JAX package integrates;
+* multi-label ``average="micro"``: one launch over the flattened stream;
+* ``max_fpr``: the curve (:func:`~metrics_tpu_torch.functional.classification.roc.roc`),
+  then the JAX package's interpolation and McClish correction.
+
+Degenerate targets and class totals raise the JAX package's errors.
 """
 from typing import Callable, List, Optional, Sequence, Union
 
 import torch
 
-from metrics_tpu_torch.ops.auroc_kernel import binary_auroc, multiclass_auroc_ovr, multilabel_auroc
-from metrics_tpu_torch.ops.histogram import label_bincount
-from metrics_tpu_torch.utilities.checks import _input_format_classification
-from metrics_tpu_torch.utilities.enums import AverageMethod, DataType
-
-_CURVE_TODO = (
-    "AUROC with {} runs on the curve path (roc, auc, precision_recall_curve), which is not"
-    " ported yet: see ROADMAP.md, Queue 1 item 6 (the curve family)"
+from metrics_tpu_torch.functional.classification.auc import _auc_compute
+from metrics_tpu_torch.functional.classification.roc import _roc_compute, _roc_update, roc
+from metrics_tpu_torch.ops.auroc_kernel import (
+    _ovr_relevance,
+    _weighted_stats,
+    binary_auroc,
+    multiclass_auroc_ovr,
+    multilabel_auroc,
 )
+from metrics_tpu_torch.ops.histogram import label_bincount
+from metrics_tpu_torch.ops.tie_scan import auroc_ap_from_stats
+from metrics_tpu_torch.utilities.checks import _input_format_classification, _sample_weights
+from metrics_tpu_torch.utilities.enums import AverageMethod, DataType
 
 
 def _auroc_update(preds: torch.Tensor, target: torch.Tensor):
@@ -64,6 +75,41 @@ def _reduce_auroc(
     )
 
 
+def _check_totals(stats: torch.Tensor) -> None:
+    """Raise as the JAX package's curve path does when a stream (the first
+    such row of ``(C, 4)`` stats) has no negative or no positive weight."""
+    for pos, neg in stats.reshape(-1, 4)[:, 2:].tolist():
+        if neg <= 0:
+            raise ValueError("No negative samples in targets, false positive value should be meaningless")
+        if pos <= 0:
+            raise ValueError("No positive samples in targets, true positive value should be meaningless")
+
+
+def _weighted_auroc(preds: torch.Tensor, rel: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Weighted AUROC of one stream or of ``(C, N)`` rows: one weighted
+    launch, equal to the trapezoid over the weighted curve."""
+    stats = _weighted_stats(preds, rel.to(torch.float32), weights)
+    _check_totals(stats)
+    return auroc_ap_from_stats(stats)[0]
+
+
+def _partial_auroc(fpr: torch.Tensor, tpr: torch.Tensor, max_fpr: float) -> torch.Tensor:
+    """McClish-standardized area of the curve up to ``max_fpr``, in float32
+    as the JAX package computes it."""
+    max_fpr_t = torch.tensor(max_fpr, dtype=fpr.dtype, device=fpr.device)
+    # add a single point at max_fpr and interpolate its tpr value
+    stop = int(torch.searchsorted(fpr, max_fpr_t, right=True))
+    weight = (max_fpr_t - fpr[stop - 1]) / (fpr[stop] - fpr[stop - 1])
+    interp_tpr = tpr[stop - 1] + weight * (tpr[stop] - tpr[stop - 1])
+    tpr = torch.cat([tpr[:stop], interp_tpr.reshape(1)])
+    fpr = torch.cat([fpr[:stop], max_fpr_t.reshape(1)])
+    partial_auc = _auc_compute(fpr, tpr)
+    # McClish correction: 0.5 if non-discriminant, 1 if maximal
+    min_area = 0.5 * max_fpr**2
+    max_area = max_fpr
+    return 0.5 * (1 + (partial_auc - min_area) / (max_area - min_area))
+
+
 def _auroc_compute(
     preds: torch.Tensor,
     target: torch.Tensor,
@@ -74,7 +120,19 @@ def _auroc_compute(
     max_fpr: Optional[float] = None,
     sample_weights: Optional[Sequence] = None,
 ):
-    """AUROC through the exact kernel path; the curve-path cases raise."""
+    """AUROC as the JAX package routes it, each sum on a tie-scan kernel."""
+    if mode == DataType.BINARY:
+        num_classes = 1
+        if max_fpr is None and sample_weights is None:
+            pos = 1 if pos_label is None else pos_label
+            # keep the curve path's loud failure on degenerate targets
+            n_pos = int(torch.sum(target == pos))
+            if n_pos == target.numel():
+                raise ValueError("No negative samples in targets, false positive value should be meaningless")
+            if n_pos == 0:
+                raise ValueError("No positive samples in targets, true positive value should be meaningless")
+            return binary_auroc(preds.reshape(-1), target.reshape(-1), pos_label=pos)
+
     if max_fpr is not None:
         if not isinstance(max_fpr, float) or not 0 < max_fpr <= 1:
             raise ValueError(f"`max_fpr` should be a float in range (0, 1], got: {max_fpr}")
@@ -84,39 +142,58 @@ def _auroc_compute(
                 f" multilabel/multiclass setting, 'max_fpr' must be"
                 f" set to `None`, received `{max_fpr}`."
             )
-        raise NotImplementedError(_CURVE_TODO.format("`max_fpr`"))
-    if sample_weights is not None:
-        raise NotImplementedError(_CURVE_TODO.format("`sample_weights`"))
-
-    if mode == DataType.BINARY:
-        pos = 1 if pos_label is None else pos_label
-        # keep the curve path's loud failure on degenerate targets
-        n_pos = int(torch.sum(target == pos))
-        if n_pos == target.numel():
-            raise ValueError("No negative samples in targets, false positive value should be meaningless")
-        if n_pos == 0:
-            raise ValueError("No positive samples in targets, true positive value should be meaningless")
-        return binary_auroc(preds.reshape(-1), target.reshape(-1), pos_label=pos)
 
     if mode == DataType.MULTILABEL:
         if average == AverageMethod.MICRO:
-            raise NotImplementedError(_CURVE_TODO.format("multi-label `average='micro'`"))
-        # keep the curve path's loud failure on degenerate label columns
-        pos_per_col = torch.sum(target, dim=0)
-        if bool(torch.any(pos_per_col == target.shape[0])):
-            raise ValueError("No negative samples in targets, false positive value should be meaningless")
-        if bool(torch.any(pos_per_col == 0)):
-            raise ValueError("No positive samples in targets, true positive value should be meaningless")
-        return _reduce_auroc(multilabel_auroc(preds, target), average, lambda: pos_per_col)
+            # one stream of every (sample, label) pair, as the JAX package's binary roc of the flattened input
+            return _auroc_compute(preds.reshape(-1), target.reshape(-1), DataType.BINARY, 1, pos_label,
+                                  sample_weights=sample_weights)
+        if sample_weights is None and preds.ndim == 2 and target.ndim == 2:
+            # keep the curve path's loud failure on degenerate label columns
+            pos_per_col = torch.sum(target, dim=0)
+            if bool(torch.any(pos_per_col == target.shape[0])):
+                raise ValueError("No negative samples in targets, false positive value should be meaningless")
+            if bool(torch.any(pos_per_col == 0)):
+                raise ValueError("No positive samples in targets, true positive value should be meaningless")
+            return _reduce_auroc(multilabel_auroc(preds, target), average, lambda: pos_per_col)
+        # the JAX package's per-label loop runs over range(num_classes)
+        labels = len(range(num_classes))
+        weights = _sample_weights(sample_weights, preds.shape[0], preds.device)
+        scores = _weighted_auroc(preds[:, :labels].T, target[:, :labels].T == 1, weights)
+        return _reduce_auroc(scores, average, lambda: torch.sum(target, dim=0))
 
-    if preds.ndim == 2 and target.ndim == 1 and num_classes == preds.shape[1]:
-        # multi-class and multi-dim multi-class (flattened by _auroc_update)
+    if (
+        mode in (DataType.MULTICLASS, DataType.MULTIDIM_MULTICLASS)
+        and sample_weights is None
+        and preds.ndim == 2
+        and target.ndim == 1
+        and num_classes == preds.shape[1]
+    ):
         return _reduce_auroc(
             multiclass_auroc_ovr(preds, target), average, lambda: label_bincount(target, length=num_classes)
         )
-    raise NotImplementedError(
-        _CURVE_TODO.format(f"multi-class scores of {tuple(preds.shape)} and `num_classes={num_classes}`")
-    )
+
+    if mode == DataType.BINARY:
+        if max_fpr is None or max_fpr == 1:
+            preds, target, _, pos = _roc_update(preds, target, 1, pos_label)
+            if sample_weights is not None:
+                weights = _sample_weights(sample_weights, preds.numel(), preds.device)
+                return _weighted_auroc(preds, target == pos, weights)
+            return _auc_compute(*roc(preds, target, 1, pos)[:2])
+        fpr, tpr, _ = roc(preds, target, 1, pos_label, sample_weights)
+        return _partial_auroc(fpr, tpr, max_fpr)
+
+    # multi-class: the curve path's canonicalization raises the JAX package's errors
+    preds, target, num_classes, _ = _roc_update(preds, target, num_classes, pos_label)
+    if sample_weights is not None and preds.ndim == 2 and target.ndim == 1:
+        weights = _sample_weights(sample_weights, preds.shape[0], preds.device)
+        scores = _weighted_auroc(preds.T, _ovr_relevance(target, num_classes), weights)
+    else:
+        fpr, tpr, _ = _roc_compute(preds, target, num_classes, pos_label, sample_weights)
+        if num_classes == 1:
+            return _auc_compute(fpr, tpr)
+        scores = torch.stack([_auc_compute(x, y) for x, y in zip(fpr, tpr)])
+    return _reduce_auroc(scores, average, lambda: label_bincount(target, length=num_classes))
 
 
 def auroc(
@@ -137,10 +214,11 @@ def auroc(
         num_classes: number of classes (binary problems may omit it; multi-class
             inputs need it equal to the score columns)
         pos_label: the positive class; defaults to 1 for binary input
-        average: ``'macro'`` | ``'weighted'`` | ``None`` (per-class scores);
-            multi-label ``'micro'`` is not ported yet
-        max_fpr: partial AUC (not ported yet)
-        sample_weights: sample weights (not ported yet)
+        average: ``'micro'`` (multilabel only) | ``'macro'`` | ``'weighted'``
+            | ``None`` (per-class scores)
+        max_fpr: if set, standardized partial AUC over ``[0, max_fpr]``
+            (binary only)
+        sample_weights: non-negative, finite weight of each sample
 
     Example:
         >>> preds = torch.tensor([0.13, 0.26, 0.08, 0.19, 0.34])

@@ -1,23 +1,26 @@
 """Average precision (functional).
 
-Port of ``metrics_tpu/functional/classification/average_precision.py``'s
-exact paths: binary inputs and multi-class label-encoded targets go to the
-co-sort + tie-scan path (:mod:`metrics_tpu_torch.ops.auroc_kernel`), all C
-classes in one batched launch. What the JAX package computes on its curve
-path (multi-label targets, ``sample_weights``) raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it.
+Port of ``metrics_tpu/functional/classification/average_precision.py``:
+binary inputs and multi-class label-encoded targets go to the co-sort +
+tie-scan path (:mod:`metrics_tpu_torch.ops.auroc_kernel`), all C classes in
+one batched launch; with ``sample_weights``, the weighted scan (one launch,
+the weights shared by every class), which equals the step integral of the
+weighted precision-recall curve. Multi-label targets raise the JAX
+package's error.
 """
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from metrics_tpu_torch.functional.classification.precision_recall_curve import _precision_recall_curve_update
-from metrics_tpu_torch.ops.auroc_kernel import binary_average_precision, multiclass_average_precision
-
-_CURVE_TODO = (
-    "average precision of {} runs on the curve path (precision_recall_curve), which is not"
-    " ported yet: see ROADMAP.md, Queue 1 item 6 (the curve family)"
+from metrics_tpu_torch.ops.auroc_kernel import (
+    _auroc_ap,
+    _auroc_ap_rows,
+    _ovr_relevance,
+    binary_average_precision,
+    multiclass_average_precision,
 )
+from metrics_tpu_torch.utilities.checks import _sample_weights
 
 
 def _average_precision_update(
@@ -36,15 +39,18 @@ def _average_precision_compute(
     pos_label: Optional[int],
     sample_weights: Optional[Sequence] = None,
 ) -> Union[List[torch.Tensor], torch.Tensor]:
-    """Binary AP, or the per-class list of multi-class AP; the curve-path
-    cases raise."""
-    if sample_weights is not None:
-        raise NotImplementedError(_CURVE_TODO.format("weighted samples (`sample_weights`)"))
+    """Binary AP, or the per-class list of multi-class AP."""
+    weights = _sample_weights(sample_weights, preds.shape[0], preds.device)
     if num_classes == 1:
-        return binary_average_precision(preds.reshape(-1), target.reshape(-1), pos_label=pos_label)
+        if weights is None:
+            return binary_average_precision(preds.reshape(-1), target.reshape(-1), pos_label=pos_label)
+        return _auroc_ap(preds.reshape(-1), (target.reshape(-1) == pos_label).to(torch.float32), weights=weights)[1]
     if target.ndim != 1:
-        raise NotImplementedError(_CURVE_TODO.format("multi-label targets"))
-    return list(multiclass_average_precision(preds, target))
+        # the JAX package's per-class curves refuse (N,) scores against (N, C) targets
+        raise ValueError("preds and target must have same number of dimensions, or one additional dimension for preds")
+    if weights is None:
+        return list(multiclass_average_precision(preds, target))
+    return list(_auroc_ap_rows(preds.T, _ovr_relevance(target, num_classes), weights=weights)[1])
 
 
 def average_precision(
@@ -62,7 +68,7 @@ def average_precision(
         num_classes: number of classes (binary problems may omit it)
         pos_label: the positive class; defaults to 1 for binary input and
             must stay ``None`` for multiclass
-        sample_weights: sample weights (not ported yet)
+        sample_weights: non-negative, finite weight of each sample
 
     Returns:
         average precision score; multiclass returns a per-class list

@@ -189,6 +189,18 @@ def _auroc_ap_rows(
     return _scores(*_co_sort_rows(_sortable_key(preds), payload, weights))
 
 
+def _weighted_stats(preds: torch.Tensor, rel: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """``[area, ap_sum, pos, neg]`` of one ``(N,)`` stream, or ``(C, 4)`` of
+    ``(C, N)`` rows, weighted by the ``(N,)`` ``weights``: one co-sort and
+    one weighted tie-scan launch (its plain version on the CPU). Normalize
+    with :func:`~metrics_tpu_torch.ops.tie_scan.auroc_ap_from_stats`."""
+    if preds.ndim == 1:
+        key_s, payload_s, weights_s = _co_sort(preds, rel, None, weights)
+        return tie_group_reduce(key_s, payload_s, weights_s=weights_s)
+    key_s, payload_s, weights_s = _co_sort_rows(_sortable_key(preds), _payload(rel, None), weights)
+    return tie_group_reduce_rows(key_s, payload_s, weights_s=weights_s)
+
+
 def _ovr_relevance(target: torch.Tensor, num_classes: int) -> torch.Tensor:
     """``(C, N)`` one-vs-rest relevance rows of ``(N,)`` labels, built in the
     class-major layout the batched scan takes (no ``(N, C)`` one-hot)."""

@@ -1,10 +1,21 @@
-"""Label-space counts.
+"""Label-space counts and score histograms for the streaming curve metrics.
 
-Port of ``label_bincount`` from ``metrics_tpu/ops/histogram.py``. The JAX
-package routes small lengths through a one-hot contraction because XLA:TPU
-lowers scatter-add serially; on a GPU ``torch.bincount`` is the direct form.
-No Pallas kernel is involved: the package's Pallas histogram was retired.
+Port of ``metrics_tpu/ops/histogram.py``. The JAX package counts through a
+one-hot contraction because XLA:TPU lowers scatter-add serially; on a GPU
+``torch.bincount`` is the direct form, one pass over the scores. No Pallas
+kernel is involved: the JAX package's Pallas histogram was retired.
+
+Score histograms: unweighted counts are an integer ``bincount`` (exact and
+deterministic), weighted sums a float64 ``bincount`` cast to float32 (on
+CUDA its atomic adds sum in no fixed order, so the low bits of a weighted
+histogram may differ from run to run). The curves read off the histograms
+are evaluated in float64 and returned in float32. Unlike the JAX package,
+which divides by ``max(total, 1)``, they divide by each class total itself
+and test each total on its own for degeneracy, so weight totals below 1
+give the same curves as the same weights scaled up.
 """
+from typing import Optional, Tuple
+
 import torch
 
 
@@ -21,3 +32,119 @@ def label_bincount(indices: torch.Tensor, length: int) -> torch.Tensor:
     # out-of-range labels go to one spare bucket, cut off below
     idx = torch.where(idx < length, idx, length)
     return torch.bincount(idx, minlength=length + 1)[:length]
+
+
+def score_histograms(
+    preds: torch.Tensor, rel: torch.Tensor, num_bins: int, weights: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Score histograms over [0, 1] of ``(N,)`` scores, or one-vs-rest ones
+    of the C columns of ``(N, C)`` scores: float32 ``(hist_pos, hist_neg)``
+    of shape ``(num_bins,)`` or ``(C, num_bins)``.
+
+    ``rel`` (bool, the scores' shape) marks the positives; ``weights``
+    (optional ``(N,)``, non-negative) weights every column of a sample
+    alike. Scores are quantized as the JAX package quantizes them,
+    ``int(score * num_bins)`` clipped into ``[0, num_bins)``; one
+    ``bincount`` fills both histograms of every column.
+
+    Example:
+        >>> score_histograms(torch.tensor([0.1, 0.4, 0.35, 0.8]), torch.tensor([False, False, True, True]), 4)
+        (tensor([0., 1., 0., 1.]), tensor([1., 1., 0., 0.]))
+    """
+    bins = torch.clamp((preds * num_bins).to(torch.int64), 0, num_bins - 1)
+    columns = 1 if preds.ndim == 1 else preds.shape[1]
+    if preds.ndim == 2:
+        bins = bins + num_bins * torch.arange(columns, device=preds.device)
+    # positives fill the first columns * num_bins buckets, negatives the next
+    index = (bins + (columns * num_bins) * (~rel)).reshape(-1)
+    if weights is not None:
+        weights = weights.to(torch.float64)
+        weights = (weights if preds.ndim == 1 else weights[:, None].expand(preds.shape)).reshape(-1)
+    hist = torch.bincount(index, weights=weights, minlength=2 * columns * num_bins).to(torch.float32)
+    hist = hist.reshape(2, columns, num_bins)
+    if preds.ndim == 1:
+        return hist[0, 0], hist[1, 0]
+    return hist[0], hist[1]
+
+
+def _cum_counts_and_thresholds(hist_pos: torch.Tensor, hist_neg: torch.Tensor):
+    """Descending-threshold cumulative ``(tps, fps, thresholds)`` along the
+    last dim, origin first: float64 sums and float32 thresholds.
+
+    Point k counts scores landing in the top k bins, i.e. classifying
+    positive at ``preds >= thresholds[k]`` where the threshold is the LOWER
+    edge of the lowest included bin; the origin's threshold is +inf
+    (sklearn's convention) because scores of exactly 1.0 land in the top bin.
+    """
+    num_bins = hist_pos.shape[-1]
+
+    def cumulative(hist):
+        sums = torch.cumsum(hist.to(torch.float64).flip(-1), -1)
+        return torch.cat([sums.new_zeros(*sums.shape[:-1], 1), sums], -1)
+
+    edges = torch.arange(num_bins, dtype=torch.float32, device=hist_pos.device).flip(0) / num_bins
+    thresholds = torch.cat([torch.full((1,), float("inf"), device=hist_pos.device), edges])
+    return cumulative(hist_pos), cumulative(hist_neg), thresholds
+
+
+def _rate(counts: torch.Tensor) -> torch.Tensor:
+    """``counts`` over their last entry (the class total); all zero where
+    the total is 0."""
+    total = counts[..., -1:]
+    return counts / torch.where(total > 0, total, 1.0)
+
+
+def histogram_roc(hist_pos: torch.Tensor, hist_neg: torch.Tensor):
+    """(fpr, tpr, thresholds) from score histograms, descending thresholds.
+
+    The (0, 0) origin (nothing classified positive) is included, so the
+    curve is directly integrable; see :func:`_cum_counts_and_thresholds`
+    for the threshold convention.
+    """
+    tps, fps, thresholds = _cum_counts_and_thresholds(hist_pos, hist_neg)
+    return _rate(fps).float(), _rate(tps).float(), thresholds
+
+
+def histogram_auroc(hist_pos: torch.Tensor, hist_neg: torch.Tensor) -> torch.Tensor:
+    """AUROC from score histograms via the trapezoidal rule, NaN where a
+    class is absent.
+
+    Within-bin ties are treated as one ROC point (chord), matching the exact
+    tie-corrected AUROC of scores quantized to the bin edges.
+
+    Example:
+        >>> histogram_auroc(*score_histograms(torch.tensor([0.1, 0.4, 0.35, 0.8]),
+        ...                                   torch.tensor([False, False, True, True]), 4))
+        tensor(0.8750)
+    """
+    tps, fps, _ = _cum_counts_and_thresholds(hist_pos, hist_neg)
+    auc = torch.trapezoid(_rate(tps), _rate(fps), dim=-1)
+    return torch.where((tps[..., -1] == 0) | (fps[..., -1] == 0), float("nan"), auc).float()
+
+
+def _pr_points(hist_pos: torch.Tensor, hist_neg: torch.Tensor):
+    """float64 (precision, recall) and float32 thresholds of the histogram
+    PR curve; precision is 1 at the empty-positive point by convention."""
+    tps, fps, thresholds = _cum_counts_and_thresholds(hist_pos, hist_neg)
+    predicted = tps + fps
+    precision = torch.where(predicted > 0, tps / torch.where(predicted > 0, predicted, 1.0), 1.0)
+    return precision, _rate(tps), thresholds
+
+
+def histogram_pr_curve(hist_pos: torch.Tensor, hist_neg: torch.Tensor):
+    """(precision, recall, thresholds) from score histograms.
+
+    Same threshold convention as :func:`histogram_roc`: point k classifies
+    ``preds >= thresholds[k]`` positive, with ``thresholds[0] = +inf`` (the
+    empty-positive point, precision defined as 1 there by convention).
+    """
+    precision, recall, thresholds = _pr_points(hist_pos, hist_neg)
+    return precision.float(), recall.float(), thresholds
+
+
+def histogram_average_precision(hist_pos: torch.Tensor, hist_neg: torch.Tensor) -> torch.Tensor:
+    """Average precision ``sum((recall_k - recall_{k-1}) * precision_k)``,
+    NaN where there is no positive."""
+    precision, recall, _ = _pr_points(hist_pos, hist_neg)
+    ap = torch.sum(torch.diff(recall, dim=-1) * precision[..., 1:], -1)
+    return torch.where(recall[..., -1] == 0, float("nan"), ap).float()

@@ -21,7 +21,8 @@ sums of non-negative terms never decrease). Each closed group adds AUROC's
 trapezoid chord and AP's ``ΔR·P`` term; the last group is closed after the
 stream. Unweighted, the sums are int32 counts (an f32 cumulant sticks at
 2^24) and the terms f32; weighted, they are float64 weight sums and the
-terms float64, with a ``1e-30`` denominator floor instead of 1.
+terms float64, with a ``1e-30`` floor under the precision's denominator
+instead of 1. :func:`auroc_ap_from_stats` normalizes with no floor.
 
 The payload is ``rel + 2*valid`` (f32): only 3 (relevant, valid) and 2
 (irrelevant, valid) move the sums; 0 and 1 (masked) are inert, whatever
@@ -290,10 +291,12 @@ def auroc_ap_from_stats(stats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
     """(AUROC, AP) from :func:`tie_group_reduce` (``(4,)``) or
     :func:`tie_group_reduce_rows` (``(C, 4)``) output, NaN on degenerate.
 
-    The degeneracy test checks each class total on its own, not their
-    product, which underflows at tiny weighted totals."""
-    area, ap_sum, n_pos, n_neg = stats.unbind(-1)
-    nan = torch.full((), float("nan"), dtype=stats.dtype, device=stats.device)
-    auroc = torch.where((n_pos == 0) | (n_neg == 0), nan, area / torch.clamp_min(n_pos * n_neg, 1e-30))
-    ap = torch.where(n_pos == 0, nan, ap_sum / torch.clamp_min(n_pos, 1e-30))
-    return auroc, ap
+    The degeneracy test checks each class total on its own, and the
+    normalization divides by each total on its own, in float64: the product
+    of tiny weighted totals underflows, and a floor under it would change
+    the value. Results are float32."""
+    area, ap_sum, n_pos, n_neg = stats.double().unbind(-1)
+    nan = torch.full((), float("nan"), dtype=torch.float64, device=stats.device)
+    auroc = torch.where((n_pos == 0) | (n_neg == 0), nan, area / n_pos / n_neg)
+    ap = torch.where(n_pos == 0, nan, ap_sum / n_pos)
+    return auroc.float(), ap.float()

@@ -14,7 +14,7 @@ outputs, and the same errors raised in the same order.
 The JAX package's jit fast paths and canonicalization memo exist for XLA
 tracing and have no eager counterpart here.
 """
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -403,6 +403,37 @@ def _input_format_classification(
     return preds_c, target_c, case
 
 
+def _min_max(x: torch.Tensor) -> Tuple[float, float]:
+    """``(min, max)`` of a non-empty tensor in one device-to-host copy."""
+    lo, hi = torch.stack([x.min(), x.max()]).tolist()
+    return lo, hi
+
+
+def _check_retrieval_functional_inputs(preds, target) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Validate binary ``preds``/``target`` of one shape; returns float32
+    preds and int32 targets. The JAX package's errors, in its order."""
+    preds = torch.as_tensor(preds)
+    target = torch.as_tensor(target)
+
+    if preds.shape != target.shape:
+        raise ValueError("`preds` and `target` must be of the same shape")
+
+    if not preds.numel() or not target.numel():
+        raise ValueError("`preds` and `target` must be non-empty")
+
+    if target.is_floating_point() or target.is_complex():
+        raise ValueError("`target` must be a tensor of booleans or integers")
+
+    lo, hi = _min_max(target)
+    if int(hi) > 1 or int(lo) < 0:
+        raise ValueError("`target` must be of type `binary`")
+
+    if not _is_floating(preds):
+        raise ValueError("`preds` must be a tensor of floats")
+
+    return preds.to(torch.float32), target.to(torch.int32)
+
+
 def _check_sample_weights_range(sample_weights: torch.Tensor) -> None:
     """Eager value probe shared by every weighted state design: reject
     negative, NaN (via the min >= 0 comparison) and infinite weights. A
@@ -411,7 +442,7 @@ def _check_sample_weights_range(sample_weights: torch.Tensor) -> None:
     device-to-host copy; an empty tensor is not probed."""
     if not sample_weights.numel():
         return
-    lo, hi = torch.stack([sample_weights.min(), sample_weights.max()]).double().tolist()
+    lo, hi = _min_max(sample_weights)
     if not (lo >= 0 and np.isfinite(hi)):
         raise ValueError(f"sample_weights must be non-negative finite, got range [{lo}, {hi}]")
 
@@ -423,3 +454,14 @@ def _guard_sample_weights(sample_weights: torch.Tensor) -> torch.Tensor:
     counterpart."""
     _check_sample_weights_range(sample_weights)
     return sample_weights
+
+
+def _sample_weights(sample_weights: Optional[Any], n: int, device: torch.device) -> Optional[torch.Tensor]:
+    """``sample_weights`` as a checked ``(n,)`` float32 tensor on ``device``
+    (None stays None): one weight per sample, non-negative and finite."""
+    if sample_weights is None:
+        return None
+    weights = torch.as_tensor(sample_weights, dtype=torch.float32, device=device)
+    if tuple(weights.shape) != (n,):
+        raise ValueError(f"expected 1-d sample_weights of shape {(n,)}, got {tuple(weights.shape)}")
+    return _guard_sample_weights(weights)

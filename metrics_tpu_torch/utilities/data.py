@@ -1,6 +1,7 @@
 """Shared tensor utilities.
 
-Port of ``metrics_tpu/utilities/data.py``. ``to_onehot`` and
+Port of ``metrics_tpu/utilities/data.py`` (``_stable_1d_sort`` without
+its ``nb`` truncation). ``to_onehot`` and
 ``select_topk`` keep the JAX package's broadcast-compare formulation, so
 their outputs match it bit for bit (top-k ties resolve to the lower index,
 as ``lax.top_k`` does). The JAX package's ``_is_concrete`` guard has no
@@ -94,6 +95,23 @@ def get_num_classes(preds: torch.Tensor, target: torch.Tensor, num_classes: Opti
             RuntimeWarning,
         )
     return num_classes
+
+
+def _stable_1d_sort(x: torch.Tensor):
+    """Stable ascending sort of a 1d tensor, returning ``(values, indices)``
+    of every element.
+
+    The JAX package's version cuts both to their first 2049 entries (its
+    reference's ``nb`` contract); this one does not, so ``auc(...,
+    reorder=True)`` integrates the whole curve.
+
+    Example:
+        >>> _stable_1d_sort(torch.tensor([8, 7, 2, 6, 4, 5, 3, 1, 9, 0]))[0]
+        tensor([0, 1, 2, 3, 4, 5, 6, 7, 8, 9])
+    """
+    if x.ndim > 1:
+        raise ValueError("Stable sort only works on 1d tensors")
+    return torch.sort(x, stable=True)
 
 
 def apply_to_collection(

@@ -1,18 +1,32 @@
 """Tests of the port that need a CUDA device: the tie-scan kernel (one stream
 and class-batched, unweighted and weighted) against its plain PyTorch
-version, and the GPU entry points against their CPU runs.
+version, and the GPU entry points (the exact scores, the weighted and
+``micro`` routes with their launches, the curves and the binned curves)
+against their CPU runs.
 
 Every test here is marked ``cuda`` and skips without a card. This file
 imports neither JAX nor the JAX package, so it also runs on a machine that
 has only PyTorch: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
 (``--noconftest`` because the suite's conftest pins JAX to the CPU).
 """
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
-from metrics_tpu_torch import AUROC, Accuracy, AveragePrecision, MetricCollection
-from metrics_tpu_torch.functional import auroc, average_precision
+from metrics_tpu_torch import (
+    AUROC,
+    ROC,
+    Accuracy,
+    AveragePrecision,
+    BinnedAUROC,
+    BinnedAveragePrecision,
+    BinnedPrecisionRecallCurve,
+    MetricCollection,
+    PrecisionRecallCurve,
+)
+from metrics_tpu_torch.functional import auroc, average_precision, precision_recall_curve, roc
 from metrics_tpu_torch.ops.auroc_kernel import (
     _co_sort,
     _co_sort_rows,
@@ -342,12 +356,16 @@ def test_weighted_kernel_hazards(cuda_device):
     nan_w = torch.where(keep, 1.0, float("nan"))
     key_s, pay_s, w_s = _co_sort(preds, rel, keep.float(), nan_w)
     assert bool(torch.isfinite(tie_group_reduce(key_s, pay_s, weights_s=w_s)).all())
-    # tiny totals (1e-20 per side) are not degenerate
-    key_s, pay_s, w_s = _co_sort(preds, rel, None, torch.full((n,), 1e-20, device=cuda_device))
-    tiny = tie_group_reduce(key_s, pay_s, weights_s=w_s)
-    auroc_tiny, ap_tiny = auroc_ap_from_stats(tiny)
+    # tiny totals are not degenerate, and they normalize to the unit-weight
+    # scores: at 1e-22 per element the product of the class totals (~1e-34)
+    # lies below any floor of 1e-30
     auroc_one, ap_one = auroc_ap_from_stats(plain)
-    assert abs(float(auroc_tiny) - float(auroc_one)) < 1e-5 and abs(float(ap_tiny) - float(ap_one)) < 1e-5
+    for tiny_weight in (1e-20, 1e-22):
+        key_s, pay_s, w_s = _co_sort(preds, rel, None, torch.full((n,), tiny_weight, device=cuda_device))
+        tiny = tie_group_reduce(key_s, pay_s, weights_s=w_s)
+        assert float(tiny[2]) * float(tiny[3]) < 1e-30 or tiny_weight == 1e-20
+        auroc_tiny, ap_tiny = auroc_ap_from_stats(tiny)
+        assert abs(float(auroc_tiny) - float(auroc_one)) < 1e-5 and abs(float(ap_tiny) - float(ap_one)) < 1e-5
 
 
 def test_weighted_kernel_is_deterministic(cuda_device):
@@ -465,3 +483,130 @@ def test_gpu_weighted_scores_match_the_cpu_path(cuda_device, fn):
     cpu = fn(*(a.cpu() for a in args))
     assert gpu.device.type == "cuda"
     assert abs(float(gpu) - float(cpu)) < 1e-6
+
+
+# ---- the curve family: weighted and micro routes, curves, binned curves ------
+
+
+def _launches():
+    return (tie_group_reduce.launches, tie_group_reduce.weighted_launches, tie_group_reduce_rows.launches,
+            tie_group_reduce_rows.weighted_launches)
+
+
+def _one_more(before, index):
+    want = list(before)
+    want[index] += 1
+    return tuple(want)
+
+
+def test_weighted_and_micro_routes_launch_one_kernel_each(cuda_device):
+    rng = np.random.default_rng(31)
+    preds, target = _multiclass(20_000, 23, 31)
+    w = torch.from_numpy(rng.lognormal(size=20_000).astype(np.float32))
+    binary_p = preds[:, 0].contiguous()
+    binary_t = (target == 0).to(torch.int64)
+    ml_t = torch.from_numpy((rng.random((20_000, 23)) < 0.2).astype(np.int64))
+    cases = [
+        (auroc, (binary_p, binary_t), {"pos_label": 1, "sample_weights": w}, 1),
+        (average_precision, (binary_p, binary_t), {"pos_label": 1, "sample_weights": w}, 1),
+        (auroc, (preds, target), {"num_classes": 23, "sample_weights": w, "average": None}, 3),
+        (average_precision, (preds, target), {"num_classes": 23, "sample_weights": w}, 3),
+        (auroc, (preds, ml_t), {"num_classes": 23, "sample_weights": w, "average": "weighted"}, 3),
+        (auroc, (preds, ml_t), {"num_classes": 23, "average": "micro"}, 0),
+    ]
+    for fn, args, kwargs, counter in cases:
+        on_card = {k: v.to(cuda_device) if isinstance(v, torch.Tensor) else v for k, v in kwargs.items()}
+        before = _launches()
+        gpu = fn(*(a.to(cuda_device) for a in args), **on_card)
+        assert _launches() == _one_more(before, counter), (fn.__name__, kwargs)
+        cpu = fn(*args, **kwargs)
+        gpu = torch.stack(gpu).cpu() if isinstance(gpu, list) else gpu.cpu()
+        cpu = torch.stack(cpu) if isinstance(cpu, list) else cpu
+        torch.testing.assert_close(gpu, cpu, rtol=0.0, atol=1e-5, equal_nan=True)
+
+
+def _assert_curves_equal(gpu, cpu):
+    if isinstance(cpu[0], list):
+        for c in range(len(cpu[0])):
+            _assert_curves_equal([g[c] for g in gpu], [x[c] for x in cpu])
+        return
+    for g, c in zip(gpu[:2], cpu[:2]):
+        assert g.device.type == "cuda" and g.shape == c.shape
+        torch.testing.assert_close(g.cpu(), c, rtol=0.0, atol=1e-6, equal_nan=True)
+    torch.testing.assert_close(gpu[2].cpu(), cpu[2], rtol=0.0, atol=0.0, equal_nan=True)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_gpu_curves_match_the_cpu_path(cuda_device, weighted):
+    rng = np.random.default_rng(32)
+    scores = np.round(rng.random(300_000), 3).astype(np.float32)
+    scores[::1000] = np.nan
+    scores[1::997] = -0.0
+    target = torch.from_numpy((rng.random(300_000) < 0.3).astype(np.int64))
+    preds = torch.from_numpy(scores)
+    w = torch.from_numpy(rng.lognormal(size=300_000).astype(np.float32)) if weighted else None
+    mc_preds, mc_target = _multiclass(30_000, 17, 33)
+    mc_w = torch.from_numpy(rng.lognormal(size=30_000).astype(np.float32)) if weighted else None
+    for fn in (roc, precision_recall_curve):
+        gpu = fn(preds.to(cuda_device), target.to(cuda_device), pos_label=1,
+                 sample_weights=None if w is None else w.to(cuda_device))
+        _assert_curves_equal(gpu, fn(preds, target, pos_label=1, sample_weights=w))
+        gpu = fn(mc_preds.to(cuda_device), mc_target.to(cuda_device), num_classes=17,
+                 sample_weights=None if mc_w is None else mc_w.to(cuda_device))
+        _assert_curves_equal(gpu, fn(mc_preds, mc_target, num_classes=17, sample_weights=mc_w))
+
+
+def test_curve_modules_and_max_fpr_on_the_card(cuda_device):
+    preds, target = _multiclass(40_000, 9, 34)
+    for module in (ROC, PrecisionRecallCurve):
+        on_card, on_cpu = module(num_classes=9), module(num_classes=9, device="cpu")
+        for chunk in range(4):
+            sl = slice(chunk * 10_000, (chunk + 1) * 10_000)
+            on_card.update(preds[sl], target[sl])
+            on_cpu.update(preds[sl], target[sl])
+        _assert_curves_equal(on_card.compute(), on_cpu.compute())
+    binary_p, binary_t = preds[:, 0].contiguous(), (target == 0).to(torch.int64)
+    gpu = auroc(binary_p.to(cuda_device), binary_t.to(cuda_device), pos_label=1, max_fpr=0.1)
+    assert abs(float(gpu) - float(auroc(binary_p, binary_t, pos_label=1, max_fpr=0.1))) < 1e-6
+
+
+def test_per_class_curve_syncs_do_not_grow_with_the_classes(cuda_device):
+    def syncs(c):
+        preds, target = _multiclass(5_000, c, 35)
+        preds, target = preds.to(cuda_device), target.to(cuda_device)
+        roc(preds, target, num_classes=c)  # first calls may synchronize once more
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                roc(preds, target, num_classes=c)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    syncs(10)  # the process's first counted window may see one more, from PyTorch itself
+    assert syncs(10) == syncs(200) > 0
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_gpu_binned_curves_match_the_cpu_path(cuda_device, weighted):
+    rng = np.random.default_rng(36)
+    binary_p = torch.from_numpy(rng.random(200_000, dtype=np.float32))
+    binary_t = torch.from_numpy((rng.random(200_000) < binary_p.numpy()).astype(np.int64))
+    mc_p, mc_t = _multiclass(20_000, 50, 36)
+    w = torch.from_numpy(rng.lognormal(size=200_000).astype(np.float32)) if weighted else None
+    for metric in (BinnedAUROC, BinnedAveragePrecision, BinnedPrecisionRecallCurve):
+        for kwargs, (p, t) in (({}, (binary_p, binary_t)), ({"num_classes": 50}, (mc_p, mc_t))):
+            on_card, on_cpu = metric(num_bins=512, **kwargs), metric(num_bins=512, device="cpu", **kwargs)
+            extra = {} if w is None else {"sample_weights": w[:p.shape[0]]}
+            on_card.update(p, t, **extra)
+            on_cpu.update(p, t, **extra)
+            if weighted:
+                torch.testing.assert_close(on_card.hist_pos.cpu(), on_cpu.hist_pos, rtol=1e-5, atol=0.0)
+            else:
+                assert torch.equal(on_card.hist_pos.cpu(), on_cpu.hist_pos)
+                assert torch.equal(on_card.hist_neg.cpu(), on_cpu.hist_neg)
+            got, want = on_card.compute(), on_cpu.compute()
+            for g, c in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+                torch.testing.assert_close(g.cpu(), c, rtol=0.0, atol=1e-6, equal_nan=True)

@@ -8,7 +8,9 @@ only PyTorch: ``python -m pytest --noconftest -m cuda -s tests/test_torch_distri
 The NCCL cases include the sharded metrics across the cards: the splitter
 sample sort (binary, weighted or not) and the class transpose by
 ``all_to_all`` (one-vs-rest), each rank holding an uneven slice, against the
-same stream in one process.
+same stream in one process; and the sharded curves (``ShardedROC``,
+``ShardedPrecisionRecallCurve``), whose every rank must return the same
+curve, bit for bit, as one process holding the whole stream.
 """
 import json
 import multiprocessing
@@ -21,7 +23,7 @@ import torch.distributed as dist
 
 from metrics_tpu_torch import AUROC, Accuracy, MetricCollection
 from metrics_tpu_torch.parallel.backend import TorchDistributedBackend, get_sync_backend
-from tests.torch_workers import run_world, sharded_metric_values
+from tests.torch_workers import run_world, sharded_cases, sharded_metric_values
 
 
 def _rows(rank):
@@ -160,3 +162,50 @@ def test_nccl_sharded_metrics_across_the_cards_equal_one_process():
         "one_process": {n: {k: v for k, v in r.items() if k != "bits"} for n, r in one.items()},
     }}))
     _assert_sharded_world(specs, ranks, one)
+
+
+def _curve_cases(world, n=2**20, classes=100, ovr_n=50_000):
+    rng = np.random.default_rng(7)
+    preds = np.round(rng.random(n), 4).astype(np.float32)
+    target = (rng.random(n) < preds).astype(np.int32)
+    logits = rng.standard_normal((ovr_n, classes)).astype(np.float32)
+    probs = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    labels = rng.integers(0, classes, ovr_n).astype(np.int32)
+    batches = [(preds[i:i + n // 4], target[i:i + n // 4]) for i in range(0, n, n // 4)]
+    return [
+        {"name": "roc_binary", "metric": "roc", "capacity": n, "kwargs": {}, "batches": batches},
+        {"name": "prc_binary", "metric": "prc", "capacity": n, "kwargs": {}, "batches": batches},
+        {"name": "roc_ovr", "metric": "roc", "capacity": ovr_n, "kwargs": {"num_classes": classes},
+         "batches": [(probs, labels)]},
+        {"name": "prc_ovr", "metric": "prc", "capacity": ovr_n, "kwargs": {"num_classes": classes},
+         "batches": [(probs, labels)]},
+    ]
+
+
+def _leaves(x):
+    return [a for v in x for a in _leaves(v)] if isinstance(x, (tuple, list)) else [x]
+
+
+@pytest.mark.cuda
+def test_nccl_sharded_curves_are_the_same_on_every_card():
+    """``ShardedROC`` / ``ShardedPrecisionRecallCurve`` over NCCL, one rank
+    per card, binary at 2^20 samples and one-vs-rest at 50,000 x 100: every
+    rank's curves equal rank 0's and one process's on one card, bit for bit
+    (only tie-group ends are read, so the rank order of the rows cannot
+    move a point)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    world = torch.cuda.device_count()
+    cases = _curve_cases(world)
+    ranks = run_world(world, sharded_cases, cases, device_type="cuda", timeout=900)
+    one = sharded_cases(0, 1, torch.device("cuda", 0), cases)
+    points = {}
+    for case in cases:
+        name = case["name"]
+        want = _leaves(one[name]["value"])
+        points[name] = sum(len(a) for a in want) // 3
+        for r in range(world):
+            got = _leaves(ranks[r][name]["value"])
+            assert len(got) == len(want) and all(np.array_equal(g, w) for g, w in zip(got, want)), (name, r)
+    print(json.dumps({"nccl_sharded_curves": {"world": world, "card": torch.cuda.get_device_name(0),
+                                              "points": points}}))

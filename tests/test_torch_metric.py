@@ -211,15 +211,15 @@ def test_auroc_mode_change_raises_like_jax():
 
 
 def test_branches_left_for_later_slices_raise_not_implemented():
-    # multi-class scores without `num_classes` go to the curve path in the JAX package
+    """The curve-path branches once left for later slices now match the JAX
+    package: its error for multi-class scores without `num_classes`, its
+    values with `max_fpr` and `sample_weights`."""
     p3, t3 = _batches("multiclass_probs", seed=22, n_batches=1)[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        auroc(_tt(p3), _tt(t3))
+    assert _error(auroc, _tt(p3), _tt(t3)) == _error(jax_auroc, jnp.asarray(p3), jnp.asarray(t3))
     p1, t1 = _batches("binary", seed=22, n_batches=1)[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        auroc(_tt(p1), _tt(t1), max_fpr=0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        auroc(_tt(p1), _tt(t1), sample_weights=[1.0] * len(t1))
+    for kwargs in ({"max_fpr": 0.5}, {"sample_weights": [1.0] * len(t1)}):
+        want = float(jax_auroc(jnp.asarray(p1), jnp.asarray(t1), **kwargs))
+        assert abs(float(auroc(_tt(p1), _tt(t1), **kwargs)) - want) < AUROC_TOL
     # invalid arguments stay ValueErrors, as in the JAX package
     assert _error(auroc, _tt(p1), _tt(t1), max_fpr=2.0) == _error(jax_auroc, jnp.asarray(p1), jnp.asarray(t1), max_fpr=2.0)
 

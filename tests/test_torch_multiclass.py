@@ -11,8 +11,9 @@ Inputs are made with numpy from a seed and go through both packages:
   suite's AUROC tolerance);
 * multi-class ``average_precision`` per-class lists against the JAX
   package, to 2e-5 (the JAX suite's AP tolerance);
-* the errors of the degenerate and not-yet-ported branches, ``label_bincount``
-  and ``state_from_jax`` of the new metrics.
+* the errors of the degenerate branches, the branches the JAX package runs
+  on its curve path (value or error), ``label_bincount`` and
+  ``state_from_jax`` of the new metrics.
 
 The batched CUDA kernel itself is held against the plain version on the
 card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -374,8 +375,22 @@ _ML_TARGET[:2] = [[0, 0, 0, 0], [1, 1, 1, 1]]
          "binary-max-fpr", "ap-multilabel", "ap-sample-weights"],
 )
 def test_curve_path_branches_raise_not_implemented(fn, preds, target, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 6"):
-        fn(_tt(preds), _tt(target), **kwargs)
+    """The branches the JAX package runs on its curve path, once left for a
+    later slice, now give JAX's value (within the AUROC/AP tolerance) or
+    raise JAX's ``ValueError``, message for message."""
+    ref = jax_auroc if fn is auroc else jax_average_precision
+    tol = AUROC_TOL if fn is auroc else AP_TOL
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            want = ref(jnp.asarray(preds), jnp.asarray(target), **kwargs)
+    except ValueError as err:
+        assert _error(fn, _tt(preds), _tt(target), **kwargs) == ("ValueError", str(err))
+        return
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        got = fn(_tt(preds), _tt(target), **kwargs)
+    _assert_scores_close(got if isinstance(got, list) else [got], want if isinstance(want, list) else [want], tol)
 
 
 # ---- label_bincount, state_from_jax ----------------------------------------

@@ -13,6 +13,12 @@ fills with empty ranks, a tie storm where every group spans every rank, NaN
 scores (the largest key), ±inf and signed zeros, ``pos_label=0``, zero and
 lognormal weights, one class only. Tolerances: 1e-5 against JAX, 1e-6
 between the port's worlds, whose ranks all return the same bits.
+
+Weights whose per-class totals multiply below float32's range are held
+against a float64 oracle instead: ``ShardedAUROC(with_sample_weights=True)``
+at world 1 (the weighted scan, normalized factor by factor in float64) and
+in a 2-process world (the sample sort, which divides in float64) give the
+same value.
 """
 import jax
 import jax.numpy as jnp
@@ -30,7 +36,7 @@ from metrics_tpu.parallel.sample_sort import (
 from metrics_tpu_torch.parallel.sample_sort import _tie_stats, _tie_stats_w, sample_sort_auroc_ap
 from metrics_tpu_torch.ops.auroc_kernel import _co_sort
 from metrics_tpu_torch.ops.tie_scan import tie_group_reduce
-from tests.torch_workers import run_world, sample_sort_cases
+from tests.torch_workers import run_world, sample_sort_cases, sharded_cases
 
 JAX_TOL = 1e-5
 PORT_TOL = 1e-6
@@ -181,3 +187,19 @@ def test_bucket_epilogues_sum_to_the_one_stream_result():
         assert abs(area - float(whole[0])) <= PORT_TOL * abs(float(whole[0]))
         assert abs(ap - float(whole[1])) <= PORT_TOL * abs(float(whole[1]))
         assert abs(off_p - float(whole[2])) <= PORT_TOL * float(whole[2])
+
+
+@pytest.mark.parametrize("weight, tol", [(1e-16, 1e-6), (1e-20, 1e-5)])
+def test_tiny_weight_totals_agree_at_world_1_and_2(weight, tol):
+    """Scores [0.9, 0.1, 0.6, 0.3], targets [1, 0, 0, 1], every weight tiny:
+    the float64 oracle (and the JAX package's functional AUROC) is 0.75."""
+    preds = np.array([0.9, 0.1, 0.6, 0.3], np.float32)
+    target = np.array([1, 0, 0, 1], np.int32)
+    w = np.full(4, weight, np.float32)
+    case = {"name": "tiny", "metric": "auroc", "capacity": 4, "kwargs": {"with_sample_weights": True},
+            "batches": [(preds, target, w)]}
+    one = sharded_cases(0, 1, torch.device("cpu"), [case])["tiny"]["value"]
+    two = run_world(2, sharded_cases, [case])
+    assert abs(float(one) - 0.75) < tol
+    for r in range(2):
+        assert abs(float(two[r]["tiny"]["value"]) - 0.75) < tol

@@ -1,5 +1,6 @@
-"""The port's ``ShardedAUROC`` / ``ShardedAveragePrecision`` against the JAX
-package's, on the CPU.
+"""The port's ``ShardedAUROC`` / ``ShardedAveragePrecision`` and
+``ShardedROC`` / ``ShardedPrecisionRecallCurve`` against the JAX package's,
+on the CPU.
 
 The JAX metrics run on the suite's 8-device CPU mesh. The port runs the same
 cases at world 1 (in this process) and in 8 spawned gloo processes (one
@@ -8,10 +9,11 @@ of every global batch: its buffers then equal JAX's shard ``r`` bit for
 bit. Cases mirror ``tests/classification/test_sharded.py`` and
 ``tests/parallel/test_sample_sort.py``: binary and one-vs-rest, weighted or
 not, partial fills, ties, ±inf and NaN scores, bf16 buffers, ``average`` in
-{None, macro, weighted}, ``forward``'s batch-local value, and a JAX
-``state_dict`` carried across by ``state_from_jax``. Errors are compared
-message for message. Tolerances are the JAX suite's: 1e-5 against JAX,
-1e-6 between the port's worlds.
+{None, macro, weighted}, ``forward``'s batch-local value, the binary and
+per-class curves, and a JAX ``state_dict`` carried across by
+``state_from_jax``. Errors are compared message for message. Tolerances are
+the JAX suite's: 1e-5 against JAX, 1e-6 between the port's worlds; curves
+have equal lengths and thresholds.
 """
 import pickle
 
@@ -34,7 +36,8 @@ JAX_TOL = 1e-5
 PORT_TOL = 1e-6
 CPU = torch.device("cpu")
 
-_JAX = {"auroc": jm.ShardedAUROC, "ap": jm.ShardedAveragePrecision}
+_JAX = {"auroc": jm.ShardedAUROC, "ap": jm.ShardedAveragePrecision, "roc": jm.ShardedROC,
+        "prc": jm.ShardedPrecisionRecallCurve}
 
 
 def _binary(n, seed, ties=False, special=None):
@@ -95,6 +98,12 @@ def _cases():
         ("forward_binary", "auroc", 1024, {"forward": True}, _split((p, t), 256)),
         ("forward_ovr_absent_class", "auroc", 64, {"num_classes": 4, "forward": True}, _split((fp, ft), 32)),
         ("forward_weighted_ap", "ap", 1024, {"forward": True, "with_sample_weights": True}, _split((p, t, w), 256)),
+        ("roc_binary_partial", "roc", 1024, {}, _split((p, t), 256)),
+        ("roc_inf_nan", "roc", 256, {}, [(pi, ti)]),
+        ("roc_pos_label_0", "roc", 512, {"pos_label": 0}, [(pt, tt)]),
+        ("prc_ties", "prc", 512, {}, [(pt, tt)]),
+        ("roc_ovr", "roc", 256, {"num_classes": 11}, [(mp, mt)]),
+        ("prc_ovr_partial", "prc", 512, {"num_classes": 11}, _split((mp, mt), 128)),
     ]
     return [dict(name=n, metric=m, capacity=cap, options=o, batches=b) for n, m, cap, o, b in cases]
 
@@ -110,6 +119,12 @@ def _kwargs(options, bf16_dtype):
     return kwargs
 
 
+def _numpy(x):
+    """A value as numpy, a curve's tuple (or per-class lists) as the same
+    structure of arrays."""
+    return type(x)(_numpy(v) for v in x) if isinstance(x, (tuple, list)) else np.asarray(x)
+
+
 def _jax_run(case):
     """The JAX metric on the 8-device mesh: value, forward values, state."""
     m = _JAX[case["metric"]](capacity_per_device=case["capacity"] // WORLD, **_kwargs(case["options"], jnp.bfloat16))
@@ -123,7 +138,7 @@ def _jax_run(case):
             m.update(*args, **kw)
     m.persistent(True)
     state = {k: np.asarray(v) for k, v in m.state_dict().items()}
-    return {"value": np.asarray(m.compute()), "steps": steps, "state": state}
+    return {"value": _numpy(m.compute()), "steps": steps, "state": state}
 
 
 def _port_payload(case):
@@ -149,9 +164,20 @@ def results():
     }
 
 
+def _leaves(x):
+    return [a for v in x for a in _leaves(v)] if isinstance(x, (tuple, list)) else [np.asarray(x, np.float64)]
+
+
 def _assert_close(got, want, tol):
-    np.testing.assert_allclose(np.asarray(got, np.float64), np.asarray(want, np.float64), rtol=0, atol=tol,
-                               equal_nan=True)
+    """Values, or curves (of equal lengths) with their points, within ``tol``."""
+    got, want = _leaves(got), _leaves(want)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=tol, equal_nan=True)
+
+
+def _same_bits(a, b):
+    return all(np.array_equal(x, y, equal_nan=True) for x, y in zip(_leaves(a), _leaves(b)))
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -160,7 +186,7 @@ def test_port_in_8_gloo_processes_matches_jax(results, name):
     ranks = results["world8"]
     for r in range(WORLD):
         _assert_close(ranks[r][name]["value"], want["value"], JAX_TOL)
-        assert np.array_equal(ranks[r][name]["value"], ranks[0][name]["value"], equal_nan=True)
+        assert _same_bits(ranks[r][name]["value"], ranks[0][name]["value"])
     for got, step in zip(ranks[0][name]["steps"], want["steps"]):
         _assert_close(got, step, JAX_TOL)
 

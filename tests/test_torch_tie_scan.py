@@ -261,15 +261,21 @@ def test_weighted_offsets_shift_only_the_ap_ratio(offsets):
 
 
 def test_weighted_tiny_totals_are_not_degenerate():
-    """Weights of 1e-20 per side: the product of the totals underflows f32,
-    and the factor-wise degeneracy test still gives a number."""
+    """Weights of 1e-20 per side: the product of the totals underflows f32.
+    The factor-wise degeneracy test still gives a number, and the float64
+    factor-by-factor normalization gives the AUROC of the float64 oracle,
+    0.75 (to 1e-5: the f32 area, ~3e-40, is subnormal); JAX's kernel floor
+    does not, a deliberate difference."""
     got, want = _both_weighted([0.9, 0.1, 0.6, 0.3], [1, 0, 0, 1], np.full(4, 1e-20, np.float32))
     # the area, ~1e-40, is below f32's normal range: JAX's f32 sum flushes it
     # to 0 where the port's f64 sum keeps a subnormal
     assert abs(got[0]) < np.finfo(np.float32).tiny and abs(want[0]) < np.finfo(np.float32).tiny
     np.testing.assert_allclose(got[1:], want[1:], rtol=W_TOL, atol=0.0)
     (pa, pp), (ja, jp) = _scores(torch.from_numpy(got), want)
-    assert not np.isnan(pa) and not np.isnan(ja) and not np.isnan(pp)
+    assert abs(pa - 0.75) < 1e-5 and not np.isnan(ja)
     assert abs(pp - jp) < 1e-6
+    # at 1e-16 the area is normal in f32, and the value is 0.75 to 1e-6
+    got16, _ = _both_weighted([0.9, 0.1, 0.6, 0.3], [1, 0, 0, 1], np.full(4, 1e-16, np.float32))
+    assert abs(float(auroc_ap_from_stats(torch.from_numpy(got16))[0]) - 0.75) < 1e-6
     for w_pos, w_neg in ((0.0, 1e-20), (1e-20, 0.0)):
         assert np.isnan(float(auroc_ap_from_stats(torch.tensor([0.0, 0.0, w_pos, w_neg]))[0]))

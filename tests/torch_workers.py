@@ -16,7 +16,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from metrics_tpu_torch import ShardedAUROC, ShardedAveragePrecision
+from metrics_tpu_torch import ShardedAUROC, ShardedAveragePrecision, ShardedPrecisionRecallCurve, ShardedROC
 from metrics_tpu_torch.interop import state_from_jax
 from metrics_tpu_torch.parallel.backend import TorchDistributedBackend
 from metrics_tpu_torch.parallel.sample_sort import sample_sort_auroc_ap
@@ -81,10 +81,16 @@ def run_world(world: int, fn: Callable, payload: Any, device_type: str = "cpu", 
 
 # ---- what the workers run ------------------------------------------------------
 
-_METRICS = {"auroc": ShardedAUROC, "ap": ShardedAveragePrecision}
+_METRICS = {
+    "auroc": ShardedAUROC, "ap": ShardedAveragePrecision, "roc": ShardedROC, "prc": ShardedPrecisionRecallCurve,
+}
 
 
-def _value(x: torch.Tensor):
+def _value(x):
+    """A tensor as a numpy array; a curve's tuple (or per-class lists) of
+    them as the same structure of arrays."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(_value(v) for v in x)
     return x.detach().cpu().numpy()
 
 
