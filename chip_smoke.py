@@ -83,6 +83,25 @@ that is unset. Phases (any failure exits non-zero before the result line):
    50,000 x 1,000, unweighted and weighted: histograms against numpy's
    counts (exact, or within 1e-5 relative weighted), values within 1e-6 of
    a float64 evaluation of the same histograms;
+4e. the stat-score and confusion-matrix family (no scan kernel; counts in
+   label space, ``label_bincount``): (a) the JAX bench's forward leg,
+   ``MetricCollection([Accuracy(), Precision(num_classes=4,
+   average="macro"), Recall(...), F1(...)])``, 10 forward batches of 100,000
+   seeded 4-class probabilities, counts equal to numpy's and values within
+   1e-6; (b) at the ImageNet-1k val shape, phase 4's data in 10 update
+   batches: ``StatScores`` (macro), Precision/Recall/F1 macro and weighted,
+   top-5 ``Precision``, ``ConfusionMatrix(normalize="true")``, quadratic
+   ``CohenKappa``, ``MatthewsCorrcoef``, ``IoU``, ``HammingDistance``,
+   Crammer-Singer ``Hinge`` and functional ``dice_score``, against float64
+   oracles; (c) at the MS-COCO 2014 val shape, multi-label ``StatScores``
+   (micro, macro), macro ``F1``, ``HammingDistance`` and the ``(80, 2, 2)``
+   ``ConfusionMatrix``; (d) Cityscapes val, 500 images of 1024 x 2048
+   pixels and 19 classes, made on the card 4 images a batch:
+   ``ConfusionMatrix``, ``IoU``, macro ``StatScores`` (counts past 2^24,
+   exact) and samplewise macro ``F1`` against numpy's int64 counts of
+   ``target * 19 + argmax``; the host synchronizations of one update at
+   C = 19 and C = 1,000 (equal), also with ``torch.bincount`` in place of
+   ``label_bincount``; MCC's float32 gap to float64;
 5. times on the card (CUDA events over launches queued behind a device
    sleep, so host overhead does not show, or the host clock ending in a
    synchronize for whole steps): the one-stream kernel, its plain version
@@ -95,10 +114,12 @@ that is unset. Phases (any failure exits non-zero before the result line):
    (host clock ending in a synchronize, one warm-up, median of 5): the ROC
    and PR-curve compute at 1M and at (1000, 50000), the ``max_fpr`` AUROC
    and the weighted functional AUROC at 1M, and one binned update at
-   1M x 512 and at 50,000 x 1,000 x 512;
+   1M x 512 and at 50,000 x 1,000 x 512; the stat-score family's forward
+   batch, ImageNet compute, Cityscapes update and compute;
 6. where the time goes: ``torch.profiler`` over a binary forward batch plus
    compute, over one multi-class compute, over one weighted sharded binary
-   compute, over one per-class ROC compute at (1000, 50000), and over one
+   compute, over one per-class ROC compute at (1000, 50000), over one
+   forward batch of phase 4e's forward leg and one Cityscapes update, and over one
    call of each kernel entry (one stream at 1M,
    batched at ``(1000, 50000)``, and the two weighted ones at their paths'
    shapes), each of which must show one kernel and at most the memset of
@@ -109,6 +130,7 @@ and ``{"profile": ...}`` lines, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Exits with 1 and prints no result when no
 CUDA device is available.
 """
+import importlib
 import json
 import os
 import subprocess
@@ -158,6 +180,13 @@ ORACLE_TOL = 1e-5
 CURVE_TOL = 1e-6
 # the binned curves' histogram resolution
 NUM_BINS = 512
+# the stat-score family: float32 ratios of exact counts against float64
+RATIO_TOL = 1e-6
+# Cityscapes val (semantic segmentation): 500 images of 1024 x 2048 pixels,
+# 19 evaluation classes, fed 4 images a batch; the classes' pixel shares
+# are skewed as a street scene's (road about a third, then halving)
+CITY_IMAGES, CITY_BATCH, CITY_H, CITY_W, CITY_C = 500, 4, 1024, 2048, 19
+CITY_SHARES = np.concatenate([[1 / 3], (2 / 3) * 0.62 ** np.arange(18) / np.sum(0.62 ** np.arange(18))])
 
 
 def _pin_one_card() -> str:
@@ -349,6 +378,325 @@ def _device_ms_by_kernel(torch, prof, key: str) -> dict:
         for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA and getattr(e, key) > 0
     }
+
+
+def _oracle_counts(confmat: np.ndarray):
+    """int64 (tp, fp, tn, fn) per class of a confusion matrix (rows: target)."""
+    tp = np.diag(confmat)
+    fp, fn = confmat.sum(0) - tp, confmat.sum(1) - tp
+    return tp, fp, confmat.sum() - tp - fp - fn, fn
+
+
+def _safe_ratio(num: np.ndarray, den: np.ndarray) -> np.ndarray:
+    return np.where(den > 0, num / np.where(den > 0, den, 1), 0.0)
+
+
+def _oracle_prf(tp, fp, fn, average: str = "macro"):
+    """float64 (precision, recall, F1) averaged as the port averages them:
+    0 where a denominator is 0; ``weighted`` by the support."""
+    precision, recall = _safe_ratio(tp, tp + fp), _safe_ratio(tp, tp + fn)
+    f1 = _safe_ratio(2 * precision * recall, precision + recall)
+    if average == "weighted":
+        w = (tp + fn) / np.sum(tp + fn)
+        return tuple(float(np.sum(w * v)) for v in (precision, recall, f1))
+    return tuple(float(np.mean(v)) for v in (precision, recall, f1))
+
+
+def _oracle_mcc(confmat: np.ndarray) -> float:
+    c = confmat.astype(np.float64)
+    tk, pk, s = c.sum(0), c.sum(1), c.sum()
+    return float((np.trace(c) * s - tk @ pk) / (np.sqrt(s**2 - pk @ pk) * np.sqrt(s**2 - tk @ tk)))
+
+
+def _stat_score_phase(torch, dev, mc, ml):
+    """Phase 4e: the stat-score and confusion-matrix family on the card.
+
+    ``mc`` is phase 4's ImageNet-shaped ``(preds, target, scores_np,
+    target_np)``, ``ml`` phase 4's MS-COCO-shaped ``(scores_np, target_np)``.
+    Returns the phase's timings and what phase 6 profiles."""
+    from metrics_tpu_torch import (
+        F1,
+        Accuracy,
+        CohenKappa,
+        ConfusionMatrix,
+        HammingDistance,
+        Hinge,
+        IoU,
+        MatthewsCorrcoef,
+        MetricCollection,
+        Precision,
+        Recall,
+        StatScores,
+    )
+    from metrics_tpu_torch.functional import dice_score
+    from metrics_tpu_torch.functional.classification.matthews_corrcoef import _matthews_corrcoef_compute
+    from metrics_tpu_torch.ops.histogram import label_bincount
+
+    out = {}
+
+    def check(label, got, want, tol):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        err = float(np.max(np.abs(got - want))) if got.size else 0.0
+        if got.shape != want.shape or not np.all(np.isfinite(got)) or not err <= tol:
+            raise AssertionError(f"{label}: {got.ravel()[:4]} vs oracle {want.ravel()[:4]} (max |d| {err})")
+        return err
+
+    def check_counts(label, metric, want):
+        got = [getattr(metric, k).cpu().numpy() for k in ("tp", "fp", "tn", "fn")]
+        for name, g, w in zip(("tp", "fp", "tn", "fn"), got, want):
+            if g.dtype != np.int32 or not np.array_equal(g, w):
+                raise AssertionError(f"{label}: {name} counts differ from numpy's")
+
+    def computed_ms(coll, trials=5):
+        """Host ms of compute() ending in a synchronize, cached values
+        dropped; median of ``trials`` after one more call."""
+        times = []
+        for _ in range(trials + 1):
+            for metric in coll.values():
+                metric._computed = None
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            coll.compute()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(times[1:]))
+
+    # a. the JAX bench's forward leg: Accuracy + macro Precision/Recall/F1 on 4 classes
+    rs = np.random.RandomState(SEED)
+    p4_np = rs.rand(MAIN_N, 4).astype(np.float32)
+    p4_np = p4_np / p4_np.sum(1, keepdims=True)
+    t4_np = rs.randint(4, size=MAIN_N)
+    p4, t4 = torch.from_numpy(p4_np).to(dev), torch.from_numpy(t4_np).to(dev)
+    forward_leg = MetricCollection([Accuracy(), Precision(num_classes=4, average="macro"),
+                                    Recall(num_classes=4, average="macro"), F1(num_classes=4, average="macro")])
+    for b in range(BATCHES):
+        forward_leg(p4[b * BATCH:(b + 1) * BATCH], t4[b * BATCH:(b + 1) * BATCH])
+    leg = {k: v.item() for k, v in forward_leg.compute().items()}
+    am4 = p4_np.argmax(1)
+    counts4 = _oracle_counts(np.bincount(t4_np * 4 + am4, minlength=16).reshape(4, 4))
+    for name in ("Precision", "Recall", "F1"):
+        check_counts(f"forward leg {name}", forward_leg[name], counts4)
+    want_leg = dict(zip(("Precision", "Recall", "F1"), _oracle_prf(counts4[0], counts4[1], counts4[3])))
+    want_leg["Accuracy"] = float(np.sum(am4 == t4_np)) / MAIN_N
+    leg_err = max(check(f"forward leg {k}", leg[k], v, RATIO_TOL) for k, v in want_leg.items())
+    out["forward_leg_batch_ms"] = _host_ms(torch, lambda: forward_leg(p4[:BATCH], t4[:BATCH]))
+    print(f"4e. forward leg (Accuracy + macro Precision/Recall/F1, 4 classes), {BATCHES} batches of {BATCH}:"
+          f" {leg}, counts exact, max |d| {leg_err:.3g}; forward batch {out['forward_leg_batch_ms']:.3f} ms")
+
+    # b. ImageNet-1k val, 50,000 x 1,000
+    mc_preds, mc_target, scores_np, target_np = mc
+    n, c = scores_np.shape
+    mc_batch = n // MC_BATCHES
+    imagenet = MetricCollection({
+        "StatScores": StatScores(reduce="macro", num_classes=c),
+        **{f"{cls.__name__}_{avg}": cls(num_classes=c, average=avg)
+           for avg in ("macro", "weighted") for cls in (Precision, Recall, F1)},
+        "Precision_top5": Precision(num_classes=c, top_k=5),
+        "ConfusionMatrix": ConfusionMatrix(c, normalize="true"),
+        "CohenKappa": CohenKappa(c, weights="quadratic"),
+        "MatthewsCorrcoef": MatthewsCorrcoef(c),
+        "IoU": IoU(c),
+        "HammingDistance": HammingDistance(),
+        "Hinge": Hinge(),
+    })
+    for b in range(MC_BATCHES):
+        imagenet.update(mc_preds[b * mc_batch:(b + 1) * mc_batch], mc_target[b * mc_batch:(b + 1) * mc_batch])
+    got = imagenet.compute()
+    dice = dice_score(mc_preds, mc_target).item()
+    am = scores_np.argmax(1)
+    confmat = np.bincount(target_np * c + am, minlength=c * c).reshape(c, c)
+    tp, fp, tn, fn = _oracle_counts(confmat)
+    if not np.array_equal(got["StatScores"].cpu().numpy(), np.stack([tp, fp, tn, fn, tp + fn], 1)):
+        raise AssertionError("ImageNet StatScores differ from numpy's counts")
+    for avg in ("macro", "weighted"):
+        want = _oracle_prf(tp, fp, fn, avg)
+        for cls, w in zip(("Precision", "Recall", "F1"), want):
+            check(f"ImageNet {cls} {avg}", got[f"{cls}_{avg}"].item(), w, RATIO_TOL)
+    row = scores_np[np.arange(n), target_np]
+    ahead = (scores_np > row[:, None]).sum(1) + ((scores_np == row[:, None]) & (np.arange(c) < target_np[:, None])).sum(1)
+    check("ImageNet Precision top_k=5", got["Precision_top5"].item(), np.sum(ahead < 5) / (5 * n), RATIO_TOL)
+    check("ImageNet ConfusionMatrix normalize='true'", got["ConfusionMatrix"].cpu().numpy(),
+          confmat / confmat.sum(1, keepdims=True), RATIO_TOL)
+    cmf = confmat.astype(np.float64)
+    weights = (np.arange(c)[:, None] - np.arange(c)[None, :]) ** 2.0
+    expected = np.outer(cmf.sum(1), cmf.sum(0)) / cmf.sum()
+    check("ImageNet CohenKappa quadratic", got["CohenKappa"].item(),
+          1 - np.sum(weights * cmf) / np.sum(weights * expected), ORACLE_TOL)
+    mcc_gap_imagenet = abs(got["MatthewsCorrcoef"].item() - _oracle_mcc(confmat))
+    if not np.isfinite(got["MatthewsCorrcoef"].item()):
+        raise AssertionError("ImageNet MatthewsCorrcoef is not finite")
+    check("ImageNet IoU", got["IoU"].item(), np.mean(_safe_ratio(tp, tp + fp + fn)), RATIO_TOL)
+    check("ImageNet HammingDistance", got["HammingDistance"].item(), 2 * np.sum(am != target_np) / (n * c),
+          RATIO_TOL)
+    others = np.where(np.arange(c) == target_np[:, None], -np.inf, scores_np).max(1)
+    check("ImageNet Hinge", got["Hinge"].item(), np.mean(np.maximum(0.0, 1.0 - (row - others))), ORACLE_TOL)
+    check("ImageNet dice_score", dice, np.mean(np.where((tp + fn)[1:] > 0, _safe_ratio(2 * tp, 2 * tp + fp + fn)[1:],
+                                                          0.0)), RATIO_TOL)
+    out["imagenet_compute_ms"] = computed_ms(imagenet)
+    print(f"4e. ImageNet {n}x{c}: StatScores counts exact; Precision/Recall/F1 macro and weighted, top-5 Precision,"
+          f" normalized ConfusionMatrix, quadratic CohenKappa, IoU, HammingDistance, Hinge and dice_score equal the"
+          f" float64 oracles; MatthewsCorrcoef {got['MatthewsCorrcoef'].item():.7f}, gap to float64"
+          f" {mcc_gap_imagenet:.3g}; compute {out['imagenet_compute_ms']:.3f} ms")
+    del imagenet, got
+
+    # c. MS-COCO 2014 val multi-label, 40,504 x 80
+    ml_scores_np, ml_target_np = ml
+    ml_preds, ml_target = torch.from_numpy(ml_scores_np).to(dev), torch.from_numpy(ml_target_np.astype(np.int64)).to(dev)
+    lc = ml_scores_np.shape[1]
+    coco = MetricCollection({
+        "StatScores_micro": StatScores(reduce="micro"),
+        "StatScores_macro": StatScores(reduce="macro", num_classes=lc),
+        "F1": F1(num_classes=lc, average="macro"),
+        "HammingDistance": HammingDistance(),
+        "ConfusionMatrix": ConfusionMatrix(lc, multilabel=True),
+    })
+    for rows in np.array_split(np.arange(ml_scores_np.shape[0]), 4):
+        coco.update(ml_preds[rows[0]:rows[-1] + 1], ml_target[rows[0]:rows[-1] + 1])
+    got = coco.compute()
+    pb, tb = ml_scores_np >= 0.5, ml_target_np.astype(bool)
+    ml_tp, ml_fp, ml_fn = (pb & tb).sum(0), (pb & ~tb).sum(0), (~pb & tb).sum(0)
+    ml_tn = pb.shape[0] - ml_tp - ml_fp - ml_fn
+    per_label = np.stack([ml_tp, ml_fp, ml_tn, ml_fn, ml_tp + ml_fn], 1)
+    if not (np.array_equal(got["StatScores_macro"].cpu().numpy(), per_label)
+            and np.array_equal(got["StatScores_micro"].cpu().numpy(), per_label.sum(0))):
+        raise AssertionError("MS-COCO StatScores differ from numpy's counts")
+    cells = np.stack([np.stack([ml_tn, ml_fp], 1), np.stack([ml_fn, ml_tp], 1)], 1)
+    if not np.array_equal(got["ConfusionMatrix"].cpu().numpy(), cells.astype(np.float32)):
+        raise AssertionError("MS-COCO multi-label ConfusionMatrix differs from numpy's (80, 2, 2) counts")
+    check("MS-COCO F1 macro", got["F1"].item(), _oracle_prf(ml_tp, ml_fp, ml_fn)[2], RATIO_TOL)
+    check("MS-COCO HammingDistance", got["HammingDistance"].item(), np.mean(pb != tb), RATIO_TOL)
+    print(f"4e. MS-COCO {ml_scores_np.shape[0]}x{lc} multi-label: StatScores micro/macro and the (80, 2, 2)"
+          f" ConfusionMatrix exact, F1 macro {got['F1'].item():.7f} and HammingDistance"
+          f" {got['HammingDistance'].item():.7f} equal the oracles")
+    del coco, ml_preds, ml_target
+
+    # d. Cityscapes val, 500 x 1024 x 2048, 19 classes, 4 images a batch, made on the card
+    def city_collection():
+        return MetricCollection({
+            "ConfusionMatrix": ConfusionMatrix(CITY_C),
+            "IoU": IoU(CITY_C),
+            "StatScores": StatScores(reduce="macro", num_classes=CITY_C, mdmc_reduce="global"),
+            "F1": F1(num_classes=CITY_C, average="macro", mdmc_average="samplewise"),
+        })
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    cdf = torch.from_numpy(np.cumsum(CITY_SHARES)).to(dev, torch.float32)
+    shape = (CITY_BATCH, CITY_H, CITY_W)
+
+    def city_batch():
+        target = torch.searchsorted(cdf, torch.rand(shape, generator=gen, device=dev)).clamp_(max=CITY_C - 1)
+        logits = torch.randn((CITY_BATCH, CITY_C, CITY_H, CITY_W), generator=gen, device=dev)
+        logits.scatter_add_(1, target[:, None], torch.full((CITY_BATCH, 1, CITY_H, CITY_W), 3.0, device=dev))
+        return torch.softmax(logits, dim=1), target
+
+    city = city_collection()
+    per_image = np.zeros((CITY_IMAGES, CITY_C * CITY_C), np.int64)
+    update_ms = []
+    for b in range(CITY_IMAGES // CITY_BATCH):
+        preds, target = city_batch()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        city.update(preds, target)
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t) * 1e3)
+        # the oracle: numpy counts of target * 19 + argmax from uint8 maps on the host
+        argmax = torch.argmax(preds, dim=1).to(torch.uint8).cpu().numpy()
+        index = target.to(torch.uint8).cpu().numpy().astype(np.int16) * np.int16(CITY_C) + argmax
+        for i in range(CITY_BATCH):
+            per_image[b * CITY_BATCH + i] = np.bincount(index[i].ravel(), minlength=CITY_C * CITY_C)
+    t = time.perf_counter()
+    got = city.compute()
+    torch.cuda.synchronize()
+    first_compute_ms = (time.perf_counter() - t) * 1e3
+    confmat = per_image.sum(0).reshape(CITY_C, CITY_C)
+    if not np.array_equal(city["ConfusionMatrix"].confmat.cpu().numpy(), confmat):
+        raise AssertionError("Cityscapes ConfusionMatrix state differs from numpy's int64 counts")
+    if not np.array_equal(got["ConfusionMatrix"].cpu().numpy(), confmat.astype(np.float32)):
+        raise AssertionError("Cityscapes float32 ConfusionMatrix differs from the float32 rounding of numpy's counts")
+    tp, fp, tn, fn = _oracle_counts(confmat)
+    if not np.array_equal(got["StatScores"].cpu().numpy(), np.stack([tp, fp, tn, fn, tp + fn], 1)):
+        raise AssertionError("Cityscapes macro StatScores differ from numpy's int64 counts")
+    if not np.max(tn) > 2**24:
+        raise AssertionError("Cityscapes: no per-class count passed 2^24")
+    check("Cityscapes IoU", got["IoU"].item(), np.mean(_safe_ratio(tp, tp + fp + fn)), RATIO_TOL)
+    img = per_image.reshape(CITY_IMAGES, CITY_C, CITY_C)
+    img_tp = np.diagonal(img, axis1=1, axis2=2)
+    img_prf = [_oracle_prf(img_tp[i], img[i].sum(0) - img_tp[i], img[i].sum(1) - img_tp[i]) for i in range(CITY_IMAGES)]
+    check("Cityscapes F1 macro samplewise", got["F1"].item(), np.mean([x[2] for x in img_prf]), RATIO_TOL)
+    city_mcc = _matthews_corrcoef_compute(city["ConfusionMatrix"].confmat).item()
+    mcc_gap_city = abs(city_mcc - _oracle_mcc(confmat))
+    out["cityscapes_update_ms"] = float(np.median(update_ms))
+    out["cityscapes_compute_ms"] = computed_ms(city)
+    out["cityscapes_first_compute_ms"] = first_compute_ms
+
+    # host synchronizations of one update, per metric, at C = 19 and C = 1,000
+    sync_sites = {}
+
+    def update_syncs(classes, p, t):
+        found = {}
+        for name, make in (
+            ("StatScores", lambda: StatScores(reduce="macro", num_classes=classes, mdmc_reduce="global")),
+            ("F1", lambda: F1(num_classes=classes, average="macro", mdmc_average="global")),
+            ("ConfusionMatrix", lambda: ConfusionMatrix(classes)),
+            ("IoU", lambda: IoU(classes)),
+        ):
+            make().update(p, t)
+            metric = make()
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    metric.update(p, t)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            sites = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
+            found[name] = len(sites)
+            sync_sites[f"{name}@{classes}"] = sites
+        return found
+
+    shapes = {CITY_C: (preds, target), c: (mc_preds[:mc_batch], mc_target[:mc_batch])}
+    update_syncs(CITY_C, *shapes[CITY_C])  # the first counted window may see one more, from PyTorch itself
+    syncs = {k: update_syncs(k, *v) for k, v in shapes.items()}
+    if syncs[CITY_C] != syncs[c] or not all(syncs[c].values()):
+        raise AssertionError(f"host synchronizations per update grow with the classes: {syncs} at {sync_sites}")
+
+    def bincount_by_size(indices, length, weights=None):
+        """``label_bincount`` as it was: ``torch.bincount``, which sizes its
+        output from the data's min and max (0/1 weights send a label to the
+        spare bucket)."""
+        idx = indices.reshape(-1).to(torch.int64).clamp_min(0)
+        idx = torch.where(idx < length, idx, length)
+        if weights is not None:
+            idx = torch.where(weights.reshape(-1).to(torch.bool), idx, length)
+        return torch.bincount(idx, minlength=length + 1)[:length]
+
+    # the modules themselves: the package names their public functions alike
+    stat_scores_module = importlib.import_module("metrics_tpu_torch.functional.classification.stat_scores")
+    confmat_module = importlib.import_module("metrics_tpu_torch.functional.classification.confusion_matrix")
+    stat_scores_module.label_bincount = confmat_module.label_bincount = bincount_by_size
+    try:
+        syncs_by_size = {k: update_syncs(k, *v) for k, v in shapes.items()}
+    finally:
+        stat_scores_module.label_bincount = confmat_module.label_bincount = label_bincount
+    cells = target.reshape(-1) * CITY_C + torch.argmax(preds, dim=1).reshape(-1)
+    if not torch.equal(label_bincount(cells, CITY_C**2), torch.bincount(cells, minlength=CITY_C**2)):
+        raise AssertionError("label_bincount differs from torch.bincount on the Cityscapes cells")
+    out["label_bincount_cells_ms"] = _host_ms(torch, lambda: label_bincount(cells, CITY_C**2))
+    out["torch_bincount_cells_ms"] = _host_ms(torch, lambda: torch.bincount(cells, minlength=CITY_C**2))
+    out.update(syncs_per_update=syncs, syncs_per_update_with_torch_bincount=syncs_by_size,
+               sync_sites=sync_sites, mcc_gap_imagenet=mcc_gap_imagenet, mcc_gap_cityscapes=mcc_gap_city,
+               cityscapes_mcc=city_mcc, cityscapes_max_tn=int(np.max(tn)))
+    print(f"4e. Cityscapes {CITY_IMAGES}x{CITY_H}x{CITY_W}, {CITY_C} classes, {CITY_IMAGES // CITY_BATCH} batches of"
+          f" {CITY_BATCH}: ConfusionMatrix and macro StatScores equal numpy's int64 counts (largest tn"
+          f" {int(np.max(tn))}, above 2^24), the float32 matrix its float32 rounding; IoU {got['IoU'].item():.7f},"
+          f" F1 samplewise {got['F1'].item():.7f} equal float64; MCC {city_mcc:.7f}, gap to float64 {mcc_gap_city:.3g};"
+          f" update {out['cityscapes_update_ms']:.3f} ms (median), compute {out['cityscapes_compute_ms']:.3f} ms;"
+          f" syncs per update {syncs} (with torch.bincount {syncs_by_size}); label_bincount"
+          f" {out['label_bincount_cells_ms']:.3f} ms vs torch.bincount {out['torch_bincount_cells_ms']:.3f} ms on"
+          f" {cells.numel()} cells")
+    return out, (forward_leg, (p4[:BATCH], t4[:BATCH])), city_collection, (preds, target)
 
 
 def main() -> int:
@@ -1092,6 +1440,16 @@ def main() -> int:
           f" weighted: counts exact, weighted histograms within {binned_err['hist']:.3g} relative, values within"
           f" {binned_err['values']:.3g} of the float64 evaluation")
 
+    # ---- 4e. the stat-score family ------------------------------------------
+    zero_counts()
+    t0 = time.perf_counter()
+    stat_timings, stat_leg, city_collection, city_batch = _stat_score_phase(
+        torch, dev, (mc_preds, mc_target, mc_scores_np, mc_target_np), (ml_scores_np, ml_target_np)
+    )
+    stat_timings["phase_s"] = time.perf_counter() - t0
+    if any(counts().values()):
+        raise AssertionError(f"the stat-score family launched a scan kernel: {counts()}")
+
     # ---- 5. times ---------------------------------------------------------
     all_preds = torch.cat(list(collection["AUROC"].preds))
     all_rel = (torch.cat(list(collection["AUROC"].target)) == 1).to(torch.float32)
@@ -1266,6 +1624,7 @@ def main() -> int:
                                 "micro_auroc_coco": micro_launches, "phase_3c_in_all": curve_launches},
         "per_class_curve_syncs": {str(k): v for k, v in syncs.items()},
         "per_class_curve_sync_sites": sync_sites,
+        "stat_score_family": stat_timings,
         "card": card,
     }
     print(json.dumps({"timings": timings}))
@@ -1327,6 +1686,30 @@ def main() -> int:
         roc_window_ms = (time.perf_counter() - t) * 1e3
     roc_split = _device_ms_by_kernel(torch, prof_roc, sort_key)
     print(prof_roc.key_averages().table(sort_by=sort_key, row_limit=15, max_name_column_width=48))
+    # one forward batch of the JAX bench's forward leg (Accuracy + macro Precision/Recall/F1 at 100k)
+    leg, leg_batch = stat_leg
+    leg(*leg_batch)
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof_leg:
+        t = time.perf_counter()
+        leg(*leg_batch)
+        torch.cuda.synchronize()
+        leg_window_ms = (time.perf_counter() - t) * 1e3
+    leg_split = _device_ms_by_kernel(torch, prof_leg, sort_key)
+    print(prof_leg.key_averages().table(sort_by=sort_key, row_limit=15, max_name_column_width=48))
+    print(prof_leg.key_averages().table(sort_by="self_cpu_time_total", row_limit=15, max_name_column_width=48))
+    # one Cityscapes update of the stat-score collection (4 images, 19 classes)
+    city = city_collection()
+    city.update(*city_batch)
+    city = city_collection()
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof_city:
+        t = time.perf_counter()
+        city.update(*city_batch)
+        torch.cuda.synchronize()
+        city_window_ms = (time.perf_counter() - t) * 1e3
+    city_split = _device_ms_by_kernel(torch, prof_city, sort_key)
+    print(prof_city.key_averages().table(sort_by=sort_key, row_limit=15, max_name_column_width=48))
     # one call of each kernel entry: one launch and at most the memset of its scratch
     entry_splits = {}
     for label, kernel, call in (
@@ -1358,6 +1741,12 @@ def main() -> int:
         "per_class_roc_compute_window_ms": roc_window_ms,
         "per_class_roc_compute_device_ms": sum(roc_split.values()),
         "per_class_roc_compute_device_ms_by_kernel": dict(sorted(roc_split.items(), key=lambda kv: -kv[1])[:12]),
+        "forward_leg_batch_window_ms": leg_window_ms,
+        "forward_leg_batch_device_ms": sum(leg_split.values()),
+        "forward_leg_batch_device_ms_by_kernel": dict(sorted(leg_split.items(), key=lambda kv: -kv[1])[:12]),
+        "cityscapes_update_window_ms": city_window_ms,
+        "cityscapes_update_device_ms": sum(city_split.values()),
+        "cityscapes_update_device_ms_by_kernel": dict(sorted(city_split.items(), key=lambda kv: -kv[1])[:12]),
         "kernel_device_ms_by_kernel": entry_splits["tie_scan"],
         "rows_kernel_device_ms_by_kernel": entry_splits["tie_scan_rows"],
         "weighted_kernel_device_ms_by_kernel": entry_splits["weighted"],

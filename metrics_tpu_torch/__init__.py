@@ -14,8 +14,12 @@ sharded forms with bounded per-rank state (``ShardedAUROC``,
 on one card, the splitter sample sort over ``torch.distributed`` across
 cards; ``ShardedROC``, ``ShardedPrecisionRecallCurve``); the streaming
 binned curves over score histograms (``BinnedAUROC``,
-``BinnedAveragePrecision``, ``BinnedPrecisionRecallCurve``); the ``Metric``
-core and ``MetricCollection``.
+``BinnedAveragePrecision``, ``BinnedPrecisionRecallCurve``); the stat-score
+family, counted in label space without a one-hot (``StatScores``,
+``Precision``, ``Recall``, ``FBeta``, ``F1``, ``HammingDistance``) and the
+confusion-matrix family (``ConfusionMatrix``, ``CohenKappa``,
+``MatthewsCorrcoef``, ``IoU``), with ``Hinge`` and functional
+``dice_score``; the ``Metric`` core and ``MetricCollection``.
 """
 from metrics_tpu_torch.info import __version__  # noqa: F401
 from metrics_tpu_torch.metric import Metric  # noqa: F401
@@ -28,11 +32,22 @@ from metrics_tpu_torch.classification import (  # noqa: F401
     BinnedAUROC,
     BinnedAveragePrecision,
     BinnedPrecisionRecallCurve,
+    CohenKappa,
+    ConfusionMatrix,
+    F1,
+    FBeta,
+    HammingDistance,
+    Hinge,
+    IoU,
+    MatthewsCorrcoef,
+    Precision,
     PrecisionRecallCurve,
+    Recall,
     ShardedAUROC,
     ShardedAveragePrecision,
     ShardedCurveMetric,
     ShardedPrecisionRecallCurve,
     ShardedROC,
+    StatScores,
 )
 from metrics_tpu_torch.collections import MetricCollection  # noqa: F401

@@ -11,8 +11,11 @@ outputs, and the same errors raised in the same order.
 * The canonicalizing transform (threshold / top-k / one-hot / reshape) is
   a handful of eager tensor ops.
 
-The JAX package's jit fast paths and canonicalization memo exist for XLA
-tracing and have no eager counterpart here.
+The label-space fast paths of the hamming, confusion-matrix and
+stat-score counts share ``_fast_path_inputs`` / ``_fast_path_probe``: they
+skip the canonicalizing transform and validate from the same probe. The
+JAX package's canonicalization memo and its sharing of one fast-path count
+among sibling metrics (``fast_path_memo``) are not ported.
 """
 from typing import Any, NamedTuple, Optional, Tuple
 
@@ -43,11 +46,14 @@ class _Probe(NamedTuple):
     target_min: int
     target_max: int
     prob_sum_ok: bool
+    # one more scalar a caller asked to read in the same copy
+    extra: Optional[float] = None
 
 
-def _value_probe(preds, target, p_shape, t_shape, check_prob_sum, sum_atol=1e-5) -> _Probe:
+def _value_probe(preds, target, p_shape, t_shape, check_prob_sum, sum_atol=1e-5, extra=None) -> _Probe:
     """Min/max of both inputs and the probabilities-sum-to-1 flag, read to
-    the host in ONE device-to-host copy (one synchronization)."""
+    the host in ONE device-to-host copy (one synchronization). ``extra``, a
+    0-d tensor on the inputs' device, rides along in the same copy."""
     preds = preds.reshape(p_shape).to(torch.float32)
     target = target.reshape(t_shape)
     if check_prob_sum:
@@ -56,10 +62,11 @@ def _value_probe(preds, target, p_shape, t_shape, check_prob_sum, sum_atol=1e-5)
     else:
         prob_ok = torch.ones((), dtype=torch.bool, device=preds.device)
     # float64 holds every f32 value and every integer label below 2^53 exactly
-    raw = torch.stack(
-        [preds.min().double(), preds.max().double(), target.min().double(), target.max().double(), prob_ok.double()]
-    ).tolist()
-    return _Probe(raw[0], raw[1], int(raw[2]), int(raw[3]), bool(raw[4]))
+    scalars = [preds.min(), preds.max(), target.min(), target.max(), prob_ok]
+    if extra is not None:
+        scalars.append(extra)
+    raw = torch.stack([x.double() for x in scalars]).tolist()
+    return _Probe(raw[0], raw[1], int(raw[2]), int(raw[3]), bool(raw[4]), raw[5] if extra is not None else None)
 
 
 def _prob_sum_atol(preds: torch.Tensor, p_shape: Tuple[int, ...], check_prob_sum: bool) -> float:
@@ -292,6 +299,35 @@ def _check_classification_inputs(
         _check_top_k(top_k, case, implied_classes, is_multiclass, preds_float)
 
     return case
+
+
+def _fast_path_inputs(preds: torch.Tensor, target: torch.Tensor):
+    """Shared eligibility preamble of the label-space fast paths (hamming,
+    confusion matrix, stat scores): int target, matching first dims, and a
+    detectable case. Returns ``(p_shape, t_shape, preds_float, case,
+    implied_classes)`` or None, which means "take the canonical path": that
+    path raises the JAX package's errors for the rejected inputs."""
+    if _is_floating(target):
+        return None
+    p_shape = _squeeze_shape(preds.shape)
+    t_shape = _squeeze_shape(target.shape)
+    preds_float = _is_floating(preds)
+    if (p_shape[0] if p_shape else 0) != (t_shape[0] if t_shape else 0):
+        return None
+    try:
+        case, implied_classes = _detect_case(p_shape, t_shape, preds_float)
+    except ValueError:
+        return None
+    return p_shape, t_shape, preds_float, case, implied_classes
+
+
+def _fast_path_probe(preds, target, p_shape, t_shape, case, preds_float, extra=None) -> _Probe:
+    """The value probe of a fast path, under the canonical path's
+    probabilities-sum-to-1 condition."""
+    check_prob_sum = case in (DataType.MULTICLASS, DataType.MULTIDIM_MULTICLASS) and preds_float
+    return _value_probe(
+        preds, target, p_shape, t_shape, check_prob_sum, _prob_sum_atol(preds, p_shape, check_prob_sum), extra
+    )
 
 
 def _canonicalize(preds, target, p_shape, t_shape, case, threshold, top_k, num_classes, is_multiclass):

@@ -79,6 +79,17 @@ def select_topk(prob_tensor: torch.Tensor, topk: int = 1, dim: int = 1) -> torch
     return torch.movedim(mask, -1, dim).to(torch.int32)
 
 
+def to_categorical(x: torch.Tensor, argmax_dim: int = 1) -> torch.Tensor:
+    """Probabilities ``[N, C, d1, ...]`` -> int32 labels by argmax (ties:
+    the lower index, as in the JAX package).
+
+    Example:
+        >>> to_categorical(torch.tensor([[0.2, 0.5], [0.9, 0.1]]))
+        tensor([1, 0], dtype=torch.int32)
+    """
+    return torch.argmax(x, dim=argmax_dim).to(torch.int32)
+
+
 def get_num_classes(preds: torch.Tensor, target: torch.Tensor, num_classes: Optional[int] = None) -> int:
     """Infer the number of classes from data maxima, warning on a mismatch."""
     num_target_classes = int(target.max()) + 1

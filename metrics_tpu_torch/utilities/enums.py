@@ -65,3 +65,10 @@ class AverageMethod(EnumStr):
     WEIGHTED = "weighted"
     NONE = None
     SAMPLES = "samples"
+
+
+class MDMCAverageMethod(EnumStr):
+    """Aggregation over the extra dims of multi-dim multi-class inputs."""
+
+    GLOBAL = "global"
+    SAMPLEWISE = "samplewise"

@@ -2,7 +2,10 @@
 and class-batched, unweighted and weighted) against its plain PyTorch
 version, and the GPU entry points (the exact scores, the weighted and
 ``micro`` routes with their launches, the curves and the binned curves)
-against their CPU runs.
+against their CPU runs; the stat-score family's label-space counts against
+the canonical path, ``label_bincount`` against ``torch.bincount``, the
+synchronizations of an update at 19 and 1,000 classes, and counts past
+2^24.
 
 Every test here is marked ``cuda`` and skips without a card. This file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -17,16 +20,20 @@ import torch
 
 from metrics_tpu_torch import (
     AUROC,
+    F1,
     ROC,
     Accuracy,
     AveragePrecision,
     BinnedAUROC,
     BinnedAveragePrecision,
     BinnedPrecisionRecallCurve,
+    ConfusionMatrix,
     MetricCollection,
     PrecisionRecallCurve,
+    StatScores,
 )
 from metrics_tpu_torch.functional import auroc, average_precision, precision_recall_curve, roc
+from metrics_tpu_torch.functional.classification.stat_scores import _stat_scores_count, _stat_scores_fast_update
 from metrics_tpu_torch.ops.auroc_kernel import (
     _co_sort,
     _co_sort_rows,
@@ -46,7 +53,9 @@ from metrics_tpu_torch.ops.tie_scan import (
     tie_group_reduce_rows,
     tie_group_reduce_rows_reference,
 )
+from metrics_tpu_torch.ops.histogram import label_bincount
 from metrics_tpu_torch.parallel.sample_sort import _tie_stats_w
+from metrics_tpu_torch.utilities.checks import _input_format_classification
 
 pytestmark = pytest.mark.cuda
 
@@ -610,3 +619,88 @@ def test_gpu_binned_curves_match_the_cpu_path(cuda_device, weighted):
             got, want = on_card.compute(), on_cpu.compute()
             for g, c in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
                 torch.testing.assert_close(g.cpu(), c, rtol=0.0, atol=1e-6, equal_nan=True)
+
+
+# ---- the stat-score / confusion-matrix family -----------------------------------
+
+
+def _update_syncs(metric_fn, preds, target):
+    """Host synchronizations of one ``update`` of a fresh metric, after a
+    first update (first calls may synchronize once more)."""
+    metric_fn().update(preds, target)
+    torch.cuda.synchronize()
+    metric = metric_fn()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            metric.update(preds, target)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"reduce": "macro"}, {"reduce": "micro", "ignore_index": 3}, {"reduce": "samples", "top_k": 2},
+    {"reduce": "macro", "top_k": 5, "ignore_index": 0},
+])
+def test_gpu_label_space_counts_equal_the_canonical_path(cuda_device, kwargs):
+    preds, target = _multiclass(20_000, 17, 37)
+    # ties inside and at the edge of the top k
+    preds = (torch.round(preds * 20) + 1) / (torch.round(preds * 20) + 1).sum(1, keepdim=True)
+    p, t = preds.to(cuda_device), target.to(cuda_device)
+    options = dict(reduce="micro", mdmc_reduce=None, num_classes=17, top_k=None, threshold=0.5,
+                   is_multiclass=None, ignore_index=None)
+    options.update(kwargs)
+    fast = _stat_scores_fast_update(p, t, **options)
+    pc, tc, _ = _input_format_classification(p, t, num_classes=17, top_k=options["top_k"])
+    canonical = _stat_scores_count(pc, tc, options["reduce"], None, options["ignore_index"])
+    on_cpu = _stat_scores_fast_update(preds, target, **options)
+    for got, want, cpu in zip(fast, canonical, on_cpu):
+        assert got.device.type == "cuda" and torch.equal(got, want) and torch.equal(got.cpu(), cpu)
+
+
+def test_label_bincount_is_bit_equal_to_torch_bincount(cuda_device):
+    rng = np.random.default_rng(38)
+    for n, length in ((1, 1), (1_000_003, 19), (8_388_608, 361), (5_000_000, 1_000_000)):
+        idx = torch.from_numpy(rng.integers(0, length, n)).to(cuda_device)
+        got = label_bincount(idx, length)
+        assert got.dtype == torch.int64 and torch.equal(got, torch.bincount(idx, minlength=length))
+    # the out-of-range contract: negatives count in bucket 0, labels >= length nowhere
+    idx = torch.tensor([-3, 0, 2, 5, 9], device=cuda_device)
+    assert label_bincount(idx, 5).tolist() == [2, 0, 1, 0, 0]
+
+
+def test_stat_score_update_syncs_do_not_grow_with_the_classes(cuda_device):
+    counts = {}
+    for c in (19, 1000):
+        preds, target = _multiclass(5_000, c, 39)
+        p, t = preds.to(cuda_device), target.to(cuda_device)
+        counts[c] = [
+            _update_syncs(lambda: StatScores(reduce="macro", num_classes=c), p, t),
+            _update_syncs(lambda: F1(num_classes=c, average="macro"), p, t),
+            _update_syncs(lambda: ConfusionMatrix(num_classes=c), p, t),
+        ]
+    assert counts[19] == counts[1000] == [1, 1, 1], counts  # the value probe's read, and nothing else
+
+
+def test_per_class_counts_past_2_24_are_exact(cuda_device):
+    """A class holding 20M of 20,000,003 positions: its support, tp and tn
+    pass 2^24 (where a float32 count would stop) and equal numpy's int64
+    counts; the confusion matrix's int32 state holds them too."""
+    n = 20_000_003
+    rng = np.random.default_rng(40)
+    target = np.where(rng.random(n) < 0.999, 2, rng.integers(0, 4, n))
+    preds = np.where(rng.random(n) < 0.99, target, rng.integers(0, 4, n))
+    t, p = torch.from_numpy(target).to(cuda_device), torch.from_numpy(preds).to(cuda_device)
+    stats = StatScores(reduce="macro", num_classes=4)
+    stats.update(p, t)
+    confmat = ConfusionMatrix(num_classes=4)
+    confmat.update(p, t)
+    want = np.bincount(target * 4 + preds, minlength=16).reshape(4, 4)
+    assert np.array_equal(confmat.confmat.cpu().numpy(), want)
+    tp = np.diag(want)
+    fp, fn = want.sum(0) - tp, want.sum(1) - tp
+    want_stats = np.stack([tp, fp, n - tp - fp - fn, fn, tp + fn], 1)
+    assert want_stats[2, 0] > 2**24 and want_stats[0, 2] > 2**24
+    assert np.array_equal(stats.compute().cpu().numpy(), want_stats)

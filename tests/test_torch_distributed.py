@@ -10,7 +10,10 @@ sample sort (binary, weighted or not) and the class transpose by
 ``all_to_all`` (one-vs-rest), each rank holding an uneven slice, against the
 same stream in one process; and the sharded curves (``ShardedROC``,
 ``ShardedPrecisionRecallCurve``), whose every rank must return the same
-curve, bit for bit, as one process holding the whole stream.
+curve, bit for bit, as one process holding the whole stream; and the
+stat-score family's states (a sum-state ``ConfusionMatrix(1000)`` and
+``StatScores``, a list-state ``StatScores(reduce="samples")``), whose every
+rank must equal one process.
 """
 import json
 import multiprocessing
@@ -23,7 +26,7 @@ import torch.distributed as dist
 
 from metrics_tpu_torch import AUROC, Accuracy, MetricCollection
 from metrics_tpu_torch.parallel.backend import TorchDistributedBackend, get_sync_backend
-from tests.torch_workers import run_world, sharded_cases, sharded_metric_values
+from tests.torch_workers import run_world, sharded_cases, sharded_metric_values, stat_scores_world
 
 
 def _rows(rank):
@@ -209,3 +212,35 @@ def test_nccl_sharded_curves_are_the_same_on_every_card():
             assert len(got) == len(want) and all(np.array_equal(g, w) for g, w in zip(got, want)), (name, r)
     print(json.dumps({"nccl_sharded_curves": {"world": world, "card": torch.cuda.get_device_name(0),
                                               "points": points}}))
+
+
+@pytest.mark.cuda
+def test_nccl_stat_scores_and_confmat_are_the_same_on_every_card():
+    """Sum states (``ConfusionMatrix(1000)``, macro ``StatScores``) and a
+    list state (``StatScores(reduce="samples")``) synced over NCCL, one rank
+    per card, each rank updating with every world-th of 8 batches of 2,000
+    ImageNet-shaped rows (1,000 classes): every rank's value equals one
+    process's on one card."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    world = torch.cuda.device_count()
+    rng = np.random.default_rng(8)
+    batches = []
+    for _ in range(8):
+        logits = rng.standard_normal((2_000, 1_000)).astype(np.float32)
+        target = rng.integers(0, 1_000, 2_000)
+        logits[np.arange(2_000), target] += 3.0
+        e = np.exp(logits - logits.max(1, keepdims=True))
+        batches.append(((e / e.sum(1, keepdims=True)).astype(np.float32), target))
+    payload = {"batches": batches, "num_classes": 1_000}
+    ranks = run_world(world, stat_scores_world, payload, device_type="cuda", timeout=600)
+    one = stat_scores_world(0, 1, torch.device("cuda", 0), payload)
+    for r in range(world):
+        for name, value in one.items():
+            assert np.array_equal(ranks[r][name], value), (name, r)
+    print(json.dumps({"nccl_stat_scores": {
+        "world": world, "card": torch.cuda.get_device_name(0),
+        "shapes": {name: list(v.shape) for name, v in one.items()},
+        "confmat_total": float(one["confmat"].sum()),
+    }}))
+

@@ -16,7 +16,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from metrics_tpu_torch import ShardedAUROC, ShardedAveragePrecision, ShardedPrecisionRecallCurve, ShardedROC
+from metrics_tpu_torch import (
+    ConfusionMatrix,
+    ShardedAUROC,
+    ShardedAveragePrecision,
+    ShardedPrecisionRecallCurve,
+    ShardedROC,
+    StatScores,
+)
 from metrics_tpu_torch.interop import state_from_jax
 from metrics_tpu_torch.parallel.backend import TorchDistributedBackend
 from metrics_tpu_torch.parallel.sample_sort import sample_sort_auroc_ap
@@ -187,3 +194,22 @@ def sharded_metric_values(rank: int, world: int, device: torch.device, specs: li
         out[spec["name"]] = {"value": v.tolist(), "bits": v.tobytes(), "ms": float(np.median(times)),
                              "launches": used}
     return out
+
+
+def stat_scores_world(rank: int, world: int, device: torch.device, payload: dict) -> dict:
+    """A sum-state ``StatScores`` (macro, MDMC-global), a list-state
+    ``StatScores(reduce="samples")`` and a sum-state ``ConfusionMatrix``
+    over ``payload["batches"]``, rank r updating with batches r, r + world,
+    ... (the order in which list states concatenate back to the
+    one-process order). Returns each synced compute as a numpy array."""
+    c = payload["num_classes"]
+    metrics = {
+        "macro": StatScores(reduce="macro", num_classes=c, mdmc_reduce="global", device=device),
+        "samples": StatScores(reduce="samples", mdmc_reduce="global", device=device),
+        "confmat": ConfusionMatrix(num_classes=c, device=device),
+    }
+    for preds, target in payload["batches"][rank::world]:
+        for m in metrics.values():
+            m.update(torch.from_numpy(preds).to(device), torch.from_numpy(target).to(device))
+    return {name: m.compute().cpu().numpy() for name, m in metrics.items()}
+
