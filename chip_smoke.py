@@ -102,6 +102,25 @@ that is unset. Phases (any failure exits non-zero before the result line):
    ``target * 19 + argmax``; the host synchronizations of one update at
    C = 19 and C = 1,000 (equal), also with ``torch.bincount`` in place of
    ``label_bincount``; MCC's float32 gap to float64;
+4f. the regression pack and metric arithmetic (no scan kernel), against
+   float64 numpy/scipy oracles: (a) the JAX bench's regression forward leg
+   (``bench.py:463-464, 535``), ``MetricCollection([MeanSquaredError(),
+   MeanAbsoluteError(), R2Score(), PSNR(), ExplainedVariance()])``, 10
+   forward batches of 100,000 seeded rows, every value within 1e-5
+   relative, the shared moments computed once per batch and equal to each
+   metric's own, 0 host synchronizations per update; functional
+   ``mean_squared_log_error`` / ``mean_relative_error`` on the same rows and
+   a 2-output adjusted ``R2Score``; (b) BASELINE config 4's 16 x 3 x 128 x
+   128 images: ``psnr``, ``PSNR()`` over 4 batches, per-image ``PSNR`` and
+   ``ssim`` (the banded blur); (c) the convolution blur: ``SSIM()`` over the
+   Kodak PhotoCD set's shape (24 x 3 x 512 x 768, 6 batches of 4) and
+   ``ssim`` over 4 x 3 x 1024 x 2048 frames. (b) and (c) run with TF32
+   switched on globally (``cudnn.allow_tf32``,
+   ``set_float32_matmul_precision("high")``); SSIM must stay within 1e-6 of
+   float64 and the flags must read the same afterwards; one ``SSIM.update``
+   causes 0 synchronizations. (d) ``MeanSquaredError() ** 0.5`` over (a),
+   and ``(Precision + Recall) / 2`` (macro, 4 classes) forwarded over 4e's
+   forward-leg batches, whose ``compute()`` must be the epoch's value;
 5. times on the card (CUDA events over launches queued behind a device
    sleep, so host overhead does not show, or the host clock ending in a
    synchronize for whole steps): the one-stream kernel, its plain version
@@ -115,11 +134,18 @@ that is unset. Phases (any failure exits non-zero before the result line):
    and PR-curve compute at 1M and at (1000, 50000), the ``max_fpr`` AUROC
    and the weighted functional AUROC at 1M, and one binned update at
    1M x 512 and at 50,000 x 1,000 x 512; the stat-score family's forward
-   batch, ImageNet compute, Cityscapes update and compute;
+   batch, ImageNet compute, Cityscapes update and compute; the regression
+   leg's forward batch (in the collection and unshared) and compute,
+   functional ``r2score`` / ``mean_squared_error`` at 1M, ``psnr`` /
+   ``ssim`` at 16 x 3 x 128 x 128, ``SSIM.compute()`` over Kodak, ``ssim``
+   at 4 x 3 x 1024 x 2048, and both blur forms (banded product and
+   depthwise convolution) at 128 x 128, 512 x 768 and 1024 x 2048;
 6. where the time goes: ``torch.profiler`` over a binary forward batch plus
    compute, over one multi-class compute, over one weighted sharded binary
    compute, over one per-class ROC compute at (1000, 50000), over one
-   forward batch of phase 4e's forward leg and one Cityscapes update, and over one
+   forward batch of phase 4e's forward leg and one Cityscapes update, over
+   one forward batch of phase 4f's regression leg and one ``ssim`` at
+   4 x 3 x 1024 x 2048, and over one
    call of each kernel entry (one stream at 1M,
    batched at ``(1000, 50000)``, and the two weighted ones at their paths'
    shapes), each of which must show one kernel and at most the memset of
@@ -187,6 +213,22 @@ RATIO_TOL = 1e-6
 # are skewed as a street scene's (road about a third, then halving)
 CITY_IMAGES, CITY_BATCH, CITY_H, CITY_W, CITY_C = 500, 4, 1024, 2048, 19
 CITY_SHARES = np.concatenate([[1 / 3], (2 / 3) * 0.62 ** np.arange(18) / np.sum(0.62 ** np.arange(18))])
+# the regression pack (phase 4f): BASELINE.json config 4's images
+# (bench.py:1458), the whole Kodak PhotoCD set's shape (24 images of
+# 3 x 512 x 768, fed 4 a batch), and 4 frames of Cityscapes' 1024 x 2048
+IMG_SHAPE = (16, 3, 128, 128)
+KODAK_IMAGES, KODAK_BATCH, KODAK_H, KODAK_W = 24, 4, 512, 768
+FRAMES = 4
+# regression values against float64: float32 moment sums over 1M rows
+REG_TOL = 1e-5
+# the shared pass against each metric's own: the same float32 sums, added in another order
+SHARE_TOL = 1e-6
+# SSIM against float64 over the same VALID windows (a TF32 blur reads ~6e-5 off)
+SSIM_TOL = 1e-6
+# composites against float64 / the epoch's counts
+COMP_TOL = 1e-6
+# the banded and the convolution blur of one stack: float32 sums of the same taps in other orders
+BLUR_TOL = 1e-5
 
 
 def _pin_one_card() -> str:
@@ -408,6 +450,16 @@ def _oracle_mcc(confmat: np.ndarray) -> float:
     return float((np.trace(c) * s - tk @ pk) / (np.sqrt(s**2 - pk @ pk) * np.sqrt(s**2 - tk @ tk)))
 
 
+def _forward_leg_inputs(torch, dev):
+    """The JAX bench's forward-leg batches (``bench.py:459-462``): 1M seeded
+    4-class probabilities and labels, as numpy and on ``dev``."""
+    rs = np.random.RandomState(SEED)
+    p4_np = rs.rand(MAIN_N, 4).astype(np.float32)
+    p4_np = p4_np / p4_np.sum(1, keepdims=True)
+    t4_np = rs.randint(4, size=MAIN_N)
+    return p4_np, t4_np, torch.from_numpy(p4_np).to(dev), torch.from_numpy(t4_np).to(dev)
+
+
 def _stat_score_phase(torch, dev, mc, ml):
     """Phase 4e: the stat-score and confusion-matrix family on the card.
 
@@ -462,11 +514,7 @@ def _stat_score_phase(torch, dev, mc, ml):
         return float(np.median(times[1:]))
 
     # a. the JAX bench's forward leg: Accuracy + macro Precision/Recall/F1 on 4 classes
-    rs = np.random.RandomState(SEED)
-    p4_np = rs.rand(MAIN_N, 4).astype(np.float32)
-    p4_np = p4_np / p4_np.sum(1, keepdims=True)
-    t4_np = rs.randint(4, size=MAIN_N)
-    p4, t4 = torch.from_numpy(p4_np).to(dev), torch.from_numpy(t4_np).to(dev)
+    p4_np, t4_np, p4, t4 = _forward_leg_inputs(torch, dev)
     forward_leg = MetricCollection([Accuracy(), Precision(num_classes=4, average="macro"),
                                     Recall(num_classes=4, average="macro"), F1(num_classes=4, average="macro")])
     for b in range(BATCHES):
@@ -699,6 +747,320 @@ def _stat_score_phase(torch, dev, mc, ml):
     return out, (forward_leg, (p4[:BATCH], t4[:BATCH])), city_collection, (preds, target)
 
 
+def _gauss64(k: int, sigma: float) -> np.ndarray:
+    g = np.exp(-((np.arange((1 - k) / 2, (1 + k) / 2, 1.0) / sigma) ** 2) / 2)
+    return g / g.sum()
+
+
+def _oracle_ssim(preds: np.ndarray, target: np.ndarray, data_range: float, k: int = 11, sigma: float = 1.5,
+                 k1: float = 0.01, k2: float = 0.03):
+    """float64 (sum, count) of the SSIM index over the VALID k x k Gaussian
+    windows of ``(B, C, H, W)`` images, image by image (the windows of
+    ``tests/regression/test_ssim.py``'s oracle, without its padded ring)."""
+    from scipy.ndimage import correlate1d
+
+    g, pad = _gauss64(k, sigma), k // 2
+    c1, c2 = (k1 * data_range) ** 2, (k2 * data_range) ** 2
+
+    def blur(x):
+        x = correlate1d(x, g, axis=-2, mode="constant")[..., pad:-pad, :]
+        return correlate1d(x, g, axis=-1, mode="constant")[..., pad:-pad]
+
+    total, count = 0.0, 0
+    for p, t in zip(preds, target):
+        p, t = p.astype(np.float64), t.astype(np.float64)
+        mu_p, mu_t, e_pp, e_tt, e_pt = (blur(x) for x in (p, t, p * p, t * t, p * t))
+        index = ((2 * mu_p * mu_t + c1) * (2 * (e_pt - mu_p * mu_t) + c2)) / (
+            (mu_p**2 + mu_t**2 + c1) * (e_pp - mu_p**2 + e_tt - mu_t**2 + c2))
+        total, count = total + float(index.sum()), count + index.size
+    return total, count
+
+
+def _regression_phase(torch, dev, leg):
+    """Phase 4f: the regression pack and metric arithmetic on the card.
+
+    ``leg`` is phase 4e's forward-leg inputs ``(p4_np, t4_np, p4, t4)``.
+    Returns the phase's timings and what phase 6 profiles."""
+    import contextlib
+
+    from metrics_tpu_torch import (
+        PSNR,
+        SSIM,
+        ExplainedVariance,
+        MeanAbsoluteError,
+        MeanSquaredError,
+        MetricCollection,
+        Precision,
+        R2Score,
+        Recall,
+    )
+    from metrics_tpu_torch.functional import (
+        mean_relative_error,
+        mean_squared_error,
+        mean_squared_log_error,
+        psnr,
+        r2score,
+        ssim,
+    )
+
+    # the modules themselves: the package names its public functions alike
+    sufficient_stats = importlib.import_module("metrics_tpu_torch.functional.regression.sufficient_stats")
+    ssim_module = importlib.import_module("metrics_tpu_torch.functional.regression.ssim")
+    out = {}
+
+    def check(label, got, want, tol, relative=True):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        scale = np.maximum(np.abs(want), 1e-30) if relative else 1.0
+        err = float(np.max(np.abs(got - want) / scale)) if got.size else 0.0
+        if got.shape != want.shape or not np.all(np.isfinite(got)) or not err <= tol:
+            raise AssertionError(f"{label}: {got.ravel()[:4]} vs oracle {want.ravel()[:4]} (max error {err})")
+        return err
+
+    def syncs_of(fn):
+        """The host synchronizations ``fn()`` causes, by site."""
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
+
+    def warm_ms(fn):
+        fn()
+        return _host_ms(torch, fn)
+
+    def computed_ms(metrics, trials=5):
+        """Host ms of compute() ending in a synchronize, cached values
+        dropped; median of ``trials`` after one more call."""
+        times = []
+        for _ in range(trials + 1):
+            for metric in metrics:
+                metric._computed = None
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for metric in metrics:
+                metric.compute()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(times[1:]))
+
+    # a. the JAX bench's regression forward leg (bench.py:463-464, :535): its
+    # generator draws the classification leg's batches first
+    rs = np.random.RandomState(SEED)
+    rs.rand(MAIN_N, 4)
+    rs.randint(4, size=MAIN_N)
+    reg_t_np = (rs.randn(MAIN_N) * 3 + 1).astype(np.float32)
+    reg_p_np = reg_t_np + rs.randn(MAIN_N).astype(np.float32)
+    reg_t, reg_p = torch.from_numpy(reg_t_np).to(dev), torch.from_numpy(reg_p_np).to(dev)
+
+    def reg_collection():
+        return MetricCollection([MeanSquaredError(), MeanAbsoluteError(), R2Score(), PSNR(), ExplainedVariance()])
+
+    reg = reg_collection()
+    alone = {name: type(m)() for name, m in reg.items()}  # the unshared path: each metric reads the batch
+    stats_calls = []
+    compute_stats = sufficient_stats._compute_stats
+    sufficient_stats._compute_stats = lambda p, t: stats_calls.append(1) or compute_stats(p, t)
+    share_err = 0.0
+    try:
+        for b in range(BATCHES):
+            rows = slice(b * BATCH, (b + 1) * BATCH)
+            step = reg(reg_p[rows], reg_t[rows])
+            for name, metric in alone.items():
+                share_err = max(share_err, check(f"shared step {name}", step[name].item(),
+                                                 metric(reg_p[rows], reg_t[rows]).item(), SHARE_TOL))
+    finally:
+        sufficient_stats._compute_stats = compute_stats
+    if len(stats_calls) != BATCHES:
+        raise AssertionError(f"the collection computed the shared moments {len(stats_calls)} times in {BATCHES} batches")
+    got = {k: v.item() for k, v in reg.compute().items()}
+    for name, metric in alone.items():
+        share_err = max(share_err, check(f"shared compute {name}", got[name], metric.compute().item(), SHARE_TOL))
+    p64, t64 = reg_p_np.astype(np.float64), reg_t_np.astype(np.float64)
+    d = t64 - p64
+    mse = np.mean(d * d)
+    data_range = max(t64.max(), 0.0) - min(t64.min(), 0.0)  # PSNR's running range starts at 0.0
+    want = {
+        "MeanSquaredError": mse,
+        "MeanAbsoluteError": np.mean(np.abs(d)),
+        "R2Score": 1 - np.sum(d * d) / np.sum((t64 - t64.mean()) ** 2),
+        "PSNR": 10 * np.log10(data_range**2 / mse),
+        "ExplainedVariance": 1 - np.var(d) / np.var(t64),
+    }
+    reg_err = max(check(f"regression leg {k}", got[k], v, REG_TOL) for k, v in want.items())
+    msle = mean_squared_log_error(reg_p.abs(), reg_t.abs()).item()
+    reg_err = max(reg_err, check("mean_squared_log_error", msle,
+                                 np.mean((np.log1p(np.abs(p64)) - np.log1p(np.abs(t64))) ** 2), REG_TOL))
+    mre = mean_relative_error(reg_p, reg_t).item()
+    reg_err = max(reg_err, check("mean_relative_error", mre,
+                                 np.mean(np.abs((p64 - t64) / np.where(t64 == 0, 1.0, t64))), REG_TOL))
+    two = R2Score(num_outputs=2, multioutput="raw_values", adjusted=3)
+    p2, t2 = reg_p.reshape(-1, 2), reg_t.reshape(-1, 2)
+    for b in range(BATCHES):
+        rows = slice(b * BATCH // 2, (b + 1) * BATCH // 2)
+        two.update(p2[rows], t2[rows])
+    d2, t2_64 = d.reshape(-1, 2), t64.reshape(-1, 2)
+    n2 = d2.shape[0]
+    r2_cols = 1 - np.sum(d2 * d2, 0) / np.sum((t2_64 - t2_64.mean(0)) ** 2, 0)
+    two_value = two.compute().cpu().numpy()
+    reg_err = max(reg_err, check("R2Score(num_outputs=2, adjusted=3)", two_value,
+                                 1 - (1 - r2_cols) * (n2 - 1) / (n2 - 3 - 1), REG_TOL))
+    fresh = reg_collection()
+    syncs_of(lambda: fresh.update(reg_p[:BATCH], reg_t[:BATCH]))  # the first counted window may see one more
+    update_sites = syncs_of(lambda: fresh.update(reg_p[:BATCH], reg_t[:BATCH]))
+    forward_sites = syncs_of(lambda: fresh(reg_p[:BATCH], reg_t[:BATCH]))
+    if update_sites:
+        raise AssertionError(f"one regression collection update synchronized with the host at {update_sites}")
+    print(f"4f. regression leg (MSE + MAE + R2 + PSNR + EV), {BATCHES} forward batches of {BATCH}: {got}, max"
+          f" relative error {reg_err:.3g} against float64 (MSLE {msle:.7f}, relative error {mre:.5f}, 2-output"
+          f" adjusted R2 {two_value}); shared pass {len(stats_calls)} times in {BATCHES} batches, equal to the"
+          f" unshared values within {share_err:.3g}; syncs per update {len(update_sites)}, per forward"
+          f" {len(forward_sites)} {forward_sites}")
+
+    # b. BASELINE config 4's images (bench.py:1458, 1470-1471), under global TF32 flags
+    flags = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+
+    def flags_kept(label):
+        if torch.get_float32_matmul_precision() != "high" or torch.backends.cudnn.allow_tf32 is not True:
+            raise AssertionError(f"{label} changed the caller's TF32 flags")
+
+    try:
+        rs = np.random.RandomState(SEED + 4)
+        img_t_np = rs.rand(*IMG_SHAPE).astype(np.float32)
+        img_p_np = np.clip(img_t_np * 0.8 + 0.2 * rs.rand(*IMG_SHAPE), 0, 1).astype(np.float32)
+        img_t, img_p = torch.from_numpy(img_t_np).to(dev), torch.from_numpy(img_p_np).to(dev)
+        ip64, it64 = img_p_np.astype(np.float64), img_t_np.astype(np.float64)
+        img_mse = np.mean((ip64 - it64) ** 2)
+        img_err = check("psnr(data_range=1.0)", psnr(img_p, img_t, data_range=1.0).item(),
+                        10 * np.log10(1.0 / img_mse), REG_TOL)
+        psnr_module, psnr_images = PSNR(), PSNR(dim=(1, 2, 3), data_range=1.0, reduction="none")
+        for rows in np.array_split(np.arange(IMG_SHAPE[0]), 4):
+            psnr_module(img_p[rows[0]:rows[-1] + 1], img_t[rows[0]:rows[-1] + 1])
+            psnr_images(img_p[rows[0]:rows[-1] + 1], img_t[rows[0]:rows[-1] + 1])
+        img_range = max(it64.max(), 0.0) - min(it64.min(), 0.0)
+        img_err = max(img_err, check("PSNR() over 4 batches", psnr_module.compute().item(),
+                                     10 * np.log10(img_range**2 / img_mse), REG_TOL))
+        img_err = max(img_err, check("PSNR(dim=(1, 2, 3), reduction='none')", psnr_images.compute().cpu().numpy(),
+                                     10 * np.log10(1.0 / np.mean((ip64 - it64) ** 2, axis=(1, 2, 3))), REG_TOL))
+        total, count = _oracle_ssim(img_p_np, img_t_np, 1.0)
+        ssim_128 = ssim(img_p, img_t, data_range=1.0).item()
+        flags_kept("ssim at 128 x 128")
+        ssim_err = {"128x128": check("ssim at 16x3x128x128 (banded)", ssim_128, total / count, SSIM_TOL, False)}
+        # the same blur with TF32 left on: what the gate keeps out
+        full_float32 = ssim_module._full_float32
+        ssim_module._full_float32 = contextlib.nullcontext
+        try:
+            out["ssim_128_err_with_tf32_blur"] = abs(ssim(img_p, img_t, data_range=1.0).item() - total / count)
+        finally:
+            ssim_module._full_float32 = full_float32
+        print(f"4f. images {IMG_SHAPE}: psnr, PSNR() over 4 batches and per-image PSNR within {img_err:.3g} relative;"
+              f" ssim {ssim_128:.8f}, {ssim_err['128x128']:.3g} from float64 (with a TF32 blur"
+              f" {out['ssim_128_err_with_tf32_blur']:.3g})")
+
+        # c. the convolution form: the Kodak set's shape through SSIM(), then 4 Cityscapes-size frames
+        rs = np.random.RandomState(SEED + 5)
+        kodak_shape = (KODAK_IMAGES, 3, KODAK_H, KODAK_W)
+        kodak_t_np = rs.rand(*kodak_shape).astype(np.float32)
+        kodak_p_np = np.clip(kodak_t_np * 0.8 + 0.2 * rs.rand(*kodak_shape), 0, 1).astype(np.float32)
+        kodak_t, kodak_p = torch.from_numpy(kodak_t_np).to(dev), torch.from_numpy(kodak_p_np).to(dev)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # SSIM's buffer warning
+            kodak = SSIM()
+        for b in range(KODAK_IMAGES // KODAK_BATCH):
+            kodak.update(kodak_p[b * KODAK_BATCH:(b + 1) * KODAK_BATCH], kodak_t[b * KODAK_BATCH:(b + 1) * KODAK_BATCH])
+        ssim_kodak = kodak.compute().item()
+        flags_kept("SSIM().compute() over Kodak")
+        kodak_range = max(np.ptp(kodak_p_np.astype(np.float64)), np.ptp(kodak_t_np.astype(np.float64)))
+        total, count = _oracle_ssim(kodak_p_np, kodak_t_np, kodak_range)
+        ssim_err["512x768"] = check("SSIM() over Kodak (convolution)", ssim_kodak, total / count, SSIM_TOL, False)
+        rs = np.random.RandomState(SEED + 6)
+        frames_shape = (FRAMES, 3, CITY_H, CITY_W)
+        frames_t_np = rs.rand(*frames_shape).astype(np.float32)
+        frames_p_np = np.clip(frames_t_np * 0.8 + 0.2 * rs.rand(*frames_shape), 0, 1).astype(np.float32)
+        frames_t, frames_p = torch.from_numpy(frames_t_np).to(dev), torch.from_numpy(frames_p_np).to(dev)
+        ssim_frames = ssim(frames_p, frames_t, data_range=1.0).item()
+        flags_kept(f"ssim at {frames_shape}")
+        total, count = _oracle_ssim(frames_p_np, frames_t_np, 1.0)
+        ssim_err["1024x2048"] = check(f"ssim at {frames_shape} (convolution)", ssim_frames, total / count,
+                                      SSIM_TOL, False)
+        print(f"4f. SSIM under TF32 flags: Kodak {kodak_shape} in {KODAK_IMAGES // KODAK_BATCH} batches"
+              f" {ssim_kodak:.8f}, frames {frames_shape} {ssim_frames:.8f}; from float64: {ssim_err}; flags kept")
+    finally:
+        torch.set_float32_matmul_precision(flags[0])
+        torch.backends.cudnn.allow_tf32 = flags[1]
+    del kodak_t_np, kodak_p_np, frames_t_np, frames_p_np
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ssim_metric = SSIM()
+    ssim_metric.update(img_p, img_t)
+    ssim_sites = syncs_of(lambda: ssim_metric.update(img_p, img_t))
+    if ssim_sites:
+        raise AssertionError(f"one SSIM update synchronized with the host at {ssim_sites}")
+
+    # d. metric arithmetic: forward keeps every operand's accumulation
+    rmse = MeanSquaredError() ** 0.5
+    for b in range(BATCHES):
+        rmse(reg_p[b * BATCH:(b + 1) * BATCH], reg_t[b * BATCH:(b + 1) * BATCH])
+    comp_err = check("MeanSquaredError() ** 0.5", rmse.compute().item(), got["MeanSquaredError"] ** 0.5, COMP_TOL)
+    p4_np, t4_np, p4, t4 = leg
+    mean_pr = (Precision(num_classes=4, average="macro") + Recall(num_classes=4, average="macro")) / 2
+    for b in range(BATCHES):
+        last_step = mean_pr(p4[b * BATCH:(b + 1) * BATCH], t4[b * BATCH:(b + 1) * BATCH]).item()
+    counts4 = _oracle_counts(np.bincount(t4_np * 4 + p4_np.argmax(1), minlength=16).reshape(4, 4))
+    precision, recall, _ = _oracle_prf(counts4[0], counts4[1], counts4[3])
+    epoch_pr = mean_pr.compute().item()
+    comp_err = max(comp_err, check("(Precision + Recall) / 2 after forward", epoch_pr, (precision + recall) / 2,
+                                   COMP_TOL))
+    print(f"4f. composition: RMSE {rmse.compute().item():.7f}; (Precision + Recall) / 2 {epoch_pr:.7f} (the epoch's;"
+          f" last batch {last_step:.7f}), within {comp_err:.3g} of float64")
+
+    # timings (phase 5): host clock ending in a synchronize, one warm-up, median of 5
+    out["forward_batch_ms"] = warm_ms(lambda: reg(reg_p[:BATCH], reg_t[:BATCH]))
+    out["compute_ms"] = computed_ms(list(reg.values()))
+    out["forward_batch_unshared_ms"] = warm_ms(lambda: [m(reg_p[:BATCH], reg_t[:BATCH]) for m in alone.values()])
+    out["r2score_1m_ms"] = warm_ms(lambda: r2score(reg_p, reg_t))
+    out["mean_squared_error_1m_ms"] = warm_ms(lambda: mean_squared_error(reg_p, reg_t))
+    out["psnr_16x3x128x128_ms"] = warm_ms(lambda: psnr(img_p, img_t, data_range=1.0))
+    out["ssim_16x3x128x128_ms"] = warm_ms(lambda: ssim(img_p, img_t, data_range=1.0))
+    out["ssim_compute_kodak_ms"] = computed_ms([kodak])
+    out["ssim_4x3x1024x2048_ms"] = warm_ms(lambda: ssim(frames_p, frames_t, data_range=1.0))
+    split = ssim_module._MATMUL_BLUR_MAX_DIM
+    blur_diff = {}
+    for label, (p, t) in (("128x128", (img_p, img_t)), ("512x768", (kodak_p, kodak_t)),
+                          ("1024x2048", (frames_p, frames_t))):
+        stack = torch.cat((p, t, p * p, t * t, p * t))
+        blurred = {}
+        for form, limit in (("banded", 1 << 30), ("conv", 0)):
+            ssim_module._MATMUL_BLUR_MAX_DIM = limit
+            try:
+                out[f"blur_{form}_{label}_ms"] = warm_ms(
+                    lambda: ssim_module._depthwise_blur(stack, (11, 11), (1.5, 1.5)))
+                blurred[form] = ssim_module._depthwise_blur(stack, (11, 11), (1.5, 1.5))
+            finally:
+                ssim_module._MATMUL_BLUR_MAX_DIM = split
+        blur_diff[label] = torch.max(torch.abs(blurred["banded"] - blurred["conv"])).item()
+        del stack, blurred
+    if not max(blur_diff.values()) <= BLUR_TOL:
+        raise AssertionError(f"the banded and convolution blurs disagree: {blur_diff}")
+    out.update(ssim_err=ssim_err, regression_max_rel_err=reg_err, shared_vs_unshared_max_rel_err=share_err,
+               shared_pass_calls=len(stats_calls), syncs_per_update=len(update_sites),
+               syncs_per_forward=len(forward_sites), forward_sync_sites=forward_sites,
+               ssim_syncs_per_update=len(ssim_sites), composition_max_err=comp_err, blur_forms_max_abs_diff=blur_diff)
+    print(f"4f. times: forward batch {out['forward_batch_ms']:.3f} ms (unshared {out['forward_batch_unshared_ms']:.3f}),"
+          f" compute {out['compute_ms']:.3f} ms, ssim 128 {out['ssim_16x3x128x128_ms']:.3f} ms, Kodak compute"
+          f" {out['ssim_compute_kodak_ms']:.3f} ms, frames {out['ssim_4x3x1024x2048_ms']:.3f} ms; blur banded/conv"
+          + "".join(f" {k} {out[f'blur_banded_{k}_ms']:.3f}/{out[f'blur_conv_{k}_ms']:.3f}" for k in blur_diff)
+          + f" ms (max |d| {max(blur_diff.values()):.3g})")
+    del kodak, kodak_p, kodak_t
+    return out, (reg, (reg_p[:BATCH], reg_t[:BATCH])), (frames_p, frames_t)
+
+
 def main() -> int:
     card_index = _pin_one_card()
     import torch
@@ -725,6 +1087,7 @@ def main() -> int:
     )
     from metrics_tpu_torch.functional import auroc as functional_auroc
     from metrics_tpu_torch.functional import average_precision as functional_average_precision
+    from metrics_tpu_torch.functional import ssim as functional_ssim
     from metrics_tpu_torch.functional.classification.precision_recall_curve import _binary_clf_curve
     from metrics_tpu_torch.ops import _native, tie_scan
     from metrics_tpu_torch.ops.auroc_kernel import (
@@ -1450,6 +1813,13 @@ def main() -> int:
     if any(counts().values()):
         raise AssertionError(f"the stat-score family launched a scan kernel: {counts()}")
 
+    # ---- 4f. the regression pack and metric arithmetic ----------------------
+    t0 = time.perf_counter()
+    reg_timings, reg_profile, frames = _regression_phase(torch, dev, _forward_leg_inputs(torch, dev))
+    reg_timings["phase_s"] = time.perf_counter() - t0
+    if any(counts().values()):
+        raise AssertionError(f"the regression pack launched a scan kernel: {counts()}")
+
     # ---- 5. times ---------------------------------------------------------
     all_preds = torch.cat(list(collection["AUROC"].preds))
     all_rel = (torch.cat(list(collection["AUROC"].target)) == 1).to(torch.float32)
@@ -1625,6 +1995,7 @@ def main() -> int:
         "per_class_curve_syncs": {str(k): v for k, v in syncs.items()},
         "per_class_curve_sync_sites": sync_sites,
         "stat_score_family": stat_timings,
+        "regression_pack": reg_timings,
         "card": card,
     }
     print(json.dumps({"timings": timings}))
@@ -1710,6 +2081,23 @@ def main() -> int:
         city_window_ms = (time.perf_counter() - t) * 1e3
     city_split = _device_ms_by_kernel(torch, prof_city, sort_key)
     print(prof_city.key_averages().table(sort_by=sort_key, row_limit=15, max_name_column_width=48))
+    # one forward batch of the JAX bench's regression leg (5 metrics at 100k), and one ssim at 4 x 3 x 1024 x 2048
+    reg_coll, reg_batch = reg_profile
+    windows = {}
+    for label, call in (("regression_forward_batch", lambda: reg_coll(*reg_batch)),
+                        ("ssim_4x3x1024x2048", lambda: functional_ssim(*frames, data_range=1.0))):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof_window:
+            t = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            window = (time.perf_counter() - t) * 1e3
+        split = _device_ms_by_kernel(torch, prof_window, sort_key)
+        print(prof_window.key_averages().table(sort_by=sort_key, row_limit=12, max_name_column_width=48))
+        windows[label] = {"window_ms": window, "device_ms": sum(split.values()),
+                          "device_busy_share": sum(split.values()) / window,
+                          "device_ms_by_kernel": dict(sorted(split.items(), key=lambda kv: -kv[1])[:12])}
     # one call of each kernel entry: one launch and at most the memset of its scratch
     entry_splits = {}
     for label, kernel, call in (
@@ -1747,6 +2135,8 @@ def main() -> int:
         "cityscapes_update_window_ms": city_window_ms,
         "cityscapes_update_device_ms": sum(city_split.values()),
         "cityscapes_update_device_ms_by_kernel": dict(sorted(city_split.items(), key=lambda kv: -kv[1])[:12]),
+        "regression_forward_batch": windows["regression_forward_batch"],
+        "ssim_4x3x1024x2048": windows["ssim_4x3x1024x2048"],
         "kernel_device_ms_by_kernel": entry_splits["tie_scan"],
         "rows_kernel_device_ms_by_kernel": entry_splits["tie_scan_rows"],
         "weighted_kernel_device_ms_by_kernel": entry_splits["weighted"],

@@ -19,10 +19,16 @@ family, counted in label space without a one-hot (``StatScores``,
 ``Precision``, ``Recall``, ``FBeta``, ``F1``, ``HammingDistance``) and the
 confusion-matrix family (``ConfusionMatrix``, ``CohenKappa``,
 ``MatthewsCorrcoef``, ``IoU``), with ``Hinge`` and functional
-``dice_score``; the ``Metric`` core and ``MetricCollection``.
+``dice_score``; the regression pack (``MeanSquaredError``,
+``MeanAbsoluteError``, ``MeanSquaredLogError``, ``R2Score``,
+``ExplainedVariance``, ``PSNR``, ``SSIM``), whose members share one pass
+over each batch inside a ``MetricCollection``; metric arithmetic
+(``CompositionalMetric``: ``(Precision() + Recall()) / 2``,
+``MeanSquaredError() ** 0.5``); the ``Metric`` core and
+``MetricCollection``.
 """
 from metrics_tpu_torch.info import __version__  # noqa: F401
-from metrics_tpu_torch.metric import Metric  # noqa: F401
+from metrics_tpu_torch.metric import CompositionalMetric, Metric  # noqa: F401
 from metrics_tpu_torch.classification import (  # noqa: F401
     AUC,
     AUROC,
@@ -50,4 +56,23 @@ from metrics_tpu_torch.classification import (  # noqa: F401
     ShardedROC,
     StatScores,
 )
+from metrics_tpu_torch.regression import (  # noqa: F401
+    PSNR,
+    SSIM,
+    ExplainedVariance,
+    MeanAbsoluteError,
+    MeanSquaredError,
+    MeanSquaredLogError,
+    R2Score,
+)
 from metrics_tpu_torch.collections import MetricCollection  # noqa: F401
+from metrics_tpu_torch.functional.regression import (  # noqa: F401
+    explained_variance,
+    mean_absolute_error,
+    mean_relative_error,
+    mean_squared_error,
+    mean_squared_log_error,
+    psnr,
+    r2score,
+    ssim,
+)

@@ -1,7 +1,8 @@
 """MetricCollection: chain same-call-pattern metrics into one object.
 
 Port of ``metrics_tpu/collections.py``: an ordered mapping of metrics with
-fan-out forward/update/compute/reset, prefixes, cloning, checkpointing and
+fan-out forward/update/compute/reset (sharing one pass over the batch
+among the regression family), prefixes, cloning, checkpointing and
 device/dtype moves.
 """
 from collections import OrderedDict
@@ -10,7 +11,9 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from metrics_tpu_torch.functional.regression.sufficient_stats import regression_family_sharing
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.utilities.checks import shared_canonicalization
 from metrics_tpu_torch.utilities.prints import warn_once
 
 
@@ -90,8 +93,13 @@ class MetricCollection:
         return self._metrics.items()
 
     def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
-        """Call forward for each metric; kwargs are filtered per metric signature."""
-        return {self._set_prefix(k): m(*args, **m._filter_kwargs(**kwargs)) for k, m in self.items()}
+        """Call forward for each metric; kwargs are filtered per metric signature.
+
+        The members share the step's work on the batch: the regression
+        family computes its moments of ``(preds, target)`` once, in one pass
+        (``functional/regression/sufficient_stats.py``)."""
+        with shared_canonicalization(), regression_family_sharing():
+            return {self._set_prefix(k): m(*args, **m._filter_kwargs(**kwargs)) for k, m in self.items()}
 
     __call__ = forward
 
@@ -103,9 +111,11 @@ class MetricCollection:
         return f"{header}\n{body}\n)"
 
     def update(self, *args: Any, **kwargs: Any) -> None:
-        """Call update for each metric; kwargs are filtered per metric signature."""
-        for _, m in self.items():
-            m.update(*args, **m._filter_kwargs(**kwargs))
+        """Call update for each metric; kwargs are filtered per metric
+        signature. The members share the step's work (see :meth:`forward`)."""
+        with shared_canonicalization(), regression_family_sharing():
+            for _, m in self.items():
+                m.update(*args, **m._filter_kwargs(**kwargs))
 
     def compute(self) -> Dict[str, Any]:
         """Epoch values from every member's (possibly synced) state."""

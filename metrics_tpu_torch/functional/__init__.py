@@ -14,3 +14,11 @@ from metrics_tpu_torch.functional.classification.precision_recall import precisi
 from metrics_tpu_torch.functional.classification.precision_recall_curve import precision_recall_curve  # noqa: F401
 from metrics_tpu_torch.functional.classification.roc import roc  # noqa: F401
 from metrics_tpu_torch.functional.classification.stat_scores import stat_scores  # noqa: F401
+from metrics_tpu_torch.functional.regression.explained_variance import explained_variance  # noqa: F401
+from metrics_tpu_torch.functional.regression.mean_absolute_error import mean_absolute_error  # noqa: F401
+from metrics_tpu_torch.functional.regression.mean_relative_error import mean_relative_error  # noqa: F401
+from metrics_tpu_torch.functional.regression.mean_squared_error import mean_squared_error  # noqa: F401
+from metrics_tpu_torch.functional.regression.mean_squared_log_error import mean_squared_log_error  # noqa: F401
+from metrics_tpu_torch.functional.regression.psnr import psnr  # noqa: F401
+from metrics_tpu_torch.functional.regression.r2score import r2score  # noqa: F401
+from metrics_tpu_torch.functional.regression.ssim import ssim  # noqa: F401

@@ -4,7 +4,8 @@ Port of the core of ``metrics_tpu/metric.py``: the state registry
 (``add_state``), forward/update/compute semantics including the batch-local
 forward value, the one-update fused forward for mergeable states, result
 caching, gather-then-reduce sync at compute, reset, persistence and
-pickling.
+pickling, and metric arithmetic: the operators on ``Metric`` build a
+``CompositionalMetric``.
 
 Metric state is a set of ``torch.Tensor``s (or Python lists of tensors for
 "cat" states) on one explicit ``torch.device``. A metric built without a
@@ -15,6 +16,7 @@ updated in place, by the metrics of this package.
 """
 import functools
 import inspect
+import operator
 from abc import ABC, abstractmethod
 from copy import deepcopy
 from typing import Any, Callable, Dict, Optional, Union
@@ -22,6 +24,7 @@ from typing import Any, Callable, Dict, Optional, Union
 import torch
 
 from metrics_tpu_torch.parallel.backend import is_distributed_initialized
+from metrics_tpu_torch.utilities.checks import shared_canonicalization
 from metrics_tpu_torch.utilities.data import (
     _flatten,
     apply_to_collection,
@@ -475,3 +478,354 @@ class Metric(ABC):
 
     def __repr__(self) -> str:
         return f"{self.__class__.__name__}()"
+
+    # ------------------------------------------------------------------
+    # metric arithmetic: each operator builds a CompositionalMetric
+    # ------------------------------------------------------------------
+    def __add__(self, other: Any):
+        return CompositionalMetric(_add, self, other)
+
+    def __and__(self, other: Any):
+        return CompositionalMetric(operator.and_, self, other)
+
+    def __eq__(self, other: Any):
+        return CompositionalMetric(_eq, self, other)
+
+    def __floordiv__(self, other: Any):
+        return CompositionalMetric(operator.floordiv, self, other)
+
+    def __ge__(self, other: Any):
+        return CompositionalMetric(_ge, self, other)
+
+    def __gt__(self, other: Any):
+        return CompositionalMetric(_gt, self, other)
+
+    def __le__(self, other: Any):
+        return CompositionalMetric(_le, self, other)
+
+    def __lt__(self, other: Any):
+        return CompositionalMetric(_lt, self, other)
+
+    def __matmul__(self, other: Any):
+        return CompositionalMetric(operator.matmul, self, other)
+
+    def __mod__(self, other: Any):
+        return CompositionalMetric(_fmod, self, other)
+
+    def __mul__(self, other: Any):
+        return CompositionalMetric(_mul, self, other)
+
+    def __ne__(self, other: Any):
+        return CompositionalMetric(_ne, self, other)
+
+    def __or__(self, other: Any):
+        return CompositionalMetric(operator.or_, self, other)
+
+    def __pow__(self, other: Any):
+        return CompositionalMetric(operator.pow, self, other)
+
+    def __radd__(self, other: Any):
+        return CompositionalMetric(_add, other, self)
+
+    def __rand__(self, other: Any):
+        # bitwise_and is commutative
+        return CompositionalMetric(operator.and_, self, other)
+
+    def __rfloordiv__(self, other: Any):
+        return CompositionalMetric(operator.floordiv, other, self)
+
+    def __rmatmul__(self, other: Any):
+        return CompositionalMetric(operator.matmul, other, self)
+
+    def __rmod__(self, other: Any):
+        return CompositionalMetric(_fmod, other, self)
+
+    def __rmul__(self, other: Any):
+        return CompositionalMetric(_mul, other, self)
+
+    def __ror__(self, other: Any):
+        return CompositionalMetric(operator.or_, other, self)
+
+    def __rpow__(self, other: Any):
+        return CompositionalMetric(operator.pow, other, self)
+
+    def __rsub__(self, other: Any):
+        return CompositionalMetric(operator.sub, other, self)
+
+    def __rtruediv__(self, other: Any):
+        return CompositionalMetric(operator.truediv, other, self)
+
+    def __rxor__(self, other: Any):
+        return CompositionalMetric(operator.xor, other, self)
+
+    def __sub__(self, other: Any):
+        return CompositionalMetric(operator.sub, self, other)
+
+    def __truediv__(self, other: Any):
+        return CompositionalMetric(operator.truediv, self, other)
+
+    def __xor__(self, other: Any):
+        return CompositionalMetric(operator.xor, self, other)
+
+    def __abs__(self):
+        return CompositionalMetric(operator.abs, self, None)
+
+    def __inv__(self):
+        return CompositionalMetric(operator.invert, self, None)
+
+    def __invert__(self):
+        return self.__inv__()
+
+    def __neg__(self):
+        return CompositionalMetric(_neg, self, None)
+
+    def __pos__(self):
+        return CompositionalMetric(operator.abs, self, None)
+
+    def __getitem__(self, idx):
+        return CompositionalMetric(functools.partial(_getitem_op, idx=idx), self, None)
+
+
+# The operators' callables are module-level (or partials of module-level
+# functions), so composites pickle.
+
+
+def _reject_sequence_operands(*vals: Any) -> None:
+    """Arithmetic on tuple/list-valued computes (curve metrics) raises:
+    Python's sequence semantics for ``+``/``*``/comparisons would silently
+    concatenate, repeat or compare lexicographically instead."""
+    for v in vals:
+        if isinstance(v, (tuple, list)):
+            raise TypeError(
+                "metric arithmetic is not defined for tuple/list-valued"
+                " compute() results (e.g. curve metrics)"
+            )
+
+
+def _add(a: Any, b: Any) -> Any:
+    _reject_sequence_operands(a, b)
+    return operator.add(a, b)
+
+
+def _mul(a: Any, b: Any) -> Any:
+    _reject_sequence_operands(a, b)
+    return operator.mul(a, b)
+
+
+def _eq(a: Any, b: Any) -> Any:
+    _reject_sequence_operands(a, b)
+    return operator.eq(a, b)
+
+
+def _ne(a: Any, b: Any) -> Any:
+    _reject_sequence_operands(a, b)
+    return operator.ne(a, b)
+
+
+def _lt(a: Any, b: Any) -> Any:
+    _reject_sequence_operands(a, b)
+    return operator.lt(a, b)
+
+
+def _le(a: Any, b: Any) -> Any:
+    _reject_sequence_operands(a, b)
+    return operator.le(a, b)
+
+
+def _gt(a: Any, b: Any) -> Any:
+    _reject_sequence_operands(a, b)
+    return operator.gt(a, b)
+
+
+def _ge(a: Any, b: Any) -> Any:
+    _reject_sequence_operands(a, b)
+    return operator.ge(a, b)
+
+
+def _fmod(a: Any, b: Any) -> torch.Tensor:
+    """C-style remainder, ``torch.fmod``: the sign follows the dividend
+    (``-7 % 3`` is ``-1``), not Python's ``%`` or ``torch.remainder``. A
+    Python dividend becomes a 0-d tensor made in place on the divisor's
+    device (no host copy)."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.full((), a, device=b.device) if isinstance(b, torch.Tensor) else torch.as_tensor(a)
+    return torch.fmod(a, b)
+
+
+def _getitem_op(x: Any, idx: Any) -> Any:
+    return x[idx]
+
+
+def _neg(x: Any) -> Any:
+    # the reference's unary minus is -abs(x), kept as it is
+    return -abs(x)
+
+
+class CompositionalMetric(Metric):
+    """Lazy composition of two metrics (or a metric and a constant) by an operator.
+
+    ``update`` fans out to the operand metrics (kwargs filtered by each
+    one's signature) inside one shared-canonicalization scope, ``compute``
+    applies the operator to the operands' results, and ``_sync_dist`` is a
+    no-op because the operands sync themselves. The composite registers no
+    state: checkpointing, ``reset``, ``persistent``, ``to`` and ``astype``
+    recurse into the operands (state keys under ``metric_a.`` /
+    ``metric_b.``). It lives on its first metric operand's device; a tensor
+    constant is moved there.
+
+    ``forward`` preserves accumulation: its snapshot/reset/restore cycle
+    recurses into the operands and clears their cached values on restore, so
+    the step value is the batch's and the epoch ``compute()`` stays the
+    aggregate of every batch.
+
+    Example:
+        >>> from metrics_tpu_torch import MeanAbsoluteError, MeanSquaredError
+        >>> rmse = MeanSquaredError(device="cpu") ** 0.5
+        >>> rmse.update(torch.tensor([0.0, 1.0, 2.0, 3.0]), torch.tensor([0.0, 1.0, 2.0, 5.0]))
+        >>> rmse.compute()
+        tensor(1.)
+        >>> both = (MeanSquaredError(device="cpu") + MeanAbsoluteError(device="cpu")) / 2
+        >>> both(torch.tensor([1.0, 2.0]), torch.tensor([1.5, 3.0]))
+        tensor(0.6875)
+    """
+
+    def __init__(
+        self,
+        operator: Callable,
+        metric_a: Union[Metric, int, float, torch.Tensor],
+        metric_b: Union[Metric, int, float, torch.Tensor, None],
+    ):
+        device = next(m.device for m in (metric_a, metric_b) if isinstance(m, Metric))
+        super().__init__(device=device)
+        self.op = operator
+        self.metric_a = metric_a.to(self.device) if isinstance(metric_a, torch.Tensor) else metric_a
+        self.metric_b = metric_b.to(self.device) if isinstance(metric_b, torch.Tensor) else metric_b
+
+    def _operands(self):
+        return [m for m in (self.metric_a, self.metric_b) if isinstance(m, Metric)]
+
+    def _sync_dist(self, dist_sync_fn: Optional[Callable] = None) -> None:
+        # no syncing here: metric_a and metric_b sync themselves
+        pass
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        # both operands see the same batch: share input canonicalization
+        with shared_canonicalization():
+            for metric in self._operands():
+                metric.update(*args, **metric._filter_kwargs(**kwargs))
+
+    def _snapshot_state(self) -> Dict[str, Any]:
+        # the composition owns no registered state; forward()'s
+        # snapshot/reset/restore cycle recurses into the operand metrics,
+        # or the mid-forward reset would destroy their accumulation
+        cache = super()._snapshot_state()
+        if isinstance(self.metric_a, Metric):
+            cache["__operand_a"] = self.metric_a._snapshot_state()
+        if isinstance(self.metric_b, Metric):
+            cache["__operand_b"] = self.metric_b._snapshot_state()
+        return cache
+
+    def _restore_state(self, cache: Dict[str, Any]) -> None:
+        cache = dict(cache)
+        operand_a = cache.pop("__operand_a", None)
+        operand_b = cache.pop("__operand_b", None)
+        super()._restore_state(cache)
+        if operand_a is not None:
+            self.metric_a._restore_state(operand_a)
+            self.metric_a._computed = None
+        if operand_b is not None:
+            self.metric_b._restore_state(operand_b)
+            self.metric_b._computed = None
+
+    def _operand_compute(self, metric: Any) -> Any:
+        if not isinstance(metric, Metric):
+            return metric
+        # forward() sets the batch-local flag on the composition only;
+        # operand computes must see the same step semantics
+        prev = metric._batch_local_compute
+        metric._batch_local_compute = self._batch_local_compute
+        try:
+            return metric.compute()
+        finally:
+            metric._batch_local_compute = prev
+
+    def compute(self) -> Any:
+        val_a = self._operand_compute(self.metric_a)
+        val_b = self._operand_compute(self.metric_b)
+
+        if val_b is None:
+            return self.op(val_a)
+        return self.op(val_a, val_b)
+
+    def reset(self) -> None:
+        self._computed = None
+        for metric in self._operands():
+            metric.reset()
+
+    def persistent(self, mode: bool = False) -> None:
+        for metric in self._operands():
+            metric.persistent(mode=mode)
+
+    def state_dict(self, destination: Optional[dict] = None, prefix: str = "") -> dict:
+        destination = {} if destination is None else destination
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.state_dict(destination, prefix + "metric_a.")
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.state_dict(destination, prefix + "metric_b.")
+        return destination
+
+    def load_state_dict(
+        self,
+        state_dict: dict,
+        prefix: str = "",
+        strict: bool = False,
+        _warn_on_zero_match: bool = True,
+    ) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.load_state_dict(state_dict, prefix + "metric_a.", strict=strict, _warn_on_zero_match=False)
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.load_state_dict(state_dict, prefix + "metric_b.", strict=strict, _warn_on_zero_match=False)
+        # the zero-match check runs over the WHOLE composition: one operand
+        # matching nothing is legitimate partial persistence, nothing
+        # matching anywhere is a mistyped prefix (an enclosing container
+        # runs its own check and passes False)
+        named = self._named_states(prefix)
+        if _warn_on_zero_match and state_dict and named and not any(key in state_dict for key, _ in named):
+            warn_once(
+                f"load_state_dict: no operand state of this"
+                f" {type(self).__name__} (prefix={prefix!r}) matched the"
+                f" non-empty state_dict ({len(state_dict)} entries);"
+                " nothing was loaded. Check the prefix used at save time"
+                " or pass strict=True to make this an error.",
+                key=f"load-zero-match:{type(self).__name__}:{prefix}",
+            )
+        self._computed = None
+
+    def _named_states(self, prefix: str = "") -> list:
+        pairs = super()._named_states(prefix)
+        if isinstance(self.metric_a, Metric):
+            pairs += self.metric_a._named_states(prefix + "metric_a.")
+        if isinstance(self.metric_b, Metric):
+            pairs += self.metric_b._named_states(prefix + "metric_b.")
+        return pairs
+
+    def to(self, device: Union[str, torch.device]) -> "CompositionalMetric":
+        """Move the operands (and a tensor constant) to ``device``."""
+        self.device = torch.device(device)
+        for name in ("metric_a", "metric_b"):
+            value = getattr(self, name)
+            if isinstance(value, (Metric, torch.Tensor)):
+                setattr(self, name, value.to(self.device))
+        self._computed = None
+        return self
+
+    def astype(self, dtype: torch.dtype) -> "CompositionalMetric":
+        for metric in self._operands():
+            metric.astype(dtype)
+        self._computed = None
+        return self
+
+    def __repr__(self) -> str:
+        _op_name = getattr(self.op, "__name__", repr(self.op))
+        _op_metrics = f"(\n  {_op_name}(\n    {repr(self.metric_a)},\n    {repr(self.metric_b)}\n  )\n)"
+        return self.__class__.__name__ + _op_metrics

@@ -13,10 +13,16 @@ outputs, and the same errors raised in the same order.
 
 The label-space fast paths of the hamming, confusion-matrix and
 stat-score counts share ``_fast_path_inputs`` / ``_fast_path_probe``: they
-skip the canonicalizing transform and validate from the same probe. The
-JAX package's canonicalization memo and its sharing of one fast-path count
-among sibling metrics (``fast_path_memo``) are not ported.
+skip the canonicalizing transform and validate from the same probe.
+
+``shared_canonicalization`` / ``fast_path_memo`` are the JAX package's
+per-step sharing memo. Here only the regression family's shared moments
+(``functional/regression/sufficient_stats.py``) and
+``CompositionalMetric.update`` use it; the stat-score family still counts
+each sibling's batch itself.
 """
+import threading
+from contextlib import contextmanager
 from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -85,6 +91,50 @@ def _check_same_shape(pred: torch.Tensor, target: torch.Tensor) -> None:
     """Check that predictions and target have the same shape, else raise error."""
     if pred.shape != target.shape:
         raise RuntimeError("Predictions and targets are expected to have the same shape")
+
+
+_canon_memo = threading.local()
+_CANON_MEMO_MAX = 64
+
+
+@contextmanager
+def shared_canonicalization():
+    """Share work on one batch across the metrics that see it within this
+    context.
+
+    ``MetricCollection`` and ``CompositionalMetric`` wrap their fan-out in
+    this. Results are memoized by input tensor identity plus the full
+    option tuple; the memo pins the input tensors so ids stay valid, and
+    dies with the context. Nested contexts share the outermost memo.
+
+    Scope it to ONE step (one batch), as ``MetricCollection`` does: the memo
+    pins every distinct input it sees, so a past ``_CANON_MEMO_MAX``
+    entries it is cleared (trading sharing for boundedness).
+    """
+    prev = getattr(_canon_memo, "store", None)
+    _canon_memo.store = {} if prev is None else prev
+    try:
+        yield
+    finally:
+        _canon_memo.store = prev
+
+
+def fast_path_memo(key: tuple, originals: tuple, compute):
+    """Memoize ``compute()`` under :func:`shared_canonicalization`, keyed on
+    ``key`` (input identity + options), pinning ``originals`` so their ids
+    stay valid. Outside a sharing context it just runs ``compute``."""
+    store = getattr(_canon_memo, "store", None)
+    if store is None:
+        return compute()
+    hit = store.get(key)
+    if hit is not None:
+        return hit[-1]
+    result = compute()
+    if result is not None:
+        if len(store) >= _CANON_MEMO_MAX:
+            store.clear()  # mis-scoped context: stay bounded
+        store[key] = (*originals, result)
+    return result
 
 
 def _detect_case(

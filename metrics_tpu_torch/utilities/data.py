@@ -1,10 +1,10 @@
 """Shared tensor utilities.
 
 Port of ``metrics_tpu/utilities/data.py`` (``_stable_1d_sort`` without
-its ``nb`` truncation). ``to_onehot`` and
-``select_topk`` keep the JAX package's broadcast-compare formulation, so
-their outputs match it bit for bit (top-k ties resolve to the lower index,
-as ``lax.top_k`` does). The JAX package's ``_is_concrete`` guard has no
+its ``nb`` truncation; ``promote_accumulator`` for the regression family).
+``to_onehot`` and ``select_topk`` keep the JAX package's broadcast-compare
+formulation, so their outputs match it bit for bit (top-k ties resolve to
+the lower index, as ``lax.top_k`` does). The JAX package's ``_is_concrete`` guard has no
 counterpart: every tensor is concrete in eager PyTorch.
 """
 from typing import Any, Callable, Mapping, Optional, Sequence, Union
@@ -12,6 +12,17 @@ from typing import Any, Callable, Mapping, Optional, Sequence, Union
 import torch
 
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
+
+
+def promote_accumulator(*tensors):
+    """Promote floating inputs below float32 (``bfloat16``, ``float16``) to
+    float32; ``float64`` stays ``float64`` and integer tensors keep their
+    dtype. Sums of squares, products and log-space errors must accumulate in
+    at least float32, or cancellation destroys the result."""
+    out = tuple(
+        t.to(torch.promote_types(t.dtype, torch.float32)) if t.is_floating_point() else t for t in tensors
+    )
+    return out[0] if len(out) == 1 else out
 
 
 def dim_zero_cat(x):

@@ -5,7 +5,9 @@ version, and the GPU entry points (the exact scores, the weighted and
 against their CPU runs; the stat-score family's label-space counts against
 the canonical path, ``label_bincount`` against ``torch.bincount``, the
 synchronizations of an update at 19 and 1,000 classes, and counts past
-2^24.
+2^24; the regression pack's SSIM at full float32 under global TF32 flags,
+its collection update without host synchronizations, and its shared pass
+equal to the unshared one.
 
 Every test here is marked ``cuda`` and skips without a card. This file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -21,18 +23,24 @@ import torch
 from metrics_tpu_torch import (
     AUROC,
     F1,
+    PSNR,
     ROC,
+    SSIM,
     Accuracy,
     AveragePrecision,
     BinnedAUROC,
     BinnedAveragePrecision,
     BinnedPrecisionRecallCurve,
     ConfusionMatrix,
+    ExplainedVariance,
+    MeanAbsoluteError,
+    MeanSquaredError,
     MetricCollection,
     PrecisionRecallCurve,
+    R2Score,
     StatScores,
 )
-from metrics_tpu_torch.functional import auroc, average_precision, precision_recall_curve, roc
+from metrics_tpu_torch.functional import auroc, average_precision, precision_recall_curve, roc, ssim
 from metrics_tpu_torch.functional.classification.stat_scores import _stat_scores_count, _stat_scores_fast_update
 from metrics_tpu_torch.ops.auroc_kernel import (
     _co_sort,
@@ -704,3 +712,65 @@ def test_per_class_counts_past_2_24_are_exact(cuda_device):
     want_stats = np.stack([tp, fp, n - tp - fp - fn, fn, tp + fn], 1)
     assert want_stats[2, 0] > 2**24 and want_stats[0, 2] > 2**24
     assert np.array_equal(stats.compute().cpu().numpy(), want_stats)
+
+
+# ---- the regression pack ------------------------------------------------------
+
+
+def _images(shape, seed):
+    rng = np.random.default_rng(seed)
+    target = rng.random(shape, dtype=np.float32)
+    preds = np.clip(0.8 * target + 0.2 * rng.random(shape, dtype=np.float32), 0, 1).astype(np.float32)
+    return torch.from_numpy(preds), torch.from_numpy(target)
+
+
+@pytest.mark.parametrize("shape", [(4, 3, 128, 128), (2, 3, 512, 768)], ids=["banded", "convolution"])
+def test_ssim_under_global_tf32_flags_stays_at_full_float32(cuda_device, shape):
+    """With TF32 switched on for cuDNN and matmuls, the blur still runs at
+    full float32: within 1e-6 of the float64 evaluation (a TF32 blur reads
+    ~6e-5 off), and the caller's flags read the same afterwards."""
+    preds, target = _images(shape, 41)
+    want = ssim(preds.double(), target.double(), data_range=1.0).item()
+    flags = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        got = ssim(preds.to(cuda_device), target.to(cuda_device), data_range=1.0).item()
+        metric = SSIM()
+        metric.update(preds.to(cuda_device), target.to(cuda_device))
+        module = metric.compute().item()
+        assert torch.get_float32_matmul_precision() == "high" and torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.set_float32_matmul_precision(flags[0])
+        torch.backends.cudnn.allow_tf32 = flags[1]
+    assert abs(got - want) <= 1e-6 and abs(module - want) <= 1e-6, (got, module, want)
+
+
+def _regression_collection():
+    return MetricCollection([MeanSquaredError(), MeanAbsoluteError(), R2Score(), PSNR(), ExplainedVariance()])
+
+
+def test_regression_collection_update_does_not_synchronize(cuda_device):
+    rng = np.random.default_rng(42)
+    target = torch.from_numpy((rng.standard_normal(100_000) * 3 + 1).astype(np.float32)).to(cuda_device)
+    preds = target + torch.from_numpy(rng.standard_normal(100_000).astype(np.float32)).to(cuda_device)
+    assert _update_syncs(_regression_collection, preds, target) == 0
+    images = _images((4, 3, 64, 64), 43)
+    assert _update_syncs(lambda: SSIM(data_range=1.0), *(x.to(cuda_device) for x in images)) == 0
+
+
+def test_shared_pass_on_the_card_equals_the_unshared_one(cuda_device):
+    rng = np.random.default_rng(44)
+    for shape in ((50_000,), (20_000, 3), (8, 3, 32, 32)):
+        shared = _regression_collection() if len(shape) < 3 else MetricCollection(
+            [MeanSquaredError(), MeanAbsoluteError(), PSNR()])
+        alone = {name: type(m)() for name, m in shared.items()}
+        for _ in range(3):
+            target = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda_device)
+            preds = target + torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda_device)
+            step = shared(preds, target)
+            for name, metric in alone.items():
+                torch.testing.assert_close(step[name], metric(preds, target), rtol=1e-6, atol=0.0)
+        got = shared.compute()
+        for name, metric in alone.items():
+            torch.testing.assert_close(got[name], metric.compute(), rtol=1e-6, atol=0.0)

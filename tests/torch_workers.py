@@ -17,6 +17,8 @@ import torch
 import torch.distributed as dist
 
 from metrics_tpu_torch import (
+    PSNR,
+    SSIM,
     ConfusionMatrix,
     ShardedAUROC,
     ShardedAveragePrecision,
@@ -27,6 +29,7 @@ from metrics_tpu_torch import (
 from metrics_tpu_torch.interop import state_from_jax
 from metrics_tpu_torch.parallel.backend import TorchDistributedBackend
 from metrics_tpu_torch.parallel.sample_sort import sample_sort_auroc_ap
+from metrics_tpu_torch.utilities.distributed import gather_all_tensors as _gather
 
 
 def _free_port() -> int:
@@ -213,3 +216,26 @@ def stat_scores_world(rank: int, world: int, device: torch.device, payload: dict
             m.update(torch.from_numpy(preds).to(device), torch.from_numpy(target).to(device))
     return {name: m.compute().cpu().numpy() for name, m in metrics.items()}
 
+
+
+def regression_world(rank: int, world: int, device: torch.device, payload: dict) -> dict:
+    """``PSNR()`` (its ``min``/``max``-reduced target range and sum states)
+    and ``SSIM`` (list states, mean and per-pixel maps) over
+    ``payload["batches"]``, rank r updating with batches r, r + world, ...
+    Returns each synced compute as numpy, and the synced range."""
+    psnr = PSNR(device=device)
+    ssim = SSIM(data_range=1.0, device=device)
+    ssim_maps = SSIM(data_range=1.0, reduction="none", device=device)
+    for preds, target in payload["batches"][rank::world]:
+        for m in (psnr, ssim, ssim_maps):
+            m.update(torch.from_numpy(preds).to(device), torch.from_numpy(target).to(device))
+    value = psnr.compute().cpu().numpy()
+    if dist.is_initialized():
+        psnr._sync_dist(_gather)  # the synced range, as compute() sees it
+    return {
+        "psnr": value,
+        "psnr_min": float(psnr.min_target),
+        "psnr_max": float(psnr.max_target),
+        "ssim": ssim.compute().cpu().numpy(),
+        "ssim_maps": ssim_maps.compute().cpu().numpy(),
+    }
