@@ -121,6 +121,26 @@ that is unset. Phases (any failure exits non-zero before the result line):
    causes 0 synchronizations. (d) ``MeanSquaredError() ** 0.5`` over (a),
    and ``(Precision + Recall) / 2`` (macro, 4 classes) forwarded over 4e's
    forward-leg batches, whose ``compute()`` must be the epoch's value;
+4g. the retrieval family (no kernel of its own), against a float64 numpy
+   oracle (a lexsort by query id, -score and position; per-query AP, RR,
+   P@10, R@100; the mean over the queries with a relevant document): (a)
+   BASELINE config 5, the JAX bench's retrieval leg (``bench.py:1455-1533``):
+   1M rows, ids uniform over 10,000 queries, uniform scores, 5% relevant,
+   ``MetricCollection([RetrievalMAP(), RetrievalMRR()])`` fed 10 batches of
+   100,000, and the functional core (``ranked_group_stats``,
+   ``_map_segments``, ``_mrr_segments``); (b) the host synchronizations
+   and device-to-host bytes of one compute of MAP, MRR, P@10 and R@100 at
+   100 and 10,000 queries over the same 1M rows (equal; a few scalars);
+   (c) config 5's epoch at world 1 (``bench.py:246-270``): one update and
+   one compute of Accuracy + F1, ``ShardedAUROC``, ``ShardedRetrievalMAP`` and
+   ``ShardedRetrievalMRR``; (d) the MS MARCO passage ranking dev (small)
+   set's shape, 6,980 queries x 1,000 candidates with 7,437 relevant rows,
+   fed 100 queries a batch to MAP, MRR, P@10 and R@100, with the compute's
+   peak memory, both forms of the ranking sort timed, and the functional
+   forms on one query. Every value within 1e-5 of the oracle, the integers
+   (relevant counts, first relevant ranks, hits in the top 10 and 100)
+   equal to its, a second compute's bits equal, and the sharded metrics at
+   world 1 equal to the unsharded ones bit for bit;
 5. times on the card (CUDA events over launches queued behind a device
    sleep, so host overhead does not show, or the host clock ending in a
    synchronize for whole steps): the one-stream kernel, its plain version
@@ -145,7 +165,8 @@ that is unset. Phases (any failure exits non-zero before the result line):
    compute, over one per-class ROC compute at (1000, 50000), over one
    forward batch of phase 4e's forward leg and one Cityscapes update, over
    one forward batch of phase 4f's regression leg and one ``ssim`` at
-   4 x 3 x 1024 x 2048, and over one
+   4 x 3 x 1024 x 2048, over one MS MARCO compute of phase 4g (its sort
+   share), and over one
    call of each kernel entry (one stream at 1M,
    batched at ``(1000, 50000)``, and the two weighted ones at their paths'
    shapes), each of which must show one kernel and at most the memset of
@@ -229,6 +250,17 @@ SSIM_TOL = 1e-6
 COMP_TOL = 1e-6
 # the banded and the convolution blur of one stack: float32 sums of the same taps in other orders
 BLUR_TOL = 1e-5
+# the retrieval family (phase 4g): BASELINE.json config 5, the JAX bench's
+# retrieval leg (bench.py:1455-1533): 1M rows, query ids uniform over
+# 10,000, uniform scores, 5% relevant; and the MS MARCO passage ranking dev
+# (small) set's shape: 6,980 queries x 1,000 BM25 candidates, 7,437 relevant
+# rows, 6,980 distinct query ids from [0, 1,102,000), 100 queries a batch,
+# seeded noise scores with the relevant rows shifted up
+RET_N, RET_Q, RET_REL = 1_000_000, 10_000, 0.05
+MSMARCO_Q, MSMARCO_DOCS, MSMARCO_REL, MSMARCO_ID_SPACE = 6_980, 1_000, 7_437, 1_102_000
+MSMARCO_BATCH_Q, MSMARCO_SHIFT = 100, 2.5
+# retrieval means against the float64 oracle: float32 scores of exact integer ranks
+RET_TOL = 1e-5
 
 
 def _pin_one_card() -> str:
@@ -1061,6 +1093,311 @@ def _regression_phase(torch, dev, leg):
     return out, (reg, (reg_p[:BATCH], reg_t[:BATCH])), (frames_p, frames_t)
 
 
+def _oracle_retrieval(idx: np.ndarray, preds: np.ndarray, target: np.ndarray, ks=(10, 100)) -> dict:
+    """Per-query float64 oracle: a lexsort by (query id, -score, position),
+    then each query's relevant count, first relevant rank, hits in the top
+    k, AP, RR, P@k and R@k, and their means over the queries with a
+    relevant document (``empty_target_action="skip"``)."""
+    score = np.where(np.isnan(preds), -np.inf, preds.astype(np.float64))
+    order = np.lexsort((np.arange(idx.size), -score, idx))
+    q, rel = idx[order], target[order] > 0
+    starts = np.flatnonzero(np.r_[True, q[1:] != q[:-1]])
+    sizes = np.diff(np.r_[starts, q.size])
+    rank = np.arange(q.size) - np.repeat(starts, sizes) + 1
+    cum = np.cumsum(rel)
+    within = cum - np.repeat((cum - rel)[starts], sizes)
+    out = {"n_rel": np.add.reduceat(rel.astype(np.int64), starts),
+           "first": np.add.reduceat(np.where(rel & (within == 1), rank, 0), starts)}
+    n_rel = np.maximum(out["n_rel"], 1)
+    ap = np.add.reduceat(np.where(rel, within / rank, 0.0), starts) / n_rel
+    rr = np.where(out["first"] > 0, 1.0 / np.maximum(out["first"], 1), 0.0)
+    kept = out["n_rel"] > 0
+    out["RetrievalMAP"], out["RetrievalMRR"] = float(np.mean(ap[kept])), float(np.mean(rr[kept]))
+    for k in ks:
+        out[f"hits@{k}"] = np.add.reduceat((rel & (rank <= k)).astype(np.int64), starts)
+        out[f"precision@{k}"] = float(np.mean(out[f"hits@{k}"][kept] / k))
+        out[f"recall@{k}"] = float(np.mean(out[f"hits@{k}"][kept] / n_rel[kept]))
+    out["query_ap_rr"] = (ap, rr)
+    return out
+
+
+def _dtoh_bytes(torch, fn, path: str):
+    """(bytes, copies) of the device-to-host copies ``fn()`` makes, read
+    from a ``torch.profiler`` trace written to ``path``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")]
+    if not copies or any("bytes" not in e.get("args", {}) for e in copies):
+        raise AssertionError(f"the trace shows {len(copies)} device-to-host copies, not all with a byte count")
+    return sum(int(e["args"]["bytes"]) for e in copies), len(copies)
+
+
+def _retrieval_phase(torch, dev):
+    """Phase 4g: the retrieval family on the card.
+
+    Returns the phase's timings and what phase 6 profiles."""
+    from metrics_tpu_torch import (
+        F1,
+        Accuracy,
+        MetricCollection,
+        RetrievalMAP,
+        RetrievalMRR,
+        RetrievalPrecision,
+        RetrievalRecall,
+        ShardedAUROC,
+        ShardedRetrievalMAP,
+        ShardedRetrievalMRR,
+        ShardedRetrievalPrecision,
+        ShardedRetrievalRecall,
+    )
+    from metrics_tpu_torch.functional import (
+        retrieval_average_precision,
+        retrieval_precision,
+        retrieval_recall,
+        retrieval_reciprocal_rank,
+    )
+
+    # the modules themselves: the package names their public functions alike
+    segment = importlib.import_module("metrics_tpu_torch.ops.segment")
+    map_module = importlib.import_module("metrics_tpu_torch.retrieval.mean_average_precision")
+    mrr_module = importlib.import_module("metrics_tpu_torch.retrieval.mean_reciprocal_rank")
+    trace_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "retrieval_compute_trace.json")
+    os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    out = {}
+
+    def four(sharded_capacity=None):
+        if sharded_capacity:
+            return MetricCollection([ShardedRetrievalMAP(sharded_capacity), ShardedRetrievalMRR(sharded_capacity),
+                                     ShardedRetrievalPrecision(sharded_capacity, k=10),
+                                     ShardedRetrievalRecall(sharded_capacity, k=100)])
+        return MetricCollection([RetrievalMAP(), RetrievalMRR(), RetrievalPrecision(k=10), RetrievalRecall(k=100)])
+
+    def bits(collection):
+        for metric in collection.values():
+            metric._computed = None
+        return {k.replace("Sharded", ""): v.cpu().numpy().tobytes() for k, v in collection.compute().items()}
+
+    def computed_ms(collection, trials=5):
+        times = []
+        for _ in range(trials + 1):
+            for metric in collection.values():
+                metric._computed = None
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            collection.compute()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(times[1:]))
+
+    def fed(collection, idx, preds, target, batch):
+        """Update ``collection`` batch by batch; host ms of each update."""
+        times = []
+        for lo in range(0, idx.shape[0], batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            collection.update(idx[lo:lo + batch], preds[lo:lo + batch], target[lo:lo + batch])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return times
+
+    def check(label, collection, oracle):
+        """Every value within RET_TOL of the float64 oracle, the integer
+        quantities equal to its, a second compute's bits equal."""
+        names = {"RetrievalMAP": "RetrievalMAP", "RetrievalMRR": "RetrievalMRR",
+                 "RetrievalPrecision": "precision@10", "RetrievalRecall": "recall@100"}
+        got = {k.replace("Sharded", ""): v.item() for k, v in collection.compute().items()}
+        err = {k: abs(v - oracle[names[k]]) for k, v in got.items()}
+        if not all(np.isfinite(v) for v in got.values()) or not max(err.values()) <= RET_TOL:
+            raise AssertionError(f"{label}: {got} vs the float64 oracle (errors {err})")
+        first = bits(collection)
+        if bits(collection) != first:
+            raise AssertionError(f"{label}: a second compute over the same state gave other bits")
+        return got, max(err.values()), first
+
+    def check_counts(label, idx, preds, target, oracle):
+        stats = segment._ranked_query_stats(idx, preds, target)
+        got = {"n_rel": stats.pos_per_group, "first": mrr_module._first_relevant_ranks(stats),
+               "hits@10": segment.hits_in_topk(stats, 10)[0], "hits@100": segment.hits_in_topk(stats, 100)[0]}
+        bad = [k for k, v in got.items() if not np.array_equal(v.cpu().numpy().astype(np.int64), oracle[k])]
+        if bad:
+            raise AssertionError(f"{label}: {bad} differ from the oracle's integers")
+        return int(stats.pos_per_group.shape[0])
+
+    def syncs_of(fn):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
+
+    # a. BASELINE config 5, the JAX bench's retrieval leg (bench.py:1455-1533):
+    # MAP + MRR in a collection, 10 update batches of 100,000
+    idx = torch.randint(0, RET_Q, (RET_N,), generator=gen, device=dev, dtype=torch.int32)
+    scores = torch.rand(RET_N, generator=gen, device=dev)
+    rel = (torch.rand(RET_N, generator=gen, device=dev) < RET_REL).to(torch.int32)
+    idx_np, scores_np, rel_np = idx.cpu().numpy(), scores.cpu().numpy(), rel.cpu().numpy()
+    oracle = _oracle_retrieval(idx_np, scores_np, rel_np)
+    leg = MetricCollection([RetrievalMAP(), RetrievalMRR()])
+    leg_updates = fed(leg, idx, scores, rel, BATCH)
+    leg_values, leg_err, leg_bits = check("config 5 MAP + MRR", leg, oracle)
+    leg_queries = check_counts("config 5", idx, scores, rel, oracle)
+    out["config5_update_batch_ms"] = float(np.median(leg_updates))
+    out["config5_compute_ms"] = computed_ms(leg)
+
+    def core():
+        stats = segment.ranked_group_stats(idx, scores, rel, RET_Q)
+        return map_module._map_segments(stats), mrr_module._mrr_segments(stats), stats.pos_per_group
+
+    ap_q, rr_q, pos = core()
+    kept = (pos > 0).cpu().numpy()
+    core_err = max(abs(float(ap_q.double().cpu().numpy()[kept].mean()) - oracle["RetrievalMAP"]),
+                   abs(float(rr_q.double().cpu().numpy()[kept].mean()) - oracle["RetrievalMRR"]))
+    if not core_err <= RET_TOL:
+        raise AssertionError(f"the functional core reads {core_err} off the float64 oracle")
+    core()
+    out["config5_functional_core_ms"] = _host_ms(torch, core)
+    print(f"4g. config 5 (1M rows, {leg_queries} queries): MAP {leg_values['RetrievalMAP']:.7f}, MRR"
+          f" {leg_values['RetrievalMRR']:.7f}, within {leg_err:.3g} of float64 (functional core {core_err:.3g});"
+          f" integers exact; update {out['config5_update_batch_ms']:.3f} ms a batch, compute"
+          f" {out['config5_compute_ms']:.3f} ms, functional core {out['config5_functional_core_ms']:.3f} ms")
+
+    # b. host synchronizations and device-to-host bytes of one compute, at 100
+    # and 10,000 queries over the same 1M rows
+    syncs, dtoh = {}, {}
+    for queries in (100, RET_Q):
+        collection = four()
+        collection.update(idx % queries, scores, rel)
+        collection.compute()  # first calls may synchronize once more
+        for metric in collection.values():
+            metric._computed = None
+        syncs[queries] = syncs_of(collection.compute)
+        for metric in collection.values():
+            metric._computed = None
+        dtoh[queries] = _dtoh_bytes(torch, collection.compute, trace_path)
+        del collection
+    counts_of = {q: len(s) for q, s in syncs.items()}
+    if len(set(counts_of.values())) != 1 or not counts_of[RET_Q]:
+        raise AssertionError(f"host syncs per compute of the four metrics grow with the queries: {syncs}")
+    if max(b for b, _ in dtoh.values()) > 4096 or dtoh[100][0] != dtoh[RET_Q][0]:
+        raise AssertionError(f"a compute copied an O(N) array to the host: (bytes, copies) {dtoh}")
+    out.update(syncs_per_compute=counts_of[RET_Q], sync_sites=syncs[RET_Q],
+               dtoh_bytes_per_compute={str(q): v[0] for q, v in dtoh.items()},
+               dtoh_copies_per_compute={str(q): v[1] for q, v in dtoh.items()})
+    print(f"4g. host syncs per compute of MAP + MRR + P@10 + R@100 over 1M rows: {counts_of[100]} at 100 queries,"
+          f" {counts_of[RET_Q]} at {RET_Q}; device-to-host bytes {dtoh[100][0]} / {dtoh[RET_Q][0]}")
+
+    # c. BASELINE config 5's epoch at world 1 (bench.py:246-270): one update and
+    # one compute of Accuracy + F1, ShardedAUROC, ShardedRetrievalMAP / MRR
+    col = MetricCollection([Accuracy(), F1()])
+    sa, sm, sr = ShardedAUROC(capacity_per_device=RET_N), ShardedRetrievalMAP(RET_N), ShardedRetrievalMRR(RET_N)
+
+    def epoch():
+        for metric in (*col.values(), sa, sm, sr):
+            metric.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        col.update(scores, rel)
+        sa.update(scores, rel)
+        sm.update(idx, scores, rel)
+        sr.update(idx, scores, rel)
+        values = [*col.compute().values(), sa.compute(), sm.compute(), sr.compute()]
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, values
+
+    epoch()
+    epochs = [epoch()[0] for _ in range(5)]
+    _, epoch_values = epoch()
+    if {"RetrievalMAP": epoch_values[3].cpu().numpy().tobytes(),
+            "RetrievalMRR": epoch_values[4].cpu().numpy().tobytes()} != leg_bits:
+        raise AssertionError("ShardedRetrievalMAP / MRR at world 1 differ from RetrievalMAP / MRR in their bits")
+    out["config5_epoch_ms"] = float(np.median(epochs))
+    out["config5_epoch_ms_runs"] = epochs
+    print(f"4g. config 5 epoch (Accuracy + F1, ShardedAUROC, ShardedRetrievalMAP / MRR, 1M rows):"
+          f" {out['config5_epoch_ms']:.3f} ms; the sharded retrieval values equal the unsharded bits")
+
+    # d. the MS MARCO passage ranking dev (small) shape: 6,980 queries x 1,000
+    # candidates, 7,437 relevant rows, 70 batches of 100 queries
+    ids = torch.randperm(MSMARCO_ID_SPACE, generator=gen, device=dev)[:MSMARCO_Q].to(torch.int32)
+    first = torch.randint(0, MSMARCO_DOCS, (MSMARCO_Q,), generator=gen, device=dev)
+    grid = torch.zeros(MSMARCO_Q, MSMARCO_DOCS, dtype=torch.int32, device=dev)
+    grid[torch.arange(MSMARCO_Q, device=dev), first] = 1
+    extra = torch.randperm(MSMARCO_Q, generator=gen, device=dev)[:MSMARCO_REL - MSMARCO_Q]
+    shift = torch.randint(1, MSMARCO_DOCS, (extra.shape[0],), generator=gen, device=dev)
+    grid[extra, (first[extra] + shift) % MSMARCO_DOCS] = 1
+    ms_scores = (torch.randn(MSMARCO_Q, MSMARCO_DOCS, generator=gen, device=dev) + MSMARCO_SHIFT * grid).reshape(-1)
+    ms_rel = grid.reshape(-1)
+    ms_idx = ids[:, None].expand(MSMARCO_Q, MSMARCO_DOCS).reshape(-1).contiguous()
+    if int(ms_rel.sum()) != MSMARCO_REL:
+        raise AssertionError(f"the MS MARCO shape holds {int(ms_rel.sum())} relevant rows")
+    ms_np = ms_idx.cpu().numpy(), ms_scores.cpu().numpy(), ms_rel.cpu().numpy()
+    ms_oracle = _oracle_retrieval(*ms_np)
+    ms = four()
+    ms_updates = fed(ms, ms_idx, ms_scores, ms_rel, MSMARCO_BATCH_Q * MSMARCO_DOCS)
+    ms_values, ms_err, ms_bits = check("MS MARCO", ms, ms_oracle)
+    ms_queries = check_counts("MS MARCO", ms_idx, ms_scores, ms_rel, ms_oracle)
+    ms_sharded = four(MSMARCO_Q * MSMARCO_DOCS)
+    fed(ms_sharded, ms_idx, ms_scores, ms_rel, MSMARCO_BATCH_Q * MSMARCO_DOCS)
+    if bits(ms_sharded) != ms_bits:
+        raise AssertionError("the sharded metrics at world 1 differ from the unsharded ones in their bits")
+    del ms_sharded
+    out["msmarco_update_batch_ms"] = float(np.median(ms_updates))
+    out["msmarco_compute_ms"] = computed_ms(ms)
+    for metric in ms.values():
+        metric._computed = None
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms.compute()
+    torch.cuda.synchronize()
+    out["msmarco_compute_peak_bytes_above_state"] = torch.cuda.max_memory_allocated() - base
+    out["msmarco_state_bytes"] = base
+    # both formulations of the (query asc, score desc, position) permutation
+    g_two, o_two = segment._lex_order_two_pass(ms_idx, ms_scores)
+    g_packed, o_packed = segment._lex_order_packed(ms_idx, ms_scores)
+    if not (torch.equal(g_two, g_packed) and torch.equal(o_two, o_packed)):
+        raise AssertionError("the two sort forms give different permutations")
+    del g_two, o_two, g_packed, o_packed
+    out["msmarco_sort_two_pass_ms"] = _queued_ms(torch, lambda: segment._lex_order_two_pass(ms_idx, ms_scores), 10)
+    out["msmarco_sort_packed_ms"] = _queued_ms(torch, lambda: segment._lex_order_packed(ms_idx, ms_scores), 10)
+    out["sort_form_kept"] = segment._lex_order.__name__
+    # the functional forms on the first query's 1,000 candidates
+    q_ap, q_rr = ms_oracle["query_ap_rr"]
+    q0 = int(torch.argmin(ids))  # the oracle's first query is the smallest id
+    rows = slice(q0 * MSMARCO_DOCS, (q0 + 1) * MSMARCO_DOCS)
+    p0, t0 = ms_scores[rows], ms_rel[rows]
+    functional = {"ap": (retrieval_average_precision(p0, t0).item(), q_ap[0]),
+                  "rr": (retrieval_reciprocal_rank(p0, t0).item(), q_rr[0]),
+                  "p@10": (retrieval_precision(p0, t0, k=10).item(), ms_oracle["hits@10"][0] / 10),
+                  "r@100": (retrieval_recall(p0, t0, k=100).item(),
+                            ms_oracle["hits@100"][0] / ms_oracle["n_rel"][0])}
+    fn_err = max(abs(a - b) for a, b in functional.values())
+    if not fn_err <= RET_TOL:
+        raise AssertionError(f"the functional forms read off the float64 oracle: {functional}")
+    out.update(config5_values=leg_values, config5_max_err=leg_err, config5_core_max_err=core_err,
+               msmarco_values=ms_values, msmarco_max_err=ms_err, functional_max_err=fn_err,
+               msmarco_queries=ms_queries, config5_queries=leg_queries)
+    print(f"4g. MS MARCO dev shape ({ms_queries} queries x {MSMARCO_DOCS}, {MSMARCO_REL} relevant):"
+          + "".join(f" {k} {v:.7f}" for k, v in ms_values.items())
+          + f", within {ms_err:.3g} of float64; integers exact; sharded bits equal; update"
+          f" {out['msmarco_update_batch_ms']:.3f} ms a batch, compute {out['msmarco_compute_ms']:.3f} ms"
+          f" (peak {out['msmarco_compute_peak_bytes_above_state'] / 2**20:.1f} MiB above the state); sorts: two"
+          f" int32 {out['msmarco_sort_two_pass_ms']:.3f} ms, packed int64 {out['msmarco_sort_packed_ms']:.3f} ms")
+    return out, ms
+
+
 def main() -> int:
     card_index = _pin_one_card()
     import torch
@@ -1820,6 +2157,16 @@ def main() -> int:
     if any(counts().values()):
         raise AssertionError(f"the regression pack launched a scan kernel: {counts()}")
 
+    # ---- 4g. the retrieval family -----------------------------------------
+    zero_counts()
+    t0 = time.perf_counter()
+    ret_timings, ms_collection = _retrieval_phase(torch, dev)
+    ret_timings["phase_s"] = time.perf_counter() - t0
+    ret_launches = counts()
+    ret_timings["scan_launches"] = ret_launches
+    if ret_launches["tie_scan"] < 1 or any(v for k, v in ret_launches.items() if k != "tie_scan"):
+        raise AssertionError(f"phase 4g's scans: only the epoch's ShardedAUROC may launch one: {ret_launches}")
+
     # ---- 5. times ---------------------------------------------------------
     all_preds = torch.cat(list(collection["AUROC"].preds))
     all_rel = (torch.cat(list(collection["AUROC"].target)) == 1).to(torch.float32)
@@ -1996,6 +2343,7 @@ def main() -> int:
         "per_class_curve_sync_sites": sync_sites,
         "stat_score_family": stat_timings,
         "regression_pack": reg_timings,
+        "retrieval": ret_timings,
         "card": card,
     }
     print(json.dumps({"timings": timings}))
@@ -2098,6 +2446,18 @@ def main() -> int:
         windows[label] = {"window_ms": window, "device_ms": sum(split.values()),
                           "device_busy_share": sum(split.values()) / window,
                           "device_ms_by_kernel": dict(sorted(split.items(), key=lambda kv: -kv[1])[:12])}
+    # one compute of the MS MARCO collection (MAP, MRR, P@10, R@100 over 6,980,000 rows)
+    for metric in ms_collection.values():
+        metric._computed = None
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof_ret:
+        t = time.perf_counter()
+        ms_collection.compute()
+        torch.cuda.synchronize()
+        ret_window_ms = (time.perf_counter() - t) * 1e3
+    ret_split = _device_ms_by_kernel(torch, prof_ret, sort_key)
+    ret_sort_ms = sum(v for k, v in ret_split.items() if "sort" in k.lower())
+    print(prof_ret.key_averages().table(sort_by=sort_key, row_limit=15, max_name_column_width=48))
     # one call of each kernel entry: one launch and at most the memset of its scratch
     entry_splits = {}
     for label, kernel, call in (
@@ -2136,6 +2496,11 @@ def main() -> int:
         "cityscapes_update_device_ms": sum(city_split.values()),
         "cityscapes_update_device_ms_by_kernel": dict(sorted(city_split.items(), key=lambda kv: -kv[1])[:12]),
         "regression_forward_batch": windows["regression_forward_batch"],
+        "msmarco_compute_window_ms": ret_window_ms,
+        "msmarco_compute_device_ms": sum(ret_split.values()),
+        "msmarco_compute_device_busy_share": sum(ret_split.values()) / ret_window_ms,
+        "msmarco_compute_sort_share": ret_sort_ms / max(sum(ret_split.values()), 1e-12),
+        "msmarco_compute_device_ms_by_kernel": dict(sorted(ret_split.items(), key=lambda kv: -kv[1])[:12]),
         "ssim_4x3x1024x2048": windows["ssim_4x3x1024x2048"],
         "kernel_device_ms_by_kernel": entry_splits["tie_scan"],
         "rows_kernel_device_ms_by_kernel": entry_splits["tie_scan_rows"],

@@ -24,8 +24,11 @@ confusion-matrix family (``ConfusionMatrix``, ``CohenKappa``,
 ``ExplainedVariance``, ``PSNR``, ``SSIM``), whose members share one pass
 over each batch inside a ``MetricCollection``; metric arithmetic
 (``CompositionalMetric``: ``(Precision() + Recall()) / 2``,
-``MeanSquaredError() ** 0.5``); the ``Metric`` core and
-``MetricCollection``.
+``MeanSquaredError() ** 0.5``); the retrieval family (``RetrievalMAP``,
+``RetrievalMRR``, ``RetrievalPrecision``, ``RetrievalRecall``), every query
+of an epoch ranked by one sort, and its bounded per-rank forms
+(``ShardedRetrievalMAP``, ...; the retrieval sample sort across ranks);
+the ``Metric`` core and ``MetricCollection``.
 """
 from metrics_tpu_torch.info import __version__  # noqa: F401
 from metrics_tpu_torch.metric import CompositionalMetric, Metric  # noqa: F401
@@ -64,6 +67,18 @@ from metrics_tpu_torch.regression import (  # noqa: F401
     MeanSquaredError,
     MeanSquaredLogError,
     R2Score,
+)
+from metrics_tpu_torch.retrieval import (  # noqa: F401
+    RetrievalMAP,
+    RetrievalMetric,
+    RetrievalMRR,
+    RetrievalPrecision,
+    RetrievalRecall,
+    ShardedRetrievalMAP,
+    ShardedRetrievalMetric,
+    ShardedRetrievalMRR,
+    ShardedRetrievalPrecision,
+    ShardedRetrievalRecall,
 )
 from metrics_tpu_torch.collections import MetricCollection  # noqa: F401
 from metrics_tpu_torch.functional.regression import (  # noqa: F401

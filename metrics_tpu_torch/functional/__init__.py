@@ -22,3 +22,7 @@ from metrics_tpu_torch.functional.regression.mean_squared_log_error import mean_
 from metrics_tpu_torch.functional.regression.psnr import psnr  # noqa: F401
 from metrics_tpu_torch.functional.regression.r2score import r2score  # noqa: F401
 from metrics_tpu_torch.functional.regression.ssim import ssim  # noqa: F401
+from metrics_tpu_torch.functional.retrieval.average_precision import retrieval_average_precision  # noqa: F401
+from metrics_tpu_torch.functional.retrieval.precision import retrieval_precision  # noqa: F401
+from metrics_tpu_torch.functional.retrieval.recall import retrieval_recall  # noqa: F401
+from metrics_tpu_torch.functional.retrieval.reciprocal_rank import retrieval_reciprocal_rank  # noqa: F401

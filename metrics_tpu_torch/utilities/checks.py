@@ -551,3 +551,29 @@ def _sample_weights(sample_weights: Optional[Any], n: int, device: torch.device)
     if tuple(weights.shape) != (n,):
         raise ValueError(f"expected 1-d sample_weights of shape {(n,)}, got {tuple(weights.shape)}")
     return _guard_sample_weights(weights)
+
+
+def _check_retrieval_inputs(
+    indexes, preds, target, ignore: Optional[int] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Validate retrieval ``(indexes, preds, target)``; returns int32
+    indexes, float32 preds and int32 targets. The JAX package's errors, in
+    its order. The ``ignore`` value is masked (to 0) only for the binary
+    check: shapes and data pass through intact, so the retrieval metrics'
+    ``exclude`` filtering sees every ignored entry."""
+    indexes = torch.as_tensor(indexes)
+    preds = torch.as_tensor(preds)
+    target = torch.as_tensor(target)
+
+    if preds.shape != target.shape:
+        raise ValueError("`preds` and `target` must be of the same shape")
+    if indexes.shape != target.shape:
+        raise ValueError("`indexes`, `preds` and `target` must be of the same shape")
+
+    if indexes.is_floating_point() or indexes.is_complex() or indexes.dtype == torch.bool:
+        raise ValueError("`indexes` must be a tensor of long integers")
+
+    check_target = target if ignore is None else torch.where(target == ignore, torch.zeros_like(target), target)
+    preds, _ = _check_retrieval_functional_inputs(preds, check_target)
+
+    return indexes.to(torch.int32), preds, target.to(torch.int32)

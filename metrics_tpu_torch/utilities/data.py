@@ -1,14 +1,16 @@
 """Shared tensor utilities.
 
 Port of ``metrics_tpu/utilities/data.py`` (``_stable_1d_sort`` without
-its ``nb`` truncation; ``promote_accumulator`` for the regression family).
+its ``nb`` truncation; ``promote_accumulator`` for the regression family;
+``get_group_indexes``, the retrieval family's host-side shim).
 ``to_onehot`` and ``select_topk`` keep the JAX package's broadcast-compare
 formulation, so their outputs match it bit for bit (top-k ties resolve to
 the lower index, as ``lax.top_k`` does). The JAX package's ``_is_concrete`` guard has no
 counterpart: every tensor is concrete in eager PyTorch.
 """
-from typing import Any, Callable, Mapping, Optional, Sequence, Union
+from typing import Any, Callable, List, Mapping, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
@@ -169,3 +171,25 @@ def apply_to_collection(
         return elem_type([apply_to_collection(d, dtype, function, *args, **kwargs) for d in data])
 
     return data
+
+
+def get_group_indexes(idx: torch.Tensor) -> List[torch.Tensor]:
+    """Per-unique-value index lists, in order of first appearance.
+
+    Host-side compatibility shim for the reference's Python loop: it copies
+    ``idx`` to the host. The retrieval metrics never call it; they rank
+    every query at once with one sort (:mod:`metrics_tpu_torch.ops.segment`).
+    The lists are int32 tensors on ``idx``'s device.
+
+    Example:
+        >>> indexes = torch.tensor([0, 0, 0, 1, 1, 1, 1])
+        >>> get_group_indexes(indexes)
+        [tensor([0, 1, 2], dtype=torch.int32), tensor([3, 4, 5, 6], dtype=torch.int32)]
+    """
+    idx = torch.as_tensor(idx)
+    idx_np = idx.cpu().numpy()
+    uniques, first_pos = np.unique(idx_np, return_index=True)
+    order = np.argsort(first_pos, kind="stable")
+    return [
+        torch.from_numpy(np.nonzero(idx_np == u)[0].astype(np.int32)).to(idx.device) for u in uniques[order]
+    ]

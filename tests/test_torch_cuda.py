@@ -7,7 +7,11 @@ the canonical path, ``label_bincount`` against ``torch.bincount``, the
 synchronizations of an update at 19 and 1,000 classes, and counts past
 2^24; the regression pack's SSIM at full float32 under global TF32 flags,
 its collection update without host synchronizations, and its shared pass
-equal to the unshared one.
+equal to the unshared one; the retrieval family against its CPU run
+(counts exact, means within 1e-6), the same bits over two computes, the
+sharded metrics at world 1 equal to the unsharded ones, both sort forms
+one permutation, and the host synchronizations of a compute independent
+of the number of queries.
 
 Every test here is marked ``cuda`` and skips without a card. This file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -38,9 +42,18 @@ from metrics_tpu_torch import (
     MetricCollection,
     PrecisionRecallCurve,
     R2Score,
+    RetrievalMAP,
+    RetrievalMRR,
+    RetrievalPrecision,
+    RetrievalRecall,
+    ShardedRetrievalMAP,
+    ShardedRetrievalMRR,
+    ShardedRetrievalPrecision,
+    ShardedRetrievalRecall,
     StatScores,
 )
 from metrics_tpu_torch.functional import auroc, average_precision, precision_recall_curve, roc, ssim
+from metrics_tpu_torch.ops import segment
 from metrics_tpu_torch.functional.classification.stat_scores import _stat_scores_count, _stat_scores_fast_update
 from metrics_tpu_torch.ops.auroc_kernel import (
     _co_sort,
@@ -774,3 +787,91 @@ def test_shared_pass_on_the_card_equals_the_unshared_one(cuda_device):
         got = shared.compute()
         for name, metric in alone.items():
             torch.testing.assert_close(got[name], metric.compute(), rtol=1e-6, atol=0.0)
+
+
+# ---- the retrieval family ---------------------------------------------------------------------
+
+
+def _retrieval(n, queries, seed):
+    rng = np.random.default_rng(seed)
+    idx = torch.from_numpy(rng.integers(-queries, queries, n).astype(np.int32) * 7)
+    preds = torch.from_numpy(np.round(rng.random(n), 3).astype(np.float32))  # ties
+    target = torch.from_numpy((rng.random(n) < 0.05).astype(np.int32))
+    target[::97] = -100
+    return idx, preds, target
+
+
+def _retrieval_collection(device, sharded=False, capacity=0):
+    if sharded:
+        return MetricCollection([ShardedRetrievalMAP(capacity, device=device), ShardedRetrievalMRR(capacity, device=device),
+                                 ShardedRetrievalPrecision(capacity, k=10, device=device),
+                                 ShardedRetrievalRecall(capacity, k=100, device=device)])
+    return MetricCollection([RetrievalMAP(device=device), RetrievalMRR(device=device),
+                             RetrievalPrecision(k=10, device=device), RetrievalRecall(k=100, device=device)])
+
+
+def test_gpu_retrieval_matches_the_cpu_path(cuda_device):
+    idx, preds, target = _retrieval(300_000, 2_000, 50)
+    values = {}
+    for device in (torch.device("cpu"), cuda_device):
+        collection = _retrieval_collection(device)
+        for lo in range(0, idx.shape[0], 100_000):
+            collection.update(idx[lo:lo + 100_000], preds[lo:lo + 100_000], target[lo:lo + 100_000])
+        values[device.type] = {k: float(v) for k, v in collection.compute().items()}
+    assert all(abs(values["cuda"][k] - values["cpu"][k]) <= 1e-6 for k in values["cpu"]), values
+    keep = target != -100
+    dense = torch.unique(idx[keep], return_inverse=True)[1].to(torch.int32)
+    args = (dense, preds[keep], target[keep], int(dense.max()) + 1)
+    cpu = segment.ranked_group_stats(*args)
+    gpu = segment.ranked_group_stats(*(a.to(cuda_device) if torch.is_tensor(a) else a for a in args))
+    for field in cpu._fields:
+        assert torch.equal(getattr(gpu, field).cpu(), getattr(cpu, field)), field
+    for k in (None, 10, 100):
+        for g, c in zip(segment.hits_in_topk(gpu, k), segment.hits_in_topk(cpu, k)):
+            assert torch.equal(g.cpu(), c)
+
+
+def test_retrieval_compute_bits_repeat_and_sharded_world_1_is_equal(cuda_device):
+    idx, preds, target = (x.to(cuda_device) for x in _retrieval(500_000, 5_000, 51))
+    plain, sharded = _retrieval_collection(cuda_device), _retrieval_collection(cuda_device, True, 500_000)
+    for collection in (plain, sharded):
+        collection.update(idx, preds, target)
+    first = {k: v.cpu().numpy().tobytes() for k, v in plain.compute().items()}
+    for metric in plain.values():
+        metric._computed = None
+    again = {k: v.cpu().numpy().tobytes() for k, v in plain.compute().items()}
+    shard = {k.replace("Sharded", ""): v.cpu().numpy().tobytes() for k, v in sharded.compute().items()}
+    assert first == again == shard
+
+
+def test_both_sort_forms_give_one_permutation_on_the_card(cuda_device):
+    idx, preds, _ = (x.to(cuda_device) for x in _retrieval(1_000_003, 10_000, 52))
+    g2, o2 = segment._lex_order_two_pass(idx, preds)
+    gp, op = segment._lex_order_packed(idx, preds)
+    assert torch.equal(g2, gp) and torch.equal(o2, op)
+
+
+def _compute_syncs(collection):
+    for metric in collection.values():
+        metric._computed = None
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            collection.compute()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def test_retrieval_compute_syncs_do_not_grow_with_the_queries(cuda_device):
+    def syncs(queries):
+        idx, preds, target = (x.to(cuda_device) for x in _retrieval(200_000, queries, 53))
+        collection = _retrieval_collection(cuda_device)
+        collection.update(idx, preds, target)
+        collection.compute()  # first calls may synchronize once more
+        return _compute_syncs(collection)
+
+    syncs(100)
+    assert syncs(50) == syncs(5_000) > 0

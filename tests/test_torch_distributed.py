@@ -13,7 +13,9 @@ same stream in one process; and the sharded curves (``ShardedROC``,
 curve, bit for bit, as one process holding the whole stream; and the
 stat-score family's states (a sum-state ``ConfusionMatrix(1000)`` and
 ``StatScores``, a list-state ``StatScores(reduce="samples")``), whose every
-rank must equal one process.
+rank must equal one process; and the sharded retrieval metrics (the
+retrieval sample sort over NCCL), whose every rank must return the same
+bits, within 1e-6 of one card holding the whole stream.
 """
 import json
 import multiprocessing
@@ -26,7 +28,13 @@ import torch.distributed as dist
 
 from metrics_tpu_torch import AUROC, Accuracy, MetricCollection
 from metrics_tpu_torch.parallel.backend import TorchDistributedBackend, get_sync_backend
-from tests.torch_workers import run_world, sharded_cases, sharded_metric_values, stat_scores_world
+from tests.torch_workers import (
+    run_world,
+    sharded_cases,
+    sharded_metric_values,
+    sharded_retrieval_cases,
+    stat_scores_world,
+)
 
 
 def _rows(rank):
@@ -244,3 +252,38 @@ def test_nccl_stat_scores_and_confmat_are_the_same_on_every_card():
         "confmat_total": float(one["confmat"].sum()),
     }}))
 
+
+
+@pytest.mark.cuda
+def test_nccl_sharded_retrieval_is_the_same_on_every_card():
+    """``ShardedRetrievalMAP`` / ``MRR`` / ``Precision(k=10)`` /
+    ``Recall(k=100)`` over NCCL, one rank per card, each holding an uneven
+    slice of 1M rows over 10,000 queries (5% relevant, some targets
+    excluded, tied scores): every rank returns the same bits, within 1e-6 of
+    one card holding the whole stream in rank order."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    world = torch.cuda.device_count()
+    rng = np.random.default_rng(9)
+    n = 1_000_000
+    idx = rng.integers(0, 10_000, n).astype(np.int32)
+    preds = np.round(rng.random(n), 4).astype(np.float32)
+    target = (rng.random(n) < 0.05).astype(np.int32)
+    target[rng.random(n) < 0.01] = -100
+    cuts = np.linspace(0, n, world + 1).astype(int)
+    cuts[1:-1] += rng.integers(-50_000, 50_000, world - 1)
+    shards = [tuple(a[cuts[r]:cuts[r + 1]] for a in (idx, preds, target)) for r in range(world)]
+    cap = int(np.diff(cuts).max())
+    cases = [{"name": metric, "metric": metric, "kwargs": kwargs, "shards": shards, "cap": cap, "batch": 100_000}
+             for metric, kwargs in (("map", {}), ("mrr", {}), ("precision", {"k": 10}), ("recall", {"k": 100}))]
+    ranks = run_world(world, sharded_retrieval_cases, cases, device_type="cuda", timeout=600)
+    whole = [tuple(np.concatenate([s[i] for s in shards]) for i in range(3))]
+    one = sharded_retrieval_cases(0, 1, torch.device("cuda", 0),
+                                  [{**c, "shards": whole, "cap": n, "batch": 100_000} for c in cases])
+    print(json.dumps({"nccl_sharded_retrieval": {
+        "world": world, "card": torch.cuda.get_device_name(0), "fills": np.diff(cuts).tolist(),
+        "ranks": {k: v["value"] for k, v in ranks[0].items()}, "one_card": {k: v["value"] for k, v in one.items()}}}))
+    for case in cases:
+        name = case["name"]
+        assert all(ranks[r][name]["bits"] == ranks[0][name]["bits"] for r in range(world)), name
+        assert abs(ranks[0][name]["value"] - one[name]["value"]) <= 1e-6, (name, ranks[0][name], one[name])

@@ -24,3 +24,20 @@ def test_doctests_exist():
     finder = doctest.DocTestFinder()
     total = sum(len(t.examples) for n in MODULES for t in finder.find(importlib.import_module(n)))
     assert total >= 15, total
+
+
+RETRIEVAL_MODULES = [m for m in MODULES if ".retrieval." in m or m.endswith((".segment", ".utilities.data"))]
+
+
+def test_retrieval_modules_carry_their_doctests():
+    """The retrieval family's modules and functional forms each show their
+    example (run by ``test_module_doctests``)."""
+    finder = doctest.DocTestFinder()
+    with_examples = {n for n in RETRIEVAL_MODULES
+                     if sum(len(t.examples) for t in finder.find(importlib.import_module(n)))}
+    want = {f"metrics_tpu_torch.retrieval.{m}" for m in ("mean_average_precision", "mean_reciprocal_rank",
+                                                         "precision", "recall", "sharded")}
+    want |= {f"metrics_tpu_torch.functional.retrieval.{m}" for m in ("average_precision", "reciprocal_rank",
+                                                                    "precision", "recall")}
+    want |= {"metrics_tpu_torch.ops.segment", "metrics_tpu_torch.utilities.data"}
+    assert want <= with_examples, sorted(want - with_examples)

@@ -42,3 +42,21 @@ def test_importing_the_port_loads_no_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+JAX_RETRIEVAL_INITS = {
+    "metrics_tpu_torch.retrieval": REPO / "metrics_tpu" / "retrieval" / "__init__.py",
+    "metrics_tpu_torch.functional.retrieval": REPO / "metrics_tpu" / "functional" / "retrieval" / "__init__.py",
+}
+
+
+@pytest.mark.parametrize("port_module", sorted(JAX_RETRIEVAL_INITS))
+def test_the_port_exports_every_jax_retrieval_name(port_module):
+    """Every name the JAX package's retrieval packages export (read from
+    their source, not imported) is exported by the port's counterpart."""
+    import importlib
+
+    tree = ast.parse(JAX_RETRIEVAL_INITS[port_module].read_text())
+    names = {a.asname or a.name for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) for a in n.names}
+    module = importlib.import_module(port_module)
+    assert len(names) >= 4 and not sorted(n for n in names if not hasattr(module, n))

@@ -20,12 +20,19 @@ from metrics_tpu_torch import (
     PSNR,
     SSIM,
     ConfusionMatrix,
+    RetrievalMAP,
     ShardedAUROC,
     ShardedAveragePrecision,
     ShardedPrecisionRecallCurve,
     ShardedROC,
+    ShardedRetrievalMAP,
+    ShardedRetrievalMRR,
+    ShardedRetrievalPrecision,
+    ShardedRetrievalRecall,
     StatScores,
 )
+from metrics_tpu_torch.functional import retrieval_average_precision
+from metrics_tpu_torch.retrieval import ShardedRetrievalMetric
 from metrics_tpu_torch.interop import state_from_jax
 from metrics_tpu_torch.parallel.backend import TorchDistributedBackend
 from metrics_tpu_torch.parallel.sample_sort import sample_sort_auroc_ap
@@ -239,3 +246,42 @@ def regression_world(rank: int, world: int, device: torch.device, payload: dict)
         "ssim": ssim.compute().cpu().numpy(),
         "ssim_maps": ssim_maps.compute().cpu().numpy(),
     }
+
+
+class UserShardedMAP(ShardedRetrievalMetric):
+    """A user subclass that scores through the per-query ``_metric`` only:
+    its compute gathers every rank's streams and scores them on each rank."""
+
+    def _metric(self, preds, target):
+        return retrieval_average_precision(preds, target)
+
+
+_RETRIEVAL = {"map": ShardedRetrievalMAP, "mrr": ShardedRetrievalMRR, "precision": ShardedRetrievalPrecision,
+              "recall": ShardedRetrievalRecall, "user_map": UserShardedMAP, "replicated_map": RetrievalMAP}
+
+
+def sharded_retrieval_cases(rank: int, world: int, device: torch.device, cases: list) -> dict:
+    """Every case of ``cases`` on this rank: a ``ShardedRetrieval*`` of
+    ``case["metric"]`` with ``case["kwargs"]`` and ``case["cap"]`` slots per
+    rank (or the list-state ``RetrievalMAP``, synced at compute) appends this rank's shard ``case["shards"][rank]`` (``(idx, preds,
+    target)`` of its fill) in batches of ``case["batch"]``, or loads this
+    rank's cut of ``case["jax_state"]``. Returns per case the value and its
+    bits, or the text of the error compute raised."""
+    out = {}
+    for case in cases:
+        cls = _RETRIEVAL[case["metric"]]
+        capacity = {"capacity_per_device": case["cap"]} if issubclass(cls, ShardedRetrievalMetric) else {}
+        m = cls(device=device, **capacity, **case["kwargs"])
+        if "jax_state" in case:
+            m.load_state_dict(state_from_jax(case["jax_state"], rank=rank, world=world), strict=True)
+        else:
+            shard = [torch.from_numpy(a).to(device) for a in case["shards"][rank]]
+            for lo in range(0, shard[0].shape[0], case["batch"]):
+                m.update(*(a[lo:lo + case["batch"]] for a in shard))
+        try:
+            value = m.compute().cpu().numpy()
+        except ValueError as err:
+            out[case["name"]] = {"error": str(err)}
+            continue
+        out[case["name"]] = {"value": float(value), "bits": value.tobytes()}
+    return out
