@@ -141,6 +141,27 @@ that is unset. Phases (any failure exits non-zero before the result line):
    (relevant counts, first relevant ranks, hits in the top 10 and 100)
    equal to its, a second compute's bits equal, and the sharded metrics at
    world 1 equal to the unsharded ones bit for bit;
+4h. the step engine (``MetricCollection(compiled=True)``: one CUDA graph per
+   call signature; no scan kernel of its own): (a) 4e's forward leg, 10
+   batches of 100,000 and the JAX bench's 1M x 4 batch, and (b) 4f's
+   regression leg, each against the eager collection: values within 1e-6
+   relative and counts exact every step and at the epoch, no demotion, one
+   build, 0 host synchronizations in a replayed step, the forward batch ms of
+   both, a replayed step's device time (steps queued behind a device sleep),
+   the first step's warm-up and capture ms and the graph's pool; (c)
+   the stat-score siblings' shared count: host synchronizations and device
+   kernels of one eager forward of the four metrics in a collection (2
+   syncs) and alone (4); (d) the binary step over phase 3's batches,
+   Accuracy captured and AUROC eager (as in the JAX package: it does not
+   opt into the fused forward), values equal to eager, one tie-scan launch
+   per batch value and per compute; (e) a demotion: ``StatScores()`` on
+   label inputs cannot infer its one-hot width inside a graph, is demoted
+   with JAX's reason while Accuracy stays captured, and the card stays
+   usable; (f) ``BootStrapper(Accuracy(), 20)`` with both samplers (host
+   synchronizations of a draw: 0 multinomial, 1 Poisson),
+   ``embedding_similarity`` at (512, 256) within 1e-5 of float64 under
+   global TF32 flags (restored after), ``image_gradients`` over 4 x 3 x 1024
+   x 2048 equal to numpy, ``bleu_score`` on the card equal to the CPU's;
 5. times on the card (CUDA events over launches queued behind a device
    sleep, so host overhead does not show, or the host clock ending in a
    synchronize for whole steps): the one-stream kernel, its plain version
@@ -159,14 +180,16 @@ that is unset. Phases (any failure exits non-zero before the result line):
    functional ``r2score`` / ``mean_squared_error`` at 1M, ``psnr`` /
    ``ssim`` at 16 x 3 x 128 x 128, ``SSIM.compute()`` over Kodak, ``ssim``
    at 4 x 3 x 1024 x 2048, and both blur forms (banded product and
-   depthwise convolution) at 128 x 128, 512 x 768 and 1024 x 2048;
+   depthwise convolution) at 128 x 128, 512 x 768 and 1024 x 2048; phase
+   4h's forward batches, compiled and eager (host clock);
 6. where the time goes: ``torch.profiler`` over a binary forward batch plus
    compute, over one multi-class compute, over one weighted sharded binary
    compute, over one per-class ROC compute at (1000, 50000), over one
    forward batch of phase 4e's forward leg and one Cityscapes update, over
    one forward batch of phase 4f's regression leg and one ``ssim`` at
-   4 x 3 x 1024 x 2048, over one MS MARCO compute of phase 4g (its sort
-   share), and over one
+   4 x 3 x 1024 x 2048, over one compiled forward batch of phase 4h's
+   forward leg and regression leg (one graph replay each), over one MS MARCO
+   compute of phase 4g (its sort share), and over one
    call of each kernel entry (one stream at 1M,
    batched at ``(1000, 50000)``, and the two weighted ones at their paths'
    shapes), each of which must show one kernel and at most the memset of
@@ -261,6 +284,11 @@ MSMARCO_Q, MSMARCO_DOCS, MSMARCO_REL, MSMARCO_ID_SPACE = 6_980, 1_000, 7_437, 1_
 MSMARCO_BATCH_Q, MSMARCO_SHIFT = 100, 2.5
 # retrieval means against the float64 oracle: float32 scores of exact integer ranks
 RET_TOL = 1e-5
+# the step engine (phase 4h): compiled against eager, the same float32 ops in the same order
+ENGINE_TOL = 1e-6
+# embedding_similarity against float64 at (512, 256) with TF32 switched on globally,
+# relative to the largest entry (float32 sums of 256 products: ~1e-6)
+EMB_TOL = 1e-5
 
 
 def _pin_one_card() -> str:
@@ -490,6 +518,32 @@ def _forward_leg_inputs(torch, dev):
     p4_np = p4_np / p4_np.sum(1, keepdims=True)
     t4_np = rs.randint(4, size=MAIN_N)
     return p4_np, t4_np, torch.from_numpy(p4_np).to(dev), torch.from_numpy(t4_np).to(dev)
+
+
+def _regression_leg_inputs(torch, dev):
+    """The JAX bench's regression-leg rows (``bench.py:463-464``; its
+    generator draws the classification leg's batches first): 1M seeded
+    ``(preds, target)``, as numpy and on ``dev``."""
+    rs = np.random.RandomState(SEED)
+    rs.rand(MAIN_N, 4)
+    rs.randint(4, size=MAIN_N)
+    t_np = (rs.randn(MAIN_N) * 3 + 1).astype(np.float32)
+    p_np = t_np + rs.randn(MAIN_N).astype(np.float32)
+    return p_np, t_np, torch.from_numpy(p_np).to(dev), torch.from_numpy(t_np).to(dev)
+
+
+def _syncs(torch, fn):
+    """The host synchronizations ``fn()`` causes, by site
+    (``torch.cuda.set_sync_debug_mode("warn")``)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
 
 
 def _stat_score_phase(torch, dev, mc, ml):
@@ -848,18 +902,6 @@ def _regression_phase(torch, dev, leg):
             raise AssertionError(f"{label}: {got.ravel()[:4]} vs oracle {want.ravel()[:4]} (max error {err})")
         return err
 
-    def syncs_of(fn):
-        """The host synchronizations ``fn()`` causes, by site."""
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                fn()
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        return [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
-
     def warm_ms(fn):
         fn()
         return _host_ms(torch, fn)
@@ -879,14 +921,8 @@ def _regression_phase(torch, dev, leg):
             times.append((time.perf_counter() - t) * 1e3)
         return float(np.median(times[1:]))
 
-    # a. the JAX bench's regression forward leg (bench.py:463-464, :535): its
-    # generator draws the classification leg's batches first
-    rs = np.random.RandomState(SEED)
-    rs.rand(MAIN_N, 4)
-    rs.randint(4, size=MAIN_N)
-    reg_t_np = (rs.randn(MAIN_N) * 3 + 1).astype(np.float32)
-    reg_p_np = reg_t_np + rs.randn(MAIN_N).astype(np.float32)
-    reg_t, reg_p = torch.from_numpy(reg_t_np).to(dev), torch.from_numpy(reg_p_np).to(dev)
+    # a. the JAX bench's regression forward leg (bench.py:463-464, :535)
+    reg_p_np, reg_t_np, reg_p, reg_t = _regression_leg_inputs(torch, dev)
 
     def reg_collection():
         return MetricCollection([MeanSquaredError(), MeanAbsoluteError(), R2Score(), PSNR(), ExplainedVariance()])
@@ -941,9 +977,9 @@ def _regression_phase(torch, dev, leg):
     reg_err = max(reg_err, check("R2Score(num_outputs=2, adjusted=3)", two_value,
                                  1 - (1 - r2_cols) * (n2 - 1) / (n2 - 3 - 1), REG_TOL))
     fresh = reg_collection()
-    syncs_of(lambda: fresh.update(reg_p[:BATCH], reg_t[:BATCH]))  # the first counted window may see one more
-    update_sites = syncs_of(lambda: fresh.update(reg_p[:BATCH], reg_t[:BATCH]))
-    forward_sites = syncs_of(lambda: fresh(reg_p[:BATCH], reg_t[:BATCH]))
+    _syncs(torch, lambda: fresh.update(reg_p[:BATCH], reg_t[:BATCH]))  # the first counted window may see one more
+    update_sites = _syncs(torch, lambda: fresh.update(reg_p[:BATCH], reg_t[:BATCH]))
+    forward_sites = _syncs(torch, lambda: fresh(reg_p[:BATCH], reg_t[:BATCH]))
     if update_sites:
         raise AssertionError(f"one regression collection update synchronized with the host at {update_sites}")
     print(f"4f. regression leg (MSE + MAE + R2 + PSNR + EV), {BATCHES} forward batches of {BATCH}: {got}, max"
@@ -1031,7 +1067,7 @@ def _regression_phase(torch, dev, leg):
         warnings.simplefilter("ignore")
         ssim_metric = SSIM()
     ssim_metric.update(img_p, img_t)
-    ssim_sites = syncs_of(lambda: ssim_metric.update(img_p, img_t))
+    ssim_sites = _syncs(torch, lambda: ssim_metric.update(img_p, img_t))
     if ssim_sites:
         raise AssertionError(f"one SSIM update synchronized with the host at {ssim_sites}")
 
@@ -1232,17 +1268,6 @@ def _retrieval_phase(torch, dev):
             raise AssertionError(f"{label}: {bad} differ from the oracle's integers")
         return int(stats.pos_per_group.shape[0])
 
-    def syncs_of(fn):
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                fn()
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        return [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
-
     # a. BASELINE config 5, the JAX bench's retrieval leg (bench.py:1455-1533):
     # MAP + MRR in a collection, 10 update batches of 100,000
     idx = torch.randint(0, RET_Q, (RET_N,), generator=gen, device=dev, dtype=torch.int32)
@@ -1283,7 +1308,7 @@ def _retrieval_phase(torch, dev):
         collection.compute()  # first calls may synchronize once more
         for metric in collection.values():
             metric._computed = None
-        syncs[queries] = syncs_of(collection.compute)
+        syncs[queries] = _syncs(torch, collection.compute)
         for metric in collection.values():
             metric._computed = None
         dtoh[queries] = _dtoh_bytes(torch, collection.compute, trace_path)
@@ -1396,6 +1421,267 @@ def _retrieval_phase(torch, dev):
           f" (peak {out['msmarco_compute_peak_bytes_above_state'] / 2**20:.1f} MiB above the state); sorts: two"
           f" int32 {out['msmarco_sort_two_pass_ms']:.3f} ms, packed int64 {out['msmarco_sort_packed_ms']:.3f} ms")
     return out, ms
+
+
+def _device_ops(torch, fn):
+    """(kernels, copies and fills) the device runs for ``fn()``, counted in
+    a ``torch.profiler`` trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = sum(e.count for e in ops if e.key.startswith(("Memcpy", "Memset")))
+    return sum(e.count for e in ops) - copies, copies
+
+
+def _engine_phase(torch, dev, binary):
+    """Phase 4h: the step engine (``MetricCollection(compiled=True)``: one
+    CUDA graph per call signature), the stat-score siblings' shared count,
+    the wrapper and the functional extras on the card.
+
+    ``binary`` is phase 3's ``(preds, target)`` on the card. Returns the
+    phase's timings and what phase 6 profiles."""
+    from metrics_tpu_torch import (
+        AUROC,
+        F1,
+        PSNR,
+        Accuracy,
+        BootStrapper,
+        ExplainedVariance,
+        MeanAbsoluteError,
+        MeanSquaredError,
+        MetricCollection,
+        Precision,
+        R2Score,
+        Recall,
+        StatScores,
+    )
+    from metrics_tpu_torch.functional import bleu_score, embedding_similarity, image_gradients
+    from metrics_tpu_torch.ops import tie_scan
+
+    boot_module = importlib.import_module("metrics_tpu_torch.wrappers.bootstrapping")
+    out = {}
+
+    def forward_leg(compiled):
+        return MetricCollection([Accuracy(), Precision(num_classes=4, average="macro"),
+                                 Recall(num_classes=4, average="macro"), F1(num_classes=4, average="macro")],
+                                compiled=compiled)
+
+    def regression_leg(compiled):
+        return MetricCollection([MeanSquaredError(), MeanAbsoluteError(), R2Score(), PSNR(), ExplainedVariance()],
+                                compiled=compiled)
+
+    def check_step(label, eager, compiled, ve, vc):
+        """Values within ENGINE_TOL relative, integer states exact, float
+        states within ENGINE_TOL relative."""
+        worst = 0.0
+        for k in ve:
+            a, b = vc[k].double(), ve[k].double()
+            err = float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+            if not bool(torch.isfinite(a).all()) or not err <= ENGINE_TOL:
+                raise AssertionError(f"{label}: compiled {k} {vc[k].tolist()} vs eager {ve[k].tolist()}")
+            worst = max(worst, err)
+        for name in eager.keys():
+            for sname in eager[name]._defaults:
+                a, b = getattr(compiled[name], sname), getattr(eager[name], sname)
+                if a.is_floating_point():
+                    err = float(((a.double() - b.double()).abs() / b.double().abs().clamp_min(1e-30)).max())
+                    if not err <= ENGINE_TOL:
+                        raise AssertionError(f"{label}: state {name}.{sname} off eager by {err} relative")
+                elif not torch.equal(a, b):
+                    raise AssertionError(f"{label}: count {name}.{sname} differs from eager's")
+        return worst
+
+    def leg(label, make, batches):
+        """The eager and the compiled collection over ``batches``: equality
+        every step, no demotion, 0 syncs per replayed step, forward batch
+        ms of both, the first step's build, the graph's pool."""
+        eager, compiled = make(False), make(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vc = compiled(*batches[0])
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        worst = check_step(f"{label} step 0", eager, compiled, eager(*batches[0]), vc)
+        for b, batch in enumerate(batches[1:], 1):
+            worst = max(worst, check_step(f"{label} step {b}", eager, compiled, eager(*batch), compiled(*batch)))
+        for k, v in eager.compute().items():
+            got = compiled.compute()[k]
+            if not float(((got.double() - v.double()).abs() / v.double().abs().clamp_min(1e-30)).max()) <= ENGINE_TOL:
+                raise AssertionError(f"{label}: epoch {k} {got.tolist()} vs eager {v.tolist()}")
+        info = compiled._engine.cache_info()
+        if info["eager_fallbacks"] or info["trace_count"] != 1:
+            raise AssertionError(f"{label}: the engine demoted or rebuilt: {info}")
+        sites = _syncs(torch, lambda: compiled(*batches[1]))
+        if sites:
+            raise AssertionError(f"{label}: a replayed step synchronized the host at {sites}")
+        result = {
+            "forward_batch_ms_compiled": _host_ms(torch, lambda: compiled(*batches[1])),
+            "forward_batch_ms_eager": _host_ms(torch, lambda: eager(*batches[1])),
+            # the replayed step's device time: steps queued behind a device sleep
+            "replay_device_ms": _queued_ms(torch, lambda: compiled(*batches[1]), launches=20),
+            "first_step_ms": first_ms,
+            "warm_up_and_capture_ms": info["graph_build_ms"][0],
+            "graph_pool_bytes": info["graph_pool_bytes"],
+            "syncs_per_replayed_step": len(sites),
+            "max_rel_err_vs_eager": worst,
+        }
+        print(f"4h. {label}: {len(batches)} batches compiled = eager (counts exact, max rel err {worst:.3g}),"
+              f" no demotion, 0 syncs a replayed step; forward batch {result['forward_batch_ms_compiled']:.3f} ms"
+              f" compiled ({result['replay_device_ms']:.3f} ms of device time) vs"
+              f" {result['forward_batch_ms_eager']:.3f} ms eager; first step {first_ms:.1f} ms"
+              f" (warm-up + capture {result['warm_up_and_capture_ms']:.1f} ms), graph pool"
+              f" {info['graph_pool_bytes'] / 2**20:.1f} MiB")
+        return result, compiled
+
+    # a. the forward leg (phase 4e's data), then the JAX bench's 1M x 4 batch
+    _, _, p4, t4 = _forward_leg_inputs(torch, dev)
+    cls_batches = [(p4[b * BATCH:(b + 1) * BATCH], t4[b * BATCH:(b + 1) * BATCH]) for b in range(BATCHES)]
+    out["forward_leg"], compiled_leg = leg(f"forward leg ({BATCHES} x {BATCH})", forward_leg, cls_batches)
+    out["forward_leg_1m"], _ = leg(f"forward leg at {MAIN_N} x 4", forward_leg, [(p4, t4), (p4, t4)])
+
+    # b. the regression leg (phase 4f's five metrics and rows)
+    _, _, reg_p, reg_t = _regression_leg_inputs(torch, dev)
+    reg_batches = [(reg_p[b * BATCH:(b + 1) * BATCH], reg_t[b * BATCH:(b + 1) * BATCH]) for b in range(BATCHES)]
+    out["regression_leg"], compiled_reg = leg(f"regression leg ({BATCHES} x {BATCH})", regression_leg, reg_batches)
+
+    # c. the stat-score siblings' count, eager: one forward of the collection
+    # against the four metrics' own forwards (what the collection did before
+    # the shared count)
+    shared = forward_leg(False)
+    alone = list(forward_leg(False).values())
+    batch = cls_batches[0]
+    shared(*batch)
+    for m in alone:
+        m(*batch)
+    syncs_shared = _syncs(torch, lambda: shared(*batch))
+    syncs_alone = _syncs(torch, lambda: [m(*batch) for m in alone])
+    ops_shared, ops_alone = _device_ops(torch, lambda: shared(*batch)), _device_ops(torch, lambda: [m(*batch) for m in alone])
+    if len(syncs_shared) != 2 or len(syncs_alone) != 4:
+        raise AssertionError(f"stat-score siblings: syncs shared {syncs_shared}, alone {syncs_alone}; want 2 and 4")
+    out["siblings"] = {"syncs_per_forward_shared": len(syncs_shared), "syncs_per_forward_unshared": len(syncs_alone),
+                       "kernels_per_forward_shared": ops_shared[0], "kernels_per_forward_unshared": ops_alone[0],
+                       "copies_per_forward_shared": ops_shared[1], "copies_per_forward_unshared": ops_alone[1],
+                       "forward_batch_ms_shared": _host_ms(torch, lambda: shared(*batch)),
+                       "forward_batch_ms_unshared": _host_ms(torch, lambda: [m(*batch) for m in alone])}
+    print(f"4h. stat-score siblings, eager forward of 4 metrics: {out['siblings']}")
+
+    # d. the binary step (phase 3's batches): Accuracy captured, AUROC eager
+    preds, target = binary
+    eager_bin = MetricCollection([Accuracy(), AUROC(pos_label=1)])
+    compiled_bin = MetricCollection([Accuracy(), AUROC(pos_label=1)], compiled=True)
+    for b in range(BATCHES):
+        sl = slice(b * BATCH, (b + 1) * BATCH)
+        ve = eager_bin(preds[sl], target[sl])
+        before = tie_scan.tie_group_reduce.launches
+        vc = compiled_bin(preds[sl], target[sl])
+        if tie_scan.tie_group_reduce.launches != before + 1:
+            raise AssertionError("binary step: AUROC's batch value did not launch the tie scan once")
+        for k in ve:
+            if not torch.equal(vc[k], ve[k]):
+                raise AssertionError(f"binary step {b}: compiled {k} {vc[k].item()} != eager {ve[k].item()}")
+    fallbacks = compiled_bin.eager_fallbacks
+    if set(fallbacks) != {"AUROC"} or "does not opt into fused one-update forward" not in fallbacks["AUROC"]:
+        raise AssertionError(f"binary step: eager fallbacks {fallbacks}; want AUROC alone, by its forward")
+    before = tie_scan.tie_group_reduce.launches
+    got = compiled_bin.compute()
+    bin_launches = tie_scan.tie_group_reduce.launches - before
+    want = eager_bin.compute()
+    if bin_launches != 1 or any(not torch.equal(got[k], want[k]) for k in want):
+        raise AssertionError(f"binary step: compute {got} vs eager {want}, {bin_launches} tie-scan launches")
+    out["binary_step"] = {"eager_fallbacks": fallbacks, "compute_tie_scan_launches": bin_launches,
+                          "forward_batch_ms_compiled": _host_ms(torch, lambda: compiled_bin(preds[:BATCH], target[:BATCH])),
+                          "forward_batch_ms_eager": _host_ms(torch, lambda: eager_bin(preds[:BATCH], target[:BATCH]))}
+    print(f"4h. binary step: Accuracy captured, {fallbacks}; values equal eager; one tie-scan launch per compute;"
+          f" forward batch {out['binary_step']['forward_batch_ms_compiled']:.3f} ms compiled vs"
+          f" {out['binary_step']['forward_batch_ms_eager']:.3f} ms eager")
+
+    # e. a demotion on the card: StatScores() cannot infer the one-hot width
+    # of label inputs inside a graph; Accuracy stays captured
+    labels = [(t4[b * BATCH:(b + 1) * BATCH], t4[(b + 1) * BATCH:(b + 2) * BATCH].flip(0)) for b in range(3)]
+    eager_dem = MetricCollection([Accuracy(), StatScores()])
+    compiled_dem = MetricCollection([Accuracy(), StatScores()], compiled=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the engine's own fall-back warning
+        for batch in labels:
+            ve, vc = eager_dem(*batch), compiled_dem(*batch)
+            for k in ve:
+                if not torch.equal(vc[k], ve[k]):
+                    raise AssertionError(f"demotion: compiled {k} {vc[k].tolist()} != eager {ve[k].tolist()}")
+    torch.cuda.synchronize()  # no CUDA error was left behind
+    reasons = compiled_dem.eager_fallbacks
+    if set(reasons) != {"StatScores"} or "`num_classes` is required" not in reasons["StatScores"]:
+        raise AssertionError(f"demotion: eager fallbacks {reasons}; want StatScores alone, by num_classes")
+    step = compiled_dem(*labels[0])
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(v.float()).all()) for v in step.values()):
+        raise AssertionError("demotion: the step after it is not finite")
+    out["demotion"] = reasons
+    print(f"4h. demotion: {reasons}; Accuracy captured, the card usable after it")
+
+    # f. the wrapper and the extras
+    boot_syncs = {}
+    p1, t1 = cls_batches[0]
+    plain = Accuracy()(p1, t1).item()
+    for strategy in ("multinomial", "poisson"):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        boot = BootStrapper(Accuracy(), num_bootstraps=20, sampling_strategy=strategy, generator=gen, raw=True)
+        boot.update(p1, t1)
+        sampler = _syncs(torch, lambda: boot_module._bootstrap_sampler(BATCH, strategy, 20, gen, dev))
+        update = _syncs(torch, lambda: boot.update(p1, t1))
+        values = boot.compute()
+        if len(sampler) != (0 if strategy == "multinomial" else 1):
+            raise AssertionError(f"BootStrapper {strategy}: the sampler synchronized at {sampler}")
+        if not abs(values["mean"].item() - plain) < 0.01 or values["raw"].shape != (20,):
+            raise AssertionError(f"BootStrapper {strategy}: mean {values['mean'].item()} vs accuracy {plain}")
+        boot_syncs[strategy] = {"sampler_syncs": len(sampler), "update_syncs": len(update),
+                                "mean": values["mean"].item(), "std": values["std"].item()}
+    rng = np.random.default_rng(SEED + 7)
+    emb = torch.from_numpy(rng.standard_normal((512, 256)).astype(np.float32)).to(dev)
+    flags = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cudnn.allow_tf32 = True
+    emb_err = 0.0
+    try:
+        for similarity in ("cosine", "dot"):
+            for reduction in ("none", "sum", "mean"):
+                got = embedding_similarity(emb, similarity, reduction).double()
+                want = embedding_similarity(emb.double(), similarity, reduction)
+                # relative to the output's largest entry: a TF32 product reads ~1e-3 off
+                emb_err = max(emb_err, float((got - want).abs().max() / want.abs().max()))
+        if torch.get_float32_matmul_precision() != "high" or torch.backends.cudnn.allow_tf32 is not True:
+            raise AssertionError("embedding_similarity did not restore the caller's TF32 flags")
+    finally:
+        torch.set_float32_matmul_precision(flags[0])
+        torch.backends.cudnn.allow_tf32 = flags[1]
+    if not emb_err <= EMB_TOL:
+        raise AssertionError(f"embedding_similarity under TF32 flags off float64 by {emb_err}")
+    img_np = rng.standard_normal((FRAMES, 3, CITY_H, CITY_W), dtype=np.float32)
+    dy, dx = image_gradients(torch.from_numpy(img_np).to(dev))
+    want_dy = np.zeros_like(img_np)
+    want_dy[..., :-1, :] = img_np[..., 1:, :] - img_np[..., :-1, :]
+    want_dx = np.zeros_like(img_np)
+    want_dx[..., :, :-1] = img_np[..., :, 1:] - img_np[..., :, :-1]
+    if not (np.array_equal(dy.cpu().numpy(), want_dy) and np.array_equal(dx.cpu().numpy(), want_dx)):
+        raise AssertionError("image_gradients differ from numpy's")
+    frame = torch.from_numpy(img_np[:1]).to(dev)
+    gradients_ms = _host_ms(torch, lambda: image_gradients(frame))
+    translations = ["the cat is on the mat".split(), "there is a cat on the mat today".split()]
+    references = [["there is a cat on the mat".split(), "a cat is on the mat".split()],
+                  ["the cat is on the mat".split()]]
+    bleu = {s: (bleu_score(translations, references, smooth=s).item(),
+                bleu_score(translations, references, smooth=s, device="cpu").item()) for s in (False, True)}
+    if any(a != b for a, b in bleu.values()):
+        raise AssertionError(f"bleu_score on the card {bleu} differs from the CPU's")
+    out["extras"] = {"bootstrapper_20": boot_syncs, "embedding_similarity_512x256_max_rel_err_tf32_on": emb_err,
+                     "image_gradients_1x3x1024x2048_ms": gradients_ms, "bleu": bleu}
+    print(f"4h. BootStrapper(Accuracy(), 20) host syncs {boot_syncs}; embedding_similarity (512, 256) under TF32"
+          f" flags within {emb_err:.3g} of float64, flags restored; image_gradients at {FRAMES}x3x{CITY_H}x{CITY_W}"
+          f" equal numpy; bleu_score on the card = CPU {bleu}")
+    return out, {"forward_leg": (compiled_leg, cls_batches[1]), "regression_leg": (compiled_reg, reg_batches[1])}
 
 
 def main() -> int:
@@ -2167,6 +2453,11 @@ def main() -> int:
     if ret_launches["tie_scan"] < 1 or any(v for k, v in ret_launches.items() if k != "tie_scan"):
         raise AssertionError(f"phase 4g's scans: only the epoch's ShardedAUROC may launch one: {ret_launches}")
 
+    # ---- 4h. the step engine, the shared count, the wrapper and extras ------
+    t0 = time.perf_counter()
+    engine_timings, engine_profile = _engine_phase(torch, dev, (preds, target))
+    engine_timings["phase_s"] = time.perf_counter() - t0
+
     # ---- 5. times ---------------------------------------------------------
     all_preds = torch.cat(list(collection["AUROC"].preds))
     all_rel = (torch.cat(list(collection["AUROC"].target)) == 1).to(torch.float32)
@@ -2344,6 +2635,7 @@ def main() -> int:
         "stat_score_family": stat_timings,
         "regression_pack": reg_timings,
         "retrieval": ret_timings,
+        "step_engine": engine_timings,
         "card": card,
     }
     print(json.dumps({"timings": timings}))
@@ -2446,6 +2738,21 @@ def main() -> int:
         windows[label] = {"window_ms": window, "device_ms": sum(split.values()),
                           "device_busy_share": sum(split.values()) / window,
                           "device_ms_by_kernel": dict(sorted(split.items(), key=lambda kv: -kv[1])[:12])}
+    # one compiled forward batch of phase 4h's forward leg and regression leg: one graph replay each
+    for label, (coll, batch) in engine_profile.items():
+        coll(*batch)
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof_window:
+            t = time.perf_counter()
+            coll(*batch)
+            torch.cuda.synchronize()
+            window = (time.perf_counter() - t) * 1e3
+        split = _device_ms_by_kernel(torch, prof_window, sort_key)
+        print(prof_window.key_averages().table(sort_by=sort_key, row_limit=12, max_name_column_width=48))
+        print(prof_window.key_averages().table(sort_by="self_cpu_time_total", row_limit=8, max_name_column_width=48))
+        windows[f"compiled_{label}_batch"] = {
+            "window_ms": window, "device_ms": sum(split.values()), "device_busy_share": sum(split.values()) / window,
+            "device_ms_by_kernel": dict(sorted(split.items(), key=lambda kv: -kv[1])[:12])}
     # one compute of the MS MARCO collection (MAP, MRR, P@10, R@100 over 6,980,000 rows)
     for metric in ms_collection.values():
         metric._computed = None
@@ -2502,6 +2809,8 @@ def main() -> int:
         "msmarco_compute_sort_share": ret_sort_ms / max(sum(ret_split.values()), 1e-12),
         "msmarco_compute_device_ms_by_kernel": dict(sorted(ret_split.items(), key=lambda kv: -kv[1])[:12]),
         "ssim_4x3x1024x2048": windows["ssim_4x3x1024x2048"],
+        "compiled_forward_leg_batch": windows["compiled_forward_leg_batch"],
+        "compiled_regression_leg_batch": windows["compiled_regression_leg_batch"],
         "kernel_device_ms_by_kernel": entry_splits["tie_scan"],
         "rows_kernel_device_ms_by_kernel": entry_splits["tie_scan_rows"],
         "weighted_kernel_device_ms_by_kernel": entry_splits["weighted"],

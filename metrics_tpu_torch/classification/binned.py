@@ -24,6 +24,7 @@ from metrics_tpu_torch.ops.histogram import (
     score_histograms,
 )
 from metrics_tpu_torch.utilities.checks import _check_retrieval_functional_inputs, _guard_sample_weights, _min_max
+from metrics_tpu_torch.utilities.data import _is_concrete
 
 
 class _BinnedScoreMetric(Metric):
@@ -94,12 +95,13 @@ class _BinnedScoreMetric(Metric):
                     f"expected preds of shape (n, {num_classes}) and 1-d target,"
                     f" got {tuple(preds.shape)} and {tuple(target.shape)}"
                 )
-            lo, hi = (int(v) for v in _min_max(target))
-            if lo < 0 or hi >= num_classes:
-                raise ValueError(
-                    f"target labels must lie in [0, {num_classes})"
-                    f" (the C dimension of preds); got range [{lo}, {hi}]"
-                )
+            if _is_concrete(target):  # value probe: skipped while the step engine traces
+                lo, hi = (int(v) for v in _min_max(target))
+                if lo < 0 or hi >= num_classes:
+                    raise ValueError(
+                        f"target labels must lie in [0, {num_classes})"
+                        f" (the C dimension of preds); got range [{lo}, {hi}]"
+                    )
             self._check_prob_range(preds)
             rel = target[:, None] == torch.arange(num_classes, device=target.device)
         else:
@@ -112,6 +114,8 @@ class _BinnedScoreMetric(Metric):
 
     @staticmethod
     def _check_prob_range(preds: torch.Tensor) -> None:
+        if not _is_concrete(preds):
+            return
         pmin, pmax = _min_max(preds)
         if pmin < 0 or pmax > 1:
             # logits would be silently clipped into the edge bins

@@ -47,6 +47,7 @@ from metrics_tpu_torch.parallel.backend import get_sync_backend
 from metrics_tpu_torch.parallel.sample_sort import sample_sort_auroc_ap
 from metrics_tpu_torch.parallel.sharded_metric import ShardedStreamsMixin
 from metrics_tpu_torch.utilities.checks import _min_max, _sample_weights
+from metrics_tpu_torch.utilities.data import _is_concrete
 
 
 def _average_ovr(
@@ -155,7 +156,7 @@ class ShardedCurveMetric(ShardedStreamsMixin, Metric):
                 f"expected preds of shape {shape_desc} and 1-d target,"
                 f" got {tuple(preds.shape)} and {tuple(target.shape)}"
             )
-        if self.preds_suffix and target.numel():
+        if self.preds_suffix and target.numel() and _is_concrete(target):
             # an out-of-range label would silently count as negative in every
             # one-vs-rest column; one device-to-host copy
             lo, hi = _min_max(target)

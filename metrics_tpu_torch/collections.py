@@ -1,9 +1,11 @@
 """MetricCollection: chain same-call-pattern metrics into one object.
 
 Port of ``metrics_tpu/collections.py``: an ordered mapping of metrics with
-fan-out forward/update/compute/reset (sharing one pass over the batch
-among the regression family), prefixes, cloning, checkpointing and
-device/dtype moves.
+fan-out forward/update/compute/reset (sharing the canonicalization, the
+stat-score counts and the regression family's pass over a batch among
+siblings), prefixes, cloning, checkpointing and device/dtype moves, and
+the step engine behind ``compiled=True`` (``engine.py``). ``as_cohort``
+waits for the port of ``cohort.py``.
 """
 from collections import OrderedDict
 from copy import deepcopy
@@ -29,6 +31,15 @@ class MetricCollection:
               same metric class with different parameters.
 
         prefix: a string to append in front of the keys of the output dict
+        compiled: route ``forward`` through the step engine
+            (:class:`~metrics_tpu_torch.engine.CompiledStepEngine`): on a
+            CUDA device the whole fan-out (shared canonicalization, every
+            member's update, the batch-local computes and the state merges)
+            is one CUDA graph replay per step, captured once per input
+            signature. Members whose forward is not one pure step (list
+            states, host-level sync) keep their eager forward and are named
+            in :attr:`eager_fallbacks`. Compiled steps skip the eager-only
+            value checks, as the JAX package's compiled steps do.
 
     Example:
         >>> from metrics_tpu_torch import AUROC, Accuracy
@@ -37,14 +48,22 @@ class MetricCollection:
         >>> metrics = MetricCollection([Accuracy(device="cpu"), AUROC(pos_label=1, device="cpu")])
         >>> {k: round(float(v), 4) for k, v in metrics(preds, target).items()}
         {'Accuracy': 0.6667, 'AUROC': 0.8889}
+        >>> compiled = MetricCollection([Accuracy(device="cpu"), AUROC(pos_label=1, device="cpu")], compiled=True)
+        >>> {k: round(float(v), 4) for k, v in compiled(preds, target).items()}
+        {'Accuracy': 0.6667, 'AUROC': 0.8889}
+        >>> sorted(compiled.eager_fallbacks)  # AUROC keeps every prediction: a list state
+        ['AUROC']
     """
 
     def __init__(
         self,
         metrics: Union[List[Metric], Tuple[Metric, ...], Dict[str, Metric]],
         prefix: Optional[str] = None,
+        compiled: bool = False,
     ):
         self._metrics: "OrderedDict[str, Metric]" = OrderedDict()
+        self.compiled = bool(compiled)
+        self._engine = None
         if isinstance(metrics, dict):
             for name, metric in metrics.items():
                 if not isinstance(metric, Metric):
@@ -73,6 +92,7 @@ class MetricCollection:
 
     def __setitem__(self, key: str, value: Metric) -> None:
         self._metrics[key] = value
+        self._engine = None  # membership changed: stale compiled steps
 
     def __contains__(self, key: str) -> bool:
         return key in self._metrics
@@ -95,20 +115,47 @@ class MetricCollection:
     def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         """Call forward for each metric; kwargs are filtered per metric signature.
 
-        The members share the step's work on the batch: the regression
-        family computes its moments of ``(preds, target)`` once, in one pass
-        (``functional/regression/sufficient_stats.py``)."""
+        The members share the step's work on the batch: siblings with the
+        same options canonicalize it once and count it once (Precision /
+        Recall / F1 share one stat-score count), and the regression family
+        computes its moments of ``(preds, target)`` once, in one pass
+        (``functional/regression/sufficient_stats.py``). With
+        ``compiled=True`` the whole fan-out runs through the step engine
+        instead."""
+        if self.compiled:
+            if self._engine is None:
+                from metrics_tpu_torch.engine import CompiledStepEngine
+
+                self._engine = CompiledStepEngine(self._metrics)
+            values = self._engine.step(*args, **kwargs)
+            return {self._set_prefix(k): values[k] for k in self._metrics}
         with shared_canonicalization(), regression_family_sharing():
             return {self._set_prefix(k): m(*args, **m._filter_kwargs(**kwargs)) for k, m in self.items()}
 
     __call__ = forward
+
+    @property
+    def eager_fallbacks(self) -> Dict[str, str]:
+        """``name -> reason`` for members the step engine runs eager (empty
+        when nothing is demoted, when ``compiled=False``, or before the
+        first compiled forward builds the engine)."""
+        if self._engine is None:
+            return {}
+        return self._engine.eager_fallbacks
 
     def __repr__(self) -> str:
         body = "\n".join(f"  ({k}): {m!r}" for k, m in self.items())
         header = "MetricCollection("
         if self.prefix is not None:
             header = f"MetricCollection(prefix={self.prefix!r},"
-        return f"{header}\n{body}\n)"
+        fallbacks = self.eager_fallbacks
+        note = ""
+        if fallbacks:
+            note = (
+                f"\n  # {len(fallbacks)}/{len(self)} metric(s) demoted to eager"
+                f" forward under compiled=True: {sorted(fallbacks)}"
+            )
+        return f"{header}\n{body}{note}\n)"
 
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Call update for each metric; kwargs are filtered per metric
@@ -131,6 +178,16 @@ class MetricCollection:
         mc = deepcopy(self)
         mc.prefix = self._check_prefix_arg(prefix)
         return mc
+
+    # a compiled step closes over THESE metric instances and holds CUDA
+    # graphs: a copy or pickle drops the engine and rebuilds it lazily
+    # against its own metrics on the next forward
+    def __getstate__(self) -> dict:
+        return {k: v for k, v in self.__dict__.items() if k != "_engine"}
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self._engine = None
 
     def persistent(self, mode: bool = True) -> None:
         """Change whether metric states are saved to ``state_dict``."""
@@ -182,9 +239,11 @@ class MetricCollection:
         return pairs
 
     def to(self, device: Union[str, torch.device]) -> "MetricCollection":
-        """Move every member's states to ``device`` (see :meth:`Metric.to`)."""
+        """Move every member's states to ``device`` (see :meth:`Metric.to`);
+        a compiled collection rebuilds its engine there on the next forward."""
         for _, m in self.items():
             m.to(device)
+        self._engine = None
         return self
 
     def astype(self, dtype: torch.dtype) -> "MetricCollection":

@@ -31,6 +31,7 @@ from metrics_tpu_torch.ops.auroc_kernel import (
 from metrics_tpu_torch.ops.histogram import label_bincount
 from metrics_tpu_torch.ops.tie_scan import auroc_ap_from_stats
 from metrics_tpu_torch.utilities.checks import _input_format_classification, _sample_weights
+from metrics_tpu_torch.utilities.data import _is_concrete
 from metrics_tpu_torch.utilities.enums import AverageMethod, DataType
 
 
@@ -125,12 +126,13 @@ def _auroc_compute(
         num_classes = 1
         if max_fpr is None and sample_weights is None:
             pos = 1 if pos_label is None else pos_label
-            # keep the curve path's loud failure on degenerate targets
-            n_pos = int(torch.sum(target == pos))
-            if n_pos == target.numel():
-                raise ValueError("No negative samples in targets, false positive value should be meaningless")
-            if n_pos == 0:
-                raise ValueError("No positive samples in targets, true positive value should be meaningless")
+            if _is_concrete(target):
+                # keep the curve path's loud failure on degenerate targets
+                n_pos = int(torch.sum(target == pos))
+                if n_pos == target.numel():
+                    raise ValueError("No negative samples in targets, false positive value should be meaningless")
+                if n_pos == 0:
+                    raise ValueError("No positive samples in targets, true positive value should be meaningless")
             return binary_auroc(preds.reshape(-1), target.reshape(-1), pos_label=pos)
 
     if max_fpr is not None:
@@ -149,12 +151,13 @@ def _auroc_compute(
             return _auroc_compute(preds.reshape(-1), target.reshape(-1), DataType.BINARY, 1, pos_label,
                                   sample_weights=sample_weights)
         if sample_weights is None and preds.ndim == 2 and target.ndim == 2:
-            # keep the curve path's loud failure on degenerate label columns
             pos_per_col = torch.sum(target, dim=0)
-            if bool(torch.any(pos_per_col == target.shape[0])):
-                raise ValueError("No negative samples in targets, false positive value should be meaningless")
-            if bool(torch.any(pos_per_col == 0)):
-                raise ValueError("No positive samples in targets, true positive value should be meaningless")
+            if _is_concrete(target):
+                # keep the curve path's loud failure on degenerate label columns
+                if bool(torch.any(pos_per_col == target.shape[0])):
+                    raise ValueError("No negative samples in targets, false positive value should be meaningless")
+                if bool(torch.any(pos_per_col == 0)):
+                    raise ValueError("No positive samples in targets, true positive value should be meaningless")
             return _reduce_auroc(multilabel_auroc(preds, target), average, lambda: pos_per_col)
         # the JAX package's per-label loop runs over range(num_classes)
         labels = len(range(num_classes))

@@ -12,11 +12,12 @@ import torch
 
 from metrics_tpu_torch.ops.histogram import label_bincount
 from metrics_tpu_torch.utilities.checks import (
-    _check_classification_inputs,
     _fast_path_inputs,
-    _fast_path_probe,
+    _fast_path_validate,
     _input_format_classification,
+    fast_path_memo,
 )
+from metrics_tpu_torch.utilities.data import _is_concrete
 from metrics_tpu_torch.utilities.enums import DataType
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
 
@@ -63,27 +64,32 @@ def _confmat_fast_update(
     if case == DataType.MULTILABEL and p_shape[1:] != (num_classes,) and multilabel:
         return None
 
-    p = preds.reshape(p_shape)
-    t = target.reshape(t_shape).to(torch.int64)
-    if p.is_floating_point():
-        if p.dtype in (torch.float16, torch.bfloat16):
-            p = p.to(torch.float32)
-        if p.ndim == t.ndim + 1:
-            pred_labels = torch.argmax(p, dim=1)
+    def compute():
+        p = preds.reshape(p_shape)
+        t = target.reshape(t_shape).to(torch.int64)
+        if p.is_floating_point():
+            if p.dtype in (torch.float16, torch.bfloat16):
+                p = p.to(torch.float32)
+            if p.ndim == t.ndim + 1:
+                pred_labels = torch.argmax(p, dim=1)
+            else:
+                pred_labels = (p >= threshold).to(torch.int64)
         else:
-            pred_labels = (p >= threshold).to(torch.int64)
-    else:
-        pred_labels = p.to(torch.int64)
-    # the largest label AFTER argmax/threshold, read with the probe
-    max_label = torch.maximum(torch.max(pred_labels), torch.max(t))
-    probe = _fast_path_probe(preds, target, p_shape, t_shape, case, preds_float, extra=max_label)
-    _check_classification_inputs(
-        preds, target, threshold=threshold, num_classes=None, is_multiclass=None, top_k=None,
-        p_shape=p_shape, t_shape=t_shape, probe=probe,
-    )
-    if not multilabel:
-        _check_max_label(int(probe.extra), num_classes)
-    return _confmat_count(pred_labels, t, num_classes, multilabel)
+            pred_labels = p.to(torch.int64)
+        # the largest label AFTER argmax/threshold, read with the probe
+        max_label = torch.maximum(torch.max(pred_labels), torch.max(t))
+        probe = _fast_path_validate(
+            preds, target, p_shape, t_shape, case, preds_float,
+            threshold=threshold, num_classes=None, is_multiclass=None, top_k=None, extra=max_label,
+        )
+        if probe is not None and not multilabel:
+            _check_max_label(int(probe.extra), num_classes)
+        return _confmat_count(pred_labels, t, num_classes, multilabel)
+
+    # CohenKappa / MatthewsCorrcoef / IoU siblings in one collection share
+    # the count of a batch
+    key = ("confusion_matrix", id(preds), id(target), num_classes, float(threshold), multilabel)
+    return fast_path_memo(key, (preds, target), compute)
 
 
 def _confusion_matrix_update(
@@ -95,11 +101,11 @@ def _confusion_matrix_update(
     if fast is not None:
         return fast
 
-    preds, target, mode = _input_format_classification(preds, target, threshold)
+    preds, target, mode = _input_format_classification(preds, target, threshold, _num_classes_hint=num_classes)
     if mode not in (DataType.BINARY, DataType.MULTILABEL):
         preds = torch.argmax(preds, dim=1)
         target = torch.argmax(target, dim=1)
-    if not multilabel:
+    if not multilabel and _is_concrete(target):
         _check_max_label(int(torch.maximum(torch.max(preds), torch.max(target))), num_classes)
     return _confmat_count(preds.to(torch.int64), target, num_classes, multilabel)
 
@@ -115,9 +121,10 @@ def _confusion_matrix_compute(confmat: torch.Tensor, normalize: Optional[str] = 
             cm = confmat / torch.sum(confmat, dim=0, keepdim=True)
         elif normalize == "all":
             cm = confmat / torch.sum(confmat)
-        nan_elements = int(torch.sum(torch.isnan(cm)))
-        if nan_elements != 0:
-            rank_zero_warn(f"{nan_elements} nan values found in confusion matrix have been replaced with zeros.")
+        if _is_concrete(cm):
+            nan_elements = int(torch.sum(torch.isnan(cm)))
+            if nan_elements != 0:
+                rank_zero_warn(f"{nan_elements} nan values found in confusion matrix have been replaced with zeros.")
         return torch.nan_to_num(cm, nan=0.0)
     return confmat
 

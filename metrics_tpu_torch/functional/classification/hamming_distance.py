@@ -11,11 +11,12 @@ from typing import Optional, Tuple, Union
 import torch
 
 from metrics_tpu_torch.utilities.checks import (
-    _check_classification_inputs,
     _fast_path_inputs,
-    _fast_path_probe,
+    _fast_path_validate,
     _input_format_classification,
+    fast_path_memo,
 )
+from metrics_tpu_torch.utilities.data import _is_concrete
 
 
 def _hamming_label_count(preds: torch.Tensor, target: torch.Tensor, threshold: float) -> torch.Tensor:
@@ -45,27 +46,35 @@ def _hamming_fast_update(preds, target, threshold) -> Optional[Tuple[torch.Tenso
         if len(p_shape) != len(t_shape) + 1 or implied_classes < 2:
             return None
 
-    probe = _fast_path_probe(preds, target, p_shape, t_shape, case, preds_float)
-    _check_classification_inputs(
-        preds, target, threshold=threshold, num_classes=None, is_multiclass=None, top_k=None,
-        p_shape=p_shape, t_shape=t_shape, probe=probe,
-    )
-    count = _hamming_label_count(preds.reshape(p_shape), target.reshape(t_shape), float(threshold))
-    n_positions = 1
-    for d in t_shape:
-        n_positions *= d
-    if elementwise:
-        n_cells = 1
-        for d in p_shape:
-            n_cells *= d
-        return count, n_cells
-    if label_pairs:
-        # the canonical one-hot width is the data maximum's (at least 2)
-        width = max(2, int(max(probe.preds_max, probe.target_max)) + 1)
-    else:
-        width = implied_classes
-    total = n_positions * width
-    return total - 2 * count, total
+    if label_pairs and not (_is_concrete(preds) and _is_concrete(target)):
+        # the canonical one-hot width comes from the data maximum, a value
+        # probe: while traced, the canonical path owns that failure
+        return None
+
+    def compute():
+        probe = _fast_path_validate(
+            preds, target, p_shape, t_shape, case, preds_float,
+            threshold=threshold, num_classes=None, is_multiclass=None, top_k=None,
+        )
+        count = _hamming_label_count(preds.reshape(p_shape), target.reshape(t_shape), float(threshold))
+        n_positions = 1
+        for d in t_shape:
+            n_positions *= d
+        if elementwise:
+            n_cells = 1
+            for d in p_shape:
+                n_cells *= d
+            return count, n_cells
+        if label_pairs:
+            # the canonical one-hot width is the data maximum's (at least 2)
+            width = max(2, int(max(probe.preds_max, probe.target_max)) + 1)
+        else:
+            width = implied_classes
+        total = n_positions * width
+        return total - 2 * count, total
+
+    key = ("hamming", id(preds), id(target), float(threshold))
+    return fast_path_memo(key, (preds, target), compute)
 
 
 def _hamming_distance_update(

@@ -14,8 +14,9 @@ The label-space path takes the common cases and leaves the rest to the
 canonical path, which raises the JAX package's errors in its order. Its
 validation reads one value probe to the host, and its counts
 (``label_bincount``) read nothing, so an update synchronizes once at any
-number of classes. The JAX package shares one count among sibling metrics
-of a collection (``fast_path_memo``); that sharing is not ported.
+number of classes, and not at all while the step engine builds a step.
+Sibling metrics of a collection with the same arguments (Precision,
+Recall, F1) share one count per batch (``fast_path_memo``).
 """
 import os
 from typing import Optional, Tuple
@@ -24,11 +25,12 @@ import torch
 
 from metrics_tpu_torch.ops.histogram import label_bincount
 from metrics_tpu_torch.utilities.checks import (
-    _check_classification_inputs,
     _fast_path_inputs,
-    _fast_path_probe,
+    _fast_path_validate,
     _input_format_classification,
+    fast_path_memo,
 )
+from metrics_tpu_torch.utilities.data import _is_concrete
 from metrics_tpu_torch.utilities.enums import DataType
 
 _TRUTHY = frozenset(("1", "true", "yes", "on"))
@@ -79,7 +81,7 @@ def _stat_scores(
     elif reduce == "samples":
         dim = (1,)
 
-    if debug_enabled():
+    if debug_enabled() and _is_concrete(preds) and _is_concrete(target):
         for name, x in (("preds", preds), ("target", target)):
             flags = torch.stack([torch.all((x == 0) | (x == 1)).double(), x.min().double(), x.max().double()])
             ok, lo, hi = flags.tolist()
@@ -139,7 +141,7 @@ def _stat_scores_label_count(
 ):
     """tp/fp/tn/fn straight from raw inputs that have passed validation: the
     counting half of the JAX package's ``_stat_scores_probe_count`` (the
-    probe half is ``_fast_path_probe``).
+    probe half is ``_fast_path_validate``).
 
     The canonical path expands both inputs to ``(N, C)`` one-hots and sums
     over them; in label space the same per-class counts are three bincounts
@@ -288,16 +290,22 @@ def _stat_scores_fast_update(
     else:
         n_cols = p_shape[1] if len(p_shape) > 1 else 1
 
-    probe = _fast_path_probe(preds, target, p_shape, t_shape, case, preds_float)
-    _check_classification_inputs(
-        preds, target, threshold=threshold, num_classes=num_classes, is_multiclass=is_multiclass, top_k=top_k,
-        p_shape=p_shape, t_shape=t_shape, probe=probe,
-    )
-    if ignore_index is not None and not 0 <= ignore_index < n_cols:
-        raise ValueError(f"The `ignore_index` {ignore_index} is not valid for inputs with {n_cols} classes")
-    return _stat_scores_label_count(
-        preds, target, p_shape, t_shape, case, reduce, mdmc_reduce, n_cols, top_k, float(threshold), ignore_index
-    )
+    def compute():
+        _fast_path_validate(
+            preds, target, p_shape, t_shape, case, preds_float,
+            threshold=threshold, num_classes=num_classes, is_multiclass=is_multiclass, top_k=top_k,
+        )
+        if ignore_index is not None and not 0 <= ignore_index < n_cols:
+            raise ValueError(f"The `ignore_index` {ignore_index} is not valid for inputs with {n_cols} classes")
+        return _stat_scores_label_count(
+            preds, target, p_shape, t_shape, case, reduce, mdmc_reduce, n_cols, top_k, float(threshold), ignore_index
+        )
+
+    # sibling metrics with the same stat-score arguments (Precision / Recall
+    # / F1 in one collection) share the count of a batch
+    key = ("stat_scores", id(preds), id(target), reduce, mdmc_reduce, n_cols,
+           num_classes, top_k, float(threshold), ignore_index)
+    return fast_path_memo(key, (preds, target), compute)
 
 
 def _stat_scores_update(

@@ -14,8 +14,13 @@ A JAX sharded metric (``ShardedAUROC``, ...) holds its streams as global
 ``state_from_jax(state, rank=r, world=W)`` gives rank ``r`` its shard: slots
 ``[r·cap, (r+1)·cap)`` of every stream and ``counts[r]`` at index ``r`` of
 its counts. With ``world=1`` and a one-device mesh this is the identity.
+
+A JAX ``BootStrapper`` registers no state of its own: its replicas hold it.
+Pass ``[numpy state dict of each replica]`` (``m.state_dict()`` of each of
+its ``metrics``, as numpy arrays); the result carries replica ``i``'s
+states under ``metrics.<i>.``, which this package's ``BootStrapper`` loads.
 """
-from typing import Any, Dict, Union
+from typing import Any, Dict, Sequence, Union
 
 import numpy as np
 import torch
@@ -54,11 +59,20 @@ def _shard(state: Dict[str, torch.Tensor], rank: int, world: int) -> Dict[str, t
     return out
 
 
-def state_from_jax(state_dict: Dict[str, Any], rank: int = 0, world: int = 1) -> Dict[str, StateValue]:
+def state_from_jax(
+    state_dict: Union[Dict[str, Any], Sequence[Dict[str, Any]]], rank: int = 0, world: int = 1
+) -> Dict[str, StateValue]:
     """Convert a JAX ``state_dict`` of numpy arrays (or lists of them) into
     this package's state dict of CPU tensors (or lists of them), key for key
     and dtype for dtype. Sharded metrics' states are cut to rank ``rank``'s
-    shard of a world of ``world`` ranks (module docstring)."""
+    shard of a world of ``world`` ranks. A sequence of state dicts is a
+    ``BootStrapper``'s replicas, keyed ``metrics.<i>.`` (module docstring)."""
+    if isinstance(state_dict, (list, tuple)):
+        return {
+            f"metrics.{i}.{key}": value
+            for i, replica in enumerate(state_dict)
+            for key, value in state_from_jax(replica, rank, world).items()
+        }
     converted = {
         key: [_tensor(v) for v in value] if isinstance(value, (list, tuple)) else _tensor(value)
         for key, value in state_dict.items()

@@ -6,10 +6,11 @@ an atomic add per element is the direct form, one pass over the labels or
 scores. No Pallas kernel is involved: the JAX package's Pallas histogram
 was retired.
 
-Score histograms: unweighted counts are an integer ``bincount`` (exact and
-deterministic), weighted sums a float64 ``bincount`` cast to float32 (on
-CUDA its atomic adds sum in no fixed order, so the low bits of a weighted
-histogram may differ from run to run). The curves read off the histograms
+Score histograms: unweighted counts are integer adds (exact and
+deterministic), weighted sums float64 adds cast to float32 (on CUDA the
+atomic adds sum in no fixed order, so the low bits of a weighted histogram
+may differ from run to run). Both add into a buffer of the known length
+with ``index_add_``, which reads nothing to the host. The curves read off the histograms
 are evaluated in float64 and returned in float32. Unlike the JAX package,
 which divides by ``max(total, 1)``, they divide by each class total itself
 and test each total on its own for degeneracy, so weight totals below 1
@@ -75,7 +76,7 @@ def score_histograms(
     (optional ``(N,)``, non-negative) weights every column of a sample
     alike. Scores are quantized as the JAX package quantizes them,
     ``int(score * num_bins)`` clipped into ``[0, num_bins)``; one
-    ``bincount`` fills both histograms of every column.
+    ``index_add_`` fills both histograms of every column.
 
     Example:
         >>> score_histograms(torch.tensor([0.1, 0.4, 0.35, 0.8]), torch.tensor([False, False, True, True]), 4)
@@ -87,10 +88,13 @@ def score_histograms(
         bins = bins + num_bins * torch.arange(columns, device=preds.device)
     # positives fill the first columns * num_bins buckets, negatives the next
     index = (bins + (columns * num_bins) * (~rel)).reshape(-1)
-    if weights is not None:
+    if weights is None:
+        adds = torch.ones_like(index)
+    else:
         weights = weights.to(torch.float64)
-        weights = (weights if preds.ndim == 1 else weights[:, None].expand(preds.shape)).reshape(-1)
-    hist = torch.bincount(index, weights=weights, minlength=2 * columns * num_bins).to(torch.float32)
+        adds = (weights if preds.ndim == 1 else weights[:, None].expand(preds.shape)).reshape(-1)
+    hist = torch.zeros(2 * columns * num_bins, dtype=adds.dtype, device=index.device)
+    hist = hist.index_add_(0, index, adds).to(torch.float32)
     hist = hist.reshape(2, columns, num_bins)
     if preds.ndim == 1:
         return hist[0, 0], hist[1, 0]

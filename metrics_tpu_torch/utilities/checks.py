@@ -11,15 +11,21 @@ outputs, and the same errors raised in the same order.
 * The canonicalizing transform (threshold / top-k / one-hot / reshape) is
   a handful of eager tensor ops.
 
-The label-space fast paths of the hamming, confusion-matrix and
-stat-score counts share ``_fast_path_inputs`` / ``_fast_path_probe``: they
-skip the canonicalizing transform and validate from the same probe.
+The label-space fast paths of the accuracy, hamming, confusion-matrix and
+stat-score counts share ``_fast_path_inputs`` / ``_fast_path_validate``:
+they skip the canonicalizing transform and validate from the same probe.
+
+Every probe is guarded by ``_is_concrete``, as in the JAX package: while
+the step engine builds a step or a CUDA graph is being captured, value
+checks are skipped (a graph cannot hold a host read) and ``num_classes``
+must be given where it would be inferred from the data.
 
 ``shared_canonicalization`` / ``fast_path_memo`` are the JAX package's
-per-step sharing memo. Here only the regression family's shared moments
-(``functional/regression/sufficient_stats.py``) and
-``CompositionalMetric.update`` use it; the stat-score family still counts
-each sibling's batch itself.
+per-step sharing memo: inside one ``MetricCollection`` step, siblings with
+the same options canonicalize the batch once, share one fast-path count
+(Precision / Recall / F1 count the batch once between them) and, in the
+regression family, one pass of moments
+(``functional/regression/sufficient_stats.py``).
 """
 import threading
 from contextlib import contextmanager
@@ -28,7 +34,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from metrics_tpu_torch.utilities.data import select_topk, to_onehot
+from metrics_tpu_torch.utilities.data import _is_concrete, select_topk, to_onehot
 from metrics_tpu_torch.utilities.enums import DataType
 
 
@@ -307,7 +313,8 @@ def _check_classification_inputs(
     probe: Optional[_Probe] = None,
 ) -> DataType:
     """Full validation pipeline; returns the detected input case. When
-    ``probe`` is None, one is computed here."""
+    ``probe`` is None and the inputs are concrete, one is computed here;
+    without a probe the value checks are skipped."""
     p_shape = p_shape if p_shape is not None else _squeeze_shape(preds.shape)
     t_shape = t_shape if t_shape is not None else _squeeze_shape(target.shape)
     preds_float = _is_floating(preds)
@@ -323,13 +330,14 @@ def _check_classification_inputs(
     case, implied_classes = _detect_case(p_shape, t_shape, preds_float)
     shapes_equal = p_shape == t_shape
 
-    if probe is None:
+    if probe is None and _is_concrete(preds) and _is_concrete(target):
         check_prob_sum = case in (DataType.MULTICLASS, DataType.MULTIDIM_MULTICLASS) and preds_float
         probe = _value_probe(
             preds, target, p_shape, t_shape, check_prob_sum, _prob_sum_atol(preds, p_shape, check_prob_sum)
         )
 
-    _run_value_checks(probe, preds_float, target_float, case, shapes_equal, implied_classes, is_multiclass)
+    if probe is not None:
+        _run_value_checks(probe, preds_float, target_float, case, shapes_equal, implied_classes, is_multiclass)
 
     if not shapes_equal and is_multiclass is False and implied_classes != 2:
         raise ValueError(
@@ -371,13 +379,34 @@ def _fast_path_inputs(preds: torch.Tensor, target: torch.Tensor):
     return p_shape, t_shape, preds_float, case, implied_classes
 
 
-def _fast_path_probe(preds, target, p_shape, t_shape, case, preds_float, extra=None) -> _Probe:
-    """The value probe of a fast path, under the canonical path's
-    probabilities-sum-to-1 condition."""
+def _fast_path_validate(
+    preds,
+    target,
+    p_shape,
+    t_shape,
+    case,
+    preds_float,
+    threshold: float,
+    num_classes: Optional[int],
+    is_multiclass: Optional[bool],
+    top_k: Optional[int],
+    extra=None,
+) -> Optional[_Probe]:
+    """Validate a fast path's inputs as the canonical path does, from one
+    value probe (under its probabilities-sum-to-1 condition; ``extra`` rides
+    in the same copy). Returns the probe, or None without reading anything
+    while the inputs are not concrete: value checks are skipped there."""
+    if not (_is_concrete(preds) and _is_concrete(target)):
+        return None
     check_prob_sum = case in (DataType.MULTICLASS, DataType.MULTIDIM_MULTICLASS) and preds_float
-    return _value_probe(
+    probe = _value_probe(
         preds, target, p_shape, t_shape, check_prob_sum, _prob_sum_atol(preds, p_shape, check_prob_sum), extra
     )
+    _check_classification_inputs(
+        preds, target, threshold=threshold, num_classes=num_classes, is_multiclass=is_multiclass, top_k=top_k,
+        p_shape=p_shape, t_shape=t_shape, probe=probe,
+    )
+    return probe
 
 
 def _canonicalize(preds, target, p_shape, t_shape, case, threshold, top_k, num_classes, is_multiclass):
@@ -430,14 +459,29 @@ def _input_format_classification(
     top_k: Optional[int] = None,
     num_classes: Optional[int] = None,
     is_multiclass: Optional[bool] = None,
+    _num_classes_hint: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, DataType]:
     """Canonicalize classification inputs to binary ``(N, C)`` or ``(N, C, X)`` int32 tensors.
+
+    Inside :func:`shared_canonicalization` the result is memoized on the
+    inputs' identity and every option, so siblings with the same options
+    canonicalize a batch once. ``_num_classes_hint`` is the one-hot width
+    to use when the inputs are not concrete and ``num_classes`` is None (a
+    caller that knows the width but must keep it out of the checks).
 
     Returns:
         preds: binary int32 tensor ``(N, C)`` or ``(N, C, X)``
         target: binary int32 tensor of the same shape
         case: the detected :class:`DataType`
     """
+    store = getattr(_canon_memo, "store", None)
+    memo_key = None
+    if store is not None:
+        memo_key = (id(preds), id(target), threshold, top_k, num_classes, is_multiclass, _num_classes_hint)
+        hit = store.get(memo_key)
+        if hit is not None:
+            return hit[2]
+    originals = (preds, target)  # pinned with the result, so their ids stay valid
     preds = torch.as_tensor(preds)
     target = torch.as_tensor(target)
 
@@ -448,15 +492,16 @@ def _input_format_classification(
     # the probe is computed here (not inside the checks) so its values are
     # available for num_classes inference below
     probe = None
-    try:
-        case_tmp, _ = _detect_case(p_shape, t_shape, preds_float)
-        check_prob_sum = case_tmp in (DataType.MULTICLASS, DataType.MULTIDIM_MULTICLASS) and preds_float
-    except ValueError:
-        check_prob_sum = False
-    if not _is_floating(target):
-        probe = _value_probe(
-            preds, target, p_shape, t_shape, check_prob_sum, _prob_sum_atol(preds, p_shape, check_prob_sum)
-        )
+    if _is_concrete(preds) and _is_concrete(target):
+        try:
+            case_tmp, _ = _detect_case(p_shape, t_shape, preds_float)
+            check_prob_sum = case_tmp in (DataType.MULTICLASS, DataType.MULTIDIM_MULTICLASS) and preds_float
+        except ValueError:
+            check_prob_sum = False
+        if not _is_floating(target):
+            probe = _value_probe(
+                preds, target, p_shape, t_shape, check_prob_sum, _prob_sum_atol(preds, p_shape, check_prob_sum)
+            )
 
     case = _check_classification_inputs(
         preds,
@@ -473,7 +518,15 @@ def _input_format_classification(
     nc = num_classes
     needs_onehot = (case in (DataType.MULTICLASS, DataType.MULTIDIM_MULTICLASS) or is_multiclass) and not preds_float
     if needs_onehot and nc is None:
-        nc = int(max(probe.preds_max, probe.target_max)) + 1
+        if probe is not None:
+            nc = int(max(probe.preds_max, probe.target_max)) + 1
+        elif _num_classes_hint is not None:
+            nc = _num_classes_hint
+        else:
+            raise ValueError(
+                "`num_classes` is required when label inputs are traced under jit;"
+                " it cannot be inferred from the data maximum."
+            )
 
     preds_c, target_c = _canonicalize(
         preds,
@@ -486,6 +539,10 @@ def _input_format_classification(
         num_classes=nc,
         is_multiclass=is_multiclass,
     )
+    if store is not None:
+        if len(store) >= _CANON_MEMO_MAX:
+            store.clear()  # mis-scoped context: stay bounded
+        store[memo_key] = (*originals, (preds_c, target_c, case))
     return preds_c, target_c, case
 
 
@@ -510,9 +567,10 @@ def _check_retrieval_functional_inputs(preds, target) -> Tuple[torch.Tensor, tor
     if target.is_floating_point() or target.is_complex():
         raise ValueError("`target` must be a tensor of booleans or integers")
 
-    lo, hi = _min_max(target)
-    if int(hi) > 1 or int(lo) < 0:
-        raise ValueError("`target` must be of type `binary`")
+    if _is_concrete(target):
+        lo, hi = _min_max(target)
+        if int(hi) > 1 or int(lo) < 0:
+            raise ValueError("`target` must be of type `binary`")
 
     if not _is_floating(preds):
         raise ValueError("`preds` must be a tensor of floats")
@@ -525,8 +583,8 @@ def _check_sample_weights_range(sample_weights: torch.Tensor) -> None:
     negative, NaN (via the min >= 0 comparison) and infinite weights. A
     negative weight breaks the monotone-cumulant designs, an infinite one
     silently poisons the cumulants. Min and max are read to the host in one
-    device-to-host copy; an empty tensor is not probed."""
-    if not sample_weights.numel():
+    device-to-host copy; an empty or traced tensor is not probed."""
+    if not (_is_concrete(sample_weights) and sample_weights.numel()):
         return
     lo, hi = _min_max(sample_weights)
     if not (lo >= 0 and np.isfinite(hi)):
@@ -534,12 +592,15 @@ def _check_sample_weights_range(sample_weights: torch.Tensor) -> None:
 
 
 def _guard_sample_weights(sample_weights: torch.Tensor) -> torch.Tensor:
-    """Validate sample weights; returns them unchanged. Tensors here are
-    always concrete, so the eager range check (which raises) runs on every
-    call: the JAX package's in-graph NaN guard for traced weights has no
-    counterpart."""
-    _check_sample_weights_range(sample_weights)
-    return sample_weights
+    """Validate sample weights on every path. Concrete weights take the
+    range check (:func:`_check_sample_weights_range`), which raises, and
+    come back unchanged. Traced weights cannot be read: negative entries
+    become NaN instead, so they surface as a NaN value, not as a plausible
+    wrong one (the JAX package's in-graph guard)."""
+    if _is_concrete(sample_weights):
+        _check_sample_weights_range(sample_weights)
+        return sample_weights
+    return torch.where(sample_weights < 0, float("nan"), sample_weights)
 
 
 def _sample_weights(sample_weights: Optional[Any], n: int, device: torch.device) -> Optional[torch.Tensor]:

@@ -5,9 +5,16 @@ its ``nb`` truncation; ``promote_accumulator`` for the regression family;
 ``get_group_indexes``, the retrieval family's host-side shim).
 ``to_onehot`` and ``select_topk`` keep the JAX package's broadcast-compare
 formulation, so their outputs match it bit for bit (top-k ties resolve to
-the lower index, as ``lax.top_k`` does). The JAX package's ``_is_concrete`` guard has no
-counterpart: every tensor is concrete in eager PyTorch.
+the lower index, as ``lax.top_k`` does).
+
+``_is_concrete`` is the JAX package's guard of every value check: False
+while the step engine builds a step (``tracing()``, its plain run and its
+CUDA-graph warm-up) or a CUDA stream is capturing a graph, True otherwise.
+A value check reads the device to the host, which a graph cannot hold, so
+the checks are skipped there as JAX skips them under ``jit``.
 """
+import threading
+from contextlib import contextmanager
 from typing import Any, Callable, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
@@ -53,10 +60,35 @@ def _flatten(x):
     return [item for sublist in x for item in sublist]
 
 
+_trace_state = threading.local()
+
+
+@contextmanager
+def tracing():
+    """Scope in which this thread builds an engine step: :func:`_is_concrete`
+    is False inside. Nested scopes stay traced until the outermost exits."""
+    prev = getattr(_trace_state, "active", False)
+    _trace_state.active = True
+    try:
+        yield
+    finally:
+        _trace_state.active = prev
+
+
+def _is_concrete(x: Any = None) -> bool:
+    """True when value checks may read ``x`` to the host: not inside
+    :func:`tracing`, and no CUDA stream of this thread capturing a graph.
+    ``x`` is accepted for the JAX package's call form and not read."""
+    if getattr(_trace_state, "active", False):
+        return False
+    return not (torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing())
+
+
 def to_onehot(label_tensor: torch.Tensor, num_classes: Optional[int] = None) -> torch.Tensor:
     """Convert a dense label tensor ``[N, d1, ...]`` to one-hot ``[N, C, d1, ...]``.
 
-    If ``num_classes`` is None it is inferred from the data maximum.
+    If ``num_classes`` is None it is inferred from the data maximum, which
+    needs a concrete tensor (not one the step engine is tracing).
 
     Example:
         >>> x = torch.tensor([1, 2, 3])
@@ -66,6 +98,11 @@ def to_onehot(label_tensor: torch.Tensor, num_classes: Optional[int] = None) -> 
                 [0, 0, 0, 1]])
     """
     if num_classes is None:
+        if not _is_concrete(label_tensor):
+            raise ValueError(
+                "`num_classes` must be given when `to_onehot` is traced under jit; "
+                "inferring it from the data maximum requires a concrete array."
+            )
         num_classes = int(label_tensor.max()) + 1
     labels = label_tensor.to(torch.int64)
     classes = torch.arange(num_classes, device=labels.device).reshape(

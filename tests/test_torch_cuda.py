@@ -11,7 +11,11 @@ equal to the unshared one; the retrieval family against its CPU run
 (counts exact, means within 1e-6), the same bits over two computes, the
 sharded metrics at world 1 equal to the unsharded ones, both sort forms
 one permutation, and the host synchronizations of a compute independent
-of the number of queries.
+of the number of queries; the step engine's CUDA graphs (replays equal to
+the eager collection, no synchronization in a replayed step, a demotion
+that leaves the card usable, values that outlive the next step, reset and
+restore between steps, the binary step with AUROC kept eager, host inputs
+and the LRU's evictions).
 
 Every test here is marked ``cuda`` and skips without a card. This file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -40,8 +44,10 @@ from metrics_tpu_torch import (
     MeanAbsoluteError,
     MeanSquaredError,
     MetricCollection,
+    Precision,
     PrecisionRecallCurve,
     R2Score,
+    Recall,
     RetrievalMAP,
     RetrievalMRR,
     RetrievalPrecision,
@@ -875,3 +881,196 @@ def test_retrieval_compute_syncs_do_not_grow_with_the_queries(cuda_device):
 
     syncs(100)
     assert syncs(50) == syncs(5_000) > 0
+
+
+# ---- the step engine: one CUDA graph per call signature ---------------------------
+
+
+def _forward_leg(compiled):
+    return MetricCollection([Accuracy(), Precision(num_classes=4, average="macro"),
+                             Recall(num_classes=4, average="macro"), F1(num_classes=4, average="macro")],
+                            compiled=compiled)
+
+
+def _engine_batches(family, steps, device, n=20_000):
+    rng = np.random.default_rng(50)
+    out = []
+    for _ in range(steps):
+        if family == "classification":
+            p = rng.random((n, 4), dtype=np.float32)
+            out.append((p / p.sum(1, keepdims=True), rng.integers(0, 4, n)))
+        elif family == "regression":
+            t = (rng.standard_normal(n) * 3 + 1).astype(np.float32)
+            out.append(((t + rng.standard_normal(n)).astype(np.float32), t))
+        else:  # binned, weighted
+            p = rng.random(n, dtype=np.float32)
+            out.append((p, (rng.random(n) < p).astype(np.int64), rng.lognormal(size=n).astype(np.float32)))
+    return [tuple(torch.from_numpy(x).to(device) for x in b) for b in out]
+
+
+_ENGINE_FAMILIES = {
+    "classification": _forward_leg,
+    "regression": lambda compiled: MetricCollection(
+        [MeanSquaredError(), MeanAbsoluteError(), R2Score(), PSNR(), ExplainedVariance()], compiled=compiled),
+    "binned": lambda compiled: MetricCollection([BinnedAUROC(num_bins=64), BinnedAveragePrecision(num_bins=64)],
+                                                compiled=compiled),
+}
+
+
+def _call(collection, batch):
+    return collection(*batch[:2], **({"sample_weights": batch[2]} if len(batch) == 3 else {}))
+
+
+def _assert_engine_equal(eager, compiled, ve, vc):
+    for k in ve:
+        torch.testing.assert_close(vc[k], ve[k], rtol=1e-6, atol=1e-7)
+    for name in eager.keys():
+        for s in eager[name]._defaults:
+            a, b = getattr(compiled[name], s), getattr(eager[name], s)
+            if a.is_floating_point():
+                torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+            else:
+                assert torch.equal(a, b), f"{name}.{s}"
+
+
+@pytest.mark.parametrize("family", sorted(_ENGINE_FAMILIES))
+def test_engine_graph_replay_equals_eager(cuda_device, family):
+    """Every member captured; values and states equal the eager collection's
+    step by step (counts exact) and at the epoch; one capture."""
+    eager, compiled = _ENGINE_FAMILIES[family](False), _ENGINE_FAMILIES[family](True)
+    for batch in _engine_batches(family, 4, cuda_device):
+        ve, vc = _call(eager, batch), _call(compiled, batch)
+        _assert_engine_equal(eager, compiled, ve, vc)
+    for k, v in eager.compute().items():
+        torch.testing.assert_close(compiled.compute()[k], v, rtol=1e-6, atol=1e-7)
+    info = compiled._engine.cache_info()
+    assert info["eager_fallbacks"] == {} and info["trace_count"] == 1 and info["graph_pool_bytes"] >= 0, info
+
+
+@pytest.mark.parametrize("family", sorted(_ENGINE_FAMILIES))
+def test_engine_replayed_step_does_not_synchronize(cuda_device, family):
+    compiled = _ENGINE_FAMILIES[family](True)
+    batches = _engine_batches(family, 2, cuda_device)
+    _call(compiled, batches[0])
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _call(compiled, batches[1])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert not [w for w in caught if "synchroniz" in str(w.message)], [str(w.message) for w in caught]
+    assert compiled.eager_fallbacks == {}
+
+
+def test_engine_demotion_leaves_the_card_usable(cuda_device):
+    """StatScores without num_classes on label inputs cannot infer the
+    one-hot width inside a graph: it is demoted with that reason, Accuracy
+    stays captured, and the card keeps working."""
+    rng = np.random.default_rng(51)
+    batches = [(torch.from_numpy(rng.integers(0, 5, 10_000)).to(cuda_device),
+                torch.from_numpy(rng.integers(0, 5, 10_000)).to(cuda_device)) for _ in range(3)]
+    eager = MetricCollection([Accuracy(), StatScores()])
+    compiled = MetricCollection([Accuracy(), StatScores()], compiled=True)
+    for batch in batches:
+        ve, vc = eager(*batch), compiled(*batch)
+        for k in ve:
+            assert torch.equal(vc[k], ve[k]), k
+    assert set(compiled.eager_fallbacks) == {"StatScores"}
+    assert "`num_classes` is required" in compiled.eager_fallbacks["StatScores"]
+    torch.cuda.synchronize()
+    assert compiled._engine.trace_count == 2  # the failed group, then Accuracy alone
+    for k, v in eager.compute().items():
+        assert torch.equal(compiled.compute()[k], v), k
+
+
+def test_engine_values_outlive_the_next_step(cuda_device):
+    compiled = _forward_leg(True)
+    b1, b2 = _engine_batches("classification", 2, cuda_device)
+    first = compiled(*b1)
+    kept = {k: v.clone() for k, v in first.items()}
+    compiled(*b2)
+    for k in kept:
+        assert torch.equal(first[k], kept[k]), k
+
+
+def test_engine_compute_result_outlives_later_steps(cuda_device):
+    """``ConfusionMatrix(normalize=None).compute()`` returns its state
+    tensor: a matrix read after one step keeps its counts through a later
+    step, and through ``reset()`` and the step after it."""
+    b1, b2, b3 = _engine_batches("classification", 3, cuda_device)
+    compiled = MetricCollection([ConfusionMatrix(num_classes=4)], compiled=True)
+    eager = MetricCollection([ConfusionMatrix(num_classes=4)])
+    compiled(*b1), eager(*b1)
+    cm = compiled.compute()["ConfusionMatrix"]
+    kept = cm.clone()
+    compiled(*b2)
+    compiled.reset()
+    compiled(*b3)
+    torch.cuda.synchronize()
+    assert torch.equal(cm, kept) and torch.equal(kept, eager.compute()["ConfusionMatrix"])
+    assert compiled.eager_fallbacks == {}
+
+
+def test_engine_reset_and_restore_between_steps(cuda_device):
+    """After ``reset()`` the next step starts from the defaults (which the
+    engine never aliases); after ``load_state_dict`` it continues from the
+    loaded states."""
+    b1, b2, b3 = _engine_batches("classification", 3, cuda_device)
+    compiled, eager = _forward_leg(True), _forward_leg(False)
+    compiled(*b1)
+    compiled.reset()
+    for m in compiled.values():
+        for s, default in m._defaults.items():
+            assert not torch.any(default != 0), s
+    _assert_engine_equal(eager, compiled, eager(*b2), compiled(*b2))
+    compiled.persistent(True)
+    saved = {k: v.clone() for k, v in compiled.state_dict().items()}
+    compiled(*b3)
+    compiled.load_state_dict(saved)
+    eager.persistent(True)
+    eager.load_state_dict(saved)
+    _assert_engine_equal(eager, compiled, eager(*b3), compiled(*b3))
+
+
+def test_engine_binary_step_keeps_auroc_eager(cuda_device):
+    """Accuracy + AUROC: Accuracy is captured, AUROC runs eager, and its
+    compute still launches the tie scan once."""
+    rng = np.random.default_rng(52)
+    p = rng.random(50_000, dtype=np.float32)
+    t = (rng.random(50_000) < p).astype(np.int64)
+    p, t = torch.from_numpy(p).to(cuda_device), torch.from_numpy(t).to(cuda_device)
+    eager = MetricCollection([Accuracy(), AUROC(pos_label=1)])
+    compiled = MetricCollection([Accuracy(), AUROC(pos_label=1)], compiled=True)
+    for sl in (slice(0, 25_000), slice(25_000, 50_000)):
+        ve, vc = eager(p[sl], t[sl]), compiled(p[sl], t[sl])
+        for k in ve:
+            assert torch.equal(vc[k], ve[k]), k
+    assert set(compiled.eager_fallbacks) == {"AUROC"}
+    # AUROC keeps list states and never opted into the fused forward: the
+    # engine reads the second, as the JAX package's does
+    assert "does not opt into fused one-update forward" in compiled.eager_fallbacks["AUROC"]
+    before = tie_group_reduce.launches
+    got = compiled.compute()
+    assert tie_group_reduce.launches == before + 1
+    for k, v in eager.compute().items():
+        assert torch.equal(got[k], v), k
+
+
+def test_engine_takes_host_inputs_and_evicts_graphs(cuda_device):
+    """Inputs on the host are copied into the graph's static inputs (as an
+    eager metric moves them); past ``cache_size`` signatures the oldest
+    graph is dropped and rebuilt when its shape returns, the values still
+    equal eager's."""
+    eager, compiled = _forward_leg(False), _forward_leg(True)
+    batches = _engine_batches("classification", 1, torch.device("cpu"), n=4_000)[0]
+    sizes = (1_000, 2_000, 3_000, 1_000)
+    for step, n in enumerate(sizes):
+        batch = (batches[0][:n], batches[1][:n])
+        ve, vc = eager(*batch), compiled(*batch)
+        if step == 0:
+            compiled._engine._cache_size = 2
+        _assert_engine_equal(eager, compiled, ve, vc)
+    info = compiled._engine.cache_info()
+    assert info["compiled_signatures"] == 2 and info["trace_count"] == 4, info

@@ -41,3 +41,15 @@ def test_retrieval_modules_carry_their_doctests():
                                                                     "precision", "recall")}
     want |= {"metrics_tpu_torch.ops.segment", "metrics_tpu_torch.utilities.data"}
     assert want <= with_examples, sorted(want - with_examples)
+
+
+def test_engine_wrapper_and_extras_modules_carry_their_doctests():
+    """The step engine, the collection's ``compiled=True`` form, the
+    BootStrapper and the functional extras each show their example (run by
+    ``test_module_doctests``)."""
+    finder = doctest.DocTestFinder()
+    want = {f"metrics_tpu_torch.{m}" for m in ("engine", "collections", "wrappers.bootstrapping",
+                                               "functional.nlp", "functional.self_supervised",
+                                               "functional.image_gradients", "utilities.imports")}
+    with_examples = {n for n in want if sum(len(t.examples) for t in finder.find(importlib.import_module(n)))}
+    assert want == with_examples, sorted(want - with_examples)

@@ -285,3 +285,32 @@ def sharded_retrieval_cases(rank: int, world: int, device: torch.device, cases: 
             continue
         out[case["name"]] = {"value": float(value), "bits": value.tobytes()}
     return out
+
+
+def engine_world(rank: int, world: int, device: torch.device, payload: dict) -> dict:
+    """A compiled and an eager 4-metric classification collection (Accuracy,
+    macro Precision / Recall / F1) over ``payload["batches"]``, rank r
+    taking batches r, r + world, ...: in a world the engine runs eager.
+    Returns each step's values, the synced epoch values and the engine's
+    fallbacks."""
+    from metrics_tpu_torch import F1, Accuracy, MetricCollection, Precision, Recall
+
+    def collection(compiled):
+        c = payload["num_classes"]
+        return MetricCollection([Accuracy(device=device), Precision(num_classes=c, average="macro", device=device),
+                                 Recall(num_classes=c, average="macro", device=device),
+                                 F1(num_classes=c, average="macro", device=device)], compiled=compiled)
+
+    compiled, eager = collection(True), collection(False)
+    steps = []
+    for preds, target in payload["batches"][rank::world]:
+        p, t = torch.from_numpy(preds).to(device), torch.from_numpy(target).to(device)
+        vc, ve = compiled(p, t), eager(p, t)
+        steps.append({k: (_value(vc[k]), _value(ve[k])) for k in vc})
+    return {
+        "steps": steps,
+        "compiled": {k: _value(v) for k, v in compiled.compute().items()},
+        "eager": {k: _value(v) for k, v in eager.compute().items()},
+        "fallbacks": compiled.eager_fallbacks,
+        "trace_count": compiled._engine.trace_count,
+    }
