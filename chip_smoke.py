@@ -162,6 +162,25 @@ that is unset. Phases (any failure exits non-zero before the result line):
    ``embedding_similarity`` at (512, 256) within 1e-5 of float64 under
    global TF32 flags (restored after), ``image_gradients`` over 4 x 3 x 1024
    x 2048 equal to numpy, ``bleu_score`` on the card equal to the CPU's;
+4i. the multi-tenant cohort (``MetricCohort``: the step function vmapped over
+   a tenant axis, one CUDA graph per call signature and capacity bucket; no
+   scan kernel of its own): the JAX bench's cohort leg (``bench.py:539-663``:
+   Accuracy + macro Precision / Recall / F1 at 4 classes, 64 rows a tenant)
+   at 1, 64, 1,024 and 10,000 tenants (capacities 2, 64, 1,024, 16,384): the
+   step ms, a replayed step's device time, the kernels of one graph replay
+   (equal at capacities 64, 1,024 and 16,384: no per-tenant loop), the
+   first step (warm-up and capture), the graph's pool and 0 host
+   synchronizations a replayed step; 64 ``compiled=True`` collections
+   stepped one after another on the same rows (the bench's ``COHORT_SEQ64``)
+   and the two ratios; at 1,024 tenants with grid-valued rows, 3 steps with
+   a ``remove_tenant`` / ``add_tenant`` and a grow to 2,048 slots between
+   them: 16 sampled tenants' states and ``compute()`` equal to a compiled
+   collection run alone on the same rows (counts exact, floats bit-equal),
+   and the health accumulators' rows and updates equal numpy's counts; the
+   regression pack as a cohort of 1,024 (states bit-equal, values within 8
+   ulp); ``route_rows`` of a shuffled tagged stream of 10,000 x 64 rows
+   equal to the dense layout; a cohort of ``AUROC`` refused with the
+   engine's reason;
 5. times on the card (CUDA events over launches queued behind a device
    sleep, so host overhead does not show, or the host clock ending in a
    synchronize for whole steps): the one-stream kernel, its plain version
@@ -289,6 +308,14 @@ ENGINE_TOL = 1e-6
 # embedding_similarity against float64 at (512, 256) with TF32 switched on globally,
 # relative to the largest entry (float32 sums of 256 products: ~1e-6)
 EMB_TOL = 1e-5
+# the multi-tenant cohort (phase 4i): the JAX bench's cohort leg (bench.py:539-663)
+COHORT_SIZES = (1, 64, 1024, 10_000)
+COHORT_ROWS = 64
+COHORT_SEQ = 64
+COHORT_CHECK = 1024
+COHORT_SAMPLED = 16
+# the regression values' allowance against a collection run alone (tests/bases/test_cohort.py:143)
+COHORT_ULPS = 8
 
 
 def _pin_one_card() -> str:
@@ -1684,6 +1711,227 @@ def _engine_phase(torch, dev, binary):
     return out, {"forward_leg": (compiled_leg, cls_batches[1]), "regression_leg": (compiled_reg, reg_batches[1])}
 
 
+def _cohort_replay_ops(torch, cohort):
+    """(kernels, copies and fills) of one replay of the cohort's CUDA graph
+    (its only program)."""
+    (program,) = cohort._engine._compiled.values()
+    return _device_ops(torch, program.graph.replay)
+
+
+def _cohort_phase(torch, dev):
+    """Phase 4i: the multi-tenant cohort (``MetricCohort``) on the card.
+    Returns the phase's timings."""
+    from metrics_tpu_torch import (
+        AUROC,
+        F1,
+        PSNR,
+        Accuracy,
+        ExplainedVariance,
+        MeanAbsoluteError,
+        MeanSquaredError,
+        MetricCohort,
+        MetricCollection,
+        Precision,
+        R2Score,
+        Recall,
+    )
+    from metrics_tpu_torch.cohort import route_rows
+
+    def template(compiled=False):
+        return MetricCollection([Accuracy(), Precision(num_classes=4, average="macro"),
+                                 Recall(num_classes=4, average="macro"), F1(num_classes=4, average="macro")],
+                                compiled=compiled)
+
+    def regression(compiled=False):
+        return MetricCollection([MeanSquaredError(), MeanAbsoluteError(), R2Score(), PSNR(), ExplainedVariance()],
+                                compiled=compiled)
+
+    def bench_rows(n, seed=SEED):
+        """The JAX bench's rows (``bench.py:578-582``): probabilities over 4
+        classes and labels, ``(n, 64, 4)`` and ``(n, 64)``."""
+        rs = np.random.RandomState(seed)
+        probs = rs.rand(n, COHORT_ROWS, 4).astype(np.float32)
+        probs /= probs.sum(-1, keepdims=True)
+        return torch.from_numpy(probs).to(dev), torch.from_numpy(rs.randint(4, size=(n, COHORT_ROWS))).to(dev)
+
+    def grid_rows(n, seed):
+        """Grid-valued rows (``tests/bases/test_cohort.py:46-66``): integer
+        multinomials / 256 that sum to exactly 1, so every float sum is
+        exact in any order."""
+        rs = np.random.RandomState(seed)
+        probs = (rs.multinomial(256, [0.25] * 4, size=(n, COHORT_ROWS)) / 256.0).astype(np.float32)
+        return torch.from_numpy(probs).to(dev), torch.from_numpy(rs.randint(4, size=(n, COHORT_ROWS))).to(dev)
+
+    out = {"sizes": {}}
+    # a. the bench's sizes
+    for n in COHORT_SIZES:
+        cohort = MetricCohort(template(), tenants=n)
+        p, t = bench_rows(n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        values = cohort(p, t)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        if any(v.shape != (n,) or not bool(torch.isfinite(v).all()) for v in values.values()):
+            raise AssertionError(f"cohort of {n}: step values {[(k, tuple(v.shape)) for k, v in values.items()]}")
+        sites = _syncs(torch, lambda: cohort(p, t))
+        if sites:
+            raise AssertionError(f"cohort of {n}: a replayed step synchronized the host at {sites}")
+        kernels, copies = _cohort_replay_ops(torch, cohort)
+        step_kernels, step_copies = _device_ops(torch, lambda: cohort(p, t))
+        info = cohort.cache_info()
+        if info["trace_count"] != 1 or info["eager_fallbacks"]:
+            raise AssertionError(f"cohort of {n}: {info}")
+        res = {
+            "capacity": cohort.capacity,
+            "step_ms": _host_ms(torch, lambda: cohort(p, t)),
+            "replay_device_ms": _queued_ms(torch, lambda: cohort(p, t), launches=20),
+            "kernels_per_replay": kernels,
+            "copies_per_replay": copies,
+            "kernels_per_step": step_kernels,
+            "copies_per_step": step_copies,
+            "first_step_ms": first_ms,
+            "warm_up_and_capture_ms": info["graph_build_ms"][0],
+            "graph_pool_bytes": info["graph_pool_bytes"],
+            "syncs_per_replayed_step": len(sites),
+        }
+        out["sizes"][n] = res
+        print(f"4i. cohort of {n} (capacity {cohort.capacity}): step {res['step_ms']:.3f} ms"
+              f" ({res['replay_device_ms']:.3f} ms of device time), {kernels} kernels and {copies} copies a replay"
+              f" ({step_kernels} and {step_copies} a step), first step {first_ms:.1f} ms (warm-up + capture"
+              f" {res['warm_up_and_capture_ms']:.1f} ms), graph pool {res['graph_pool_bytes'] / 2**20:.1f} MiB,"
+              " 0 syncs a replayed step")
+        del cohort
+    replay_kernels = {n: out["sizes"][n]["kernels_per_replay"] for n in COHORT_SIZES[1:]}
+    if len(set(replay_kernels.values())) != 1:
+        raise AssertionError(f"kernels per replay grow with the tenants: {replay_kernels}")
+
+    # b. the displaced baseline: 64 compiled collections stepped one after another on the same rows
+    p, t = bench_rows(COHORT_SEQ)
+    cols = [template(compiled=True) for _ in range(COHORT_SEQ)]
+
+    def seq_step():
+        for i, col in enumerate(cols):
+            col(p[i], t[i])
+
+    seq_step()
+    out["seq64_ms"] = _host_ms(torch, seq_step)
+    out["speedup_64"] = out["seq64_ms"] / out["sizes"][COHORT_SEQ]["step_ms"]
+    big, one = COHORT_SIZES[-1], COHORT_SIZES[0]
+    out["sublinearity_10k"] = out["sizes"][big]["step_ms"] / (big * out["sizes"][one]["step_ms"])
+    print(f"4i. {COHORT_SEQ} compiled collections one after another: {out['seq64_ms']:.3f} ms a step;"
+          f" cohort speedup at {COHORT_SEQ} tenants {out['speedup_64']:.2f}x;"
+          f" t_{big} / ({big} x t_{one}) = {out['sublinearity_10k']:.5f}")
+    del cols
+
+    # c. tenants equal to their collections run alone, through membership changes and a grow
+    n = COHORT_CHECK
+    rs = np.random.RandomState(SEED + 11)
+    cohort = MetricCohort(template(), tenants=n, track_health=True)
+    sampled = sorted(rs.choice(n, COHORT_SAMPLED - 1, replace=False).tolist())
+    removed = sampled[0]
+    alone = {s: template(compiled=True) for s in sampled}
+    rows_seen = np.zeros(2 * n, np.int64)
+    updates = np.zeros(2 * n, np.int64)
+
+    def step(tenants, seed):
+        p, t = grid_rows(tenants, seed)
+        cohort(p, t)
+        for s, col in alone.items():
+            col(p[s], t[s])
+        rows_seen[:tenants] += COHORT_ROWS
+        updates[:tenants] += 1
+
+    step(n, 1)
+    cohort.remove_tenant(removed)
+    if cohort.add_tenant() != removed:
+        raise AssertionError("cohort: a freed slot was not reused")
+    alone[removed] = template(compiled=True)
+    rows_seen[removed] = updates[removed] = 0
+    step(n, 2)
+    grown = cohort.add_tenant()
+    if grown != n or cohort.capacity != 2 * n:
+        raise AssertionError(f"cohort: tenant {grown} at capacity {cohort.capacity}; want {n} at {2 * n}")
+    alone[grown] = template(compiled=True)
+    step(n + 1, 3)
+    computed = cohort.compute()
+    for s, col in alone.items():
+        want = col.compute()
+        for key, m in col.items():
+            for sname in m._defaults:
+                if not torch.equal(cohort._states[key][sname][s], getattr(m, sname)):
+                    raise AssertionError(f"cohort tenant {s}: state {key}.{sname} differs from the collection's")
+            if not torch.equal(computed[key][s], want[key]):
+                raise AssertionError(f"cohort tenant {s}: {key} {computed[key][s].item()} vs {want[key].item()}")
+    health = cohort.health()
+    live = np.asarray(health["tenants"])
+    if not (np.array_equal(health["rows_seen"], rows_seen[live]) and np.array_equal(health["updates"], updates[live])):
+        raise AssertionError("cohort health: rows seen / updates differ from numpy's counts")
+    out["tenants_equal_alone"] = {"sampled": len(alone), "tenants": len(cohort), "capacity": cohort.capacity,
+                                  "builds": cohort.cache_info()["trace_count"]}
+    print(f"4i. cohort of {n} -> {len(cohort)} tenants (capacity {cohort.capacity}), a slot freed and reused:"
+          f" {len(alone)} sampled tenants' states and compute() bit-equal to compiled collections run alone;"
+          " health rows / updates equal numpy's")
+    del cohort, alone
+
+    # d. the regression pack as a cohort
+    cohort = MetricCohort(regression(), tenants=n)
+    alone = {s: regression(compiled=True)
+             for s in np.random.RandomState(SEED + 12).choice(n, COHORT_SAMPLED, replace=False).tolist()}
+    worst_ulps = 0.0
+    for seed in range(3):
+        rs = np.random.RandomState(SEED + 20 + seed)
+        p, t = (torch.from_numpy((rs.randint(0, 256, (n, COHORT_ROWS)) / 256.0).astype(np.float32)).to(dev)
+                for _ in range(2))
+        cohort(p, t)
+        for s, col in alone.items():
+            col(p[s], t[s])
+    computed = cohort.compute()
+    for s, col in alone.items():
+        want = col.compute()
+        for key, m in col.items():
+            for sname in m._defaults:
+                if not torch.equal(cohort._states[key][sname][s], getattr(m, sname)):
+                    raise AssertionError(f"regression cohort tenant {s}: state {key}.{sname} differs")
+            got, ref = np.float32(computed[key][s].item()), np.float32(want[key].item())
+            ulps = abs(float(got) - float(ref)) / float(np.spacing(max(abs(got), abs(ref))))
+            if not np.isfinite(got) or not ulps <= COHORT_ULPS:
+                raise AssertionError(f"regression cohort tenant {s}: {key} {got} vs {ref}")
+            worst_ulps = max(worst_ulps, ulps)
+    out["regression_cohort_worst_ulps"] = worst_ulps
+    print(f"4i. regression pack as a cohort of {n}: {len(alone)} sampled tenants' states bit-equal, values within"
+          f" {worst_ulps:.2f} ulp of compiled collections run alone")
+    del cohort, alone
+
+    # e. route_rows of a shuffled tagged stream
+    big = COHORT_SIZES[-1]
+    rs = np.random.RandomState(SEED + 30)
+    dense_p, dense_t = bench_rows(big, SEED + 31)
+    ids = np.repeat(np.arange(big), COHORT_ROWS)[rs.permutation(big * COHORT_ROWS)]
+    rank = np.empty_like(ids)
+    rank[np.argsort(ids, kind="stable")] = np.arange(ids.size) % COHORT_ROWS  # each row's place in its tenant
+    ids_t, rank_t = torch.from_numpy(ids).to(dev), torch.from_numpy(rank).to(dev)
+    routed_p, routed_t = route_rows(ids_t, dense_p[ids_t, rank_t], dense_t[ids_t, rank_t], num_tenants=big)
+    if not (torch.equal(routed_p, dense_p) and torch.equal(routed_t, dense_t)):
+        raise AssertionError("route_rows: the routed stream differs from the dense layout")
+    out["route_rows_ms"] = _host_ms(torch, lambda: route_rows(ids_t, dense_p[ids_t, rank_t], dense_t[ids_t, rank_t],
+                                                              num_tenants=big))
+    print(f"4i. route_rows of a shuffled {big} x {COHORT_ROWS} tagged stream equals the dense layout"
+          f" ({out['route_rows_ms']:.3f} ms with its count check)")
+
+    # f. an ineligible member
+    try:
+        MetricCohort(MetricCollection([AUROC(pos_label=1)]), tenants=2)
+    except ValueError as err:
+        if "engine-eligible" not in str(err) or "does not opt into fused one-update forward" not in str(err):
+            raise
+        out["auroc_refused"] = str(err)
+    else:
+        raise AssertionError("a cohort of AUROC was accepted")
+    print(f"4i. a cohort of AUROC is refused: {out['auroc_refused']}")
+    return out
+
+
 def main() -> int:
     card_index = _pin_one_card()
     import torch
@@ -2458,6 +2706,14 @@ def main() -> int:
     engine_timings, engine_profile = _engine_phase(torch, dev, (preds, target))
     engine_timings["phase_s"] = time.perf_counter() - t0
 
+    # ---- 4i. the multi-tenant cohort --------------------------------------
+    zero_counts()
+    t0 = time.perf_counter()
+    cohort_timings = _cohort_phase(torch, dev)
+    cohort_timings["phase_s"] = time.perf_counter() - t0
+    if any(counts().values()):
+        raise AssertionError(f"the cohort launched a scan kernel: {counts()}")
+
     # ---- 5. times ---------------------------------------------------------
     all_preds = torch.cat(list(collection["AUROC"].preds))
     all_rel = (torch.cat(list(collection["AUROC"].target)) == 1).to(torch.float32)
@@ -2636,6 +2892,7 @@ def main() -> int:
         "regression_pack": reg_timings,
         "retrieval": ret_timings,
         "step_engine": engine_timings,
+        "cohort": cohort_timings,
         "card": card,
     }
     print(json.dumps({"timings": timings}))

@@ -30,8 +30,10 @@ of an epoch ranked by one sort, and its bounded per-rank forms
 (``ShardedRetrievalMAP``, ...; the retrieval sample sort across ranks);
 the ``Metric`` core and ``MetricCollection``, whose ``compiled=True``
 forward runs through the step engine (``CompiledStepEngine``: one CUDA
-graph replay per step); the ``BootStrapper`` wrapper; and the functional
-``bleu_score``, ``image_gradients`` and ``embedding_similarity``.
+graph replay per step); the multi-tenant ``MetricCohort`` (N
+structurally identical collections stacked along a tenant axis, every
+tenant's step one CUDA graph replay); the ``BootStrapper`` wrapper; and the
+functional ``bleu_score``, ``image_gradients`` and ``embedding_similarity``.
 """
 from metrics_tpu_torch.info import __version__  # noqa: F401
 from metrics_tpu_torch.metric import CompositionalMetric, Metric  # noqa: F401
@@ -85,6 +87,7 @@ from metrics_tpu_torch.retrieval import (  # noqa: F401
 )
 from metrics_tpu_torch.collections import MetricCollection  # noqa: F401
 from metrics_tpu_torch.engine import CompiledStepEngine  # noqa: F401
+from metrics_tpu_torch.cohort import MetricCohort  # noqa: F401
 from metrics_tpu_torch.wrappers import BootStrapper  # noqa: F401
 from metrics_tpu_torch.functional.regression import (  # noqa: F401
     explained_variance,

@@ -4,8 +4,8 @@ Port of ``metrics_tpu/collections.py``: an ordered mapping of metrics with
 fan-out forward/update/compute/reset (sharing the canonicalization, the
 stat-score counts and the regression family's pass over a batch among
 siblings), prefixes, cloning, checkpointing and device/dtype moves, and
-the step engine behind ``compiled=True`` (``engine.py``). ``as_cohort``
-waits for the port of ``cohort.py``.
+the step engine behind ``compiled=True`` (``engine.py``), and
+``as_cohort`` (``cohort.py``).
 """
 from collections import OrderedDict
 from copy import deepcopy
@@ -178,6 +178,19 @@ class MetricCollection:
         mc = deepcopy(self)
         mc.prefix = self._check_prefix_arg(prefix)
         return mc
+
+    def as_cohort(self, tenants: int = 1, cache_size: int = 16, track_health: Optional[bool] = None):
+        """Stack ``tenants`` independent copies of this collection into a
+        :class:`~metrics_tpu_torch.cohort.MetricCohort`: one step then
+        updates every tenant's state. Tenant 0 adopts THIS collection's
+        current state (the others start from the registered defaults); the
+        collection itself is left untouched. Every member must be
+        engine-eligible; ``track_health`` passes through to the cohort."""
+        from metrics_tpu_torch.cohort import MetricCohort
+
+        cohort = MetricCohort(deepcopy(self), tenants=tenants, cache_size=cache_size, track_health=track_health)
+        cohort._adopt_state(0, cohort._extract_states(self))
+        return cohort
 
     # a compiled step closes over THESE metric instances and holds CUDA
     # graphs: a copy or pickle drops the engine and rebuilds it lazily

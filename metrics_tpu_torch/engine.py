@@ -48,6 +48,14 @@ state, so each can be tried alone), and the rest stay compiled; the next
 step captures them. ``eager_fallbacks`` names every demoted member and
 why. In a ``torch.distributed`` world every member runs eager, as in the
 JAX package (the step does not sync).
+
+The cohort step (:meth:`CompiledStepEngine.cohort_step`, driven by
+:class:`~metrics_tpu_torch.cohort.MetricCohort`) is the same step function
+under ``torch.func.vmap`` over a leading tenant axis of the states and of
+every tensor input: one CUDA graph per (signature, capacity bucket),
+sharing the LRU with the plain signatures. Its states are the stacked ones
+it is given, copied into buffers keyed by the stacked shape. It has no
+eager fallback: a failed build or replay drops the program and raises.
 """
 import threading
 import time
@@ -56,6 +64,7 @@ from contextlib import contextmanager
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
+import torch.utils._pytree as pytree
 
 from metrics_tpu_torch.functional.regression.sufficient_stats import regression_family_sharing
 from metrics_tpu_torch.metric import Metric
@@ -67,6 +76,10 @@ from metrics_tpu_torch.utilities.prints import warn_once
 __all__ = ["CompiledStepEngine"]
 
 _DEFAULT_CACHE_SIZE = 16
+
+#: reserved key of the per-tenant health accumulators among the cohort
+#: step's states (a cohort rejects dunder member names)
+_COHORT_HEALTH_KEY = "__cohort_health__"
 
 
 def _flatten(tree: Any, leaves: list) -> tuple:
@@ -96,6 +109,37 @@ def _abstract_leaf(x: Any) -> tuple:
     if isinstance(x, torch.Tensor):
         return ("arr", tuple(x.shape), x.dtype, x.device)
     return ("val", type(x), x)
+
+
+def _cohort_in_dims(tree: Any) -> Any:
+    """``vmap`` in_dims of one input container of the cohort step: tensors
+    map over the leading tenant axis, anything else (Python scalars,
+    strings) is broadcast, as the signature keys it by value."""
+    return pytree.tree_map(lambda x: 0 if isinstance(x, torch.Tensor) else None, tree)
+
+
+def _cohort_rows_per_tenant(args: tuple, kwargs: dict) -> int:
+    """Rows each tenant contributes this step, read off the stacked input
+    shapes: the second dim of the first tensor with two or more dims;
+    1 when every tensor input is per-tenant scalar, 0 without tensors."""
+    saw_tensor = False
+    for leaf in pytree.tree_leaves((args, kwargs)):
+        if isinstance(leaf, torch.Tensor):
+            if leaf.ndim >= 2:
+                return int(leaf.shape[1])
+            saw_tensor = True
+    return 1 if saw_tensor else 0
+
+
+def _tenant_finite_flags(state_rows: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
+    """Per-tenant all-finite flag over one member's stacked float states
+    (``(capacity,)`` bool); None when the member has no float state."""
+    flags = None
+    for v in state_rows.values():
+        if v.is_floating_point():
+            flag = torch.isfinite(v).reshape(v.shape[0], -1).all(1)
+            flags = flag if flags is None else flags & flag
+    return flags
 
 
 @contextmanager
@@ -251,24 +295,81 @@ class CompiledStepEngine:
         return step_fn
 
     # ------------------------------------------------------------------
+    # the cohort step function: the same step, vmapped over a leading
+    # tenant axis
+    # ------------------------------------------------------------------
+    def _make_cohort_step_fn(self, names: Tuple[str, ...], health: bool = False) -> Callable:
+        """The step function of ``names`` under ``torch.func.vmap`` over the
+        leading tenant axis of the states and of every tensor input. Each
+        tenant's new state depends only on its own rows, so padding slots
+        stay inert. ``health=True`` also advances the per-tenant health
+        accumulators (``states[_COHORT_HEALTH_KEY]``) outside the vmap, in
+        the same step, from ``aux`` (the ``valid`` slot mask and the
+        cohort's ``step`` index)."""
+        base = self._make_step_fn(names)
+
+        def cohort_step_fn(states, args, kwargs):
+            in_dims = (0, _cohort_in_dims(args), _cohort_in_dims(kwargs))
+            return torch.func.vmap(base, in_dims=in_dims)(states, args, kwargs)
+
+        if not health:
+            return cohort_step_fn
+
+        def cohort_health_step_fn(states, args, kwargs, aux):
+            new_states, values = cohort_step_fn({n: states[n] for n in names}, args, kwargs)
+            new_states = dict(new_states)
+            new_states[_COHORT_HEALTH_KEY] = self._advance_health(
+                states[_COHORT_HEALTH_KEY], new_states, names, aux, args, kwargs
+            )
+            return new_states, values
+
+        return cohort_health_step_fn
+
+    @staticmethod
+    def _advance_health(
+        h: Dict[str, torch.Tensor],
+        new_states: Dict[str, Dict[str, torch.Tensor]],
+        names: Tuple[str, ...],
+        aux: Dict[str, torch.Tensor],
+        args: tuple,
+        kwargs: dict,
+    ) -> Dict[str, torch.Tensor]:
+        """One elementwise advance of the int32 ``(capacity,)`` health
+        accumulators: rows seen, updates and the last active step of every
+        live slot, and the slots whose merged float states are not all
+        finite. ``aux["valid"]`` masks the padding slots."""
+        valid = aux["valid"].to(torch.bool)
+        count = h["updates"].dtype
+        nonfinite = torch.zeros(valid.shape, dtype=count, device=valid.device)
+        for name in names:
+            flag = _tenant_finite_flags(new_states[name])
+            if flag is not None:
+                nonfinite = nonfinite + (valid & ~flag).to(count)
+        live = valid.to(count)
+        return {
+            "rows_seen": h["rows_seen"] + live * _cohort_rows_per_tenant(args, kwargs),
+            "updates": h["updates"] + live,
+            "last_step": torch.where(valid, aux["step"].to(count), h["last_step"]),
+            "nonfinite": h["nonfinite"] + nonfinite,
+        }
+
+    # ------------------------------------------------------------------
     # signature cache
     # ------------------------------------------------------------------
-    def _signature(self, names: Tuple[str, ...], leaves: list, structure: tuple) -> tuple:
-        states = tuple(
-            (n, s, tuple(getattr(self._metrics[n], s).shape), getattr(self._metrics[n], s).dtype)
-            for n in names
-            for s in self._metrics[n]._defaults
-        )
-        return (names, states, structure, tuple(_abstract_leaf(x) for x in leaves))
+    @staticmethod
+    def _signature(names: Tuple[str, ...], states: dict, leaves: list, structure: tuple, extra: tuple = ()) -> tuple:
+        state_sig = tuple((n, s, tuple(v.shape), v.dtype) for n, d in states.items() for s, v in d.items())
+        return (names, state_sig, structure, tuple(_abstract_leaf(x) for x in leaves)) + extra
 
-    def _get_compiled(self, signature: tuple, names: Tuple[str, ...], leaves: list, structure: tuple):
+    def _get_compiled(self, signature: tuple, names: Tuple[str, ...], make_step: Callable, states: dict,
+                      leaves: list, structure: tuple):
         """The signature's program (None on the CPU, where the step function
         runs directly); builds it on a miss."""
         if signature in self._compiled:
             self._compiled.move_to_end(signature)
             return self._compiled[signature]
         self.trace_count += 1
-        program = self._capture(names, leaves, structure) if self._device.type == "cuda" else None
+        program = self._capture(names, make_step(), states, leaves, structure) if self._device.type == "cuda" else None
         if len(self._compiled) >= self._cache_size:
             self._compiled.popitem(last=False)  # LRU eviction
         self._compiled[signature] = program
@@ -284,24 +385,23 @@ class CompiledStepEngine:
             buf = self._state_buffers[key] = torch.empty(like.shape, dtype=like.dtype, device=self._device)
         return buf
 
-    def _capture(self, names: Tuple[str, ...], leaves: list, structure: tuple) -> _Graph:
-        """Warm up, then capture the step function of ``names`` over static
-        copies of the inputs (module docstring)."""
+    def _capture(self, names: Tuple[str, ...], step_fn: Callable, states: dict, leaves: list,
+                 structure: tuple) -> _Graph:
+        """Warm up, then capture ``step_fn(states, *call)`` over static
+        copies of the inputs ``call`` (module docstring). ``states`` are the
+        states the step is given (a cohort's stacked ones); the graph merges
+        into engine buffers of their shapes."""
         t0 = time.perf_counter()
         dev = self._device
         inputs = [
             torch.empty(x.shape, dtype=x.dtype, device=dev) if isinstance(x, torch.Tensor) else x for x in leaves
         ]
-        states = {
-            n: {s: self._state_buffer(n, s, getattr(self._metrics[n], s)) for s in self._metrics[n]._defaults}
-            for n in names
-        }
+        buffers = {n: {s: self._state_buffer(n, s, v) for s, v in d.items()} for n, d in states.items()}
         # the defaults (read by reset() inside the step) stay alive with the graph
         pins = [m._defaults[s] for n in names for m in (self._metrics[n],) for s in m._defaults]
-        self._copy_in(inputs, leaves, names, states)
-        args, kwargs = _unflatten(structure, iter(inputs))
-        step_fn = self._make_step_fn(names)
-        side = self._warm_up(step_fn, states, args, kwargs)
+        self._copy_in(inputs, leaves, buffers, states)
+        call = _unflatten(structure, iter(inputs))
+        side = self._warm_up(step_fn, buffers, call)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
@@ -309,43 +409,42 @@ class CompiledStepEngine:
         with torch.cuda.device(dev), tracing():
             # thread_local: other threads' CUDA calls stay legal during the capture
             with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-                new_states, values = step_fn(states, args, kwargs)
-                for n in names:
-                    for s, v in new_states[n].items():
-                        states[n][s].copy_(v)
+                new_states, values = step_fn(buffers, *call)
+                for n, d in new_states.items():
+                    for s, v in d.items():
+                        buffers[n][s].copy_(v)
         pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        return _Graph(graph, inputs, states, values, pins, pool_bytes, (time.perf_counter() - t0) * 1e3)
+        return _Graph(graph, inputs, buffers, values, pins, pool_bytes, (time.perf_counter() - t0) * 1e3)
 
-    def _warm_up(self, step_fn: Callable, states: dict, args: tuple, kwargs: dict) -> torch.cuda.Stream:
-        """Run ``step_fn`` once uncaptured on a new side stream, value checks
-        off and host reads raising; returns the stream, which the current
-        stream then waits on."""
+    def _warm_up(self, step_fn: Callable, states: dict, call: tuple) -> torch.cuda.Stream:
+        """Run ``step_fn(states, *call)`` once uncaptured on a new side
+        stream, value checks off and host reads raising; returns the stream,
+        which the current stream then waits on."""
         dev = self._device
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.device(dev), torch.cuda.stream(side), tracing(), _host_reads_raise():
-            step_fn(states, args, kwargs)
+            step_fn(states, *call)
         torch.cuda.current_stream(dev).wait_stream(side)
         return side
 
-    def _copy_in(self, inputs: list, leaves: list, names: Tuple[str, ...], states: dict) -> None:
+    @staticmethod
+    def _copy_in(inputs: list, leaves: list, buffers: dict, states: dict) -> None:
         """Copy the step's inputs into the static inputs, and every state
-        attribute into the engine's buffer."""
+        into the engine's buffer."""
         for dst, src in zip(inputs, leaves):
             if isinstance(dst, torch.Tensor):
                 dst.copy_(src)
-        for n in names:
-            m = self._metrics[n]
-            for s, buf in states[n].items():
-                buf.copy_(getattr(m, s))
+        for n, d in states.items():
+            for s, v in d.items():
+                buffers[n][s].copy_(v)
 
-    def _run(self, program: Optional[_Graph], names: Tuple[str, ...], leaves: list, structure: tuple):
+    def _run(self, program: Optional[_Graph], make_step: Callable, states: dict, leaves: list, structure: tuple):
         """One step: ``(new_states, values)``."""
         if program is None:  # the CPU: the step function itself, value checks off
-            args, kwargs = _unflatten(structure, iter(leaves))
             with tracing():
-                return self._make_step_fn(names)(self._current_states(names), args, kwargs)
-        self._copy_in(program.inputs, leaves, names, program.states)
+                return make_step()(states, *_unflatten(structure, iter(leaves)))
+        self._copy_in(program.inputs, leaves, program.states, states)
         program.graph.replay()
         # clones: nothing handed out is a buffer the next replay writes
         return apply_to_collection((program.states, program.values), torch.Tensor, torch.clone)
@@ -383,10 +482,12 @@ class CompiledStepEngine:
             leaves: List[Any] = []
             structure = _flatten((args, kwargs), leaves)
             with self._lock:
-                signature = self._signature(names, leaves, structure)
+                states = self._current_states(names)
+                signature = self._signature(names, states, leaves, structure)
+                make_step = lambda: self._make_step_fn(names)  # noqa: E731
                 try:
-                    program = self._get_compiled(signature, names, leaves, structure)
-                    new_states, values = self._run(program, names, leaves, structure)
+                    program = self._get_compiled(signature, names, make_step, states, leaves, structure)
+                    new_states, values = self._run(program, make_step, states, leaves, structure)
                 except Exception as err:  # noqa: BLE001 - any build failure
                     self._compiled.pop(signature, None)
                     # the metric attributes were never touched: rerun eagerly.
@@ -423,18 +524,76 @@ class CompiledStepEngine:
         metric attribute as it was."""
         if len(names) == 1:
             return {}
-        args, kwargs = _unflatten(structure, iter([x.to(self._device) if isinstance(x, torch.Tensor) else x
-                                                   for x in leaves]))
+        call = _unflatten(structure, iter([x.to(self._device) if isinstance(x, torch.Tensor) else x
+                                           for x in leaves]))
         failed = {}
         for n in names:
             try:
                 if self._device.type == "cuda":
-                    self._warm_up(self._make_step_fn((n,)), self._current_states((n,)), args, kwargs)
+                    self._warm_up(self._make_step_fn((n,)), self._current_states((n,)), call)
                 else:
-                    self._run(None, (n,), leaves, structure)
+                    self._run(None, lambda: self._make_step_fn((n,)), self._current_states((n,)), leaves, structure)
             except Exception as err:  # noqa: BLE001 - the member's own failure
                 failed[n] = err
         return failed
+
+    def cohort_step(
+        self,
+        states: Dict[str, Dict[str, torch.Tensor]],
+        args: tuple,
+        kwargs: Optional[dict] = None,
+        *,
+        capacity: int,
+        health_state: Optional[Dict[str, torch.Tensor]] = None,
+    ):
+        """One step of every tenant of a stacked-state cohort (see
+        :class:`~metrics_tpu_torch.cohort.MetricCohort`, which owns the
+        stacked states, the padding and the write-back): on the card one
+        CUDA graph replay per (signature, capacity bucket).
+
+        ``states`` is the stacked ``{member: {state: tensor}}`` (leading dim
+        ``capacity``); the tensor leaves of ``args`` / ``kwargs`` carry the
+        same leading dim. Returns ``(new_states, values, new_health)``:
+        ``new_health`` is None unless ``health_state`` (the four
+        accumulators plus the ``valid`` mask and the ``step`` index) was
+        given, in which case the health variant, a separate program, runs.
+
+        There is no eager fallback: the cohort exists to remove per-tenant
+        eager reruns. A failed build or replay drops the program from the
+        cache and raises; nothing is demoted. The step never syncs: a
+        distributed cohort syncs at ``compute()``."""
+        kwargs = dict(kwargs or {})
+        names = self._compiled_names()
+        if self._eager_names or not names:
+            raise ValueError(
+                "cohort dispatch requires every metric in the engine to be"
+                f" engine-eligible; eager fallbacks: {self._eager_names}"
+            )
+        health = health_state is not None
+        call: tuple = (args, kwargs)
+        if health:
+            health_state = dict(health_state)
+            aux = {"valid": health_state.pop("valid"), "step": health_state.pop("step")}
+            states = {**states, _COHORT_HEALTH_KEY: health_state}
+            call = (args, kwargs, aux)
+        leaves: List[Any] = []
+        structure = _flatten(call, leaves)
+        with self._lock:
+            signature = self._signature(names, states, leaves, structure, ("cohort", int(capacity), health))
+            make_step = lambda: self._make_cohort_step_fn(names, health)  # noqa: E731
+            try:
+                program = self._get_compiled(signature, names, make_step, states, leaves, structure)
+                new_states, values = self._run(program, make_step, states, leaves, structure)
+            except Exception:
+                # never reuse a program whose build or replay died
+                self._compiled.pop(signature, None)
+                raise
+            self.dispatch_generation += 1
+        new_health = None
+        if health:
+            new_states = dict(new_states)
+            new_health = new_states.pop(_COHORT_HEALTH_KEY)
+        return new_states, values, new_health
 
     def _run_eager(self, names: Tuple[str, ...], args: tuple, kwargs: dict) -> Dict[str, Any]:
         with shared_canonicalization(), regression_family_sharing():

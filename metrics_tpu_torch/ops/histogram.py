@@ -15,6 +15,13 @@ are evaluated in float64 and returned in float32. Unlike the JAX package,
 which divides by ``max(total, 1)``, they divide by each class total itself
 and test each total on its own for degeneracy, so weight totals below 1
 give the same curves as the same weights scaled up.
+
+Under ``torch.func.vmap`` (a cohort step batches every tenant's update)
+both counts are custom operators with their own batching rule: the tenant
+axis becomes part of the index, and every tenant is counted by ONE
+``index_add`` over the flat ``(tenant, bucket)`` space, whatever the
+number of tenants. functorch's own rule for ``index_add`` loops over the
+batch, one kernel per tenant.
 """
 from typing import Optional, Tuple
 
@@ -31,6 +38,16 @@ _SPREAD_MAX_LENGTH = 4096
 _COPIES = 512
 
 
+def _batched(*tensors: Optional[torch.Tensor]) -> bool:
+    """True when a tensor is batched by ``torch.func.vmap``."""
+    return any(t is not None and torch._C._functorch.is_batchedtensor(t) for t in tensors)
+
+
+def _batch_first(x: torch.Tensor, dim: Optional[int], size: int) -> torch.Tensor:
+    """``x`` with its vmap batch dim first (broadcast when it has none)."""
+    return x.expand(size, *x.shape) if dim is None else x.movedim(dim, 0)
+
+
 def label_bincount(indices: torch.Tensor, length: int, weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """int64 counts of each label in ``[0, length)``, under the JAX package's
     out-of-range contract: negatives clamp to bucket 0, labels ``>= length``
@@ -44,12 +61,17 @@ def label_bincount(indices: torch.Tensor, length: int, weights: Optional[torch.T
     position in turn, and the copies are summed. Integer adds give the same
     counts in any order.
 
+    Under ``torch.func.vmap`` the count is one ``index_add`` over every
+    tenant (:func:`_label_counts_vmap`).
+
     Example:
         >>> label_bincount(torch.tensor([-1, 0, 2, 2, 5]), length=3)
         tensor([2, 0, 2])
         >>> label_bincount(torch.tensor([0, 2, 2]), length=3, weights=torch.tensor([True, False, True]))
         tensor([1, 0, 1])
     """
+    if _batched(indices, weights):
+        return _label_counts(indices, length, weights)
     idx = indices.reshape(-1).to(torch.int64).clamp_min(0)
     # out-of-range labels go to one spare bucket, cut off below
     idx = torch.where(idx < length, idx, length)
@@ -63,6 +85,45 @@ def label_bincount(indices: torch.Tensor, length: int, weights: Optional[torch.T
     counts = torch.zeros((_COPIES, length + 1), dtype=torch.int32, device=idx.device)
     counts.view(-1).index_add_(0, lanes * (length + 1) + idx, ones)
     return counts.sum(0)[:length]
+
+
+@torch.library.custom_op("metrics_tpu_torch::label_counts", mutates_args=())
+def _label_counts(indices: torch.Tensor, length: int, weights: Optional[torch.Tensor]) -> torch.Tensor:
+    """:func:`label_bincount` as an operator, so that ``vmap`` reaches its rule."""
+    return label_bincount(indices, length, weights)
+
+
+@_label_counts.register_vmap
+def _label_counts_vmap(info, in_dims, indices, length, weights):
+    """Every tenant's counts from one count over the flat ``(tenant,
+    bucket)`` index: the out-of-range contract per tenant (negatives to 0,
+    labels ``>= length`` to the tenant's spare bucket), then tenant ``t``'s
+    buckets offset by ``t * (length + 1)``. The flat count takes
+    :func:`label_bincount`'s own path (the spread past 2^20 labels)."""
+    tenants = info.batch_size
+    idx = _batch_first(indices, in_dims[0], tenants).reshape(tenants, -1).to(torch.int64).clamp_min(0)
+    idx = torch.where(idx < length, idx, length)
+    idx = idx + (length + 1) * torch.arange(tenants, device=idx.device)[:, None]
+    if weights is not None:
+        weights = _batch_first(weights, in_dims[2], tenants).reshape(-1)
+    counts = label_bincount(idx.reshape(-1), tenants * (length + 1), weights)
+    return counts.reshape(tenants, length + 1)[:, :length], 0
+
+
+@torch.library.custom_op("metrics_tpu_torch::bucket_sums", mutates_args=())
+def _bucket_sums(index: torch.Tensor, adds: torch.Tensor, buckets: int) -> torch.Tensor:
+    """``adds`` summed into ``buckets`` buckets at ``index``, under ``vmap``
+    one ``index_add`` over every tenant's buckets (:func:`_bucket_sums_vmap`)."""
+    return torch.zeros(buckets, dtype=adds.dtype, device=index.device).index_add_(0, index, adds)
+
+
+@_bucket_sums.register_vmap
+def _bucket_sums_vmap(info, in_dims, index, adds, buckets):
+    tenants = info.batch_size
+    index = _batch_first(index, in_dims[0], tenants)
+    index = index + buckets * torch.arange(tenants, device=index.device)[:, None]
+    adds = _batch_first(adds, in_dims[1], tenants)
+    return _bucket_sums(index.reshape(-1), adds.reshape(-1), tenants * buckets).reshape(tenants, buckets), 0
 
 
 def score_histograms(
@@ -93,8 +154,12 @@ def score_histograms(
     else:
         weights = weights.to(torch.float64)
         adds = (weights if preds.ndim == 1 else weights[:, None].expand(preds.shape)).reshape(-1)
-    hist = torch.zeros(2 * columns * num_bins, dtype=adds.dtype, device=index.device)
-    hist = hist.index_add_(0, index, adds).to(torch.float32)
+    if _batched(index, adds):
+        hist = _bucket_sums(index, adds, 2 * columns * num_bins)
+    else:
+        hist = torch.zeros(2 * columns * num_bins, dtype=adds.dtype, device=index.device)
+        hist = hist.index_add_(0, index, adds)
+    hist = hist.to(torch.float32)
     hist = hist.reshape(2, columns, num_bins)
     if preds.ndim == 1:
         return hist[0, 0], hist[1, 0]

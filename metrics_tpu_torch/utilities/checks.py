@@ -546,6 +546,45 @@ def _input_format_classification(
     return preds_c, target_c, case
 
 
+def _input_format_classification_one_hot(
+    num_classes: int,
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    threshold: float = 0.5,
+    multilabel: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Legacy one-hot canonicalization (the reference's ``checks.py:448-494``):
+    ``(num_classes, -1)``-shaped one-hot preds and target.
+
+    Example:
+        >>> _input_format_classification_one_hot(3, torch.tensor([0, 2]), torch.tensor([0, 1]))
+        (tensor([[1, 0],
+                [0, 0],
+                [0, 1]]), tensor([[1, 0],
+                [0, 1],
+                [0, 0]]))
+    """
+    preds, target = torch.as_tensor(preds), torch.as_tensor(target)
+    if not (preds.ndim == target.ndim or preds.ndim == target.ndim + 1):
+        raise ValueError("preds and target must have same number of dimensions, or one additional dimension for preds")
+    if preds.ndim == target.ndim + 1:
+        # multi class probabilities
+        preds = torch.argmax(preds, dim=1)
+    integer = not _is_floating(preds) and preds.dtype != torch.bool
+    if preds.ndim == target.ndim and integer and num_classes > 1 and not multilabel:
+        # multi-class
+        preds = to_onehot(preds, num_classes=num_classes)
+        target = to_onehot(target, num_classes=num_classes)
+    elif preds.ndim == target.ndim and _is_floating(preds):
+        # binary or multilabel probabilities
+        preds = (preds >= threshold).to(torch.int32)
+    # classes first
+    if preds.ndim > 1:
+        preds = preds.transpose(1, 0)
+        target = target.transpose(1, 0)
+    return preds.reshape(num_classes, -1), target.reshape(num_classes, -1)
+
+
 def _min_max(x: torch.Tensor) -> Tuple[float, float]:
     """``(min, max)`` of a non-empty tensor in one device-to-host copy."""
     lo, hi = torch.stack([x.min(), x.max()]).tolist()

@@ -22,6 +22,8 @@ import torch
 
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
 
+METRIC_EPS = 1e-6
+
 
 def promote_accumulator(*tensors):
     """Promote floating inputs below float32 (``bfloat16``, ``float16``) to

@@ -4,9 +4,12 @@ Own copy of ``metrics_tpu/utilities/prints.py``. The rank comes from
 ``torch.distributed`` when a process group is up, else from the
 ``LOCAL_RANK`` environment variable that torchrun-style launchers set.
 """
+import logging
 import os
 import warnings
 from functools import wraps
+
+log = logging.getLogger(__name__)
 
 def _get_rank() -> int:
     import torch.distributed as dist
@@ -59,4 +62,14 @@ def warn_once(message: str, *args, key: str = None, **kwargs) -> bool:
     return True
 
 
+def _info(*args, **kwargs):
+    log.info(*args, **kwargs)
+
+
+def _debug(*args, **kwargs):
+    log.debug(*args, **kwargs)
+
+
+rank_zero_debug = rank_zero_only(_debug)
+rank_zero_info = rank_zero_only(_info)
 rank_zero_warn = rank_zero_only(_warn)

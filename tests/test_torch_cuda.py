@@ -15,7 +15,11 @@ of the number of queries; the step engine's CUDA graphs (replays equal to
 the eager collection, no synchronization in a replayed step, a demotion
 that leaves the card usable, values that outlive the next step, reset and
 restore between steps, the binary step with AUROC kept eager, host inputs
-and the LRU's evictions).
+and the LRU's evictions); the multi-tenant cohort's graphs (one per
+capacity bucket, tenants equal to their collections run alone, kernels per
+replay equal at 64 and 4,096 tenants, no synchronization in a replayed
+step, a ``compute()`` result that outlives later steps and ``reset()``, a
+build failure that raises and demotes nothing).
 
 Every test here is marked ``cuda`` and skips without a card. This file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -43,6 +47,7 @@ from metrics_tpu_torch import (
     ExplainedVariance,
     MeanAbsoluteError,
     MeanSquaredError,
+    MetricCohort,
     MetricCollection,
     Precision,
     PrecisionRecallCurve,
@@ -1074,3 +1079,112 @@ def test_engine_takes_host_inputs_and_evicts_graphs(cuda_device):
         _assert_engine_equal(eager, compiled, ve, vc)
     info = compiled._engine.cache_info()
     assert info["compiled_signatures"] == 2 and info["trace_count"] == 4, info
+
+
+# ---- the multi-tenant cohort: one CUDA graph per call signature and capacity bucket ------
+
+
+def _cohort_rows(n, seed, device):
+    """Grid-valued rows: probabilities are integer multinomials / 256, so
+    every float sum is exact in any order."""
+    rs = np.random.RandomState(seed)
+    probs = (rs.multinomial(256, [0.25] * 4, size=(n, 64)) / 256.0).astype(np.float32)
+    return torch.from_numpy(probs).to(device), torch.from_numpy(rs.randint(4, size=(n, 64))).to(device)
+
+
+def _replay_kernels(cohort):
+    """Kernels of one replay of the cohort's newest graph, by name (copies
+    and fills not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    program = list(cohort._engine._compiled.values())[-1]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        program.graph.replay()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.lower().startswith(("memcpy", "memset"))}
+
+
+def test_cohort_captures_one_graph_per_bucket_and_equals_collections_alone(cuda_device):
+    """Two buckets (capacity 2, then 4 after a third tenant joins), one graph
+    each; every tenant's states and ``compute()`` equal its compiled
+    collection run alone on the same rows (counts exact, floats bit-equal)."""
+    cohort = MetricCohort(_forward_leg(False), tenants=2)
+    alone = [_forward_leg(True) for _ in range(3)]
+    for tenants, seed in ((2, 0), (2, 1), (3, 2), (3, 3)):
+        if tenants > len(cohort):
+            cohort.add_tenant()
+        p, t = _cohort_rows(tenants, seed, cuda_device)
+        values = cohort(p, t)
+        for i in range(tenants):
+            step = alone[i](p[i], t[i])
+            for k in step:
+                assert torch.equal(values[k][i], step[k]), (seed, i, k)
+    info = cohort.cache_info()
+    assert info["trace_count"] == 2 and info["compiled_signatures"] == 2 and len(info["graph_build_ms"]) == 2, info
+    computed = cohort.compute()
+    for i, col in enumerate(alone):
+        for key, m in col.items():
+            for s in m._defaults:
+                assert torch.equal(cohort._states[key][s][i], getattr(m, s)), (i, key, s)
+            assert torch.equal(computed[key][i], col.compute()[key]), (i, key)
+
+
+def test_cohort_kernels_per_replay_do_not_grow_with_the_tenants(cuda_device):
+    """The count primitives' batching rule: one kernel per operation at any
+    capacity, so a replay at 4,096 tenants runs as many kernels as at 64."""
+    counts = {}
+    for capacity in (64, 4096):
+        cohort = MetricCohort(_forward_leg(False), tenants=capacity)
+        cohort(*_cohort_rows(capacity, 4, cuda_device))
+        counts[capacity] = _replay_kernels(cohort)
+    assert sum(counts[64].values()) == sum(counts[4096].values()) > 0, counts
+
+
+def test_cohort_replayed_step_does_not_synchronize(cuda_device):
+    cohort = MetricCohort(_forward_leg(False), tenants=100, track_health=True)
+    batch = _cohort_rows(100, 5, cuda_device)
+    cohort(*batch)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            cohort(*batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert not [w for w in caught if "synchroniz" in str(w.message)], [str(w.message) for w in caught]
+    assert cohort.health()["updates"].tolist() == [2] * 100
+
+
+def test_cohort_compute_result_outlives_later_steps_and_reset(cuda_device):
+    cohort = MetricCohort(ConfusionMatrix(num_classes=4), tenants=3)
+    cohort(*_cohort_rows(3, 6, cuda_device))
+    first = cohort.compute()
+    kept = first.clone()
+    cohort(*_cohort_rows(3, 7, cuda_device))
+    cohort.reset()
+    cohort(*_cohort_rows(3, 8, cuda_device))
+    assert torch.equal(first, kept) and int(kept.sum()) == 3 * 64
+
+
+def test_cohort_build_failure_raises_drops_the_program_and_demotes_nothing(cuda_device):
+    """A member that reads the host in its update cannot run batched or in a
+    graph: the cohort raises (it has no eager fallback), keeps no program,
+    demotes nothing, and the card stays usable."""
+
+    class HostRead(MeanSquaredError):
+        def update(self, preds, target):
+            float(preds.sum())
+            super().update(preds, target)
+
+    cohort = MetricCohort(MetricCollection({"mse": HostRead()}), tenants=2)
+    p = torch.rand(2, 8, device=cuda_device)
+    with pytest.raises(RuntimeError):
+        cohort(p, p)
+    info = cohort.cache_info()
+    assert info["compiled_signatures"] == 0 and info["trace_count"] == 1 and info["eager_fallbacks"] == {}, info
+    torch.cuda.synchronize()
+    usable = MetricCohort(MeanSquaredError(), tenants=2)
+    assert torch.equal(usable(p, p), torch.zeros(2, device=cuda_device))

@@ -15,7 +15,12 @@ stat-score family's states (a sum-state ``ConfusionMatrix(1000)`` and
 ``StatScores``, a list-state ``StatScores(reduce="samples")``), whose every
 rank must equal one process; and the sharded retrieval metrics (the
 retrieval sample sort over NCCL), whose every rank must return the same
-bits, within 1e-6 of one card holding the whole stream.
+bits, within 1e-6 of one card holding the whole stream; and the paths no
+other world case drives (a ``compiled=True`` collection, the regression
+pack with a ``CompositionalMetric``, ``BootStrapper`` on fixed
+resamplings, a 1,024-tenant ``MetricCohort`` whose ``compute()`` gathers
+each stacked state once), every rank's bits equal to one process, on gloo
+in a world of 4 and on NCCL.
 """
 import json
 import multiprocessing
@@ -29,6 +34,8 @@ import torch.distributed as dist
 from metrics_tpu_torch import AUROC, Accuracy, MetricCollection
 from metrics_tpu_torch.parallel.backend import TorchDistributedBackend, get_sync_backend
 from tests.torch_workers import (
+    _grid,
+    distributed_paths_world,
     run_world,
     sharded_cases,
     sharded_metric_values,
@@ -287,3 +294,76 @@ def test_nccl_sharded_retrieval_is_the_same_on_every_card():
         name = case["name"]
         assert all(ranks[r][name]["bits"] == ranks[0][name]["bits"] for r in range(world)), name
         assert abs(ranks[0][name]["value"] - one[name]["value"]) <= 1e-6, (name, ranks[0][name], one[name])
+
+
+
+def _distributed_paths_payload(tenants, rows=500, batches=8, classes=4):
+    """Grid-valued rows (multiples of 1/256: every float sum is exact in any
+    order, so a world's bits can equal one process's), fixed resamplings
+    for ``BootStrapper``, and cohort batches of ``tenants`` x 64 rows."""
+    rng = np.random.RandomState(3)
+
+    def probs(shape):
+        return (rng.multinomial(256, [1.0 / classes] * classes, size=shape) / 256.0).astype(np.float32)
+
+    return {
+        "num_classes": classes,
+        "cls_batches": [(probs(rows), rng.randint(classes, size=rows)) for _ in range(batches)],
+        "reg_batches": [(_grid(rng, (48,)), _grid(rng, (48,))) for _ in range(batches)],
+        "resamples": [[rng.randint(0, rows, rows) for _ in range(5)] for _ in range(batches)],
+        "num_bootstraps": 5,
+        "tenants": tenants,
+        "cohort_batches": [(probs((tenants, 64)), rng.randint(classes, size=(tenants, 64))) for _ in range(batches)],
+    }
+
+
+def _assert_paths_equal(ranks, one):
+    def equal(a, b, path):
+        if isinstance(a, dict):
+            assert set(a) == set(b), path
+            for k in a:
+                equal(a[k], b[k], f"{path}/{k}")
+        elif isinstance(a, np.ndarray):
+            assert np.array_equal(a, b), path
+        else:
+            assert a == b, path
+
+    skip = ("cohort_gathers", "cohort_gathered_shapes")
+    for rank, out in ranks.items():
+        equal({k: v for k, v in out.items() if k not in skip}, {k: v for k, v in one.items() if k not in skip},
+              f"rank {rank}")
+        assert out["compiled_fallbacks"] == {}, rank
+        # one gather per stacked state, each of the whole cohort's slots
+        assert out["cohort_gathers"] == out["cohort_stacked_states"] == 14, (rank, out["cohort_gathers"])
+        assert all(shape[0] == one["cohort"]["Accuracy"].shape[0] for shape in out["cohort_gathered_shapes"])
+
+
+def test_gloo_compiled_regression_bootstrap_and_cohort_equal_one_process():
+    payload = _distributed_paths_payload(tenants=64)
+    ranks = run_world(4, distributed_paths_world, payload)
+    _assert_paths_equal(ranks, distributed_paths_world(0, 1, torch.device("cpu"), payload))
+
+
+@pytest.mark.cuda
+def test_nccl_compiled_regression_bootstrap_and_cohort_are_the_same_on_every_card():
+    """A compiled collection (eager in a world), the regression pack with
+    ``MeanSquaredError() ** 0.5``, ``BootStrapper(Accuracy())`` on fixed
+    resamplings and a 1,024-tenant cohort over NCCL, one rank per card,
+    rank r taking batches r, r + world, ...: every rank's bits equal one
+    process's on one card, and the cohort's ``compute()`` gathers each of
+    its 14 stacked states once."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    world = torch.cuda.device_count()
+    payload = _distributed_paths_payload(tenants=1024)
+    ranks = run_world(world, distributed_paths_world, payload, device_type="cuda", timeout=600)
+    one = distributed_paths_world(0, 1, torch.device("cuda", 0), payload)
+    print(json.dumps({"nccl_distributed_paths": {
+        "world": world, "card": torch.cuda.get_device_name(0),
+        "cohort_gathers": {r: out["cohort_gathers"] for r, out in ranks.items()},
+        "cohort_gathered_shapes": ranks[0]["cohort_gathered_shapes"],
+        "compiled": {k: v.tolist() for k, v in one["compiled"].items()},
+        "rmse": one["rmse"].tolist(),
+        "bootstrap_mean": one["bootstrap"]["mean"].tolist(),
+    }}))
+    _assert_paths_equal(ranks, one)

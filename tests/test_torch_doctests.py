@@ -53,3 +53,12 @@ def test_engine_wrapper_and_extras_modules_carry_their_doctests():
                                                "functional.image_gradients", "utilities.imports")}
     with_examples = {n for n in want if sum(len(t.examples) for t in finder.find(importlib.import_module(n)))}
     assert want == with_examples, sorted(want - with_examples)
+
+
+def test_cohort_modules_carry_their_doctests():
+    """The cohort, the count primitives and the one-hot canonicalization
+    each show their example (run by ``test_module_doctests``)."""
+    finder = doctest.DocTestFinder()
+    want = {f"metrics_tpu_torch.{m}" for m in ("cohort", "ops.histogram", "utilities.checks")}
+    with_examples = {n for n in want if sum(len(t.examples) for t in finder.find(importlib.import_module(n)))}
+    assert want == with_examples, sorted(want - with_examples)

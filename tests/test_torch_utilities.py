@@ -158,3 +158,38 @@ def test_check_same_shape():
     checks._check_same_shape(torch.zeros(3), torch.ones(3))
     with pytest.raises(RuntimeError, match="same shape"):
         checks._check_same_shape(torch.zeros(3), torch.ones(4))
+
+
+_ONE_HOT_CASES = {
+    "multi-class probabilities": (3, _softmax(R.standard_normal((10, 3))), R.integers(0, 3, 10), {}),
+    "multi-class labels": (4, R.integers(0, 4, 12), R.integers(0, 4, 12), {}),
+    "multi-dim multi-class probabilities": (3, _softmax(R.standard_normal((6, 3))).reshape(2, 3, 3).transpose(0, 2, 1)
+                                            .copy(), R.integers(0, 3, (2, 3)), {}),
+    "binary probabilities": (1, R.random(9).astype(np.float32), R.integers(0, 2, 9), {"threshold": 0.3}),
+    "multi-label probabilities": (5, R.random((7, 5)).astype(np.float32), R.integers(0, 2, (7, 5)), {}),
+    "multi-label labels": (5, R.integers(0, 2, (7, 5)), R.integers(0, 2, (7, 5)), {"multilabel": True}),
+}
+
+
+@pytest.mark.parametrize("name", list(_ONE_HOT_CASES))
+def test_input_format_classification_one_hot_matches_jax(name):
+    num_classes, preds, target, kwargs = _ONE_HOT_CASES[name]
+    got = checks._input_format_classification_one_hot(num_classes, torch.from_numpy(preds),
+                                                       torch.from_numpy(target), **kwargs)
+    want = jchecks._input_format_classification_one_hot(num_classes, jnp.asarray(preds), jnp.asarray(target),
+                                                         **kwargs)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_array_equal(g.numpy(), _np(w))
+    with pytest.raises(ValueError, match="same number of dimensions"):
+        checks._input_format_classification_one_hot(3, torch.zeros(2, 3, 4, 5), torch.zeros(2, 3))
+
+
+def test_rank_zero_info_and_debug_log_on_rank_zero(caplog):
+    from metrics_tpu_torch.utilities import prints, rank_zero_debug, rank_zero_info
+
+    with caplog.at_level("DEBUG", logger=prints.log.name):
+        rank_zero_info("info line")
+        rank_zero_debug("debug line")
+    assert [(r.levelname, r.getMessage()) for r in caplog.records] == [("INFO", "info line"), ("DEBUG", "debug line")]
+    assert data.METRIC_EPS == jdata.METRIC_EPS

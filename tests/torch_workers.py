@@ -314,3 +314,129 @@ def engine_world(rank: int, world: int, device: torch.device, payload: dict) -> 
         "fallbacks": compiled.eager_fallbacks,
         "trace_count": compiled._engine.trace_count,
     }
+
+
+def _grid(rng, shape, lo=0, hi=256):
+    """Multiples of 1/256: float32 sums of their products stay exact, so
+    sums taken in any order (per rank, per tenant, batched) give one bit
+    pattern."""
+    return (rng.randint(lo, hi, size=shape) / 256.0).astype(np.float32)
+
+
+def cohort_sync_world(rank: int, world: int, device: torch.device, payload: dict) -> dict:
+    """A 2-tenant ``MeanSquaredError`` cohort over this rank's own grid rows:
+    its synced ``compute()``, the per-tenant oracle (each tenant's rows in a
+    collection of its own, synced alone), and the stacked state after one
+    more step, which must hold only this rank's rows (the sync restores the
+    local states)."""
+    from metrics_tpu_torch import MeanSquaredError, MetricCohort, MetricCollection
+
+    rng = np.random.RandomState(payload["seed"] + rank)
+    p = torch.from_numpy(_grid(rng, (2, 16))).to(device)
+    t = torch.from_numpy(_grid(rng, (2, 16))).to(device)
+    cohort = MetricCohort(MetricCollection([MeanSquaredError(device=device)]), tenants=2)
+    cohort(p, t)
+    synced = _value(cohort.compute()["MeanSquaredError"])
+    oracle = []
+    for i in range(2):
+        col = MetricCollection([MeanSquaredError(device=device)])
+        col(p[i], t[i])
+        oracle.append(_value(col.compute()["MeanSquaredError"]))
+    cohort(p, t)
+    return {
+        "synced": synced,
+        "oracle": np.stack(oracle),
+        "state_after": _value(cohort._states["MeanSquaredError"]["sum_squared_error"]),
+        "local_twice": 2 * _value(((p - t) ** 2).sum(1)),
+    }
+
+
+def distributed_paths_world(rank: int, world: int, device: torch.device, payload: dict) -> dict:
+    """The paths of the port that run in a ``torch.distributed`` world and
+    no other world case drives, rank r taking batches r, r + world, ...:
+
+    * a ``compiled=True`` 4-metric classification collection (the engine
+      runs eager in a world and syncs at ``compute()``);
+    * the regression pack in a collection and the composite
+      ``MeanSquaredError() ** 0.5`` on grid rows;
+    * ``BootStrapper(Accuracy())`` on the fixed resamplings of the payload;
+    * a ``payload["tenants"]``-tenant ``MetricCohort`` of the classification
+      template, whose ``compute()`` gathers each stacked state once: the
+      backend's gathers are counted.
+
+    Returns every synced value as numpy, the engine's fallbacks and the
+    cohort's gathers and stacked states."""
+    from metrics_tpu_torch import (
+        F1,
+        PSNR,
+        Accuracy,
+        BootStrapper,
+        ExplainedVariance,
+        MeanAbsoluteError,
+        MeanSquaredError,
+        MetricCohort,
+        MetricCollection,
+        Precision,
+        R2Score,
+        Recall,
+    )
+    from metrics_tpu_torch.parallel.backend import get_sync_backend
+    from metrics_tpu_torch.wrappers import bootstrapping
+
+    c = payload["num_classes"]
+
+    def to(*arrays):
+        return tuple(torch.from_numpy(a).to(device) for a in arrays)
+
+    def classification(compiled=False):
+        return MetricCollection([Accuracy(device=device), Precision(num_classes=c, average="macro", device=device),
+                                 Recall(num_classes=c, average="macro", device=device),
+                                 F1(num_classes=c, average="macro", device=device)], compiled=compiled)
+
+    out = {}
+    compiled = classification(compiled=True)
+    for batch in payload["cls_batches"][rank::world]:
+        compiled(*to(*batch))
+    out["compiled"] = {k: _value(v) for k, v in compiled.compute().items()}
+    out["compiled_fallbacks"] = compiled.eager_fallbacks
+
+    regression = MetricCollection([MeanSquaredError(device=device), MeanAbsoluteError(device=device),
+                                   R2Score(device=device), PSNR(device=device), ExplainedVariance(device=device)])
+    rmse = MeanSquaredError(device=device) ** 0.5
+    for batch in payload["reg_batches"][rank::world]:
+        regression(*to(*batch))
+        rmse.update(*to(*batch))
+    out["regression"] = {k: _value(v) for k, v in regression.compute().items()}
+    out["rmse"] = _value(rmse.compute())
+
+    draws = iter(payload["resamples"][rank::world])
+    sampler = bootstrapping._bootstrap_sampler
+    bootstrapping._bootstrap_sampler = lambda *args, **kwargs: [torch.from_numpy(i).to(device) for i in next(draws)]
+    try:
+        boot = BootStrapper(Accuracy(device=device), num_bootstraps=payload["num_bootstraps"], raw=True)
+        for batch in payload["cls_batches"][rank::world]:
+            boot.update(*to(*batch))
+    finally:
+        bootstrapping._bootstrap_sampler = sampler
+    out["bootstrap"] = {k: _value(v) for k, v in boot.compute().items()}
+
+    cohort = MetricCohort(classification(), tenants=payload["tenants"])
+    for batch in payload["cohort_batches"][rank::world]:
+        cohort(*to(*batch))
+    gathers = []
+    backend = type(get_sync_backend())  # made anew at each gather: count on its class
+    gather = backend.gather
+
+    def counted(self, x, group=None):
+        gathers.append(tuple(x.shape))
+        return gather(self, x, group=group)
+
+    backend.gather = counted
+    try:
+        out["cohort"] = {k: _value(v) for k, v in cohort.compute().items()}
+    finally:
+        backend.gather = gather
+    out["cohort_gathers"] = len(gathers)
+    out["cohort_stacked_states"] = sum(len(d) for d in cohort._states.values())
+    out["cohort_gathered_shapes"] = sorted(set(gathers))
+    return out
