@@ -181,6 +181,24 @@ that is unset. Phases (any failure exits non-zero before the result line):
    ulp); ``route_rows`` of a shuffled tagged stream of 10,000 x 64 rows
    equal to the dense layout; a cohort of ``AUROC`` refused with the
    engine's reason;
+4j. the observability core (``metrics_tpu_torch.observability``): phase 3's
+   binary step, phase 4h's compiled forward leg and phase 4i's cohort at
+   1,024 tenants (health pinned off, so both runs replay one program), each
+   run with telemetry, span tracing and the flight recorder all off and then
+   all on: values and states bit-equal, 0 host synchronizations a replayed
+   step with them on, the same kernels and copies a step off and on, and the
+   forward / compute / step ms off and on (host clock ending in a
+   synchronize, median of 5, in turns); the span recording's phases
+   (canonicalize, update, compute, dispatch) and its Perfetto export, which
+   must round-trip through ``json``; the engine counters equal to the
+   signature arithmetic (two signatures: 2 misses, 11 hits, 13 dispatches,
+   2 update calls = 2 builds) with 0 retraces at steady state, and a
+   12-shape loop giving exactly one watchdog verdict, one warning and one
+   flight dump that parses and carries the identity stamp; under
+   ``torch.profiler`` with telemetry on, the ``tie_scan`` kernel and the
+   co-sort of one north-star ``compute()`` inside the
+   ``metrics_tpu.AUROC.compute`` range and every kernel of a compiled replay
+   inside the engine's range, with the device ms of each range;
 5. times on the card (CUDA events over launches queued behind a device
    sleep, so host overhead does not show, or the host clock ending in a
    synchronize for whole steps): the one-stream kernel, its plain version
@@ -316,6 +334,14 @@ COHORT_CHECK = 1024
 COHORT_SAMPLED = 16
 # the regression values' allowance against a collection run alone (tests/bases/test_cohort.py:143)
 COHORT_ULPS = 8
+# the observability core (phase 4j): the cohort's tenants, the shape-polymorphic loop's shapes
+OBS_TENANTS = 1024
+OBS_SHAPES = 12
+# timed (off, on) pairs: the medians of the first 5 and the median paired difference of all
+OBS_PAIRS = 25
+# the names of the port's profiler ranges: on the device timeline a range is an
+# annotation spanning the kernels launched inside it, not a kernel
+RANGE_PREFIXES = ("metrics_tpu.", "engine[")
 
 
 def _pin_one_card() -> str:
@@ -1459,7 +1485,8 @@ def _device_ops(torch, fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith(RANGE_PREFIXES)]
     copies = sum(e.count for e in ops if e.key.startswith(("Memcpy", "Memset")))
     return sum(e.count for e in ops) - copies, copies
 
@@ -1929,6 +1956,263 @@ def _cohort_phase(torch, dev):
     else:
         raise AssertionError("a cohort of AUROC was accepted")
     print(f"4i. a cohort of AUROC is refused: {out['auroc_refused']}")
+    return out
+
+
+def _range_kernels(torch, prof, name):
+    """``[(kernel name, device ms)]`` of the device events inside the
+    device-side span of every ``torch.profiler`` range called ``name``: the
+    kernels launched in the range, through ATen, a ctypes entry or a graph
+    replay alike."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.events() if e.device_type == cuda]
+    return [(e.name, (e.time_range.end - e.time_range.start) / 1e3)
+            for span in events if span.name == name
+            for e in events
+            if not e.name.startswith(RANGE_PREFIXES)
+            and span.time_range.start <= e.time_range.start and e.time_range.end <= span.time_range.end]
+
+
+def _observability_phase(torch, dev, binary):
+    """Phase 4j: the observability core (telemetry, span tracing, the
+    watchdog, the flight recorder) on the card. ``binary`` is phase 3's
+    ``(preds, target)``. Returns the phase's timings; every recorder is off
+    again when it returns."""
+    import tempfile
+
+    import metrics_tpu_torch.observability as obs
+    from metrics_tpu_torch import (
+        AUROC,
+        F1,
+        Accuracy,
+        MeanSquaredError,
+        MetricCohort,
+        MetricCollection,
+        Precision,
+        Recall,
+    )
+
+    out = {}
+    preds, target = binary
+    ns_batches = [(preds[b * BATCH:(b + 1) * BATCH], target[b * BATCH:(b + 1) * BATCH]) for b in range(BATCHES)]
+    _, _, p4, t4 = _forward_leg_inputs(torch, dev)
+    leg_batches = [(p4[b * BATCH:(b + 1) * BATCH], t4[b * BATCH:(b + 1) * BATCH]) for b in range(BATCHES)]
+    rs = np.random.RandomState(SEED + 40)
+    probs = rs.rand(OBS_TENANTS, COHORT_ROWS, 4).astype(np.float32)
+    probs /= probs.sum(-1, keepdims=True)
+    rows = (torch.from_numpy(probs).to(dev), torch.from_numpy(rs.randint(4, size=(OBS_TENANTS, COHORT_ROWS))).to(dev))
+
+    def forward_leg(compiled):
+        return MetricCollection([Accuracy(), Precision(num_classes=4, average="macro"),
+                                 Recall(num_classes=4, average="macro"), F1(num_classes=4, average="macro")],
+                                compiled=compiled)
+
+    flight_dir = tempfile.TemporaryDirectory(dir="build")
+
+    def recorders(on):
+        if on:
+            obs.enable()
+            obs.enable_tracing()
+            if not obs.flight_enabled():
+                obs.enable_flight(flight_dir.name)
+        else:
+            obs.disable()
+            obs.disable_tracing()
+            obs.disable_flight()
+
+    def states_of(obj):
+        if isinstance(obj, MetricCohort):
+            return {(n, s): v for n, d in obj._states.items() for s, v in d.items()}
+        return {(k, s): torch.cat(v) if isinstance(v, list) else v
+                for k in obj.keys() for s in obj[k]._defaults for v in (getattr(obj[k], s),)}
+
+    def bit_equal(label, a, b):
+        for k in a:
+            if not torch.equal(a[k], b[k]):
+                raise AssertionError(f"4j. {label}: {k} differs with the recorders on")
+
+    def toggled_ms(fn):
+        """Host clock ending in a synchronize, the recorders off and on in
+        turns (the order flipping each pair, one warm pair first): the
+        medians off and on of the first 5 pairs, and the median of all
+        pairs' differences (drift between pairs cancels in a difference)."""
+        times = {False: [], True: []}
+        for i in range(OBS_PAIRS + 1):
+            for on in (False, True) if i % 2 else (True, False):
+                recorders(on)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                if i:
+                    times[on].append((time.perf_counter() - t0) * 1e3)
+        recorders(False)
+        return {"off_ms": float(np.median(times[False][:5])), "on_ms": float(np.median(times[True][:5])),
+                "paired_overhead_ms": float(np.median(np.subtract(times[True], times[False])))}
+
+    workloads = {}
+    try:
+        # a. three workloads, every recorder off and then on: the same bits
+        for on in (False, True):
+            recorders(on)
+            if on:
+                obs.get().reset()
+                obs.get_tracer().reset()
+            ns = MetricCollection([Accuracy(), AUROC(pos_label=1)])
+            leg = forward_leg(True)
+            cohort = MetricCohort(forward_leg(False), tenants=OBS_TENANTS, track_health=False)
+            values = {}
+            for b, batch in enumerate(ns_batches):
+                values.update({("north-star", b, k): v for k, v in ns(*batch).items()})
+            values.update({("north-star", "epoch", k): v for k, v in ns.compute().items()})
+            for b, batch in enumerate(leg_batches):
+                values.update({("leg", b, k): v for k, v in leg(*batch).items()})
+            values.update({("leg", "epoch", k): v for k, v in leg.compute().items()})
+            for b in range(3):
+                values.update({("cohort", b, k): v for k, v in cohort(*rows).items()})
+            values.update({("cohort", "epoch", k): v for k, v in cohort.compute().items()})
+            sites = _syncs(torch, lambda: (leg(*leg_batches[1]), cohort(*rows)))
+            if on and sites:
+                raise AssertionError(f"4j. a replayed step synchronized the host with every recorder on at {sites}")
+            ops = {"leg": _device_ops(torch, lambda: leg(*leg_batches[1])),
+                   "cohort": _device_ops(torch, lambda: cohort(*rows))}
+            states = {("ns",) + k: v for k, v in states_of(ns).items()}
+            states.update({("leg",) + k: v for k, v in states_of(leg).items()})
+            states.update({("cohort",) + k: v for k, v in states_of(cohort).items()})
+            workloads[on] = {"values": values, "states": states, "syncs": len(sites), "ops": ops,
+                             "objects": (ns, leg, cohort)}
+            if on:
+                spans = list(obs.get_tracer().spans)
+                perfetto = obs.get_tracer().to_perfetto()
+                counters = dict(obs.get().counters)
+        recorders(False)
+        off, on = workloads[False], workloads[True]
+        bit_equal("values", off["values"], on["values"])
+        bit_equal("states", off["states"], on["states"])
+        if off["ops"] != on["ops"]:
+            raise AssertionError(f"4j. kernels per replayed step: {off['ops']} off, {on['ops']} on")
+        if counters["engine.dispatches"] != BATCHES + 2 + 3 + 2 or counters["cohort.dispatch_tenants"] != 5 * OBS_TENANTS:
+            raise AssertionError(f"4j. dispatch counters {counters}")
+        ns, leg, cohort = off["objects"]
+        ns_on, leg_on, cohort_on = on["objects"]
+        auroc = ns["AUROC"]
+
+        def ns_compute(m):
+            m._computed = None
+            return m.compute()
+
+        timing = {
+            "north_star_forward_ms": toggled_ms(lambda: ns(*ns_batches[0])),
+            "north_star_compute_ms": toggled_ms(lambda: ns_compute(auroc)),
+            "forward_leg_ms": toggled_ms(lambda: leg(*leg_batches[1])),
+            "cohort_step_ms": toggled_ms(lambda: cohort(*rows)),
+        }
+        out["ms_off_on"] = timing
+        out["syncs_per_replayed_step_on"] = on["syncs"]
+        out["kernels_copies_per_step_off_on"] = {k: [off["ops"][k], on["ops"][k]] for k in off["ops"]}
+        print(f"4j. north-star step, compiled forward leg and {OBS_TENANTS}-tenant cohort: values and states"
+              " bit-equal with telemetry, tracing and the flight recorder on and off; 0 syncs a replayed step with"
+              f" them on; kernels (copies) a step off/on {out['kernels_copies_per_step_off_on']}")
+        print("4j. ms off / on (host clock ending in a synchronize, median of 5, in turns), and the median paired"
+              f" difference of {OBS_PAIRS} pairs: " + ", ".join(
+                  f"{k} {v['off_ms']:.3f} / {v['on_ms']:.3f} ({v['paired_overhead_ms']:+.3f})" for k, v in timing.items()))
+
+        # d. the span recording of (a): its phases, and a Perfetto export that round-trips
+        per_phase = {}
+        for span in spans:
+            per_phase[span["phase"]] = per_phase.get(span["phase"], 0) + 1
+        missing = {"canonicalize", "update", "compute", "dispatch"} - set(per_phase)
+        if missing:
+            raise AssertionError(f"4j. the span recording lacks the phases {missing}: {per_phase}")
+        if json.loads(json.dumps(perfetto)) != perfetto or perfetto["traceEvents"][0]["args"]["name"] != (
+                "metrics_tpu rank 0/1"):
+            raise AssertionError("4j. to_perfetto() does not round-trip through json")
+        out["spans_per_phase"] = per_phase
+        print(f"4j. spans per phase: {per_phase}; to_perfetto() round-trips ({len(perfetto['traceEvents'])} events)")
+
+        # b. the engine counters are the signature arithmetic; the watchdog
+        # reads 0 at steady state and fires once on a shape-polymorphic loop
+        obs.get().reset()
+        with obs.telemetry_scope() as tel:
+            col = MetricCollection([MeanSquaredError()], compiled=True)
+            a, b = torch.rand(64, device=dev), torch.rand(96, device=dev)
+            for x in (a, a, b, b, a) + (a,) * 8:
+                col(x, x)
+            c = tel.counters
+            arithmetic = (c["engine.cache_misses"], c["engine.cache_hits"], c["engine.dispatches"],
+                          c["metric.MeanSquaredError.update_calls"], col._engine.trace_count)
+            if arithmetic != (2, 11, 13, 2, 2) or tel.watchdog.retrace_count():
+                raise AssertionError(f"4j. engine counters (misses, hits, dispatches, update calls, builds)"
+                                     f" {arithmetic}, retraces {tel.watchdog.retrace_count()}")
+            tel.reset()
+            obs.enable_flight(flight_dir.name)
+            col._engine._cache_size = 4  # the build budget max(8, cache_size) is 8
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                for n in range(4, 4 + 2 * OBS_SHAPES, 2):
+                    x = torch.rand(n, device=dev)
+                    col(x, x)
+            fired = [str(w.message) for w in caught if "recompilation watchdog" in str(w.message)]
+            verdicts = [e for e in tel.events if e["kind"] == "retrace"]
+            dumps = obs.get_flight().dump_paths
+            obs.disable_flight()
+        if len(fired) != 1 or len(verdicts) != 1 or len(dumps) != 1:
+            raise AssertionError(f"4j. {OBS_SHAPES}-shape loop: {len(verdicts)} verdicts, {len(fired)} warnings,"
+                                 f" {len(dumps)} dumps")
+        with open(dumps[0]) as f:
+            dump = json.load(f)
+        if (dump["format"], dump["reason"], dump["identity"]["rank"], dump["identity"]["world_size"]) != (
+                "metrics_tpu.flight_dump", "watchdog_retrace", 0, 1):
+            raise AssertionError(f"4j. the flight dump: {dump['format']}, {dump['reason']}, {dump['identity']}")
+        out["polymorphic_loop"] = {"verdicts": 1, "warnings": 1, "dumps": 1, "dump_events": len(dump["events"]),
+                                   "verdict": verdicts[0]["reason"]}
+        print("4j. engine counters = signature arithmetic (2 misses, 11 hits, 13 dispatches, 2 update calls ="
+              f" 2 builds), 0 retraces at steady state; the {OBS_SHAPES}-shape loop: 1 verdict, 1 warning, 1 flight"
+              f" dump ({len(dump['events'])} events, identity rank 0/1): {verdicts[0]['reason']}")
+
+        # c. attribution under torch.profiler with telemetry on
+        from torch.profiler import ProfilerActivity, profile
+
+        obs.enable()
+        try:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                ns_compute(ns_on["AUROC"])
+                torch.cuda.synchronize()
+            inside = _range_kernels(torch, prof, "metrics_tpu.AUROC.compute")
+            names = [k for k, _ in inside]
+            if not any("tie_scan" in k for k in names) or not any("RadixSort" in k for k in names):
+                raise AssertionError(f"4j. the tie_scan kernel or the co-sort fell outside"
+                                     f" metrics_tpu.AUROC.compute: {names}")
+            # a compiled step: the copies in and the clones out run outside
+            # the replay, every kernel inside it
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                leg_on(*leg_batches[1])
+                torch.cuda.synchronize()
+            step_kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                            and not e.name.startswith(RANGE_PREFIXES + ("Memcpy", "Memset"))]
+            replay = _range_kernels(torch, prof, leg_on._engine._watch_key)
+            replay_kernels = [k for k, _ in replay if not k.startswith(("Memcpy", "Memset"))]
+            if sorted(replay_kernels) != sorted(step_kernels) or not step_kernels:
+                raise AssertionError(f"4j. {len(replay_kernels)} kernels inside {leg_on._engine._watch_key},"
+                                     f" the step runs {len(step_kernels)}")
+        finally:
+            obs.disable()
+        out["attribution"] = {
+            "metrics_tpu.AUROC.compute": {"kernels": sum(not k.startswith(("Memcpy", "Memset")) for k in names),
+                                          "device_events": len(inside), "device_ms": sum(ms for _, ms in inside),
+                                          "tie_scan_ms": sum(ms for k, ms in inside if "tie_scan" in k),
+                                          "sort_ms": sum(ms for k, ms in inside if "RadixSort" in k)},
+            leg_on._engine._watch_key: {"kernels": len(replay_kernels), "device_events": len(replay),
+                                        "device_ms": sum(ms for _, ms in replay)},
+        }
+        print("4j. attribution: " + "; ".join(f"{k}: {v['kernels']} kernels, {v['device_ms']:.4f} ms of device time"
+                                              for k, v in out["attribution"].items())
+              + " (the tie_scan kernel and the co-sort inside the AUROC range, every kernel of a compiled step"
+                " inside the engine's)")
+    finally:
+        recorders(False)
+        flight_dir.cleanup()
     return out
 
 
@@ -2714,6 +2998,15 @@ def main() -> int:
     if any(counts().values()):
         raise AssertionError(f"the cohort launched a scan kernel: {counts()}")
 
+    # ---- 4j. the observability core ----------------------------------------
+    zero_counts()
+    t0 = time.perf_counter()
+    obs_timings = _observability_phase(torch, dev, (preds, target))
+    obs_timings["phase_s"] = time.perf_counter() - t0
+    obs_timings["scan_launches"] = counts()
+    if counts()["tie_scan"] < 1:
+        raise AssertionError(f"phase 4j's north-star step launched no tie_scan kernel: {counts()}")
+
     # ---- 5. times ---------------------------------------------------------
     all_preds = torch.cat(list(collection["AUROC"].preds))
     all_rel = (torch.cat(list(collection["AUROC"].target)) == 1).to(torch.float32)
@@ -2893,6 +3186,7 @@ def main() -> int:
         "retrieval": ret_timings,
         "step_engine": engine_timings,
         "cohort": cohort_timings,
+        "observability": obs_timings,
         "card": card,
     }
     print(json.dumps({"timings": timings}))

@@ -32,8 +32,11 @@ the ``Metric`` core and ``MetricCollection``, whose ``compiled=True``
 forward runs through the step engine (``CompiledStepEngine``: one CUDA
 graph replay per step); the multi-tenant ``MetricCohort`` (N
 structurally identical collections stacked along a tenant axis, every
-tenant's step one CUDA graph replay); the ``BootStrapper`` wrapper; and the
-functional ``bleu_score``, ``image_gradients`` and ``embedding_similarity``.
+tenant's step one CUDA graph replay); the ``BootStrapper`` wrapper; the
+functional ``bleu_score``, ``image_gradients`` and ``embedding_similarity``;
+and the observability core (``observability``: the telemetry registry, span
+tracing, the recompilation watchdog and the failure flight recorder, off by
+default, under the JAX package's ``METRICS_TPU_*`` flags).
 """
 from metrics_tpu_torch.info import __version__  # noqa: F401
 from metrics_tpu_torch.metric import CompositionalMetric, Metric  # noqa: F401
@@ -88,6 +91,7 @@ from metrics_tpu_torch.retrieval import (  # noqa: F401
 from metrics_tpu_torch.collections import MetricCollection  # noqa: F401
 from metrics_tpu_torch.engine import CompiledStepEngine  # noqa: F401
 from metrics_tpu_torch.cohort import MetricCohort  # noqa: F401
+from metrics_tpu_torch import observability  # noqa: F401
 from metrics_tpu_torch.wrappers import BootStrapper  # noqa: F401
 from metrics_tpu_torch.functional.regression import (  # noqa: F401
     explained_variance,

@@ -35,6 +35,7 @@ replay and clones the new states out after it: no state, value or
 ``compute()`` result is a graph buffer.
 """
 from collections import OrderedDict
+from contextlib import nullcontext
 from copy import deepcopy
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -44,6 +45,9 @@ import torch.utils._pytree as pytree
 
 from metrics_tpu_torch.engine import CompiledStepEngine
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.observability import flight as _flight
+from metrics_tpu_torch.observability import telemetry as _obs
+from metrics_tpu_torch.observability import trace as _trace
 from metrics_tpu_torch.parallel.backend import is_distributed_initialized
 from metrics_tpu_torch.utilities.data import _is_concrete, tracing
 from metrics_tpu_torch.utilities.distributed import gather_all_tensors
@@ -145,8 +149,7 @@ class MetricCohort:
             ``(input signature, capacity bucket, health)`` programs kept).
         track_health: arm per-tenant health accounting (:meth:`health`).
             ``True`` / ``False`` pin it; ``None`` follows the telemetry
-            switch in the JAX package, and the port has no telemetry yet,
-            so ``None`` is off.
+            switch (``metrics_tpu_torch.observability.enabled()``).
 
     Inputs carry the tenant axis first: each tensor leaf is either
     ``(len(cohort), ...)`` (one row block per live tenant, in
@@ -178,7 +181,9 @@ class MetricCohort:
         self._template: "OrderedDict[str, Metric]" = OrderedDict(self._template_items(metrics))
         if not self._template:
             raise ValueError("MetricCohort needs at least one metric")
-        self._engine = CompiledStepEngine(self._template, cache_size=cache_size)
+        # nothing to demote at construction (an ineligible member raises
+        # below): no construction-time telemetry events
+        self._engine = CompiledStepEngine(self._template, cache_size=cache_size, observe=False)
         self._engine._compiled_names()  # names members on another device
         if self._engine.eager_fallbacks:
             raise ValueError(
@@ -203,6 +208,7 @@ class MetricCohort:
         # slot index and validity mask on the device, per membership: a
         # step reads them without a host-to-device copy
         self._membership_tensors: Dict[str, torch.Tensor] = {}
+        self._note_membership()
 
     # ------------------------------------------------------------------
     # construction helpers
@@ -327,6 +333,10 @@ class MetricCohort:
     def _note_membership(self) -> None:
         self._compute_cache = (None, None)
         self._membership_tensors = {}
+        if _obs.enabled():
+            tel = _obs.get()
+            tel.gauge("cohort.size", len(self))
+            tel.gauge("cohort.capacity", self._capacity)
 
     def add_tenant(self, state: Optional[Any] = None) -> int:
         """Admit one tenant; returns its slot id (stable until removed).
@@ -417,9 +427,7 @@ class MetricCohort:
         self._health = {k: _set_rows(v, slots, fresh[k][0]) for k, v in self._health.items()}
 
     def _health_enabled(self) -> bool:
-        # None follows the JAX package's telemetry switch, which the port
-        # does not have yet: off
-        return bool(self._track_health)
+        return self._track_health if self._track_health is not None else _obs.enabled()
 
     def health(self, stale_after: int = 16) -> Optional[Dict[str, Any]]:
         """Per-tenant health snapshot from the in-step accumulators: one
@@ -430,9 +438,13 @@ class MetricCohort:
         ``updates``, ``last_step`` (-1 = never active), ``staleness`` (steps
         since last activity; never-active tenants read the full step count)
         and ``nonfinite`` (steps that left a nonfinite float state).
-        ``stale_after`` is the threshold of the JAX package's staleness
-        gauges, which wait for the port's telemetry. Health is process-local diagnostics: it does not checkpoint, and a
-        restored cohort starts a fresh window."""
+
+        With telemetry on, each snapshot refreshes the ``cohort.tenant.*``
+        gauges (``stale`` counts tenants with ``staleness >= stale_after``);
+        with the flight recorder armed, a ``cohort_health`` breadcrumb
+        naming the stale and poisoned slots rides the event window into any
+        later dump. Health is process-local diagnostics: it does not
+        checkpoint, and a restored cohort starts a fresh window."""
         if self._health is None:
             return None
         keys = ("rows_seen", "updates", "last_step", "nonfinite")
@@ -441,7 +453,7 @@ class MetricCohort:
         step = self._steps
         last = host["last_step"][slots]
         staleness = np.where(last < 0, step, step - last).astype(np.int64)
-        return {
+        snapshot = {
             "step": step,
             "tenants": [int(s) for s in slots],
             "rows_seen": host["rows_seen"][slots],
@@ -450,6 +462,23 @@ class MetricCohort:
             "staleness": staleness,
             "nonfinite": host["nonfinite"][slots],
         }
+        stale = np.flatnonzero(staleness >= int(stale_after))
+        poisoned = np.flatnonzero(snapshot["nonfinite"] > 0)
+        if _obs.enabled():
+            tel = _obs.get()
+            tel.count("cohort.health_snapshots")
+            tel.gauge("cohort.tenant.stale", int(stale.size))
+            tel.gauge("cohort.tenant.poisoned", int(poisoned.size))
+            tel.gauge("cohort.tenant.max_staleness", int(staleness.max()) if staleness.size else 0)
+        if _flight.flight_enabled():
+            _flight.record(
+                "cohort_health",
+                step=step,
+                tenants=int(slots.size),
+                stale=[int(slots[i]) for i in stale],
+                poisoned=[int(slots[i]) for i in poisoned],
+            )
+        return snapshot
 
     def _check_tenant(self, tenant: int) -> None:
         if not (0 <= int(tenant) < self._capacity) or not self._active[int(tenant)]:
@@ -520,9 +549,12 @@ class MetricCohort:
         for m in self._template.values():
             m._to_sync = False
         try:
-            new_states, values, new_health = self._engine.cohort_step(
-                self._states, stacked_args, stacked_kwargs, capacity=self._capacity, health_state=health_state
-            )
+            # the host-side span around the whole vmapped step
+            with _trace.span("cohort.forward", phase="dispatch", tenants=n, capacity=self._capacity):
+                new_states, values, new_health = self._engine.cohort_step(
+                    self._states, stacked_args, stacked_kwargs, capacity=self._capacity, n_tenants=n,
+                    health_state=health_state,
+                )
         finally:
             for m, p in prev_sync:
                 m._to_sync = p
@@ -566,17 +598,20 @@ class MetricCohort:
             m._computed = None
 
     def _compute_program(self):
+        """``(fn, new)``: the vmapped member computes, made once per
+        capacity and membership (the JAX package jits them once per key);
+        ``new`` is True when made by this call."""
         key = (self._capacity, tuple((name, tuple(sorted(m._defaults))) for name, m in self._template.items()))
         cached_key, fn = self._compute_cache
         if cached_key == key:
-            return fn
+            return fn, False
 
         def compute_fn(states):
             return {name: self._member_compute(self._template[name], states[name]) for name in self._template}
 
         fn = torch.func.vmap(compute_fn)
         self._compute_cache = (key, fn)
-        return fn
+        return fn, True
 
     def compute(self, tenant: Optional[int] = None):
         """Every tenant's epoch value (or one tenant's with ``tenant=``),
@@ -589,8 +624,11 @@ class MetricCohort:
             synced_cache = {name: dict(d) for name, d in self._states.items()}
             self._sync_stacked()
         try:
-            with tracing():
-                values = self._compute_program()(self._states)
+            fn, new = self._compute_program()
+            # the member computes' hooks fire once per program, as at the
+            # JAX package's trace of its jitted compute
+            with tracing(), (nullcontext() if new else _trace.muted()):
+                values = fn(self._states)
         finally:
             if synced_cache is not None:
                 self._states = synced_cache
@@ -603,7 +641,26 @@ class MetricCohort:
 
     def _sync_stacked(self) -> None:
         """Gather-then-reduce every stacked state across ranks, one
-        collective per state for the whole cohort (the exact tier)."""
+        collective per state for the whole cohort (the exact tier: wire
+        bytes equal payload bytes)."""
+        if _obs.enabled():
+            tel = _obs.get()
+            states = [self._states[name][sname] for name, m in self._template.items() for sname in m._reductions]
+            payload = sum(_obs.array_nbytes(v) for v in states)
+            tel.count("sync.calls")
+            tel.count("cohort.sync_collectives", len(states))
+            tel.count("sync.payload_bytes", payload)
+            tel.count("sync.wire_bytes", payload)
+            tel.observe_hist("sync.payload_bytes", payload, _obs.PAYLOAD_BUCKETS_BYTES)
+            tel.observe_hist("sync.wire_bytes", payload, _obs.PAYLOAD_BUCKETS_BYTES)
+            tel.event(
+                "cohort_sync",
+                tenants=len(self),
+                capacity=self._capacity,
+                states=len(states),
+                payload_bytes=payload,
+                wire_bytes=payload,
+            )
         for name, m in self._template.items():
             for sname, red in m._reductions.items():
                 stacked = torch.stack(list(gather_all_tensors(self._states[name][sname])))
@@ -733,7 +790,7 @@ class MetricCohort:
 
     def __setstate__(self, state: dict) -> None:
         self.__dict__.update(state)
-        self._engine = CompiledStepEngine(self._template, cache_size=self._cache_size)
+        self._engine = CompiledStepEngine(self._template, cache_size=self._cache_size, observe=False)
         self._compute_cache = (None, None)
 
     # ------------------------------------------------------------------

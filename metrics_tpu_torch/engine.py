@@ -37,6 +37,16 @@ input tensors, replays the graph and clones the values out.
 On the CPU (``device="cpu"``) each step runs the same step function
 directly with value checks off: the engine's plain version.
 
+*Observability* (``metrics_tpu_torch.observability``, off by default): the
+engine counts hits, misses, evictions, dispatches, builds and demotions,
+feeds the recompilation watchdog one ``note_trace`` per build, records the
+``engine.cache_lookup`` / ``engine.donate`` / ``engine.dispatch`` spans and
+the flight recorder's ``engine_dispatch`` events, and wraps a replay in a
+profiler range named after the engine. The hooks inside the step function
+(the members' update and compute scopes) fire on a build's first run only,
+the warm-up on the card and the miss step on the CPU, as the JAX package's
+fire once per trace: the capture and every later run are muted.
+
 Members whose forward cannot be one pure step (list states, a registered
 reduction with no pure merge, no fused one-update forward, host-level sync)
 keep their eager forward from the start. When a signature's build fails,
@@ -60,7 +70,7 @@ eager fallback: a failed build or replay drops the program and raises.
 import threading
 import time
 from collections import OrderedDict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
@@ -68,6 +78,9 @@ import torch.utils._pytree as pytree
 
 from metrics_tpu_torch.functional.regression.sufficient_stats import regression_family_sharing
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.observability import flight as _flight
+from metrics_tpu_torch.observability import telemetry as _obs
+from metrics_tpu_torch.observability import trace as _trace
 from metrics_tpu_torch.parallel.backend import is_distributed_initialized
 from metrics_tpu_torch.utilities.checks import shared_canonicalization
 from metrics_tpu_torch.utilities.data import apply_to_collection, tracing
@@ -76,6 +89,10 @@ from metrics_tpu_torch.utilities.prints import warn_once
 __all__ = ["CompiledStepEngine"]
 
 _DEFAULT_CACHE_SIZE = 16
+
+#: the cohort's build budget before the watchdog's verdict: one build per
+#: capacity bucket is a warming ramp (1 to 10,000 tenants: 14 buckets)
+_COHORT_TRACE_BUDGET = 16
 
 #: reserved key of the per-tenant health accumulators among the cohort
 #: step's states (a cohort rejects dunder member names)
@@ -192,7 +209,15 @@ class CompiledStepEngine:
         2
     """
 
-    def __init__(self, metrics: Union[Metric, Mapping[str, Metric]], cache_size: int = _DEFAULT_CACHE_SIZE):
+    def __init__(
+        self,
+        metrics: Union[Metric, Mapping[str, Metric]],
+        cache_size: int = _DEFAULT_CACHE_SIZE,
+        observe: bool = True,
+    ):
+        """``observe=False`` records no ``eager_fallback`` events at
+        construction (the cohort's engine: an ineligible member raises
+        there instead)."""
         if isinstance(metrics, Metric):
             self._single = True
             self._metrics: "OrderedDict[str, Metric]" = OrderedDict([("metric", metrics)])
@@ -222,6 +247,16 @@ class CompiledStepEngine:
         # engine-owned state buffers the graphs merge into, one per
         # (member, state, shape, dtype)
         self._state_buffers: Dict[tuple, torch.Tensor] = {}
+        # telemetry: signatures ever built (tells a new signature from LRU
+        # thrash for the recompilation watchdog) and this engine's key in
+        # the registry; a single metric is labelled by its class name
+        self._seen_signatures = set()
+        labels = [type(m).__name__ for m in self._metrics.values()] if self._single else list(self._metrics)
+        self._watch_key = "engine[" + ",".join(labels) + "]"
+        if observe and _obs.enabled() and self._eager_names:
+            tel = _obs.get()
+            for name, reason in self._eager_names.items():
+                tel.event("eager_fallback", engine=self._watch_key, metric=name, reason=reason)
 
     # ------------------------------------------------------------------
     # eligibility
@@ -361,17 +396,44 @@ class CompiledStepEngine:
         state_sig = tuple((n, s, tuple(v.shape), v.dtype) for n, d in states.items() for s, v in d.items())
         return (names, state_sig, structure, tuple(_abstract_leaf(x) for x in leaves)) + extra
 
-    def _get_compiled(self, signature: tuple, names: Tuple[str, ...], make_step: Callable, states: dict,
-                      leaves: list, structure: tuple):
-        """The signature's program (None on the CPU, where the step function
-        runs directly); builds it on a miss."""
+    def _lookup(self, signature: tuple) -> Tuple[Optional[_Graph], bool]:
+        """``(program, cache_hit)``: the signature's program on a hit (None
+        on the CPU, where the step function runs directly). A miss returns
+        no program after its bookkeeping: counters, the watchdog's thrash
+        verdict for a signature built before, the LRU eviction the build's
+        insert needs."""
         if signature in self._compiled:
             self._compiled.move_to_end(signature)
-            return self._compiled[signature]
-        self.trace_count += 1
-        program = self._capture(names, make_step(), states, leaves, structure) if self._device.type == "cuda" else None
+            if _obs.enabled():
+                tel = _obs.get()
+                tel.count("engine.cache_hits")
+                tel.watchdog.note_steady(self._watch_key)
+            return self._compiled[signature], True
+        cold = signature not in self._seen_signatures
+        if _obs.enabled():
+            tel = _obs.get()
+            tel.count("engine.cache_misses")
+            # a miss for a signature built before is LRU thrash, which the
+            # watchdog flags at once; a new signature is a legitimate build
+            tel.watchdog.note_compile(self._watch_key, cold)
+        if len(self._seen_signatures) >= 4096:
+            self._seen_signatures.clear()  # polymorphic caller: stay bounded
+        self._seen_signatures.add(signature)
         if len(self._compiled) >= self._cache_size:
             self._compiled.popitem(last=False)  # LRU eviction
+            if _obs.enabled():
+                _obs.get().count("engine.cache_evictions")
+                _obs.get().event("cache_eviction", engine=self._watch_key)
+        return None, False
+
+    def _build(self, signature: tuple, names: Tuple[str, ...], make_step: Callable, states: dict, leaves: list,
+               structure: tuple, watch_key: str, budget: int) -> Optional[_Graph]:
+        """Build the signature's program (a CUDA graph on the card; None on
+        the CPU) and cache it. One build is one JAX trace: it counts in
+        ``trace_count`` and in the watchdog's ``note_trace``."""
+        self.trace_count += 1
+        _obs.note_trace(watch_key, budget=budget)
+        program = self._capture(names, make_step(), states, leaves, structure) if self._device.type == "cuda" else None
         self._compiled[signature] = program
         return program
 
@@ -406,7 +468,8 @@ class CompiledStepEngine:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(dev), tracing():
+        # the warm-up was the build's run of the hooks: the capture is muted
+        with torch.cuda.device(dev), tracing(), _trace.muted():
             # thread_local: other threads' CUDA calls stay legal during the capture
             with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
                 new_states, values = step_fn(buffers, *call)
@@ -439,13 +502,17 @@ class CompiledStepEngine:
             for s, v in d.items():
                 buffers[n][s].copy_(v)
 
-    def _run(self, program: Optional[_Graph], make_step: Callable, states: dict, leaves: list, structure: tuple):
-        """One step: ``(new_states, values)``."""
-        if program is None:  # the CPU: the step function itself, value checks off
-            with tracing():
-                return make_step()(states, *_unflatten(structure, iter(leaves)))
-        self._copy_in(program.inputs, leaves, program.states, states)
-        program.graph.replay()
+    def _run(self, program: Optional[_Graph], make_step: Callable, states: dict, leaves: list, structure: tuple,
+             built: bool, watch_key: str):
+        """One step: ``(new_states, values)``. On the card the states and
+        inputs are already copied into the program's buffers. ``built`` says
+        the program was built in this step: on the CPU that run is the
+        build's, and every later run mutes the hooks inside the step."""
+        with _obs.profile_span(watch_key):
+            if program is None:  # the CPU: the step function itself, value checks off
+                with tracing(), (nullcontext() if built else _trace.muted()):
+                    return make_step()(states, *_unflatten(structure, iter(leaves)))
+            program.graph.replay()
         # clones: nothing handed out is a buffer the next replay writes
         return apply_to_collection((program.states, program.values), torch.Tensor, torch.clone)
 
@@ -482,12 +549,32 @@ class CompiledStepEngine:
             leaves: List[Any] = []
             structure = _flatten((args, kwargs), leaves)
             with self._lock:
-                states = self._current_states(names)
-                signature = self._signature(names, states, leaves, structure)
+                # one engine dispatch = one step of the span and flight records
+                if _trace.tracing_enabled() or _flight.flight_enabled():
+                    _trace.advance_step()
+                with _trace.span("engine.cache_lookup", phase="dispatch", engine=self._watch_key):
+                    signature = self._signature(names, self._current_states(names), leaves, structure)
+                    program, cache_hit = self._lookup(signature)
+                # the states handed to the step; on the card every one is
+                # copied into the graph's buffers (the JAX package donates)
+                with _trace.span("engine.donate", phase="dispatch", copy_all=self._device.type == "cuda"):
+                    states = self._current_states(names)
+                    if program is not None:
+                        self._copy_in(program.inputs, leaves, program.states, states)
+                telemetry_on = _obs.enabled()
+                if _flight.flight_enabled():
+                    _flight.record("engine_dispatch", engine=self._watch_key, cache_hit=cache_hit)
+                if telemetry_on:
+                    _obs.get().count("engine.dispatches")
+                t0 = time.perf_counter()
                 make_step = lambda: self._make_step_fn(names)  # noqa: E731
                 try:
-                    program = self._get_compiled(signature, names, make_step, states, leaves, structure)
-                    new_states, values = self._run(program, make_step, states, leaves, structure)
+                    with _trace.span("engine.dispatch", phase="dispatch", engine=self._watch_key, cache_hit=cache_hit):
+                        if not cache_hit:
+                            program = self._build(signature, names, make_step, states, leaves, structure,
+                                                  self._watch_key, max(8, self._cache_size))
+                        new_states, values = self._run(program, make_step, states, leaves, structure,
+                                                       not cache_hit, self._watch_key)
                 except Exception as err:  # noqa: BLE001 - any build failure
                     self._compiled.pop(signature, None)
                     # the metric attributes were never touched: rerun eagerly.
@@ -498,19 +585,35 @@ class CompiledStepEngine:
                     # them when none does)
                     out_eager = self._run_eager(tuple(self._metrics), args, kwargs)
                     failed = self._failing_members(names, leaves, structure) or {n: err for n in names}
+                    reason = f"trace failed: {type(err).__name__}: {err}"
+                    # one dump per demotion, with the steps leading up to it
+                    _flight.dump_on_failure(
+                        "engine_dispatch_failure",
+                        engine=self._watch_key,
+                        error=f"{type(err).__name__}: {err}",
+                        demoted=list(failed),
+                    )
                     for n, e in failed.items():
                         self._eager_names.setdefault(n, f"trace failed: {type(e).__name__}: {e}")
+                    if telemetry_on:
+                        _obs.get().count("engine.trace_failures")
+                        _obs.get().event("eager_fallback", engine=self._watch_key, metrics=list(failed), reason=reason)
                     # once per engine, not once per training-loop step
                     warn_once(
                         f"CompiledStepEngine: falling back to eager forward ({type(err).__name__}: {err})",
                         key=f"engine-demoted:{id(self)}",
                     )
                     return self._finish(out_eager)
+                if not cache_hit and telemetry_on:
+                    # a miss carries the build: warm-up and capture on the card
+                    _obs.get().observe("engine.trace_s", time.perf_counter() - t0)
                 self._write_back(names, new_states, values)
                 for name in names:
                     out[name] = values.get(name)
 
         if self._eager_names:
+            if _obs.enabled():
+                _obs.get().count("engine.eager_steps", len(self._eager_names))
             out.update(self._run_eager(tuple(self._eager_names), args, kwargs))
         # the registration order of the metrics
         return self._finish({name: out[name] for name in self._metrics})
@@ -527,14 +630,17 @@ class CompiledStepEngine:
         call = _unflatten(structure, iter([x.to(self._device) if isinstance(x, torch.Tensor) else x
                                            for x in leaves]))
         failed = {}
-        for n in names:
-            try:
-                if self._device.type == "cuda":
-                    self._warm_up(self._make_step_fn((n,)), self._current_states((n,)), call)
-                else:
-                    self._run(None, lambda: self._make_step_fn((n,)), self._current_states((n,)), leaves, structure)
-            except Exception as err:  # noqa: BLE001 - the member's own failure
-                failed[n] = err
+        # the trials are no step of the JAX package's: their hooks are muted
+        with _trace.muted():
+            for n in names:
+                try:
+                    if self._device.type == "cuda":
+                        self._warm_up(self._make_step_fn((n,)), self._current_states((n,)), call)
+                    else:
+                        with tracing():
+                            self._make_step_fn((n,))(self._current_states((n,)), *call)
+                except Exception as err:  # noqa: BLE001 - the member's own failure
+                    failed[n] = err
         return failed
 
     def cohort_step(
@@ -544,6 +650,7 @@ class CompiledStepEngine:
         kwargs: Optional[dict] = None,
         *,
         capacity: int,
+        n_tenants: Optional[int] = None,
         health_state: Optional[Dict[str, torch.Tensor]] = None,
     ):
         """One step of every tenant of a stacked-state cohort (see
@@ -561,7 +668,8 @@ class CompiledStepEngine:
         There is no eager fallback: the cohort exists to remove per-tenant
         eager reruns. A failed build or replay drops the program from the
         cache and raises; nothing is demoted. The step never syncs: a
-        distributed cohort syncs at ``compute()``."""
+        distributed cohort syncs at ``compute()``. ``n_tenants`` (the live
+        tenant count) feeds the ``cohort.dispatch_tenants`` counter."""
         kwargs = dict(kwargs or {})
         names = self._compiled_names()
         if self._eager_names or not names:
@@ -578,22 +686,51 @@ class CompiledStepEngine:
             call = (args, kwargs, aux)
         leaves: List[Any] = []
         structure = _flatten(call, leaves)
+        watch_key = self._cohort_watch_key
         with self._lock:
-            signature = self._signature(names, states, leaves, structure, ("cohort", int(capacity), health))
+            if _trace.tracing_enabled() or _flight.flight_enabled():
+                _trace.advance_step()
+            with _trace.span("engine.cache_lookup", phase="dispatch", engine=watch_key):
+                signature = self._signature(names, states, leaves, structure, ("cohort", int(capacity), health))
+                program, cache_hit = self._lookup(signature)
+            telemetry_on = _obs.enabled()
+            if telemetry_on:
+                tel = _obs.get()
+                tel.count("engine.dispatches")
+                tel.count("cohort.dispatches")
+                if n_tenants is not None:
+                    tel.count("cohort.dispatch_tenants", n_tenants)
+            t0 = time.perf_counter()
+            if _flight.flight_enabled():
+                _flight.record("cohort_dispatch", engine=watch_key, cache_hit=cache_hit, capacity=int(capacity))
             make_step = lambda: self._make_cohort_step_fn(names, health)  # noqa: E731
             try:
-                program = self._get_compiled(signature, names, make_step, states, leaves, structure)
-                new_states, values = self._run(program, make_step, states, leaves, structure)
+                with _trace.span("engine.dispatch", phase="dispatch", engine=watch_key, cache_hit=cache_hit):
+                    if not cache_hit:
+                        program = self._build(signature, names, make_step, states, leaves, structure, watch_key,
+                                               max(_COHORT_TRACE_BUDGET, self._cache_size))
+                    elif program is not None:
+                        self._copy_in(program.inputs, leaves, program.states, states)
+                    new_states, values = self._run(program, make_step, states, leaves, structure, not cache_hit,
+                                                   watch_key)
             except Exception:
                 # never reuse a program whose build or replay died
                 self._compiled.pop(signature, None)
+                if telemetry_on:
+                    _obs.get().count("engine.trace_failures")
                 raise
+            if not cache_hit and telemetry_on:
+                _obs.get().observe("engine.trace_s", time.perf_counter() - t0)
             self.dispatch_generation += 1
         new_health = None
         if health:
             new_states = dict(new_states)
             new_health = new_states.pop(_COHORT_HEALTH_KEY)
         return new_states, values, new_health
+
+    @property
+    def _cohort_watch_key(self) -> str:
+        return self._watch_key + "@cohort"
 
     def _run_eager(self, names: Tuple[str, ...], args: tuple, kwargs: dict) -> Dict[str, Any]:
         with shared_canonicalization(), regression_family_sharing():
@@ -613,6 +750,7 @@ class CompiledStepEngine:
         return {
             "compiled_signatures": len(self._compiled),
             "trace_count": self.trace_count,
+            "seen_signatures": len(self._seen_signatures),
             "eager_fallbacks": dict(self._eager_names),
             "graph_pool_bytes": sum(p.pool_bytes for p in graphs),
             "graph_build_ms": [p.build_ms for p in graphs],

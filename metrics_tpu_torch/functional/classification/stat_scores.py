@@ -18,7 +18,6 @@ number of classes, and not at all while the step engine builds a step.
 Sibling metrics of a collection with the same arguments (Precision,
 Recall, F1) share one count per batch (``fast_path_memo``).
 """
-import os
 from typing import Optional, Tuple
 
 import torch
@@ -32,13 +31,7 @@ from metrics_tpu_torch.utilities.checks import (
 )
 from metrics_tpu_torch.utilities.data import _is_concrete
 from metrics_tpu_torch.utilities.enums import DataType
-
-_TRUTHY = frozenset(("1", "true", "yes", "on"))
-
-
-def debug_enabled() -> bool:
-    """True when ``METRICS_TPU_DEBUG`` is set to a true value (read on each call)."""
-    return os.environ.get("METRICS_TPU_DEBUG", "").strip().lower() in _TRUTHY
+from metrics_tpu_torch.utilities.env import debug_enabled
 
 
 def _del_column(x: torch.Tensor, index: int) -> torch.Tensor:

@@ -17,12 +17,16 @@ updated in place, by the metrics of this package.
 import functools
 import inspect
 import operator
+import time as _time
 from abc import ABC, abstractmethod
 from copy import deepcopy
 from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
+from metrics_tpu_torch.observability import identity as _obs_identity
+from metrics_tpu_torch.observability import telemetry as _obs
+from metrics_tpu_torch.observability import trace as _obs_trace
 from metrics_tpu_torch.parallel.backend import is_distributed_initialized
 from metrics_tpu_torch.utilities.checks import shared_canonicalization
 from metrics_tpu_torch.utilities.data import (
@@ -170,33 +174,34 @@ class Metric(ABC):
         the synchronization point."""
         if self._fused_forward and self.compute_on_step:
             return self._forward_fused(*args, **kwargs)
-        self.update(*args, **kwargs)
-        self._forward_cache = None
+        with _obs.metric_scope(self, "forward"):
+            self.update(*args, **kwargs)
+            self._forward_cache = None
 
-        if self.compute_on_step:
-            self._to_sync = self.dist_sync_on_step
+            if self.compute_on_step:
+                self._to_sync = self.dist_sync_on_step
 
-            # save accumulated state, compute on this batch alone
-            cache = self._snapshot_state()
-            self.reset()
-            try:
-                self.update(*args, **kwargs)
-                # a mini-batch may be partial (e.g. miss classes) in ways the
-                # epoch-end compute treats as errors; computes can key on this
-                self._batch_local_compute = True
+                # save accumulated state, compute on this batch alone
+                cache = self._snapshot_state()
+                self.reset()
                 try:
-                    self._forward_cache = self.compute()
+                    self.update(*args, **kwargs)
+                    # a mini-batch may be partial (e.g. miss classes) in ways the
+                    # epoch-end compute treats as errors; computes can key on this
+                    self._batch_local_compute = True
+                    try:
+                        self._forward_cache = self.compute()
+                    finally:
+                        self._batch_local_compute = False
                 finally:
-                    self._batch_local_compute = False
-            finally:
-                # restore accumulated state even when the batch-local pass
-                # raises: a rejected step value must not cost the epoch state
-                # or leave _to_sync stuck False
-                self._restore_state(cache)
-                self._to_sync = True
-                self._computed = None
+                    # restore accumulated state even when the batch-local pass
+                    # raises: a rejected step value must not cost the epoch state
+                    # or leave _to_sync stuck False
+                    self._restore_state(cache)
+                    self._to_sync = True
+                    self._computed = None
 
-            return self._forward_cache
+                return self._forward_cache
 
     __call__ = forward
 
@@ -205,28 +210,29 @@ class Metric(ABC):
         computed once (on fresh default state), the batch-local value comes
         from them, and they are folded into the accumulated state with
         :meth:`_merge_states`."""
-        accumulated = self._snapshot_state()
-        self.reset()
-        try:
-            self.update(*args, **kwargs)  # the ONLY update: batch stats
-        except BaseException:
-            # update rejected the batch: the accumulated state is untouched,
-            # as on the classic path
-            self._restore_state(accumulated)
-            self._to_sync = True
-            raise
-        try:
-            self._to_sync = self.dist_sync_on_step
-            self._batch_local_compute = True
-            self._forward_cache = self.compute()
-        finally:
-            # once update() accepted the batch it stays in the epoch state
-            # even if the batch-local compute() raises
-            self._batch_local_compute = False
-            self._merge_states(accumulated)
-            self._to_sync = True
-            self._computed = None
-        return self._forward_cache
+        with _obs.metric_scope(self, "forward"):
+            accumulated = self._snapshot_state()
+            self.reset()
+            try:
+                self.update(*args, **kwargs)  # the ONLY update: batch stats
+            except BaseException:
+                # update rejected the batch: the accumulated state is untouched,
+                # as on the classic path
+                self._restore_state(accumulated)
+                self._to_sync = True
+                raise
+            try:
+                self._to_sync = self.dist_sync_on_step
+                self._batch_local_compute = True
+                self._forward_cache = self.compute()
+            finally:
+                # once update() accepted the batch it stays in the epoch state
+                # even if the batch-local compute() raises
+                self._batch_local_compute = False
+                self._merge_states(accumulated)
+                self._to_sync = True
+                self._computed = None
+            return self._forward_cache
 
     @staticmethod
     def _merge_reduction_supported(reduction: Optional[Callable]) -> bool:
@@ -259,8 +265,43 @@ class Metric(ABC):
             setattr(self, name, self._merge_state_value(reduction, accumulated[name], batch))
 
     def _sync_dist(self, dist_sync_fn: Callable = gather_all_tensors) -> None:
-        """All-gather every registered state and apply its reduction."""
+        """All-gather every registered state and apply its reduction. With
+        telemetry on, the whole sync feeds the ``sync.latency_ms`` histogram
+        (host clock) and the ``sync.*`` byte counters (from tensor
+        metadata); with span tracing on it records one ``phase="sync"`` span
+        carrying this process's rank."""
+        telemetry_on = _obs.enabled()
+        t0 = _time.perf_counter() if telemetry_on else 0.0
+        # the rank is resolved only when tracing is on: the disabled path
+        # stays two global reads
+        span_attrs = {"rank": _obs_identity.current_rank()} if _obs_trace.tracing_enabled() else {}
+        with _obs_trace.span(f"metrics_tpu.{type(self).__name__}.sync", phase="sync", **span_attrs):
+            self._sync_dist_impl(dist_sync_fn)
+        if telemetry_on:
+            _obs.get().observe_hist("sync.latency_ms", (_time.perf_counter() - t0) * 1e3, _obs.LATENCY_BUCKETS_MS)
+
+    def _sync_dist_impl(self, dist_sync_fn: Callable) -> None:
         input_dict = {attr: getattr(self, attr) for attr in self._reductions}
+        if _obs.enabled():
+            # the exact tier only: what crosses the wire is the payload
+            tel = _obs.get()
+            payload = sum(
+                _obs.array_nbytes(v)
+                for state in input_dict.values()
+                for v in (state if isinstance(state, list) else [state])
+            )
+            tel.count("sync.calls")
+            tel.count("sync.payload_bytes", payload)
+            tel.count("sync.wire_bytes", payload)
+            tel.observe_hist("sync.payload_bytes", payload, _obs.PAYLOAD_BUCKETS_BYTES)
+            tel.observe_hist("sync.wire_bytes", payload, _obs.PAYLOAD_BUCKETS_BYTES)
+            tel.event(
+                "sync",
+                metric=type(self).__name__,
+                payload_bytes=payload,
+                wire_bytes=payload,
+                quantized_states=0,
+            )
         output_dict = apply_to_collection(input_dict, torch.Tensor, dist_sync_fn, group=self.process_group)
 
         for attr, reduction_fn in self._reductions.items():
@@ -279,15 +320,22 @@ class Metric(ABC):
         @functools.wraps(update)
         def wrapped_func(*args: Any, **kwargs: Any):
             self._computed = None
-            args = apply_to_collection(args, torch.Tensor, self._to_own_device)
-            kwargs = apply_to_collection(kwargs, torch.Tensor, self._to_own_device)
-            return update(*args, **kwargs)
+            # telemetry: wall time, call count and a profiler range
+            # (`metrics_tpu.<Name>.update`); a shared null context when off
+            with _obs.metric_scope(self, "update"):
+                args = apply_to_collection(args, torch.Tensor, self._to_own_device)
+                kwargs = apply_to_collection(kwargs, torch.Tensor, self._to_own_device)
+                return update(*args, **kwargs)
 
         return wrapped_func
 
     def _wrap_compute(self, compute: Callable) -> Callable:
         @functools.wraps(compute)
         def wrapped_func(*args: Any, **kwargs: Any):
+            with _obs.metric_scope(self, "compute"):
+                return _inner(*args, **kwargs)
+
+        def _inner(*args: Any, **kwargs: Any):
             # the cache carries its provenance: a value computed under
             # batch-local (forward) semantics must never serve an epoch-end
             # compute, or vice versa

@@ -34,6 +34,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from metrics_tpu_torch.observability import trace as _obs_trace
 from metrics_tpu_torch.utilities.data import _is_concrete, select_topk, to_onehot
 from metrics_tpu_torch.utilities.enums import DataType
 
@@ -481,6 +482,18 @@ def _input_format_classification(
         hit = store.get(memo_key)
         if hit is not None:
             return hit[2]
+    # step-structured tracing: the canonicalize leg of the step (memo hits
+    # above stay outside the span: they cost a dict probe, not a
+    # canonicalization)
+    with _obs_trace.span("checks.input_format_classification", phase="canonicalize"):
+        return _input_format_classification_impl(
+            preds, target, threshold, top_k, num_classes, is_multiclass, _num_classes_hint, store, memo_key
+        )
+
+
+def _input_format_classification_impl(
+    preds, target, threshold, top_k, num_classes, is_multiclass, _num_classes_hint, store, memo_key
+) -> Tuple[torch.Tensor, torch.Tensor, DataType]:
     originals = (preds, target)  # pinned with the result, so their ids stay valid
     preds = torch.as_tensor(preds)
     target = torch.as_tensor(target)

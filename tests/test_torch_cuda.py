@@ -19,7 +19,12 @@ and the LRU's evictions); the multi-tenant cohort's graphs (one per
 capacity bucket, tenants equal to their collections run alone, kernels per
 replay equal at 64 and 4,096 tenants, no synchronization in a replayed
 step, a ``compute()`` result that outlives later steps and ``reset()``, a
-build failure that raises and demotes nothing).
+build failure that raises and demotes nothing); and the observability core on
+the card (no synchronization and the same kernels per replay with every
+recorder on, values bit-equal on and off, the engine counters equal to the
+signature arithmetic, one watchdog verdict and one flight dump on a
+shape-polymorphic loop, kernels attributed to the metric and engine
+profiler ranges).
 
 Every test here is marked ``cuda`` and skips without a card. This file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -1188,3 +1193,205 @@ def test_cohort_build_failure_raises_drops_the_program_and_demotes_nothing(cuda_
     torch.cuda.synchronize()
     usable = MetricCohort(MeanSquaredError(), tenants=2)
     assert torch.equal(usable(p, p), torch.zeros(2, device=cuda_device))
+
+
+# ---- the observability core on the card ------------------------------------
+
+
+@pytest.fixture
+def recorders_off():
+    """The port's recorders are process-global: off and empty before and
+    after."""
+    import metrics_tpu_torch.observability as obs
+
+    def pristine():
+        obs.disable()
+        obs.get().reset()
+        obs.disable_tracing()
+        obs.get_tracer().reset()
+        obs.disable_flight()
+
+    pristine()
+    yield obs
+    pristine()
+
+
+# the names of the port's profiler ranges: on the device timeline a range is
+# an annotation spanning the kernels launched inside it, not a kernel
+_RANGES = ("metrics_tpu.", "engine[")
+
+
+def _device_events(fn):
+    """``(kernels by name, profile)`` of the device work ``fn()`` runs
+    (copies, fills and range annotations not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.lower().startswith(("memcpy", "memset")) and not e.key.startswith(_RANGES)}
+    return kernels, prof
+
+
+def _range_kernels(prof, name):
+    """Names of the device events that run inside the device-side span of
+    every ``torch.profiler`` range called ``name`` (the kernels launched in
+    the range, through ATen, a ctypes entry or a graph replay alike)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.events() if e.device_type == cuda]
+    spans = [e for e in events if e.name == name]
+    return [e.name for s in spans for e in events
+            if not e.name.startswith(_RANGES)
+            and s.time_range.start <= e.time_range.start and e.time_range.end <= s.time_range.end]
+
+
+def _syncs_in(fn):
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+
+
+def test_observability_keeps_replays_sync_free_and_their_kernels(cuda_device, recorders_off, tmp_path):
+    """With telemetry, tracing and the flight recorder on, a replayed
+    compiled step and a replayed cohort step make no host synchronization
+    and run the kernels they run with every recorder off; values and states
+    are bit-equal on and off (the warm-up, under sync debug mode "error",
+    ran the hooks). The cohort's health is pinned off: with telemetry on it
+    would otherwise ride a second program."""
+    obs = recorders_off
+    batches = _engine_batches("classification", 3, cuda_device)
+    rows = _cohort_rows(64, 9, cuda_device)
+    runs = {}
+    for on in (False, True):
+        if on:
+            obs.enable()
+            obs.enable_tracing()
+            obs.enable_flight(tmp_path)
+        compiled, cohort = _forward_leg(True), MetricCohort(_forward_leg(False), tenants=64, track_health=False)
+        values = [compiled(*b) for b in batches] + [cohort(*rows), cohort(*rows)]
+        syncs = _syncs_in(lambda: (compiled(*batches[1]), cohort(*rows)))
+        kernels = (_device_events(lambda: compiled(*batches[1]))[0], _device_events(lambda: cohort(*rows))[0])
+        states = [getattr(compiled[k], s) for k in compiled.keys() for s in compiled[k]._defaults]
+        states += [v for d in cohort._states.values() for v in d.values()]
+        runs[on] = (values, states, syncs, kernels)
+    (v_off, s_off, sync_off, k_off), (v_on, s_on, sync_on, k_on) = runs[False], runs[True]
+    assert sync_on == [] and sync_off == []
+    assert k_on == k_off and sum(k_on[0].values()) > 0 and sum(k_on[1].values()) > 0
+    for a, b in zip(v_off, v_on):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    assert all(torch.equal(a, b) for a, b in zip(s_off, s_on))
+    assert obs.get().counters["engine.dispatches"] == 5 + 4  # 3 + 1 + 1 compiled steps, 2 + 1 + 1 cohort steps
+    assert obs.get_flight().dumps == 0
+
+
+def test_engine_counters_are_the_signature_arithmetic_on_the_card(cuda_device, recorders_off):
+    """Two signatures: 2 misses, 3 hits, 5 dispatches; a member's update
+    counts once per build (the warm-up), which is the engine's trace_count;
+    the watchdog reads 0 at steady state."""
+    obs = recorders_off
+    obs.enable()
+    col = MetricCollection([MeanSquaredError()], compiled=True)
+    a, b = torch.rand(64, device=cuda_device), torch.rand(96, device=cuda_device)
+    for x in (a, a, b, b, a):
+        col(x, x)
+    c = obs.get().counters
+    assert (c["engine.cache_misses"], c["engine.cache_hits"], c["engine.dispatches"]) == (2, 3, 5), c
+    assert c["metric.MeanSquaredError.update_calls"] == col._engine.trace_count == 2
+    assert col._engine.cache_info()["seen_signatures"] == 2
+    assert c["trace.engine[MeanSquaredError]"] == 2 and obs.get().watchdog.retrace_count() == 0
+    for _ in range(8):
+        col(a, a)
+    assert obs.get().watchdog.retrace_count() == 0 and obs.get().counters["engine.cache_misses"] == 2
+
+
+def test_polymorphic_loop_fires_one_verdict_and_one_dump_on_the_card(cuda_device, recorders_off, tmp_path):
+    import json
+
+    obs = recorders_off
+    obs.enable()
+    obs.enable_flight(tmp_path)
+    col = MetricCollection([MeanSquaredError()], compiled=True)
+    col(torch.rand(2, device=cuda_device), torch.rand(2, device=cuda_device))
+    col._engine._cache_size = 4
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for n in range(4, 28, 2):  # 12 shapes
+            x = torch.rand(n, device=cuda_device)
+            col(x, x)
+    fired = [w for w in caught if "recompilation watchdog" in str(w.message)]
+    assert len(fired) == 1 and [e["kind"] for e in obs.get().events].count("retrace") == 1
+    (path,) = obs.get_flight().dump_paths
+    dump = json.loads(open(path).read())
+    assert dump["reason"] == "watchdog_retrace" and dump["identity"]["rank"] == 0
+    assert dump["identity"]["world_size"] == 1 and dump["context"]["key"] == "engine[MeanSquaredError]"
+
+
+def test_profile_attributes_kernels_to_the_metric_and_engine_ranges(cuda_device, recorders_off):
+    """Under ``torch.profiler`` with telemetry on, an eager AUROC compute's
+    co-sort and tie-scan kernel fall inside ``metrics_tpu.AUROC.compute``,
+    and a compiled replay's kernels inside the engine's range."""
+    obs = recorders_off
+    obs.enable()
+    preds = torch.rand(100_000, device=cuda_device)
+    target = (torch.rand(100_000, device=cuda_device) < preds).long()
+    m = AUROC(pos_label=1)
+    m.update(preds, target)
+    m.compute()  # builds the kernel
+    m._computed = None
+    kernels, prof = _device_events(m.compute)
+    inside = _range_kernels(prof, "metrics_tpu.AUROC.compute")
+    assert any("tie_scan" in k for k in inside), (inside, kernels)
+    assert any("sort" in k.lower() for k in inside), inside
+    col = _forward_leg(True)
+    batch = _engine_batches("classification", 1, cuda_device)[0]
+    col(*batch)
+    # the copies in and the clones out run outside the replay, every kernel inside it
+    kernels, prof = _device_events(lambda: col(*batch))
+    inside = [k for k in _range_kernels(prof, col._engine._watch_key) if not k.lower().startswith(("memcpy", "memset"))]
+    assert len(inside) == sum(kernels.values()) > 0, (len(inside), kernels)
+
+
+def test_hooks_run_inside_a_capture_and_under_vmap_at_10000_tenants(cuda_device, recorders_off):
+    """A hook touches no device value: a metric scope, a span, the counters
+    and a byte count from tensor metadata run inside a CUDA graph capture
+    (the graph then replays), and a 10,000-tenant cohort built with every
+    recorder on runs its members' hooks once, under ``torch.func.vmap``."""
+    from metrics_tpu_torch.observability import telemetry, trace
+
+    obs = recorders_off
+    obs.enable()
+    obs.enable_tracing()
+    m = MeanSquaredError()
+    x = torch.rand(1024, device=cuda_device)
+    y = torch.empty_like(x)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        y.copy_(x * 2)  # warm the kernel outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        with telemetry.metric_scope(m, "update"), trace.span("drill", phase="other"):
+            y.copy_(x * 2)
+            obs.get().count("drill.bytes", telemetry.array_nbytes(x))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, x * 2) and obs.get().counters["drill.bytes"] == 4096
+    assert obs.get().counters["metric.MeanSquaredError.update_calls"] == 1
+    cohort = MetricCohort(_forward_leg(False), tenants=10_000, track_health=False)
+    rows = _cohort_rows(10_000, 10, cuda_device)
+    for _ in range(3):
+        cohort(*rows)
+    c = obs.get().counters
+    assert c["metric.Accuracy.update_calls"] == c["metric.F1.compute_calls"] == cohort._engine.trace_count == 1
+    assert c["cohort.dispatch_tenants"] == 30_000

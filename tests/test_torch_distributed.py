@@ -20,7 +20,10 @@ other world case drives (a ``compiled=True`` collection, the regression
 pack with a ``CompositionalMetric``, ``BootStrapper`` on fixed
 resamplings, a 1,024-tenant ``MetricCohort`` whose ``compute()`` gathers
 each stacked state once), every rank's bits equal to one process, on gloo
-in a world of 4 and on NCCL.
+in a world of 4 and on NCCL; and each rank's observability stamp (the
+rank on its sync spans and Perfetto track, the identity read from the
+backend, the sync counters equal on every rank), on gloo in a world of 2
+and on NCCL.
 """
 import json
 import multiprocessing
@@ -36,6 +39,7 @@ from metrics_tpu_torch.parallel.backend import TorchDistributedBackend, get_sync
 from tests.torch_workers import (
     _grid,
     distributed_paths_world,
+    identity_world,
     run_world,
     sharded_cases,
     sharded_metric_values,
@@ -367,3 +371,43 @@ def test_nccl_compiled_regression_bootstrap_and_cohort_are_the_same_on_every_car
         "bootstrap_mean": one["bootstrap"]["mean"].tolist(),
     }}))
     _assert_paths_equal(ranks, one)
+
+
+def _identity_payload(world, classes=4):
+    rng = np.random.RandomState(17)
+    batches = []
+    for rank in range(world):
+        n = 100 + 37 * rank  # uneven batches: the states, not the rows, cross the wire
+        probs = rng.rand(n, classes).astype(np.float32)
+        batches.append((probs / probs.sum(1, keepdims=True), rng.randint(classes, size=n)))
+    return {"num_classes": classes, "batches": batches}
+
+
+def _assert_identities(ranks, world):
+    for rank, out in ranks.items():
+        assert out["identity"] == {"rank": rank, "world_size": world}, rank
+        assert out["sync_spans"] == [
+            ("metrics_tpu.Accuracy.sync", {"rank": rank}),
+            ("metrics_tpu.Precision.sync", {"rank": rank}),
+        ], rank
+        assert out["tracks"] == [f"metrics_tpu rank {rank}/{world}"], rank
+        assert out["counters"]["sync.calls"] == 2 and out["counters"]["sync.payload_bytes"] > 0, rank
+        assert out["counters"] == ranks[0]["counters"] and out["payload_histogram"] == ranks[0]["payload_histogram"]
+        for k, v in out["values"].items():
+            assert np.array_equal(v, ranks[0]["values"][k]), (rank, k)
+
+
+def test_gloo_ranks_stamp_their_own_identity():
+    ranks = run_world(2, identity_world, _identity_payload(2))
+    _assert_identities(ranks, 2)
+
+
+@pytest.mark.cuda
+def test_nccl_ranks_stamp_their_own_identity():
+    """The gloo case's twin, one rank per card."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    world = torch.cuda.device_count()
+    ranks = run_world(world, identity_world, _identity_payload(world), device_type="cuda", timeout=600)
+    print(json.dumps({"nccl_identity": {r: out["tracks"] + [out["counters"]] for r, out in ranks.items()}}))
+    _assert_identities(ranks, world)

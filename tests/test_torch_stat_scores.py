@@ -51,6 +51,7 @@ from metrics_tpu_torch.functional.classification.stat_scores import (
 from metrics_tpu_torch.interop import state_from_jax
 from metrics_tpu_torch.ops.histogram import label_bincount
 from metrics_tpu_torch.utilities.checks import _input_format_classification
+from metrics_tpu_torch.utilities import env
 from tests.classification import inputs
 from tests.torch_workers import run_world, stat_scores_world
 
@@ -246,14 +247,21 @@ def test_label_bincount_keeps_the_out_of_range_contract(n, length):
 
 def test_stat_scores_debug_assertion(monkeypatch):
     """The 0/1 precondition of ``_stat_scores`` is asserted under
-    ``METRICS_TPU_DEBUG``; without it, non-indicator inputs pass unchecked."""
+    ``METRICS_TPU_DEBUG``; without it, non-indicator inputs pass unchecked.
+    The flag is parsed once (``utilities/env.py``): ``refresh()`` re-reads it."""
     bad = torch.tensor([[0, 2], [1, 0]], dtype=torch.int32)
     ok = torch.tensor([[0, 1], [1, 0]], dtype=torch.int32)
     _stat_scores(bad, ok)
     monkeypatch.setenv("METRICS_TPU_DEBUG", "1")
-    with pytest.raises(AssertionError, match="preds has non-indicator values"):
-        _stat_scores(bad, ok)
-    _stat_scores(ok, ok)
+    _stat_scores(bad, ok)  # cached at import: still off
+    env.refresh()
+    try:
+        with pytest.raises(AssertionError, match="preds has non-indicator values"):
+            _stat_scores(bad, ok)
+        _stat_scores(ok, ok)
+    finally:
+        monkeypatch.undo()
+        env.refresh()
 
 
 # ---- precision / recall / fbeta / f1 ----------------------------------------

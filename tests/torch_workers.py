@@ -440,3 +440,30 @@ def distributed_paths_world(rank: int, world: int, device: torch.device, payload
     out["cohort_stacked_states"] = sum(len(d) for d in cohort._states.values())
     out["cohort_gathered_shapes"] = sorted(set(gathers))
     return out
+
+
+def identity_world(rank: int, world: int, device: torch.device, payload: dict) -> dict:
+    """Each rank's observability stamp in a ``torch.distributed`` world:
+    telemetry and span tracing on, ``Accuracy`` and a macro ``Precision``
+    updated with this rank's uneven batch and computed (one host sync each
+    through the ``TorchDistributedBackend``). Returns the identity, the sync
+    spans' names and attributes, the sync counters, the Perfetto track's
+    name and the synced values."""
+    import metrics_tpu_torch.observability as obs
+    from metrics_tpu_torch import Accuracy, MetricCollection, Precision
+
+    probs, labels = payload["batches"][rank]
+    col = MetricCollection([Accuracy(device=device), Precision(num_classes=payload["num_classes"],
+                                                               average="macro", device=device)])
+    with obs.telemetry_scope() as tel, obs.tracing_scope() as tracer:
+        col.update(torch.from_numpy(probs).to(device), torch.from_numpy(labels).to(device))
+        values = {k: _value(v) for k, v in col.compute().items()}
+    tracks = [e["args"]["name"] for e in tracer.to_perfetto()["traceEvents"] if e["ph"] == "M"]
+    return {
+        "identity": {k: obs.process_identity()[k] for k in ("rank", "world_size")},
+        "sync_spans": [(s["name"], s["args"]) for s in tracer.spans if s["phase"] == "sync"],
+        "counters": {k: v for k, v in tel.counters.items() if k.startswith("sync.")},
+        "payload_histogram": tel.snapshot()["histograms"]["sync.payload_bytes"]["counts"],
+        "tracks": tracks,
+        "values": values,
+    }
