@@ -199,6 +199,24 @@ that is unset. Phases (any failure exits non-zero before the result line):
    co-sort of one north-star ``compute()`` inside the
    ``metrics_tpu.AUROC.compute`` range and every kernel of a compiled replay
    inside the engine's range, with the device ms of each range;
+4k. the sync tiers (``sync_precision=``, the two-level sync, ``SyncPolicy``):
+   (a) the int8 / bf16 codec on phase 4's 1,000-class x 512-bin histograms
+   (``BinnedAUROC``) and a ``ConfusionMatrix(num_classes=1000)``: codes,
+   scales, bf16 payloads, residuals and an 8-way merge equal to the CPU's
+   bits, 0 host synchronizations (sync debug mode "error"), the codec's
+   device ms (CUDA events) beside its byte bound; (b) those metrics synced
+   at each tier over an 8-rank mirror world (flat) and under
+   ``faultinject.simulated_pods(2, 4)`` (two-level): exact exactly 8x local,
+   bf16 and int8 within their bounds, payload over wire bytes at least 2.0
+   (bf16) and 3.0 (int8; the two-level path's level-1 link), the sync ms
+   (host clock ending in a synchronize, median of 5); (c) the per-level
+   drills on the int8 ``ConfusionMatrix``: ``flaky_level(1)`` retried to the
+   clean sync's bits, ``pod_dropout(1)`` serving exactly the level-0 result
+   (4x), a level-0 failure falling back to local (1x), no residual committed
+   on either degradation; (d) the north-star step (Accuracy + AUROC over
+   phase 3's 1M) synced through ``flaky_sync_backend(fails=2)`` under a
+   ``SyncPolicy``: the unfaulted step's values, the ``tie_scan`` kernel
+   launched in its ``compute()``;
 5. times on the card (CUDA events over launches queued behind a device
    sleep, so host overhead does not show, or the host clock ending in a
    synchronize for whole steps): the one-stream kernel, its plain version
@@ -237,6 +255,7 @@ and ``{"profile": ...}`` lines, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Exits with 1 and prints no result when no
 CUDA device is available.
 """
+import contextlib
 import importlib
 import json
 import os
@@ -2216,6 +2235,230 @@ def _observability_phase(torch, dev, binary):
     return out
 
 
+def _sync_tier_phase(torch, dev, mc, binary):
+    """Phase 4k: the sync tiers on the card. ``mc`` is phase 4's
+    ImageNet-shaped ``(preds, target)``, ``binary`` phase 3's ``(preds,
+    target)``. Returns the phase's timings; leaves no backend or policy
+    installed."""
+    from metrics_tpu_torch import AUROC, Accuracy, BinnedAUROC, ConfusionMatrix, MetricCollection
+    from metrics_tpu_torch import reliability
+    from metrics_tpu_torch.observability import telemetry as tel_mod
+    from metrics_tpu_torch.ops import tie_scan
+    from metrics_tpu_torch.parallel import quantize as q
+    from metrics_tpu_torch.parallel.backend import set_sync_backend
+    from metrics_tpu_torch.reliability import faultinject as fi
+    from metrics_tpu_torch.utilities.distributed import gather_all_tensors
+
+    mc_preds, mc_target = mc
+    out = {}
+
+    def filled(name, precision="exact"):
+        if name == "binned":
+            m = BinnedAUROC(num_bins=NUM_BINS, num_classes=IMAGENET_C)
+        else:
+            m = ConfusionMatrix(num_classes=IMAGENET_C)
+        if precision != "exact":
+            m.set_sync_precision(precision)
+        m.update(mc_preds, mc_target)
+        m.dist_sync_fn = gather_all_tensors
+        return m
+
+    base = {name: filled(name) for name in ("binned", "confmat")}
+    states = {"hist_pos": base["binned"].hist_pos, "hist_neg": base["binned"].hist_neg,
+              "confmat": base["confmat"].confmat}
+    torch.cuda.synchronize()
+
+    # a. the codec at full width: the card's bits against the CPU's, no host
+    # synchronization, device ms beside the byte bound
+    codec = {}
+    for sname, x in states.items():
+        r = torch.zeros(x.shape, dtype=torch.float32, device=dev)
+        x_cpu, r_cpu = x.cpu(), r.cpu()
+        for precision in ("int8", "bf16"):
+            pay, res = q.compensate_and_quantize(x, r, precision)
+            pay_cpu, res_cpu = q.compensate_and_quantize(x_cpu, r_cpu, precision)
+            for k in pay:
+                if not torch.equal(pay[k].cpu(), pay_cpu[k]):
+                    raise AssertionError(f"4k. {sname} {precision}: the card's {k} differ from the CPU's")
+            if not torch.equal(res.cpu(), res_cpu):
+                raise AssertionError(f"4k. {sname} {precision}: the card's residual differs from the CPU's")
+            merged = q.merge_dequantized([pay] * 8, x.shape, x.dtype)
+            if not torch.equal(merged.cpu(), q.merge_dequantized([pay_cpu] * 8, x.shape, x.dtype)):
+                raise AssertionError(f"4k. {sname} {precision}: the card's merge differs from the CPU's")
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                q.compensate_and_quantize(x, r, precision)
+                q.merge_dequantized([pay] * 8, x.shape, x.dtype)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            n = x.numel()
+            wire = q.payload_wire_nbytes(pay)
+            quant_ms = _queued_ms(torch, lambda: q.compensate_and_quantize(x, r, precision), launches=20)
+            merge_ms = _queued_ms(torch, lambda: q.merge_dequantized([pay] * 8, x.shape, x.dtype), launches=20)
+            # bytes the codec must move: the state and the residual read, the
+            # payload and the new residual written; the merge reads 8 payloads
+            # and writes the state once
+            quant_bytes = n * x.element_size() + 4 * n + wire + 4 * n
+            merge_bytes = 8 * wire + n * x.element_size()
+            codec[f"{sname}/{precision}"] = {
+                "elements": n, "state_bytes": n * x.element_size(), "wire_bytes": wire,
+                "quantize_ms": quant_ms, "quantize_bound_ms": quant_bytes / HBM_BYTES_PER_S * 1e3,
+                "merge8_ms": merge_ms, "merge8_bound_ms": merge_bytes / HBM_BYTES_PER_S * 1e3,
+            }
+    out["codec"] = codec
+    print(f"4k a. codec at {IMAGENET_C}x{NUM_BINS} (x2) and {IMAGENET_C}x{IMAGENET_C}: the card's codes, scales,"
+          f" bf16 payloads, residuals and 8-way merges equal the CPU's, 0 host syncs; "
+          + ", ".join(f"{k} {v['quantize_ms']:.4f} ms (bound {v['quantize_bound_ms']:.4f})" for k, v in codec.items()))
+
+    # b. the metrics at each tier, flat over an 8-rank mirror world and
+    # two-level under simulated_pods(2, 4): healthy results 8x local
+    def locals_of(m):
+        return {s: getattr(m, s).clone() for s in m._reductions if not s.endswith("__qres")}
+
+    def check_tier(label, m, local, precision):
+        for s, v in local.items():
+            got = getattr(m, s)
+            want = v * 8
+            if precision == "exact":
+                if not torch.equal(got, want):
+                    raise AssertionError(f"4k. {label}: {s} is not exactly 8x local")
+                continue
+            # int8: per element within 2 slice partials' absmax/254 (level 1
+            # quantizes two 4x partials); bf16: within 2^-8 of each partial
+            part = 4 * v.to(torch.float64)
+            if precision == "int8":
+                blocks = torch.nn.functional.pad(part.abs().reshape(-1), (0, (-part.numel()) % 128))
+                bound = (blocks.reshape(-1, 128).amax(1) / 254.0).repeat_interleave(128)[: part.numel()]
+                bound = 2 * bound.reshape(part.shape) + 1.0  # integer states re-round: one count
+            else:
+                bound = 2 * part.abs() * 2.0 ** -8 + 1.0
+            err = (got.to(torch.float64) - want.to(torch.float64)).abs()
+            if bool((err > bound).any()):
+                raise AssertionError(f"4k. {label}: {s} off 8x local past the {precision} bound")
+
+    tiers = {}
+    for precision in ("exact", "bf16", "int8"):
+        for layout in ("flat", "two_level"):
+            for name in ("binned", "confmat"):
+                m = filled(name, precision)
+                local = locals_of(m)
+                prev = set_sync_backend(fi._MirrorBackend(8) if layout == "flat" else None)
+                try:
+                    pods = fi.simulated_pods(2, 4) if layout == "two_level" else contextlib.nullcontext()
+                    with pods:
+                        tel_mod.get().reset()
+                        with tel_mod.telemetry_scope() as tel:
+                            torch.cuda.synchronize()
+                            t0 = time.perf_counter()
+                            m._sync_dist()
+                            torch.cuda.synchronize()
+                            first_ms = (time.perf_counter() - t0) * 1e3
+                        counters = {k: v for k, v in tel.counters.items() if k.startswith("sync.")}
+                        check_tier(f"{name} {layout} {precision}", m, local, precision)
+                        times = []
+                        for _ in range(5):
+                            m2 = filled(name, precision)
+                            torch.cuda.synchronize()
+                            t0 = time.perf_counter()
+                            m2._sync_dist()
+                            torch.cuda.synchronize()
+                            times.append((time.perf_counter() - t0) * 1e3)
+                finally:
+                    set_sync_backend(prev)
+                wire = counters["sync.wire_bytes"]
+                ratio = counters["sync.payload_bytes"] / wire
+                level1_ratio = (counters["sync.payload_bytes"] / counters["sync.level1.wire_bytes"]
+                                if layout == "two_level" else None)
+                quant_ratio = ratio if layout == "flat" else level1_ratio
+                floor = {"bf16": 2.0, "int8": 3.0}.get(precision)
+                if precision == "exact" and layout == "flat" and ratio != 1.0:
+                    raise AssertionError(f"4k. {name} flat exact: wire bytes differ from the payload: {counters}")
+                if precision != "exact" and quant_ratio < floor:
+                    raise AssertionError(f"4k. {name} {layout} {precision}: payload/wire {quant_ratio} < {floor}")
+                residuals = [getattr(m, r) for r in m._sync_residual_names()]
+                # int8 is lossy on these states (bf16 holds counts up to 256 exactly)
+                if precision == "int8" and not any(bool(r.abs().max() > 0) for r in residuals):
+                    raise AssertionError(f"4k. {name} {layout} {precision}: no residual was committed")
+                tiers[f"{name}/{layout}/{precision}"] = {
+                    "sync_ms": float(np.median(times)), "first_sync_ms": first_ms, "counters": counters,
+                    "payload_over_wire": ratio, "payload_over_level1_wire": level1_ratio,
+                }
+    out["tiers"] = tiers
+    print("4k b. under an 8-rank mirror world (flat) and simulated_pods(2, 4): exact exactly 8x local, bf16 and"
+          " int8 within their bounds; payload/wire "
+          + ", ".join(f"{k} {v['payload_over_wire']:.3f}" + (f" (level 1 {v['payload_over_level1_wire']:.3f})"
+                                                            if v["payload_over_level1_wire"] else "")
+                      for k, v in tiers.items())
+          + "; sync ms " + ", ".join(f"{k} {v['sync_ms']:.3f}" for k, v in tiers.items()))
+
+    # c. the per-level drills on ConfusionMatrix(1000) at int8: flaky level 1
+    # retried to the clean bits, a dropped slice serving the level-0 result
+    # (4x), a failed level 0 falling back to local (1x); no residual
+    # committed on either degradation
+    drills = {}
+    with fi.simulated_pods(2, 4):
+        clean = filled("confmat", "int8")
+        clean._sync_dist()
+        m = filled("confmat", "int8")
+        with fi.flaky_level(1, fails=2), reliability.sync_policy_scope(max_retries=2, backoff_s=0.001) as pol:
+            m._sync_dist()
+        if not (torch.equal(m.confmat, clean.confmat) and torch.equal(m.confmat__qres, clean.confmat__qres)):
+            raise AssertionError("4k c. flaky level 1: the retried sync differs from the clean one")
+        drills["flaky_level1"] = {"retries": pol.stats["retries"], "bit_equal_to_clean": True}
+        for label, ctx, multiple in (("pod_dropout", lambda: fi.pod_dropout(1), 4),
+                                     ("level0_failure", lambda: fi.flaky_level(0, fails=10**6), 1)):
+            m = filled("confmat", "int8")
+            local = m.confmat.clone()
+            with ctx(), reliability.sync_policy_scope(max_retries=0, degraded_ok=True) as pol:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    m._sync_dist()
+            if not torch.equal(m.confmat, local * multiple):
+                raise AssertionError(f"4k c. {label}: the served state is not exactly {multiple}x local")
+            if bool(m.confmat__qres.abs().max() > 0):
+                raise AssertionError(f"4k c. {label}: a residual was committed on a degraded sync")
+            drills[label] = {"multiple": multiple, "degraded": pol.stats["degraded"], "residual_untouched": True}
+    out["drills"] = drills
+    print(f"4k c. drills on ConfusionMatrix({IMAGENET_C}) int8: {drills}")
+
+    # d. the north-star step (Accuracy + AUROC over 1M) synced through a flaky
+    # backend under a SyncPolicy: the unfaulted values, the tie_scan kernel in
+    # the faulted compute()
+    preds, target = binary
+
+    def north_star():
+        col = MetricCollection([Accuracy(), AUROC(pos_label=1)])
+        for b in range(BATCHES):
+            col.update(preds[b * BATCH:(b + 1) * BATCH], target[b * BATCH:(b + 1) * BATCH])
+        for m in col.values():
+            m.dist_sync_fn = gather_all_tensors
+        return col
+
+    want = {k: v.clone() for k, v in north_star().compute().items()}
+    col = north_star()
+    before = tie_scan.tie_group_reduce.launches
+    with fi.flaky_sync_backend(fails=2) as flaky, reliability.sync_policy_scope(max_retries=2, backoff_s=0.001) as pol:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = col.compute()
+        torch.cuda.synchronize()
+        faulted_ms = (time.perf_counter() - t0) * 1e3
+    launches = tie_scan.tie_group_reduce.launches - before
+    for k in want:
+        if not torch.equal(got[k], want[k]):
+            raise AssertionError(f"4k d. the faulted north-star {k} differs from the unfaulted one")
+    if launches < 1 or pol.stats["retries"] != 2:
+        raise AssertionError(f"4k d. launches {launches}, retries {pol.stats['retries']}")
+    out["north_star"] = {"values": {k: float(v) for k, v in got.items()}, "retries": pol.stats["retries"],
+                         "gathers": flaky.calls, "tie_scan_launches": launches, "faulted_compute_ms": faulted_ms}
+    print(f"4k d. north-star step through flaky_sync_backend(fails=2) under SyncPolicy(max_retries=2): values equal"
+          f" the unfaulted step {out['north_star']['values']}, {launches} tie_scan launch(es) in compute(),"
+          f" {faulted_ms:.3f} ms")
+    tel_mod.get().reset()
+    return out
+
+
 def main() -> int:
     card_index = _pin_one_card()
     import torch
@@ -3007,6 +3250,16 @@ def main() -> int:
     if counts()["tie_scan"] < 1:
         raise AssertionError(f"phase 4j's north-star step launched no tie_scan kernel: {counts()}")
 
+    # ---- 4k. the sync tiers -------------------------------------------------
+    zero_counts()
+    t0 = time.perf_counter()
+    tier_timings = _sync_tier_phase(torch, dev, (mc_preds, mc_target), (preds, target))
+    tier_timings["phase_s"] = time.perf_counter() - t0
+    tier_timings["card"] = card
+    tier_timings["scan_launches"] = counts()
+    if counts()["tie_scan"] < 1:
+        raise AssertionError(f"phase 4k's north-star step launched no tie_scan kernel: {counts()}")
+
     # ---- 5. times ---------------------------------------------------------
     all_preds = torch.cat(list(collection["AUROC"].preds))
     all_rel = (torch.cat(list(collection["AUROC"].target)) == 1).to(torch.float32)
@@ -3187,6 +3440,7 @@ def main() -> int:
         "step_engine": engine_timings,
         "cohort": cohort_timings,
         "observability": obs_timings,
+        "sync_tiers": tier_timings,
         "card": card,
     }
     print(json.dumps({"timings": timings}))

@@ -34,9 +34,13 @@ graph replay per step); the multi-tenant ``MetricCohort`` (N
 structurally identical collections stacked along a tenant axis, every
 tenant's step one CUDA graph replay); the ``BootStrapper`` wrapper; the
 functional ``bleu_score``, ``image_gradients`` and ``embedding_similarity``;
-and the observability core (``observability``: the telemetry registry, span
+the observability core (``observability``: the telemetry registry, span
 tracing, the recompilation watchdog and the failure flight recorder, off by
-default, under the JAX package's ``METRICS_TPU_*`` flags).
+default, under the JAX package's ``METRICS_TPU_*`` flags); and the sync
+tiers: ``add_state(sync_precision="int8"|"bf16")`` with error-feedback
+residuals (``parallel.quantize``), the two-level ``HierarchicalSyncBackend``
+(``parallel.hierarchy``) and the ``SyncPolicy`` retry / timeout /
+degradation with its fault injectors (``reliability``).
 """
 from metrics_tpu_torch.info import __version__  # noqa: F401
 from metrics_tpu_torch.metric import CompositionalMetric, Metric  # noqa: F401
@@ -92,6 +96,7 @@ from metrics_tpu_torch.collections import MetricCollection  # noqa: F401
 from metrics_tpu_torch.engine import CompiledStepEngine  # noqa: F401
 from metrics_tpu_torch.cohort import MetricCohort  # noqa: F401
 from metrics_tpu_torch import observability  # noqa: F401
+from metrics_tpu_torch import reliability  # noqa: F401
 from metrics_tpu_torch.wrappers import BootStrapper  # noqa: F401
 from metrics_tpu_torch.functional.regression import (  # noqa: F401
     explained_variance,

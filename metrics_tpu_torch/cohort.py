@@ -22,7 +22,12 @@ histograms batch as one count over the flat ``(tenant, bucket)`` index,
   per-tenant step: a tenant's states equal the same collection run alone.
 * **One collective per state.** ``compute()`` in a ``torch.distributed``
   world gathers each *stacked* state once (states × world payloads, not
-  tenants × states × world), then restores the local states.
+  tenants × states × world), then restores the local states. The quantized
+  ``sync_precision=`` tier quantizes each stacked state once across the
+  tenants (blocks span tenants; the per-element bound is unchanged) with
+  per-tenant error-feedback residuals; a ``SyncPolicy`` degrades the whole
+  cohort at once; a ``HierarchicalSyncBackend`` routes the sync through the
+  two-level engine, still one collective per state per level.
 * **Checkpoints.** ``state_dict`` / ``load_state_dict`` / ``_named_states``
   speak ``MetricCollection``'s protocol, with the active-slot table under
   ``__cohort_slots__``, so membership round-trips with the state it
@@ -48,7 +53,10 @@ from metrics_tpu_torch.metric import Metric
 from metrics_tpu_torch.observability import flight as _flight
 from metrics_tpu_torch.observability import telemetry as _obs
 from metrics_tpu_torch.observability import trace as _trace
-from metrics_tpu_torch.parallel.backend import is_distributed_initialized
+from metrics_tpu_torch.parallel import hierarchy as _hier
+from metrics_tpu_torch.parallel import quantize as _quant
+from metrics_tpu_torch.parallel.backend import get_sync_backend, is_distributed_initialized
+from metrics_tpu_torch.reliability import sync as _rsync
 from metrics_tpu_torch.utilities.data import _is_concrete, tracing
 from metrics_tpu_torch.utilities.distributed import gather_all_tensors
 from metrics_tpu_torch.utilities.prints import warn_once
@@ -618,7 +626,8 @@ class MetricCohort:
         from the member computes vmapped over the stacked states. In a
         ``torch.distributed`` world the stacked states are synced first,
         one collective per state for the whole cohort, and restored after,
-        as ``Metric.compute`` does."""
+        as ``Metric.compute`` does, keeping the error-feedback residuals the
+        sync committed."""
         synced_cache = None
         if is_distributed_initialized():
             synced_cache = {name: dict(d) for name, d in self._states.items()}
@@ -631,6 +640,12 @@ class MetricCohort:
                 values = fn(self._states)
         finally:
             if synced_cache is not None:
+                # keep the residual companions the sync just committed (they
+                # describe the error that crossed the wire); everything else
+                # resumes un-synced accumulation
+                for name, m in self._template.items():
+                    for res_name in m._sync_residual_names():
+                        synced_cache[name][res_name] = self._states[name][res_name]
                 self._states = synced_cache
         if tenant is not None:
             self._check_tenant(tenant)
@@ -640,31 +655,133 @@ class MetricCohort:
         return values["metric"] if self._single else values
 
     def _sync_stacked(self) -> None:
-        """Gather-then-reduce every stacked state across ranks, one
-        collective per state for the whole cohort (the exact tier: wire
-        bytes equal payload bytes)."""
+        """Gather-then-reduce every stacked state across ranks in one
+        collective each, with the quantized ``sync_precision=`` tier applied
+        to the stacked tensor (blocks span tenants; the per-element error
+        bound is unchanged) and the per-tenant error-feedback residuals
+        committed only when the collectives succeed. Degradation is atomic
+        across the whole cohort: tenants mixing world and local states would
+        be silently wrong, not degraded."""
+        backend = get_sync_backend()
+        if isinstance(backend, _hier.HierarchicalSyncBackend):
+            # two levels: one level-0 and one level-1 collective per STATE for
+            # the whole cohort, policy and precision per level
+            self._sync_stacked_hierarchical(backend)
+            return
+        input_dict: Dict[Tuple[str, str], torch.Tensor] = {}
+        wire_dict: Dict[Tuple[str, str], Any] = {}
+        new_residuals: Dict[Tuple[str, str], torch.Tensor] = {}
+        reductions: Dict[Tuple[str, str], Any] = {}
+        precisions: Dict[Tuple[str, str], str] = {}
+        for name, m in self._template.items():
+            res_names = set(m._sync_residual_names())
+            member_prec = m.sync_precisions()
+            for sname, red in m._reductions.items():
+                if sname in res_names:
+                    continue  # residuals never cross the wire
+                key = (name, sname)
+                x = self._states[name][sname]
+                input_dict[key] = x
+                reductions[key] = red
+                if sname in member_prec:
+                    precisions[key] = member_prec[sname]
+                    wire_dict[key], new_residuals[key] = _quant.compensate_and_quantize(
+                        x, self._states[name][sname + "__qres"], member_prec[sname]
+                    )
+                else:
+                    # no copy: the engine's graphs never alias a stacked state
+                    # (the JAX package copies here against buffer donation)
+                    wire_dict[key] = x
         if _obs.enabled():
             tel = _obs.get()
-            states = [self._states[name][sname] for name, m in self._template.items() for sname in m._reductions]
-            payload = sum(_obs.array_nbytes(v) for v in states)
+            payload = sum(_obs.array_nbytes(v) for v in input_dict.values())
+            wire = sum(_quant.payload_wire_nbytes(w) for w in wire_dict.values())
+            tel.count("sync.calls")
+            tel.count("cohort.sync_collectives", len(wire_dict))
+            tel.count("sync.payload_bytes", payload)
+            tel.count("sync.wire_bytes", wire)
+            tel.observe_hist("sync.payload_bytes", payload, _obs.PAYLOAD_BUCKETS_BYTES)
+            tel.observe_hist("sync.wire_bytes", wire, _obs.PAYLOAD_BUCKETS_BYTES)
+            tel.event(
+                "cohort_sync",
+                tenants=len(self),
+                capacity=self._capacity,
+                states=len(wire_dict),
+                payload_bytes=payload,
+                wire_bytes=wire,
+            )
+        guarded = _rsync.apply_sync_policy(gather_all_tensors)
+        degraded = False
+        gathered: Dict[Tuple[str, str], Any] = {}
+        try:
+            for key, w in wire_dict.items():
+                gathered[key] = {k: guarded(v) for k, v in w.items()} if isinstance(w, dict) else guarded(w)
+        except _rsync.SyncFailedError as err:
+            local_only = _rsync.degraded_local_fallback(err)
+            if local_only is None:
+                raise
+            # local-only: the exact local states for every tier (no bytes
+            # crossed the wire), residuals untouched
+            gathered = {k: local_only(v) for k, v in input_dict.items()}
+            degraded = True
+        for key, red in reductions.items():
+            if not degraded and key in precisions:
+                g = gathered[key]  # payload dict of per-rank lists
+                local = input_dict[key]
+                self._states[key[0]][key[1]] = _quant.merge_dequantized(
+                    [{k: v[r] for k, v in g.items()} for r in range(len(g["q"]))], local.shape, local.dtype
+                )
+                continue
+            stacked = torch.stack(list(gathered[key]))
+            self._states[key[0]][key[1]] = red(stacked) if red is not None else stacked
+        if not degraded:
+            for (name, sname), res in new_residuals.items():
+                self._states[name][sname + "__qres"] = res
+
+    def _sync_stacked_hierarchical(self, backend: "_hier.HierarchicalSyncBackend") -> None:
+        """The cohort sync through the two-level engine: one collective per
+        STATE per level, the stacked tensor quantized at the level its tier
+        resolves to, and the stacked residuals committed only when the lossy
+        level succeeds. Degradation stays atomic across the whole cohort
+        and per level: a failed leader exchange serves every tenant the
+        slice-local merge."""
+        states: Dict[Tuple[str, str], Any] = {}
+        reductions: Dict[Tuple[str, str], Any] = {}
+        precisions: Dict[Tuple[str, str], str] = {}
+        residuals: Dict[Tuple[str, str], torch.Tensor] = {}
+        for name, m in self._template.items():
+            res_names = set(m._sync_residual_names())
+            member_prec = m.sync_precisions()
+            for sname, red in m._reductions.items():
+                if sname in res_names:
+                    continue
+                key = (name, sname)
+                states[key] = self._states[name][sname]
+                reductions[key] = red
+                if sname in member_prec:
+                    precisions[key] = member_prec[sname]
+                    residuals[key] = self._states[name][sname + "__qres"]
+        if _obs.enabled():
+            tel = _obs.get()
+            payload = sum(_obs.array_nbytes(v) for v in states.values())
             tel.count("sync.calls")
             tel.count("cohort.sync_collectives", len(states))
             tel.count("sync.payload_bytes", payload)
-            tel.count("sync.wire_bytes", payload)
             tel.observe_hist("sync.payload_bytes", payload, _obs.PAYLOAD_BUCKETS_BYTES)
-            tel.observe_hist("sync.wire_bytes", payload, _obs.PAYLOAD_BUCKETS_BYTES)
             tel.event(
                 "cohort_sync",
                 tenants=len(self),
                 capacity=self._capacity,
                 states=len(states),
                 payload_bytes=payload,
-                wire_bytes=payload,
+                hierarchical=True,
+                num_slices=backend.topology.num_slices,
             )
-        for name, m in self._template.items():
-            for sname, red in m._reductions.items():
-                stacked = torch.stack(list(gather_all_tensors(self._states[name][sname])))
-                self._states[name][sname] = red(stacked) if red is not None else stacked
+        outcome = _hier.sync_states(backend, states, reductions, precisions, residuals)
+        for (name, sname), value in outcome.states.items():
+            self._states[name][sname] = value
+        for (name, sname), res in outcome.residuals.items():
+            self._states[name][sname + "__qres"] = res
 
     # ------------------------------------------------------------------
     # lifecycle / checkpointing

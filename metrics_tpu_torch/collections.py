@@ -31,6 +31,12 @@ class MetricCollection:
               same metric class with different parameters.
 
         prefix: a string to append in front of the keys of the output dict
+        sync_precision: apply a quantized sync tier to every member's
+            eligible (``"sum"``-reduced tensor) states at construction —
+            ``"bf16"`` or ``"int8"`` (block-scaled with error-feedback
+            residuals; see :meth:`Metric.set_sync_precision`). Ineligible
+            states (lists, other reductions) stay exact. Default None leaves
+            everything exact.
         compiled: route ``forward`` through the step engine
             (:class:`~metrics_tpu_torch.engine.CompiledStepEngine`): on a
             CUDA device the whole fan-out (shared canonicalization, every
@@ -60,6 +66,7 @@ class MetricCollection:
         metrics: Union[List[Metric], Tuple[Metric, ...], Dict[str, Metric]],
         prefix: Optional[str] = None,
         compiled: bool = False,
+        sync_precision: Optional[str] = None,
     ):
         self._metrics: "OrderedDict[str, Metric]" = OrderedDict()
         self.compiled = bool(compiled)
@@ -85,6 +92,21 @@ class MetricCollection:
             raise ValueError("Unknown input to MetricCollection.")
 
         self.prefix = self._check_prefix_arg(prefix)
+        if sync_precision is not None:
+            self.set_sync_precision(sync_precision)
+
+    def set_sync_precision(self, precision: str) -> Dict[str, Dict[str, str]]:
+        """Switch every member's eligible states onto a sync tier
+        (``"exact"`` | ``"bf16"`` | ``"int8"``); returns the applied
+        ``{member: {state: precision}}`` map. Members with no eligible state
+        (curve and list-state metrics) stay exact and map to ``{}``. The step
+        engine keys its signatures on the precisions, so a flip never
+        replays a graph built for another tier."""
+        return {name: m.set_sync_precision(precision) for name, m in self.items()}
+
+    def sync_precisions(self) -> Dict[str, Dict[str, str]]:
+        """Per-member ``{state: precision}`` maps of the quantized tier."""
+        return {name: m.sync_precisions() for name, m in self.items()}
 
     # --- mapping protocol (stands in for the reference's nn.ModuleDict) ---
     def __getitem__(self, key: str) -> Metric:

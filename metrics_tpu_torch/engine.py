@@ -391,10 +391,15 @@ class CompiledStepEngine:
     # ------------------------------------------------------------------
     # signature cache
     # ------------------------------------------------------------------
-    @staticmethod
-    def _signature(names: Tuple[str, ...], states: dict, leaves: list, structure: tuple, extra: tuple = ()) -> tuple:
+    def _signature(self, names: Tuple[str, ...], states: dict, leaves: list, structure: tuple, extra: tuple = ()) -> tuple:
+        # the quantized sync tier is part of the program's identity, as in
+        # the JAX package: a precision flip adds or drops residual states,
+        # and a graph built for one tier is never replayed for another
+        precisions = tuple(
+            (n, tuple(sorted(getattr(self._metrics[n], "_sync_precisions", {}).items()))) for n in names
+        )
         state_sig = tuple((n, s, tuple(v.shape), v.dtype) for n, d in states.items() for s, v in d.items())
-        return (names, state_sig, structure, tuple(_abstract_leaf(x) for x in leaves)) + extra
+        return (names, precisions, state_sig, structure, tuple(_abstract_leaf(x) for x in leaves)) + extra
 
     def _lookup(self, signature: tuple) -> Tuple[Optional[_Graph], bool]:
         """``(program, cache_hit)``: the signature's program on a hit (None

@@ -3,9 +3,11 @@
 Port of the core of ``metrics_tpu/metric.py``: the state registry
 (``add_state``), forward/update/compute semantics including the batch-local
 forward value, the one-update fused forward for mergeable states, result
-caching, gather-then-reduce sync at compute, reset, persistence and
-pickling, and metric arithmetic: the operators on ``Metric`` build a
-``CompositionalMetric``.
+caching, gather-then-reduce sync at compute (the exact tier, the quantized
+``sync_precision=`` tier with its error-feedback residuals, a
+``SyncPolicy``'s retry / timeout / degradation, and the two-level sync under
+a ``HierarchicalSyncBackend``), reset, persistence and pickling, and metric
+arithmetic: the operators on ``Metric`` build a ``CompositionalMetric``.
 
 Metric state is a set of ``torch.Tensor``s (or Python lists of tensors for
 "cat" states) on one explicit ``torch.device``. A metric built without a
@@ -20,14 +22,17 @@ import operator
 import time as _time
 from abc import ABC, abstractmethod
 from copy import deepcopy
-from typing import Any, Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Union
 
 import torch
 
 from metrics_tpu_torch.observability import identity as _obs_identity
 from metrics_tpu_torch.observability import telemetry as _obs
 from metrics_tpu_torch.observability import trace as _obs_trace
-from metrics_tpu_torch.parallel.backend import is_distributed_initialized
+from metrics_tpu_torch.parallel import hierarchy as _hier
+from metrics_tpu_torch.parallel import quantize as _quant
+from metrics_tpu_torch.parallel.backend import get_sync_backend, is_distributed_initialized
+from metrics_tpu_torch.reliability import sync as _rsync
 from metrics_tpu_torch.utilities.checks import shared_canonicalization
 from metrics_tpu_torch.utilities.data import (
     _flatten,
@@ -40,6 +45,13 @@ from metrics_tpu_torch.utilities.data import (
 )
 from metrics_tpu_torch.utilities.distributed import gather_all_tensors
 from metrics_tpu_torch.utilities.prints import warn_once
+
+# suffix of the per-quantized-state error-feedback residual companion (see
+# ``Metric.add_state(sync_precision=...)``): ``<state>__qres`` is a REAL
+# registered state — it snapshots, resets, checkpoints and resumes with the
+# state it compensates — but it never crosses the wire (``_sync_dist``
+# excludes it) and always stays f32 (``astype`` skips it)
+_SYNC_RESIDUAL_SUFFIX = "__qres"
 
 
 def _resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
@@ -117,6 +129,10 @@ class Metric(ABC):
         self._defaults: Dict[str, Any] = {}
         self._persistent: Dict[str, bool] = {}
         self._reductions: Dict[str, Optional[Callable]] = {}
+        # state name -> "bf16" | "int8" for states synced through the
+        # quantized tier (absent = exact); read with getattr defaults
+        # everywhere so pickles made before the knob keep working
+        self._sync_precisions: Dict[str, str] = {}
 
     def add_state(
         self,
@@ -124,6 +140,7 @@ class Metric(ABC):
         default: Union[torch.Tensor, list],
         dist_reduce_fx: Optional[Union[str, Callable]] = None,
         persistent: bool = False,
+        sync_precision: str = "exact",
     ) -> None:
         """Register a metric state variable.
 
@@ -135,9 +152,24 @@ class Metric(ABC):
                 cross-process gathered state (stacked ``(world, ...)`` for
                 tensor states, flattened for list states).
             persistent: include this state in ``state_dict()``.
+            sync_precision: ``"exact"`` (default, bit-identical sync) or a
+                quantized wire tier — ``"bf16"`` (2× fewer bytes) or
+                ``"int8"`` (block-scaled, ~3.9×). Only ``"sum"``-reduced
+                tensor states qualify (list states are always exact); a
+                quantized state gets a f32 error-feedback residual
+                companion (``<name>__qres``) so repeated syncs do not drift.
         """
         if not isinstance(default, (torch.Tensor, list)) or (isinstance(default, list) and default):
             raise ValueError("state variable must be a tensor or any empty list (where you can append tensors)")
+        if sync_precision not in _quant.PRECISIONS:
+            raise ValueError(f"`sync_precision` must be one of {_quant.PRECISIONS}, got {sync_precision!r}")
+        if sync_precision != "exact" and (isinstance(default, list) or dist_reduce_fx != "sum"):
+            raise ValueError(
+                f"sync_precision={sync_precision!r} requires a 'sum'-reduced"
+                " array state: cat/list states and non-additive reductions"
+                " always sync exact (quantizing a rank-order concat or an"
+                " order-sensitive merge would corrupt it, not compress it)"
+            )
 
         if dist_reduce_fx == "sum":
             dist_reduce_fx = dim_zero_sum
@@ -162,6 +194,94 @@ class Metric(ABC):
         self._defaults[name] = default
         self._persistent[name] = persistent
         self._reductions[name] = dist_reduce_fx
+        if sync_precision != "exact":
+            self._register_sync_residual(name, sync_precision, persistent)
+
+    # ------------------------------------------------------------------
+    # quantized sync tier (sync_precision=)
+    # ------------------------------------------------------------------
+    def _register_sync_residual(self, name: str, precision: str, persistent: bool) -> None:
+        """Attach the f32 error-feedback residual companion to a quantized
+        state. Registered like any state (snapshot, reset and checkpoint
+        carry it) with a zero default and a 'sum' reduction: under the step
+        engine's (accumulated, batch) fold the batch residual is always the
+        zero default, so the merge is an identity and the residual only
+        changes at sync time."""
+        res_name = name + _SYNC_RESIDUAL_SUFFIX
+        res_default = torch.zeros(tuple(self._defaults[name].shape), dtype=torch.float32, device=self.device)
+        setattr(self, res_name, res_default.clone())
+        self._defaults[res_name] = res_default
+        self._persistent[res_name] = persistent
+        self._reductions[res_name] = dim_zero_sum
+        if not hasattr(self, "_sync_precisions"):
+            self._sync_precisions = {}  # a pickle made before the knob
+        self._sync_precisions[name] = precision
+
+    def sync_precisions(self) -> Dict[str, str]:
+        """Per-state wire precision of the quantized sync tier (states not
+        listed sync exact). A copy; change it with :meth:`set_sync_precision`."""
+        return dict(getattr(self, "_sync_precisions", {}))
+
+    def _sync_residual_names(self) -> tuple:
+        """Names of the error-feedback residual companion states."""
+        return tuple(n + _SYNC_RESIDUAL_SUFFIX for n in getattr(self, "_sync_precisions", {}))
+
+    def set_sync_precision(self, precision: str, states: Optional[Sequence[str]] = None) -> Dict[str, str]:
+        """Switch registered states onto a sync tier after construction.
+
+        Args:
+            precision: ``"exact"`` | ``"bf16"`` | ``"int8"``.
+            states: state names to switch. Default (None): every *eligible*
+                state — ``"sum"``-reduced tensor states — with ineligible
+                ones left exact (list states are exact by contract). Naming
+                an ineligible state explicitly raises.
+
+        Returns the resulting ``{state: precision}`` map (exact states
+        omitted). Dropping back to ``"exact"`` deregisters the residual
+        companions; switching between quantized tiers keeps the residual (it
+        is f32 either way and still describes the last sync's error).
+        """
+        if precision not in _quant.PRECISIONS:
+            raise ValueError(f"`sync_precision` must be one of {_quant.PRECISIONS}, got {precision!r}")
+        if not hasattr(self, "_sync_precisions"):
+            self._sync_precisions = {}
+        residual_names = set(self._sync_residual_names())
+        if states is None:
+            candidates = [
+                n
+                for n in self._defaults
+                if n not in residual_names
+                and not isinstance(self._defaults[n], list)
+                and self._reductions.get(n) is dim_zero_sum
+            ]
+        else:
+            candidates = list(states)
+            for n in candidates:
+                if n not in self._defaults or n in residual_names:
+                    raise KeyError(f"{type(self).__name__} has no registered state {n!r}")
+                if isinstance(self._defaults[n], list) or self._reductions.get(n) is not dim_zero_sum:
+                    raise ValueError(
+                        f"state {n!r} cannot use sync_precision={precision!r}:"
+                        " only 'sum'-reduced array states qualify (cat/list"
+                        " states are always exact)"
+                    )
+        for n in candidates:
+            if precision == "exact":
+                if n in self._sync_precisions:
+                    del self._sync_precisions[n]
+                    res = n + _SYNC_RESIDUAL_SUFFIX
+                    self._defaults.pop(res, None)
+                    self._persistent.pop(res, None)
+                    self._reductions.pop(res, None)
+                    if hasattr(self, res):
+                        delattr(self, res)
+            elif n in self._sync_precisions:
+                self._sync_precisions[n] = precision
+            else:
+                self._register_sync_residual(n, precision, self._persistent[n])
+        # a cached result no longer describes what sync would now produce
+        self._computed = None
+        return self.sync_precisions()
 
     def forward(self, *args: Any, **kwargs: Any):
         """Update state with the batch; return the batch-local value if
@@ -184,6 +304,13 @@ class Metric(ABC):
                 # save accumulated state, compute on this batch alone
                 cache = self._snapshot_state()
                 self.reset()
+                # error-feedback residuals belong to the SYNC stream, not
+                # the accumulation: seed the batch-local pass with the
+                # persistent values, so a dist_sync_on_step sync compensates
+                # the previous step sync's error instead of starting from
+                # the reset zeros every step
+                for res_name in self._sync_residual_names():
+                    setattr(self, res_name, cache[res_name])
                 try:
                     self.update(*args, **kwargs)
                     # a mini-batch may be partial (e.g. miss classes) in ways the
@@ -196,8 +323,13 @@ class Metric(ABC):
                 finally:
                     # restore accumulated state even when the batch-local pass
                     # raises: a rejected step value must not cost the epoch state
-                    # or leave _to_sync stuck False
+                    # or leave _to_sync stuck False. Residuals a step sync just
+                    # committed survive the restore (without a sync they still
+                    # hold the values seeded above)
+                    post_sync_residuals = {r: getattr(self, r) for r in self._sync_residual_names()}
                     self._restore_state(cache)
+                    for r, v in post_sync_residuals.items():
+                        setattr(self, r, v)
                     self._to_sync = True
                     self._computed = None
 
@@ -213,6 +345,10 @@ class Metric(ABC):
         with _obs.metric_scope(self, "forward"):
             accumulated = self._snapshot_state()
             self.reset()
+            # sync-stream seeding, as on the classic path: a step sync must
+            # compensate the previous sync's error, not restart from zero
+            for res_name in self._sync_residual_names():
+                setattr(self, res_name, accumulated[res_name])
             try:
                 self.update(*args, **kwargs)  # the ONLY update: batch stats
             except BaseException:
@@ -254,8 +390,15 @@ class Metric(ABC):
         raise TypeError("state reduction does not support a pure (accumulated, batch) merge")
 
     def _merge_states(self, accumulated: Dict[str, Any]) -> None:
-        """Fold the current (batch-only) states into ``accumulated``."""
+        """Fold the current (batch-only) states into ``accumulated``. The
+        residual companions are not folded: their current value (the residual
+        a step sync just committed, or the seeded value) already is the
+        truth, and adding the prior would re-apply error the compensation
+        has consumed."""
+        residual_names = set(self._sync_residual_names())
         for name, reduction in self._reductions.items():
+            if name in residual_names:
+                continue
             batch = getattr(self, name)
             if not isinstance(batch, list) and not self._merge_reduction_supported(reduction):
                 raise TypeError(
@@ -280,10 +423,113 @@ class Metric(ABC):
         if telemetry_on:
             _obs.get().observe_hist("sync.latency_ms", (_time.perf_counter() - t0) * 1e3, _obs.LATENCY_BUCKETS_MS)
 
-    def _sync_dist_impl(self, dist_sync_fn: Callable) -> None:
-        input_dict = {attr: getattr(self, attr) for attr in self._reductions}
+    def _sync_dist_impl(self, dist_sync_fn: Callable = gather_all_tensors) -> None:
+        if dist_sync_fn is gather_all_tensors:
+            # the default gather resolves through the installed backend: a
+            # HierarchicalSyncBackend routes the whole sync through the
+            # two-level engine; a caller-supplied dist_sync_fn keeps flat
+            # semantics (it owns its transport)
+            backend = get_sync_backend()
+            if isinstance(backend, _hier.HierarchicalSyncBackend):
+                return self._sync_dist_hierarchical(backend)
+        precisions = getattr(self, "_sync_precisions", {})
+        residual_names = set(self._sync_residual_names())
+        # residual companions never cross the wire: they are each rank's own
+        # quantization error
+        input_dict = {attr: getattr(self, attr) for attr in self._reductions if attr not in residual_names}
+        # quantize ONCE, before any gather attempt: a retried gather re-sends
+        # the identical payload, so error feedback cannot double-apply;
+        # residuals commit only after the collective succeeds (never on the
+        # degraded local-only path, where nothing crossed the wire)
+        wire_dict: Dict[str, Any] = dict(input_dict)
+        new_residuals: Dict[str, torch.Tensor] = {}
+        for name, precision in precisions.items():
+            payload, new_res = _quant.compensate_and_quantize(
+                input_dict[name], getattr(self, name + _SYNC_RESIDUAL_SUFFIX), precision
+            )
+            wire_dict[name] = payload
+            new_residuals[name] = new_res
         if _obs.enabled():
-            # the exact tier only: what crosses the wire is the payload
+            tel = _obs.get()
+            payload = sum(
+                _obs.array_nbytes(v)
+                for state in input_dict.values()
+                for v in (state if isinstance(state, list) else [state])
+            )
+            # what crosses the wire per rank: the quantized payloads for
+            # tiered states, the tensors else; the gap is the compression
+            wire = sum(_quant.payload_wire_nbytes(state) for state in wire_dict.values())
+            tel.count("sync.calls")
+            tel.count("sync.payload_bytes", payload)
+            tel.count("sync.wire_bytes", wire)
+            tel.observe_hist("sync.payload_bytes", payload, _obs.PAYLOAD_BUCKETS_BYTES)
+            tel.observe_hist("sync.wire_bytes", wire, _obs.PAYLOAD_BUCKETS_BYTES)
+            tel.event(
+                "sync",
+                metric=type(self).__name__,
+                payload_bytes=payload,
+                wire_bytes=wire,
+                quantized_states=len(precisions),
+            )
+        # an installed SyncPolicy adds timeout and bounded retry around every
+        # gather (a passthrough without one). Degradation is decided here,
+        # for the whole state dict at once: a metric with some states
+        # world-aggregated and others local would be silently wrong
+        guarded_sync_fn = _rsync.apply_sync_policy(dist_sync_fn)
+        degraded = False
+        try:
+            output_dict = apply_to_collection(wire_dict, torch.Tensor, guarded_sync_fn, group=self.process_group)
+        except _rsync.SyncFailedError as err:
+            local_only = _rsync.degraded_local_fallback(err)
+            if local_only is None:
+                raise
+            # the local-only sync keeps the EXACT local states for quantized
+            # tiers too (no bytes crossed the wire), and the residuals stay
+            # untouched
+            output_dict = apply_to_collection(input_dict, torch.Tensor, local_only, group=self.process_group)
+            degraded = True
+
+        for attr, reduction_fn in self._reductions.items():
+            if attr in residual_names:
+                continue
+            if not degraded and attr in precisions:
+                # gathered payload dicts {"q": [rank0, ...], "scales": [...]}:
+                # each rank's contribution dequantized and summed in f32
+                gathered = output_dict[attr]
+                local = input_dict[attr]
+                setattr(
+                    self,
+                    attr,
+                    _quant.merge_dequantized(
+                        [{k: v[r] for k, v in gathered.items()} for r in range(len(gathered["q"]))],
+                        local.shape,
+                        local.dtype,
+                    ),
+                )
+                continue
+            # tensor states stack to (world, ...); list states flatten
+            if len(output_dict[attr]) and isinstance(output_dict[attr][0], torch.Tensor):
+                output_dict[attr] = torch.stack(list(output_dict[attr]))
+            elif len(output_dict[attr]) and isinstance(output_dict[attr][0], list):
+                output_dict[attr] = _flatten(output_dict[attr])
+            reduced = reduction_fn(output_dict[attr]) if reduction_fn is not None else output_dict[attr]
+            setattr(self, attr, reduced)
+        if not degraded:
+            for name, res in new_residuals.items():
+                setattr(self, name + _SYNC_RESIDUAL_SUFFIX, res)
+
+    def _sync_dist_hierarchical(self, backend: "_hier.HierarchicalSyncBackend") -> None:
+        """Two-level sync through an installed hierarchical backend: level-0
+        reduction inside the slice, a sparse level-1 exchange of one
+        pre-reduced contribution per slice, ``SyncPolicy`` and
+        ``sync_precision`` resolved per level, degradation per level and
+        atomic across the whole state dict (see
+        :mod:`metrics_tpu_torch.parallel.hierarchy`)."""
+        precisions = getattr(self, "_sync_precisions", {})
+        residual_names = set(self._sync_residual_names())
+        input_dict = {attr: getattr(self, attr) for attr in self._reductions if attr not in residual_names}
+        residuals = {name: getattr(self, name + _SYNC_RESIDUAL_SUFFIX) for name in precisions}
+        if _obs.enabled():
             tel = _obs.get()
             payload = sum(
                 _obs.array_nbytes(v)
@@ -292,26 +538,24 @@ class Metric(ABC):
             )
             tel.count("sync.calls")
             tel.count("sync.payload_bytes", payload)
-            tel.count("sync.wire_bytes", payload)
             tel.observe_hist("sync.payload_bytes", payload, _obs.PAYLOAD_BUCKETS_BYTES)
-            tel.observe_hist("sync.wire_bytes", payload, _obs.PAYLOAD_BUCKETS_BYTES)
             tel.event(
                 "sync",
                 metric=type(self).__name__,
                 payload_bytes=payload,
-                wire_bytes=payload,
-                quantized_states=0,
+                hierarchical=True,
+                num_slices=backend.topology.num_slices,
+                quantized_states=len(precisions),
             )
-        output_dict = apply_to_collection(input_dict, torch.Tensor, dist_sync_fn, group=self.process_group)
-
-        for attr, reduction_fn in self._reductions.items():
-            # tensor states stack to (world, ...); list states flatten
-            if len(output_dict[attr]) and isinstance(output_dict[attr][0], torch.Tensor):
-                output_dict[attr] = torch.stack(list(output_dict[attr]))
-            elif len(output_dict[attr]) and isinstance(output_dict[attr][0], list):
-                output_dict[attr] = _flatten(output_dict[attr])
-            reduced = reduction_fn(output_dict[attr]) if reduction_fn is not None else output_dict[attr]
-            setattr(self, attr, reduced)
+        outcome = _hier.sync_states(
+            backend, input_dict, self._reductions, precisions, residuals, group=self.process_group
+        )
+        for attr, value in outcome.states.items():
+            setattr(self, attr, value)
+        # residuals commit only when the level that consumed them succeeded:
+        # sync_states returns none on degradation
+        for name, res in outcome.residuals.items():
+            setattr(self, name + _SYNC_RESIDUAL_SUFFIX, res)
 
     def _to_own_device(self, x: torch.Tensor) -> torch.Tensor:
         return x.to(self.device)
@@ -357,7 +601,14 @@ class Metric(ABC):
             self._computed = compute(*args, **kwargs)
             self._computed_batch_local = self._batch_local_compute
             if synced:
+                # restore un-synced accumulation, but KEEP the error-feedback
+                # residuals the sync just committed: they describe the error
+                # of the quantization that crossed the wire, which the next
+                # sync must compensate
+                post_sync_residuals = {r: getattr(self, r) for r in self._sync_residual_names()}
                 self._restore_state(cache)
+                for r, v in post_sync_residuals.items():
+                    setattr(self, r, v)
             return self._computed
 
         return wrapped_func
@@ -421,7 +672,9 @@ class Metric(ABC):
         """Cast floating-point tensor states (and their defaults) to ``dtype``.
 
         Integer counter states keep their dtype, as ``nn.Module.half`` does.
-        List states are cast elementwise.
+        List states are cast elementwise. The error-feedback residuals stay
+        f32: they hold sub-quantization-step corrections a narrower dtype
+        would round away.
         """
 
         def _cast(v):
@@ -429,7 +682,10 @@ class Metric(ABC):
                 return v.to(dtype)
             return v
 
+        residual_names = set(self._sync_residual_names())
         for key in self._defaults:
+            if key in residual_names:
+                continue
             val = getattr(self, key)
             setattr(self, key, [_cast(v) for v in val] if isinstance(val, list) else _cast(val))
             default = self._defaults[key]

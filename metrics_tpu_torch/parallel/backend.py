@@ -3,15 +3,23 @@
 Port of ``metrics_tpu/parallel/backend.py``. Each process holds replica
 metric state; a :class:`SyncBackend` supplies ``world_size`` and an
 all-gather, and, for the sharded metrics that hold one shard per process,
-the process's ``rank`` and an ``all_to_all``. :class:`TorchDistributedBackend` takes the place of the JAX
-package's ``MultiHostBackend``: it gathers over ``torch.distributed`` (NCCL
-for CUDA tensors, gloo for CPU tensors; the process group's backend decides,
-see :meth:`TorchDistributedBackend.process_group_backend`).
+the process's ``rank`` and an ``all_to_all``; every backend also offers
+``stream`` / ``stream_acked`` (a broadcast built on ``gather``) and
+``heartbeat`` (the ranks it can reach). :class:`TorchDistributedBackend`
+takes the place of the JAX package's flat cross-process ``MultiHostBackend``
+(``MultiHostBackend`` is exported as its other name): it gathers over
+``torch.distributed`` (NCCL for CUDA tensors, gloo for CPU tensors; the
+process group's backend decides, see
+:meth:`TorchDistributedBackend.process_group_backend`).
+
+``rank`` is a method here, ``rank(group=None)``, where the JAX package has a
+property: every backend of the port, the hierarchical views and the fault
+injectors' included, answers it in this form.
 
 ``process_group`` in the reference maps to the ``group`` argument here.
 """
 from abc import ABC, abstractmethod
-from typing import Any, List, Optional, Sequence, Union
+from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -49,6 +57,27 @@ class SyncBackend(ABC):
         if self.size(group) == 1:
             return x
         raise NotImplementedError(f"{type(self).__name__} has no all_to_all")
+
+    def stream(self, x: torch.Tensor, source: int = 0, group: Optional[Any] = None) -> torch.Tensor:
+        """Broadcast ``source``'s value to every rank. Built on
+        :meth:`gather`, so it inherits the backend's transport, and it is
+        exact-tier only: the payload travels verbatim, never through the
+        quantized sync path."""
+        return self.gather(x, group=group)[source]
+
+    def stream_acked(
+        self, x: torch.Tensor, source: int = 0, group: Optional[Any] = None
+    ) -> Tuple[torch.Tensor, int]:
+        """:meth:`stream` plus a delivery count. A rank returns only once the
+        gather completed, so returning at all means every rank of the group
+        holds the payload: the count is the group's size."""
+        return self.stream(x, source=source, group=group), self.size(group)
+
+    def heartbeat(self) -> Tuple[int, ...]:
+        """The ranks currently reachable over this transport. A flat backend
+        has no partial-membership signal, so the default reports the whole
+        world; the hierarchical backend reports the last quorum's members."""
+        return tuple(range(self.world_size))
 
 
 class SingleProcessBackend(SyncBackend):
@@ -120,6 +149,10 @@ class TorchDistributedBackend(SyncBackend):
         out = [torch.empty_like(padded) for _ in range(world)]
         dist.all_gather(out, padded, group=group)
         return [o[tuple(slice(d) for d in s.tolist())] for o, s in zip(out, sizes)]
+
+
+#: the JAX package's name for its flat cross-process backend
+MultiHostBackend = TorchDistributedBackend
 
 
 _BACKEND: Optional[SyncBackend] = None

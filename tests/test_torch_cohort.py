@@ -34,9 +34,10 @@ exact sums); against JAX's cohort counts are exact and floats within 1e-5
 (float32 formulas of the two packages, as in the earlier slices).
 
 The JAX cases that wait for the ports they need: the envelope round trip
-and the guard rollback (``reliability/``), int8 sync (the quantized sync
-tier), the 64-tenant scrape (the exporter), the trace merges and the sync
-spans (the observability core).
+and the guard rollback (``reliability/``), the 64-tenant scrape (the
+exporter), the trace merges and the sync spans (the observability core).
+The int8 sync case came with the sync tiers and is in
+``tests/test_torch_sync_precision.py``.
 """
 import numpy as np
 import pytest

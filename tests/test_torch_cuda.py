@@ -24,7 +24,10 @@ the card (no synchronization and the same kernels per replay with every
 recorder on, values bit-equal on and off, the engine counters equal to the
 signature arithmetic, one watchdog verdict and one flight dump on a
 shape-polymorphic loop, kernels attributed to the metric and engine
-profiler ranges).
+profiler ranges); and the sync tiers' codec on the card (int8 codes, scales,
+bf16 payloads, residuals and the rank-order merge bit-equal to its CPU run,
+no host synchronization in the codec, the quantized and hierarchical syncs
+of a metric and a cohort under ``simulated_pods`` equal to their CPU runs).
 
 Every test here is marked ``cuda`` and skips without a card. This file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -1395,3 +1398,93 @@ def test_hooks_run_inside_a_capture_and_under_vmap_at_10000_tenants(cuda_device,
     c = obs.get().counters
     assert c["metric.Accuracy.update_calls"] == c["metric.F1.compute_calls"] == cohort._engine.trace_count == 1
     assert c["cohort.dispatch_tenants"] == 30_000
+
+
+# ----------------------------------------------------------------------
+# the sync tiers' codec on the card
+# ----------------------------------------------------------------------
+_CODEC_SHAPES = [(), (7, 13), (512,), (1000, 512), (1000, 1000)]
+
+
+@pytest.mark.parametrize("shape", _CODEC_SHAPES, ids=["x".join(map(str, s)) or "scalar" for s in _CODEC_SHAPES])
+def test_codec_on_the_card_is_bit_equal_to_its_cpu_run(cuda_device, shape):
+    """int8 codes and scales, bf16 payloads, the residual of error feedback
+    and the rank-order merge of four payloads (an int32 state re-rounded),
+    on the card and on the CPU: the same bits."""
+    from metrics_tpu_torch.parallel import quantize as q
+
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(np.asarray(rng.standard_normal(shape) * 50, dtype=np.float32))
+    x.reshape(-1)[: x.numel() // 3] = 0.0  # all-zero blocks take scale 1
+    r = torch.from_numpy(np.asarray(rng.standard_normal(shape) * 0.1, dtype=np.float32))
+    for precision in ("int8", "bf16"):
+        cpu_pay, cpu_res = q.compensate_and_quantize(x, r, precision)
+        gpu_pay, gpu_res = q.compensate_and_quantize(x.to(cuda_device), r.to(cuda_device), precision)
+        for k in cpu_pay:
+            assert torch.equal(gpu_pay[k].cpu(), cpu_pay[k]), (precision, k)
+        assert torch.equal(gpu_res.cpu(), cpu_res), precision
+        counts = [torch.from_numpy(rng.integers(0, 1000, shape).astype(np.int32)) for _ in range(4)]
+        for dtype, rows in ((torch.float32, [x * (i + 1) for i in range(4)]), (torch.int32, counts)):
+            cpu_m = q.merge_dequantized([q.quantize_payload(v, precision) for v in rows], x.shape, dtype)
+            gpu_m = q.merge_dequantized([q.quantize_payload(v.to(cuda_device), precision) for v in rows], x.shape, dtype)
+            assert gpu_m.dtype == dtype and torch.equal(gpu_m.cpu(), cpu_m), (precision, dtype)
+
+
+def test_codec_on_the_card_does_not_synchronize(cuda_device):
+    from metrics_tpu_torch.parallel import quantize as q
+
+    x = torch.rand(1000, 512, device=cuda_device)
+    r = torch.zeros_like(x)
+    q.compensate_and_quantize(x, r, "int8")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for precision in ("int8", "bf16"):
+            pay, res = q.compensate_and_quantize(x, r, precision)
+            q.merge_dequantized([pay, pay], x.shape, torch.int32)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def test_quantized_and_hierarchical_syncs_on_the_card_equal_their_cpu_runs(cuda_device):
+    """``ConfusionMatrix(1000)`` and a 64-tenant regression cohort synced
+    under ``simulated_pods(2, 4)`` at each tier, healthy and with a dropped
+    slice: the card's states, residuals and values equal the CPU's."""
+    import warnings as _w
+
+    from metrics_tpu_torch import reliability
+    from metrics_tpu_torch.reliability import faultinject as fi
+
+    rng = np.random.default_rng(32)
+    preds = torch.from_numpy(rng.integers(0, 1000, 20_000))
+    target = torch.from_numpy(rng.integers(0, 1000, 20_000))
+    p = torch.from_numpy((rng.integers(0, 256, (64, 32)) / 256.0).astype(np.float32))
+    t = torch.from_numpy((rng.integers(0, 256, (64, 32)) / 256.0).astype(np.float32))
+
+    def run(device, precision, drop):
+        with fi.simulated_pods(2, 4):
+            cm = ConfusionMatrix(num_classes=1000, device=device)
+            cohort = MetricCohort(MetricCollection([MeanSquaredError(device=device)]), tenants=64)
+            if precision != "exact":
+                cm.set_sync_precision(precision)
+                cohort = MetricCohort(MetricCollection([MeanSquaredError(device=device)], sync_precision=precision),
+                                      tenants=64)
+            cm.update(preds.to(device), target.to(device))
+            cohort(p.to(device), t.to(device))
+            with _w.catch_warnings():
+                _w.simplefilter("ignore")
+                if drop:
+                    with fi.pod_dropout(1), reliability.sync_policy_scope(max_retries=0, degraded_ok=True):
+                        values = (cm.compute(), cohort.compute()["MeanSquaredError"])
+                else:
+                    values = (cm.compute(), cohort.compute()["MeanSquaredError"])
+        states = [getattr(cm, r) for r in cm._sync_residual_names()]
+        states += [v for k, v in cohort._states["MeanSquaredError"].items() if k.endswith("__qres")]
+        return [v.cpu() for v in values], [v.cpu() for v in states]
+
+    for precision in ("exact", "bf16", "int8"):
+        for drop in (False, True):
+            gpu_values, gpu_states = run(cuda_device, precision, drop)
+            cpu_values, cpu_states = run("cpu", precision, drop)
+            for a, b in zip(gpu_values + gpu_states, cpu_values + cpu_states):
+                assert torch.equal(a, b), (precision, drop)

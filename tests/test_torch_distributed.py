@@ -23,7 +23,11 @@ each stacked state once), every rank's bits equal to one process, on gloo
 in a world of 4 and on NCCL; and each rank's observability stamp (the
 rank on its sync spans and Perfetto track, the identity read from the
 backend, the sync counters equal on every rank), on gloo in a world of 2
-and on NCCL.
+and on NCCL; and the sync tiers (exact, bf16 and int8 states synced flat and
+two-level over a 2 x (world / 2) topology, both ``over_flat`` and over
+``new_group`` slices whose level-1 exchange carries one entry per slice),
+every rank's bits equal to one process's codec and merge, on gloo in a world
+of 4 and on NCCL.
 """
 import json
 import multiprocessing
@@ -45,6 +49,7 @@ from tests.torch_workers import (
     sharded_metric_values,
     sharded_retrieval_cases,
     stat_scores_world,
+    sync_tiers_world,
 )
 
 
@@ -411,3 +416,113 @@ def test_nccl_ranks_stamp_their_own_identity():
     ranks = run_world(world, identity_world, _identity_payload(world), device_type="cuda", timeout=600)
     print(json.dumps({"nccl_identity": {r: out["tracks"] + [out["counters"]] for r, out in ranks.items()}}))
     _assert_identities(ranks, world)
+
+
+def _tiers_payload(world, bins, seed=13):
+    rng = np.random.RandomState(seed)
+    return {"locals": [((rng.randint(0, 512, size=bins) / 256.0).astype(np.float32),
+                        rng.randint(0, 50, size=bins).astype(np.int32)) for _ in range(world)]}
+
+
+def _tiers_reference(payload, world):
+    """One process's sync of every tier: the flat merge of every rank's
+    contribution, and the two-level merge (exact level 0 inside each slice,
+    the tier at level 1 over the slice partials), with each rank's residual."""
+    from metrics_tpu_torch.parallel import quantize as q
+    from metrics_tpu_torch.utilities.data import dim_zero_sum
+
+    locals_ = [(torch.from_numpy(h), torch.from_numpy(n)) for h, n in payload["locals"]]
+    half = world // 2
+    peak = np.max([h.max() for h, _ in payload["locals"]]).astype(np.float32)
+    ref = {}
+    for precision in ("exact", "bf16", "int8"):
+        for mode in ("flat", "two_level"):
+            if mode == "flat":
+                contribs = {r: [locals_[r]] for r in range(world)}
+                parts = [(h, n) for h, n in locals_]
+                owner = list(range(world))
+            else:
+                parts = [tuple(dim_zero_sum(torch.stack([locals_[r][i] for r in range(s * half, (s + 1) * half)]))
+                               for i in (0, 1)) for s in range(2)]
+                owner = [r // half for r in range(world)]
+            synced, residuals = {}, {r: {} for r in range(world)}
+            for i, key in enumerate(("hist", "n")):
+                values = [p[i] for p in parts]
+                if precision == "exact":
+                    synced[key] = dim_zero_sum(torch.stack(values)).numpy()
+                    continue
+                pays = [q.compensate_and_quantize(v, torch.zeros(v.shape), precision) for v in values]
+                synced[key] = q.merge_dequantized([p for p, _ in pays], values[0].shape, values[0].dtype).numpy()
+                for r in range(world):
+                    residuals[r][key + "__qres"] = pays[owner[r]][1].numpy()
+            synced["peak"] = peak
+            ref[(mode, precision)] = (synced, residuals)
+    return ref
+
+
+def _assert_tiers(ranks, payload, world):
+    ref = _tiers_reference(payload, world)
+    for rank, out in ranks.items():
+        for name in ("flat", "over_flat", "new_group"):
+            mode = "flat" if name == "flat" else "two_level"
+            for precision in ("exact", "bf16", "int8"):
+                got = out[(name, precision)]
+                want_synced, want_res = ref[(mode, precision)]
+                for key, value in want_synced.items():
+                    assert np.array_equal(got["synced"][key], value), (rank, name, precision, key)
+                    assert np.array_equal(got["synced"][key], ranks[0][(name, precision)]["synced"][key])
+                assert set(got["residuals"]) == set(want_res[rank]), (rank, name, precision)
+                for key, value in want_res[rank].items():
+                    assert np.array_equal(got["residuals"][key], value), (rank, name, precision, key)
+                counters = got["counters"]
+                assert counters["sync.calls"] == 1, (rank, name, precision, counters)
+                if precision != "exact":
+                    # the wire carries the tier: int8 ~3.9x, bf16 2x fewer bytes than
+                    # the payload (the exact 4-byte peak left out of both)
+                    wire = counters["sync.level1.wire_bytes"] if mode == "two_level" else counters["sync.wire_bytes"]
+                    floor = 2.0 if precision == "bf16" else 3.0
+                    assert (counters["sync.payload_bytes"] - 4) / (wire - 4) >= floor, (rank, name, precision, counters)
+        # the new_group leaders' exchange carries one entry per slice, never
+        # the world: 11 level-1 gathers a leader (3 states exact, 3 bf16, and
+        # int8's codes and scales of 2 states plus the exact peak), none on
+        # the other ranks, which take the leaders' list by a broadcast
+        expected_widths = [2] * 11 if rank in (0, world // 2) else []
+        assert out["leader_widths"] == expected_widths, (rank, out["leader_widths"])
+        locals_ = payload["locals"]
+        stacked = np.stack([h for h, _ in locals_])
+        assert np.array_equal(out["collectives"]["sum"], stacked.sum(0))
+        assert np.array_equal(out["collectives"]["max"], stacked.max(0))
+        assert np.array_equal(out["collectives"]["mean"], stacked.sum(0) / world)
+        assert np.array_equal(out["collectives"]["cat"], stacked.reshape(-1))
+        for precision in ("int8", "bf16"):
+            assert np.array_equal(out["collectives"][f"qsum_{precision}"], ref[("flat", precision)][0]["hist"])
+
+
+def test_gloo_sync_tiers_flat_and_two_level_equal_one_process():
+    """A gloo world of 4: exact / bf16 / int8 flat and over a 2 x 2
+    topology (``over_flat`` and ``new_group`` slices): every rank's synced
+    states and residuals equal one process's codec and merge, bit for bit;
+    the leaders' gathers carry 2 entries."""
+    payload = _tiers_payload(4, bins=2048)
+    _assert_tiers(run_world(4, sync_tiers_world, payload), payload, 4)
+
+
+@pytest.mark.cuda
+def test_nccl_sync_tiers_are_the_same_on_every_card():
+    """The gloo case's twin over NCCL, one rank per card, at the size of a
+    ``ConfusionMatrix(num_classes=1000)`` state (10^6 elements, f32 and
+    int32): every card's bits equal one process's on the CPU; prints the
+    wire bytes per level and the host ms of each tier's sync."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    world = 4
+    payload = {**_tiers_payload(world, bins=1_000_000), "repeats": 5}
+    ranks = run_world(world, sync_tiers_world, payload, device_type="cuda", timeout=300)
+    print(json.dumps({"nccl_sync_tiers": {
+        "world": world, "card": torch.cuda.get_device_name(0),
+        "ms": {f"{name}/{precision}": ranks[0][(name, precision)]["ms"]
+               for name in ("flat", "over_flat", "new_group") for precision in ("exact", "bf16", "int8")},
+        "counters": {f"{name}/{precision}": ranks[0][(name, precision)]["counters"]
+                     for name in ("flat", "new_group") for precision in ("exact", "bf16", "int8")},
+    }}))
+    _assert_tiers(ranks, payload, world)

@@ -37,12 +37,13 @@ from metrics_tpu_torch.reliability.journal import atomic_write_json
 CPU = "cpu"
 
 # the JAX cases whose fault lives in a part the port does not have yet, by
-# the item (ROADMAP Queue 1) that ports it
+# the item (ROADMAP Queue 1) that ports it; the sync cases
+# (test_sync_terminal_failure_dumps_exactly_once,
+# test_hung_sync_timeout_dumps_exactly_once) came with the sync tiers and are
+# in tests/test_torch_guarded_sync.py
 NOT_PORTED = {
     "test_state_guard_quarantine_dumps_once_per_poisoned_batch": "reliability/ (item 4): StateGuard",
     "test_state_guard_warn_policy_records_but_does_not_dump": "reliability/ (item 4): StateGuard",
-    "test_sync_terminal_failure_dumps_exactly_once": "reliability/ (item 4): SyncPolicy, faultinject",
-    "test_hung_sync_timeout_dumps_exactly_once": "reliability/ (item 4): SyncPolicy, faultinject",
     "test_session_torn_write_fallback_dumps_exactly_once": "reliability/ (item 4): EvalSession, journal",
 }
 

@@ -37,10 +37,10 @@ REPO = Path(__file__).resolve().parent.parent
 CPU = "cpu"
 
 # the JAX cases whose subject the port does not have yet, by the item
-# (ROADMAP Queue 1) that ports it
+# (ROADMAP Queue 1) that ports it; test_collective_counters_record_at_trace_time
+# came with the sync tiers: tests/test_torch_quantize.py
+# (test_sync_state_counts_one_collective_per_state_like_jax)
 NOT_PORTED = {
-    "test_collective_counters_record_at_trace_time": "sync tiers (item 3): sync_state under shard_map; the port's "
-    "masked_cat_sync counterpart is test_collective_counters_count_every_executed_collective",
     "test_jitted_functional_trace_counter": "none: the port has no compiled canonicalizer, so "
     "trace.checks._canonicalize_jit is never emitted (BY_DESIGN)",
     "test_reliability_counters_zero_on_healthy_run": "reliability/ (item 4): StateGuard, SyncPolicy, envelopes",
@@ -748,9 +748,10 @@ def test_cohort_sync_telemetry_matches_jax():
 # ----------------------------------------------------------------------
 _EMIT = re.compile(r"""(?:\btel|_telemetry|_obs\.get\(\))\.(count|gauge|observe|observe_hist|event)\(\s*(f?)"([^"]+)\"""")
 
-# the JAX package emits this event kind too (metrics_tpu/cohort.py, the
-# cohort's sync) and its glossary omits it: a gap of the reference's doc
-GLOSSARY_GAPS = {"cohort_sync"}
+# the JAX package emits these event kinds too (metrics_tpu/cohort.py, the
+# cohort's sync; metrics_tpu/reliability/sync.py, a guarded gather's retry)
+# and its glossary omits them: gaps of the reference's doc
+GLOSSARY_GAPS = {"cohort_sync", "sync_retry"}
 
 
 def test_every_emitted_key_is_in_the_jax_glossary():

@@ -467,3 +467,144 @@ def identity_world(rank: int, world: int, device: torch.device, payload: dict) -
         "tracks": tracks,
         "values": values,
     }
+
+
+def _slice_transports(topology):
+    """Level-0 and level-1 transports of ``topology`` from process groups:
+    one group per slice and one of the slice leaders, created by every rank
+    in the same order. Level 0 all-gathers inside the slice; level 1
+    all-gathers among the leaders only and broadcasts the leaders' list
+    inside each slice, so the inter-slice exchange carries one entry per
+    slice. Every rank's tensors must share a shape. Returns the pair and the
+    widths of the leaders' gathers."""
+    from metrics_tpu_torch.parallel.backend import SyncBackend
+
+    rank = dist.get_rank()
+    slice_groups = [dist.new_group(list(s)) for s in topology.slices]
+    leaders_group = dist.new_group(list(topology.leaders()))
+    mine = slice_groups[topology.slice_of(rank)]
+    leader = topology.leader(topology.slice_of(rank))
+    widths = []
+
+    class Level0(SyncBackend):
+        @property
+        def world_size(self):
+            return topology.slice_size
+
+        def rank(self, group=None):
+            return topology.local_index(rank)
+
+        def gather(self, x, group=None):
+            out = [torch.empty_like(x) for _ in range(topology.slice_size)]
+            dist.all_gather(out, x.contiguous(), group=mine)
+            return out
+
+    class Level1(SyncBackend):
+        @property
+        def world_size(self):
+            return topology.num_slices
+
+        def rank(self, group=None):
+            return topology.slice_of(rank)
+
+        def gather(self, x, group=None):
+            stacked = torch.empty((topology.num_slices, *x.shape), dtype=x.dtype, device=x.device)
+            if topology.is_leader(rank):
+                out = [torch.empty_like(x) for _ in range(topology.num_slices)]
+                dist.all_gather(out, x.contiguous(), group=leaders_group)
+                widths.append(len(out))
+                stacked = torch.stack(out)
+            dist.broadcast(stacked, src=leader, group=mine)
+            return list(stacked.unbind(0))
+
+    return Level0(), Level1(), widths
+
+
+def _tier_stats(device, precision, bins):
+    """A sum-reduced float histogram, a sum-reduced int32 count and a
+    max-reduced peak: the eligible states tier up, the max stays exact."""
+    from metrics_tpu_torch.metric import Metric
+
+    class TierStats(Metric):
+        def __init__(self):
+            super().__init__(device=device)
+            self.add_state("hist", default=torch.zeros(bins), dist_reduce_fx="sum", sync_precision=precision)
+            self.add_state("n", default=torch.zeros(bins, dtype=torch.int32), dist_reduce_fx="sum",
+                           sync_precision=precision)
+            self.add_state("peak", default=torch.zeros(()), dist_reduce_fx="max")
+
+        def update(self, x, n):
+            self.hist = self.hist + x
+            self.n = self.n + n
+            self.peak = torch.maximum(self.peak, x.max())
+
+        def compute(self):
+            return self.hist
+
+    return TierStats()
+
+
+def sync_tiers_world(rank: int, world: int, device: torch.device, payload: dict) -> dict:
+    """The sync tiers in a ``torch.distributed`` world: ``payload["locals"][r]``
+    is rank r's ``(hist, n)``. For each precision, flat (the
+    ``TorchDistributedBackend``), then two-level over a 2 x (world/2)
+    topology built ``over_flat`` and from ``new_group`` slices: the synced
+    states, the committed residuals and the sync counters (telemetry on),
+    the widths of the leaders' gathers, the collectives ``sync_array`` /
+    ``qsync_sum`` and, with ``payload["repeats"]``, the host ms of a sync
+    (median, ending in a synchronize). Every rank returns numpy."""
+    import metrics_tpu_torch.observability as obs
+    from metrics_tpu_torch.parallel.backend import TorchDistributedBackend, set_sync_backend
+    from metrics_tpu_torch.parallel.collective import qsync_sum, sync_array
+    from metrics_tpu_torch.parallel.hierarchy import HierarchicalSyncBackend, SyncTopology
+
+    hist_np, n_np = payload["locals"][rank]
+    hist, n = torch.from_numpy(hist_np).to(device), torch.from_numpy(n_np).to(device)
+    bins = hist.numel()
+    topology = SyncTopology.regular(2, world // 2)
+    level0, level1, widths = _slice_transports(topology)
+    backends = {
+        "flat": None,
+        "over_flat": HierarchicalSyncBackend.over_flat(topology, TorchDistributedBackend()),
+        "new_group": HierarchicalSyncBackend(topology, level0, level1, rank=rank),
+    }
+    out = {"collectives": {}}
+    for name, backend in backends.items():
+        set_sync_backend(backend)
+        try:
+            for precision in ("exact", "bf16", "int8"):
+                m = _tier_stats(device, precision, bins)
+                m.update(hist, n)
+                obs.get().reset()
+                with obs.telemetry_scope() as tel:
+                    m._sync_dist()
+                    synced = {k: getattr(m, k).cpu().numpy() for k in ("hist", "n", "peak")}
+                    counters = {k: v for k, v in tel.counters.items() if k.startswith("sync.")}
+                residuals = {r: getattr(m, r).cpu().numpy() for r in m._sync_residual_names()}
+                ms = None
+                if payload.get("repeats"):
+                    times = []
+                    for _ in range(payload["repeats"]):
+                        m2 = _tier_stats(device, precision, bins)
+                        m2.update(hist, n)
+                        if device.type == "cuda":
+                            torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        m2._sync_dist()
+                        if device.type == "cuda":
+                            torch.cuda.synchronize()
+                        times.append((time.perf_counter() - t0) * 1e3)
+                    ms = float(np.median(times))
+                out[(name, precision)] = {"synced": synced, "residuals": residuals, "counters": counters, "ms": ms}
+        finally:
+            set_sync_backend(None)
+    out["leader_widths"] = list(widths)
+    out["collectives"] = {
+        "sum": sync_array(hist, "sum").cpu().numpy(),
+        "max": sync_array(hist, "max").cpu().numpy(),
+        "mean": sync_array(hist, "mean").cpu().numpy(),
+        "cat": sync_array(hist, "cat").cpu().numpy(),
+        "qsum_int8": qsync_sum(hist, "int8").cpu().numpy(),
+        "qsum_bf16": qsync_sum(hist, "bf16").cpu().numpy(),
+    }
+    return out
