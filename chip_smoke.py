@@ -216,7 +216,29 @@ that is unset. Phases (any failure exits non-zero before the result line):
    on either degradation; (d) the north-star step (Accuracy + AUROC over
    phase 3's 1M) synced through ``flaky_sync_backend(fails=2)`` under a
    ``SyncPolicy``: the unfaulted step's values, the ``tie_scan`` kernel
-   launched in its ``compute()``;
+   launched in its ``compute()``; and exact two-level syncs sending as many
+   level-1 bytes as the payload (int32 partials of int32 states);
+4l. the reliability layer (``reliability``): (a) the north-star collection
+   after 10 steps of 1M predictions saved to a checksummed envelope, written,
+   read and strictly loaded into a fresh collection on the card, its
+   ``compute()`` bit-equal, its checksum equal to the CPU copy's, the four
+   ``corrupt_envelope`` modes each rejected with its typed error, and the
+   save / write / read / load ms (host clock, median of 5); (b) a
+   ``StateGuard`` in phase 4h's compiled regression leg: the unguarded
+   replay's kernels and 0 host synchronizations, the guarded replay's one
+   (its stacked finite flags), the unguarded graph unchanged after the guard
+   goes off, a NaN batch under ``quarantine`` leaving every state bit-equal
+   to the run without it, ``raise`` raising with the states unmoved,
+   ``warn`` keeping the NaN, and the replay ms off and on; (c) a cohort of
+   1,024 regression tenants under ``quarantine`` with 3 tenants poisoned:
+   only those roll back (to a run without that step), the other 1,021 are
+   bit-equal to the unpoisoned run, ``health()["guard_verdicts"]`` names
+   exactly the 3; (d) an ``EvalSession`` over the north-star step, 20 steps
+   of 1M with a checkpoint every 5, preempted at step 12: a new session
+   resumes at cursor 10 and, rerun to step 20, computes bit-equal to the
+   uninterrupted run with one ``tie_scan`` launch; after a torn newest
+   generation the resume falls back to the one before it; the checkpoint
+   steps' and the resume's ms;
 5. times on the card (CUDA events over launches queued behind a device
    sleep, so host overhead does not show, or the host clock ending in a
    synchronize for whole steps): the one-stream kernel, its plain version
@@ -361,6 +383,14 @@ OBS_PAIRS = 25
 # the names of the port's profiler ranges: on the device timeline a range is an
 # annotation spanning the kernels launched inside it, not a kernel
 RANGE_PREFIXES = ("metrics_tpu.", "engine[")
+# the reliability layer (phase 4l): the north-star collection's envelope after
+# 10 steps, the session's 20 steps with a checkpoint every 5 and a preemption
+# at step 12, the guarded cohort's tenants
+RELIABILITY_ENVELOPE_STEPS = 10
+RELIABILITY_SESSION_STEPS = 20
+RELIABILITY_CHECKPOINT_EVERY = 5
+RELIABILITY_PREEMPT_AT = 12
+RELIABILITY_TENANTS = 1024
 
 
 def _pin_one_card() -> str:
@@ -1381,9 +1411,14 @@ def _retrieval_phase(torch, dev):
         for metric in collection.values():
             metric._computed = None
         syncs[queries] = _syncs(torch, collection.compute)
-        for metric in collection.values():
-            metric._computed = None
-        dtoh[queries] = _dtoh_bytes(torch, collection.compute, trace_path)
+        # two traces, the one with more copies kept: CUPTI can drop a
+        # record from a trace (seen on this card), never add one
+        traced = []
+        for _ in range(2):
+            for metric in collection.values():
+                metric._computed = None
+            traced.append(_dtoh_bytes(torch, collection.compute, trace_path))
+        dtoh[queries] = max(traced, key=lambda bc: bc[1])
         del collection
     counts_of = {q: len(s) for q, s in syncs.items()}
     if len(set(counts_of.values())) != 1 or not counts_of[RET_Q]:
@@ -2374,6 +2409,9 @@ def _sync_tier_phase(torch, dev, mc, binary):
                 floor = {"bf16": 2.0, "int8": 3.0}.get(precision)
                 if precision == "exact" and layout == "flat" and ratio != 1.0:
                     raise AssertionError(f"4k. {name} flat exact: wire bytes differ from the payload: {counters}")
+                if precision == "exact" and layout == "two_level" and level1_ratio != 1.0:
+                    # int32 states sum to int32 slice partials, as in JAX
+                    raise AssertionError(f"4k. {name} two-level exact: level-1 bytes differ from the payload: {counters}")
                 if precision != "exact" and quant_ratio < floor:
                     raise AssertionError(f"4k. {name} {layout} {precision}: payload/wire {quant_ratio} < {floor}")
                 residuals = [getattr(m, r) for r in m._sync_residual_names()]
@@ -2456,6 +2494,286 @@ def _sync_tier_phase(torch, dev, mc, binary):
           f" the unfaulted step {out['north_star']['values']}, {launches} tie_scan launch(es) in compute(),"
           f" {faulted_ms:.3f} ms")
     tel_mod.get().reset()
+    return out
+
+
+def _reliability_phase(torch, dev, card):
+    """Phase 4l: the reliability layer on the card. Returns the phase's
+    timings; leaves no guard installed."""
+    import tempfile
+
+    from metrics_tpu_torch import (
+        AUROC,
+        PSNR,
+        Accuracy,
+        ExplainedVariance,
+        MeanAbsoluteError,
+        MeanSquaredError,
+        MetricCohort,
+        MetricCollection,
+        R2Score,
+    )
+    from metrics_tpu_torch import reliability
+    from metrics_tpu_torch.ops import tie_scan
+    from metrics_tpu_torch.reliability import faultinject as fi
+    from metrics_tpu_torch.reliability.checkpoint import _checksum
+
+    out = {"card": card}
+    scan = tie_scan.tie_group_reduce
+
+    def north_star():
+        return MetricCollection([Accuracy(), AUROC(pos_label=1)])
+
+    def step_batch(i):
+        """Step ``i``'s 1M binary predictions, made on the card from a seed
+        (a replayed step gets the same batch)."""
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 1000 + i)
+        preds = torch.rand(MAIN_N, generator=gen, device=dev)
+        target = (torch.rand(MAIN_N, generator=gen, device=dev) < preds).to(torch.int32)
+        return preds, target
+
+    def bit_equal(a, b):
+        return all(torch.equal(a[k], b[k]) for k in a) and set(a) == set(b)
+
+    def timed(fn, trials=5):
+        times, result = [], None
+        for _ in range(trials):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times)), result
+
+    # a. the envelope of the north-star collection after 10 steps of 1M
+    col = north_star()
+    for i in range(RELIABILITY_ENVELOPE_STEPS):
+        col(*step_batch(i))
+    want = col.compute()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "north_star.npz")
+        save_ms, env = timed(lambda: reliability.save_envelope(col))
+        write_ms, _ = timed(lambda: reliability.write_envelope(path, env))
+        read_ms, back = timed(lambda: reliability.read_envelope(path))
+        fresh = [north_star() for _ in range(5)]
+        load_ms, _ = timed(lambda: reliability.load_envelope(fresh.pop(), back, strict=True))
+        size = os.path.getsize(path)
+    loaded = north_star()
+    reliability.load_envelope(loaded, back, strict=True)
+    if not bit_equal(loaded.compute(), want):
+        raise AssertionError(f"4l a. the loaded collection computes {loaded.compute()} vs {want}")
+    cpu_col = MetricCollection([Accuracy(device="cpu"), AUROC(pos_label=1, device="cpu")])
+    cpu_col.load_state_dict({k: ([x.cpu() for x in v] if isinstance(v, list) else v.cpu())
+                             for k, v in col._named_states()}, strict=True)
+    cpu_checksum = reliability.save_envelope(cpu_col)["checksum"]
+    if not env["checksum"] == back["checksum"] == cpu_checksum == _checksum(back["payload"]):
+        raise AssertionError(f"4l a. checksums {env['checksum']} / {back['checksum']} vs the CPU's {cpu_checksum}")
+    rejected = {}
+    for mode, exc in (("payload", reliability.CheckpointCorruptionError),
+                      ("checksum", reliability.CheckpointCorruptionError),
+                      ("schema", reliability.CheckpointSchemaError),
+                      ("truncate", reliability.CheckpointMismatchError)):
+        try:
+            reliability.load_envelope(north_star(), fi.corrupt_envelope(env, mode), strict=True)
+        except exc as err:
+            rejected[mode] = type(err).__name__
+        else:
+            raise AssertionError(f"4l a. corrupt_envelope({mode!r}) loaded")
+    out["envelope"] = {"steps": RELIABILITY_ENVELOPE_STEPS, "bytes": size, "checksum": env["checksum"],
+                       "save_ms": save_ms, "write_ms": write_ms, "read_ms": read_ms, "load_ms": load_ms,
+                       "rejected": rejected}
+    print(f"4l a. [{card}] envelope of the north-star collection after {RELIABILITY_ENVELOPE_STEPS} steps of"
+          f" {MAIN_N}: {size} bytes, checksum {env['checksum']} equal to the CPU copy's, compute() of the loaded"
+          f" collection bit-equal, the four corruptions rejected {rejected}; save {save_ms:.1f} ms, write"
+          f" {write_ms:.1f} ms, read {read_ms:.1f} ms, load {load_ms:.1f} ms (host clock, median of 5)")
+    del col, loaded, cpu_col, env, back, fresh
+
+    # b. the guard in phase 4h's compiled regression leg (float states a NaN reaches)
+    _, _, rp, rt = _regression_leg_inputs(torch, dev)
+    batches = [(rp[i * BATCH:(i + 1) * BATCH], rt[i * BATCH:(i + 1) * BATCH]) for i in range(BATCHES)]
+
+    def leg():
+        return MetricCollection([MeanSquaredError(), MeanAbsoluteError(), R2Score(), PSNR(), ExplainedVariance()],
+                                compiled=True)
+
+    def states(c):
+        return {(k, s): getattr(m, s).clone() for k, m in c.items() for s in m._defaults}
+
+    poisoned = fi.poison(batches[3][0], "nan", index=17)
+    guard_out = {}
+    clean = leg()  # the run that skips the poisoned batch
+    for b in batches:
+        clean(*b)
+    off = leg()
+    off(*batches[0])
+    ops_off = _device_ops(torch, lambda: off(*batches[1]))
+    syncs_off = _syncs(torch, lambda: off(*batches[1]))
+    if syncs_off:
+        raise AssertionError(f"4l b. an unguarded replay synchronized the host at {syncs_off}")
+    guard_out["replay_ms_off"] = _host_ms(torch, lambda: off(*batches[1]))
+    with reliability.guard_scope("quarantine") as guard:
+        off(*batches[2])  # builds the guarded graph
+        ops_on = _device_ops(torch, lambda: off(*batches[2]))
+        syncs_on = _syncs(torch, lambda: off(*batches[2]))
+        guard_out["replay_ms_on"] = _host_ms(torch, lambda: off(*batches[2]))
+    if len(syncs_on) != 1:
+        raise AssertionError(f"4l b. a guarded replay synchronized the host {len(syncs_on)} times: {syncs_on}")
+    ops_off_again = _device_ops(torch, lambda: off(*batches[1]))
+    if ops_off_again != ops_off or off._engine.cache_info()["compiled_signatures"] != 2:
+        raise AssertionError(f"4l b. the unguarded graph changed: {ops_off} then {ops_off_again} kernels and copies")
+    guard_out.update({"kernels_copies_per_replay_off": ops_off, "kernels_copies_per_replay_on": ops_on,
+                      "syncs_per_replay_off": len(syncs_off), "syncs_per_replay_on": len(syncs_on)})
+    quarantined = leg()
+    with reliability.guard_scope("quarantine") as guard, warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for i, b in enumerate(batches):
+            quarantined(*b)
+            if i == 3:
+                before = states(quarantined)
+                quarantined(poisoned, b[1])
+                if not bit_equal(states(quarantined), before):
+                    raise AssertionError("4l b. quarantine: the poisoned batch was not rolled back")
+        q_stats = dict(guard.stats)
+    if q_stats["quarantined"] != 5 or q_stats["violations"] != 5:
+        raise AssertionError(f"4l b. quarantine stats {q_stats}: want the 5 members quarantined once")
+    if not bit_equal(states(quarantined), states(clean)):
+        raise AssertionError("4l b. quarantine: the run with the poisoned batch differs from the run without it")
+    raised = leg()
+    for b in batches[:3]:
+        raised(*b)
+    before = states(raised)
+    with reliability.guard_scope("raise"):
+        try:
+            raised(poisoned, batches[3][1])
+        except reliability.NonFiniteStateError:
+            pass
+        else:
+            raise AssertionError("4l b. raise: the poisoned batch did not raise")
+    if not bit_equal(states(raised), before):
+        raise AssertionError("4l b. raise: the states moved")
+    raised(*batches[3])  # usable
+    warned = leg()
+    with reliability.guard_scope("warn") as guard, warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        warned(*batches[0])
+        warned(poisoned, batches[3][1])
+    if not bool(torch.isnan(warned["MeanSquaredError"].sum_squared_error)) or guard.stats["violations"] < 1:
+        raise AssertionError("4l b. warn: the NaN was not kept")
+    guard_out["quarantine_stats"] = q_stats
+    out["guard_leg"] = guard_out
+    print(f"4l b. [{card}] guard in the compiled regression leg ({BATCHES} x {BATCH}, 5 metrics): off"
+          f" {ops_off[0]} kernels + {ops_off[1]} copies and 0 syncs a replay, on {ops_on[0]} + {ops_on[1]} and 1"
+          f" sync; quarantine of a NaN batch bit-equal to the run without it ({q_stats}), raise raised with the"
+          f" states unmoved, warn kept the NaN; replay {guard_out['replay_ms_off']:.3f} ms off,"
+          f" {guard_out['replay_ms_on']:.3f} ms on (host clock, median of 5)")
+    del clean, off, quarantined, raised, warned
+
+    # c. the cohort's guard: 1,024 tenants, 3 poisoned
+    n, bad = RELIABILITY_TENANTS, [5, 511, 1000]
+    rs = np.random.RandomState(SEED + 40)
+    steps = [tuple(torch.from_numpy((rs.randint(0, 256, (n, COHORT_ROWS)) / 256.0).astype(np.float32)).to(dev)
+                   for _ in range(2)) for _ in range(3)]
+    poisoned_p = steps[1][0].clone()
+    poisoned_p[bad, 0] = float("nan")
+
+    def regression_cohort():
+        return MetricCohort(MetricCollection([MeanSquaredError(), MeanAbsoluteError()]), tenants=n,
+                            track_health=True)
+
+    unpoisoned, skipping = regression_cohort(), regression_cohort()
+    for i, (p, t) in enumerate(steps):
+        unpoisoned(p, t)
+        if i != 1:
+            skipping(p, t)
+    cohort = regression_cohort()
+    with reliability.guard_scope("quarantine") as guard, warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        cohort(*steps[0])
+        cohort(poisoned_p, steps[1][1])
+        cohort(*steps[2])
+        c_stats = dict(guard.stats)
+    health = cohort.health()
+    verdicts = np.flatnonzero(health["guard_verdicts"]).tolist()
+    good = torch.ones(n, dtype=torch.bool, device=dev)
+    good[bad] = False
+    for name, d in cohort._states.items():
+        for sname, v in d.items():
+            w = unpoisoned._states[name][sname]
+            if not torch.equal(v[good], w[good]):
+                raise AssertionError(f"4l c. an unpoisoned tenant's {name}.{sname} moved")
+            if not torch.equal(v[~good], skipping._states[name][sname][~good]):
+                raise AssertionError(f"4l c. the poisoned tenants' {name}.{sname} differ from a run without step 1")
+    if verdicts != bad or c_stats["quarantined"] != 2:
+        raise AssertionError(f"4l c. guard verdicts on slots {verdicts}, stats {c_stats}; want {bad}")
+    out["cohort"] = {"tenants": n, "poisoned": bad, "guard_verdict_slots": verdicts, "stats": c_stats}
+    print(f"4l c. [{card}] cohort of {n} tenants under quarantine, {len(bad)} poisoned: only they rolled back,"
+          f" the other {n - len(bad)} bit-equal to the unpoisoned run, health()['guard_verdicts'] on slots"
+          f" {verdicts}")
+    del unpoisoned, skipping, cohort
+
+    # d. the session: 20 steps of 1M, a checkpoint every 5, preempted at step 12
+    last = RELIABILITY_SESSION_STEPS
+    with tempfile.TemporaryDirectory() as d:
+        straight = reliability.EvalSession(north_star(), os.path.join(d, "straight"),
+                                           checkpoint_every=RELIABILITY_CHECKPOINT_EVERY)
+        ckpt_ms = []
+        for i in range(1, last + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            straight.step(i, *step_batch(i))
+            torch.cuda.synchronize()
+            if i % RELIABILITY_CHECKPOINT_EVERY == 0:
+                ckpt_ms.append((time.perf_counter() - t0) * 1e3)
+        want = straight.compute()
+        del straight
+        journal = os.path.join(d, "preempted")
+        first = reliability.EvalSession(north_star(), journal, checkpoint_every=RELIABILITY_CHECKPOINT_EVERY)
+        try:
+            with fi.preempt_at_step(first, RELIABILITY_PREEMPT_AT):
+                for i in range(1, last + 1):
+                    first.step(i, *step_batch(i))
+        except fi.Preempted:
+            pass
+        else:
+            raise AssertionError("4l d. the session was not preempted")
+        del first
+        resumed = reliability.EvalSession(north_star(), journal, checkpoint_every=RELIABILITY_CHECKPOINT_EVERY)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cursor = resumed.resume()
+        torch.cuda.synchronize()
+        resume_ms = (time.perf_counter() - t0) * 1e3
+        if cursor != RELIABILITY_PREEMPT_AT - RELIABILITY_PREEMPT_AT % RELIABILITY_CHECKPOINT_EVERY:
+            raise AssertionError(f"4l d. resume() returned cursor {cursor}")
+        for i in range(1, last + 1):
+            resumed.step(i, *step_batch(i))
+        zero = scan.launches
+        got = resumed.compute()
+        launches = scan.launches - zero
+        if not bit_equal(got, want) or launches != 1:
+            raise AssertionError(f"4l d. resumed compute {got} vs {want}, {launches} tie_scan launches")
+        stats = dict(resumed.stats)
+        del resumed
+        # a torn newest generation: the resume falls back to the one before it
+        fallback = reliability.EvalSession(north_star(), journal, checkpoint_every=RELIABILITY_CHECKPOINT_EVERY)
+        records = fallback.journal.records()
+        fi.torn_write(fallback.journal._gen_path(int(records[-1]["generation"])))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            torn_cursor = fallback.resume()
+        if torn_cursor != int(records[-2]["cursor"]):
+            raise AssertionError(f"4l d. after a torn newest generation resume() returned {torn_cursor}")
+        del fallback
+    out["session"] = {"steps": last, "checkpoint_every": RELIABILITY_CHECKPOINT_EVERY,
+                      "preempt_at": RELIABILITY_PREEMPT_AT, "resumed_cursor": cursor, "torn_fallback_cursor": torn_cursor,
+                      "checkpoint_step_ms": ckpt_ms, "resume_ms": resume_ms, "stats": stats,
+                      "compute_tie_scan_launches": launches}
+    print(f"4l d. [{card}] EvalSession over the north-star step, {last} steps of {MAIN_N}, a checkpoint every"
+          f" {RELIABILITY_CHECKPOINT_EVERY}, preempted at {RELIABILITY_PREEMPT_AT}: resume() -> {cursor}, the rerun's"
+          f" compute() bit-equal to the uninterrupted run's ({launches} tie_scan launch), a torn newest generation"
+          f" falls back to cursor {torn_cursor}; steps that checkpoint "
+          + ", ".join(f"{ms:.1f}" for ms in ckpt_ms) + f" ms, resume {resume_ms:.1f} ms (host clock)")
     return out
 
 
@@ -3260,6 +3578,15 @@ def main() -> int:
     if counts()["tie_scan"] < 1:
         raise AssertionError(f"phase 4k's north-star step launched no tie_scan kernel: {counts()}")
 
+    # ---- 4l. the reliability layer --------------------------------------------
+    zero_counts()
+    t0 = time.perf_counter()
+    rel_timings = _reliability_phase(torch, dev, card)
+    rel_timings["phase_s"] = time.perf_counter() - t0
+    rel_timings["scan_launches"] = counts()
+    if counts()["tie_scan"] < 1 or any(v for k, v in counts().items() if k != "tie_scan"):
+        raise AssertionError(f"phase 4l's north-star steps: only tie_scan may launch, and at least once: {counts()}")
+
     # ---- 5. times ---------------------------------------------------------
     all_preds = torch.cat(list(collection["AUROC"].preds))
     all_rel = (torch.cat(list(collection["AUROC"].target)) == 1).to(torch.float32)
@@ -3441,6 +3768,7 @@ def main() -> int:
         "cohort": cohort_timings,
         "observability": obs_timings,
         "sync_tiers": tier_timings,
+        "reliability": rel_timings,
         "card": card,
     }
     print(json.dumps({"timings": timings}))

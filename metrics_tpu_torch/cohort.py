@@ -34,10 +34,19 @@ histograms batch as one count over the flat ``(tenant, bucket)`` index,
   indexes; a JAX cohort's ``state_dict()`` loads through
   :func:`~metrics_tpu_torch.interop.state_from_jax`.
 
-Unlike the JAX package, which donates the stacked buffers to each dispatch,
-the engine copies every stacked state into its graph's buffers before a
-replay and clones the new states out after it: no state, value or
-``compute()`` result is a graph buffer.
+* **The state guard.** With a ``StateGuard`` installed the step computes
+  one all-finite flag per tenant and member inside the graph, and under
+  raise / quarantine rolls back only the poisoned tenants; the flags come
+  back in one device-to-host copy, tally per slot in ``health()``'s
+  ``guard_verdicts`` column and feed the guard's policy. ``save_envelope``
+  / ``load_envelope`` of a cohort carry the slot table with the states.
+
+Unlike the JAX package, which donates the stacked buffers to each dispatch
+(copying them all first when a guard is on, its ``copy_all``), the engine
+copies every stacked state into its graph's buffers before a replay and
+clones the new states out after it: no state, value or ``compute()`` result
+is a graph buffer, so the live stacked states are the last-good snapshot on
+every step, and ``_check_states_alive`` asserts as much after a failed one.
 """
 from collections import OrderedDict
 from contextlib import nullcontext
@@ -212,6 +221,9 @@ class MetricCohort:
         # health-armed step (None until then) and the cohort's step count
         self._track_health = track_health
         self._health: Optional[Dict[str, torch.Tensor]] = None
+        # host-side tally of guard verdicts per slot (the guard's epilogue
+        # reads its flags anyway): health()'s guard_verdicts column
+        self._guard_verdicts = np.zeros(self._capacity, dtype=np.int64)
         self._steps = 0
         # slot index and validity mask on the device, per membership: a
         # step reads them without a host-to-device copy
@@ -364,6 +376,7 @@ class MetricCohort:
         # a reused slot may hold a removed tenant's garbage: re-default it
         self._default_slots(slot)
         self._reset_slot_health([slot])
+        self._guard_verdicts[slot] = 0
         self._active[slot] = True
         if state is not None:
             self._adopt_state(slot, self._extract_states(state))
@@ -381,6 +394,7 @@ class MetricCohort:
             self._grow(bucket_capacity(need))
         slots = [int(s) for s in np.flatnonzero(~self._active)[: int(n)]]
         self._reset_slot_health(slots)
+        self._guard_verdicts[slots] = 0
         self._active[slots] = True
         self._note_membership()
         return slots
@@ -396,6 +410,7 @@ class MetricCohort:
         self._active[int(tenant)] = False
         self._default_slots(int(tenant))
         self._reset_slot_health([int(tenant)])
+        self._guard_verdicts[int(tenant)] = 0
         self._note_membership()
         return out
 
@@ -411,6 +426,7 @@ class MetricCohort:
             for sname, cur in d.items():
                 d[sname] = torch.cat([cur, pad[name][sname]])
         self._active = np.concatenate([self._active, np.zeros(grown, dtype=bool)])
+        self._guard_verdicts = np.concatenate([self._guard_verdicts, np.zeros(grown, dtype=np.int64)])
         if self._health is not None:
             pad_health = self._default_health(grown)
             self._health = {k: torch.cat([v, pad_health[k]]) for k, v in self._health.items()}
@@ -444,8 +460,11 @@ class MetricCohort:
         arrays over the live slots (in :meth:`tenant_ids` order): ``step``
         (the cohort's step count), ``tenants`` (slot ids), ``rows_seen``,
         ``updates``, ``last_step`` (-1 = never active), ``staleness`` (steps
-        since last activity; never-active tenants read the full step count)
-        and ``nonfinite`` (steps that left a nonfinite float state).
+        since last activity; never-active tenants read the full step count),
+        ``nonfinite`` (steps that left a nonfinite float state, or with a
+        guard the steps the guard flagged) and ``guard_verdicts`` (host-side
+        :class:`~metrics_tpu_torch.reliability.StateGuard` violations
+        attributed to the slot).
 
         With telemetry on, each snapshot refreshes the ``cohort.tenant.*``
         gauges (``stale`` counts tenants with ``staleness >= stale_after``);
@@ -469,9 +488,10 @@ class MetricCohort:
             "last_step": last,
             "staleness": staleness,
             "nonfinite": host["nonfinite"][slots],
+            "guard_verdicts": self._guard_verdicts[slots].copy(),
         }
         stale = np.flatnonzero(staleness >= int(stale_after))
-        poisoned = np.flatnonzero(snapshot["nonfinite"] > 0)
+        poisoned = np.flatnonzero((snapshot["nonfinite"] > 0) | (snapshot["guard_verdicts"] > 0))
         if _obs.enabled():
             tel = _obs.get()
             tel.count("cohort.health_snapshots")
@@ -559,10 +579,13 @@ class MetricCohort:
         try:
             # the host-side span around the whole vmapped step
             with _trace.span("cohort.forward", phase="dispatch", tenants=n, capacity=self._capacity):
-                new_states, values, new_health = self._engine.cohort_step(
+                new_states, values, finites, guard, new_health = self._engine.cohort_step(
                     self._states, stacked_args, stacked_kwargs, capacity=self._capacity, n_tenants=n,
                     health_state=health_state,
                 )
+        except Exception:
+            self._check_states_alive()
+            raise
         finally:
             for m, p in prev_sync:
                 m._to_sync = p
@@ -570,10 +593,51 @@ class MetricCohort:
         self._steps += 1
         if new_health is not None:
             self._health = new_health
+        if finites is not None:
+            self._apply_guard_verdicts(guard, names, finites)
         out = {name: (self._valid_rows(values[name]) if name in values else None) for name in names}
         return out["metric"] if self._single else out
 
     __call__ = forward
+
+    def _check_states_alive(self) -> None:
+        """After a failed step, no stacked state may be one of the engine's
+        buffers (the JAX package's check that no live state was donated):
+        the states are copied in and cloned out, so this holds by
+        construction; refuse to continue if it ever does not."""
+        owned = self._engine._buffer_ptrs()
+        for name, d in self._states.items():
+            for sname, v in d.items():
+                if v.numel() and v.data_ptr() in owned:
+                    raise RuntimeError(
+                        f"cohort step failed while stacked state {name}.{sname} aliases an engine buffer;"
+                        " accumulated state lost: reset() the cohort or reload a checkpoint"
+                    )
+
+    def _apply_guard_verdicts(self, guard, names: Tuple[str, ...], finites: torch.Tensor) -> None:
+        """Host epilogue of the in-step finite check: every tenant's flags in
+        one device-to-host copy, masked to the live slots (padding slots may
+        hold garbage by design), one violation per poisoned member naming
+        the offending tenants. Under raise / quarantine the step already
+        rolled the poisoned tenants back, per tenant."""
+        rolled_back = guard.policy in ("raise", "quarantine")
+        host_flags = finites.cpu().numpy()
+        for i, name in enumerate(names):
+            guard.stats["checks"] += 1
+            bad = np.flatnonzero(self._active & ~host_flags[:, i])
+            if bad.size == 0:
+                continue
+            # per-tenant attribution: tally the verdict per slot and leave a
+            # breadcrumb naming the slots before the guard's own dump fires
+            self._guard_verdicts[bad] += 1
+            if _flight.flight_enabled():
+                _flight.record("cohort_tenant_poison", metric=name, tenants=bad.tolist(), policy=guard.policy)
+            guard.handle_violation(
+                self._template[name],
+                None,
+                context=f"cohort step ({name}, tenants {bad.tolist()})",
+                already_rolled_back=rolled_back,
+            )
 
     def _valid_rows(self, value: Any) -> Any:
         """Cut a capacity-stacked value down to the live tenants."""
@@ -793,6 +857,7 @@ class MetricCohort:
         self._states = self._default_states(self._capacity)
         if self._health is not None:
             self._health = self._default_health(self._capacity)
+        self._guard_verdicts = np.zeros(self._capacity, dtype=np.int64)
         self._steps = 0
 
     def _slots_state(self) -> torch.Tensor:
@@ -891,6 +956,7 @@ class MetricCohort:
         # any restore starts a fresh health window: the loaded state has
         # another history
         self._health = None
+        self._guard_verdicts = np.zeros(self._capacity, dtype=np.int64)
         self._steps = 0
         self._note_membership()
 

@@ -14,7 +14,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 
 from metrics_tpu_torch.functional.regression.sufficient_stats import regression_family_sharing
-from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.metric import Metric, _decode_session_cursor, _encode_session_cursor
 from metrics_tpu_torch.utilities.checks import shared_canonicalization
 from metrics_tpu_torch.utilities.prints import warn_once
 
@@ -229,10 +229,17 @@ class MetricCollection:
         for _, m in self.items():
             m.persistent(mode)
 
+    # Durable-session step cursor (reliability/session.py): one for the
+    # whole collection (the members advance in lockstep under one forward),
+    # riding state_dict / _named_states as Metric's does
+    _session_cursor: Optional[int] = None
+
     def state_dict(self, destination: Optional[dict] = None, prefix: str = "") -> dict:
         destination = {} if destination is None else destination
         for k, m in self.items():
             m.state_dict(destination, prefix=f"{prefix}{k}.")
+        if self._session_cursor is not None:
+            destination[prefix + Metric._SESSION_CURSOR_KEY] = _encode_session_cursor(self._session_cursor)
         return destination
 
     def load_state_dict(self, state_dict: dict, prefix: str = "", strict: bool = False) -> None:
@@ -240,7 +247,9 @@ class MetricCollection:
 
         ``strict=True`` additionally rejects *unexpected* keys — entries under
         ``prefix`` that belong to no member — and requires every member state
-        to be present (each member's own strict check).
+        to be present (each member's own strict check). For checksum- and
+        schema-validated restores see
+        :func:`metrics_tpu_torch.reliability.load_envelope`.
         """
         if strict:
             # only keys under OUR prefix can be "unexpected": a shared flat
@@ -253,6 +262,9 @@ class MetricCollection:
                     f" prefix {prefix!r} that no member of this"
                     f" MetricCollection registers: {unexpected}"
                 )
+        cursor_key = prefix + Metric._SESSION_CURSOR_KEY
+        if cursor_key in state_dict:
+            self._session_cursor = _decode_session_cursor(state_dict[cursor_key])
         for k, m in self.items():
             m.load_state_dict(state_dict, prefix=f"{prefix}{k}.", strict=strict, _warn_on_zero_match=False)
         # one member matching nothing is legitimate (no persistent states at
@@ -267,10 +279,14 @@ class MetricCollection:
             )
 
     def _named_states(self, prefix: str = "") -> list:
-        """Member-prefixed ``(key, value)`` pairs across the collection."""
+        """Member-prefixed ``(key, value)`` pairs across the collection, plus
+        the collection's session cursor when enrolled: an envelope then
+        checksums the cursor together with the state it describes."""
         pairs = []
         for k, m in self.items():
             pairs += m._named_states(f"{prefix}{k}.")
+        if self._session_cursor is not None:
+            pairs.append((prefix + Metric._SESSION_CURSOR_KEY, _encode_session_cursor(self._session_cursor)))
         return pairs
 
     def to(self, device: Union[str, torch.device]) -> "MetricCollection":

@@ -33,6 +33,20 @@ input tensors, replays the graph and clones the values out.
   buffer, and a registered default is never aliased.
 * *Values.* Cloned out after the replay: a value returned by one step
   outlives the next.
+* *The state guard* (``reliability.guard``). With a guard installed, the
+  step function also computes one all-finite flag per member over its
+  merged float states and, under ``raise`` / ``quarantine``, selects the
+  member's prior state where the flag is false (``torch.where``): the
+  check and the rollback run inside the CUDA graph, and the flags of every
+  member come back stacked in one tensor, read to the host once per
+  replay. The guard's token (``None``, ``"select"``, ``"flag"``) is part of
+  the call signature: switching a guard on builds another graph and the
+  unguarded graph stays as it was. The JAX package donates the states to
+  its dispatch and copies them first when a guard is on, so the live
+  attributes survive a failed dispatch as the last-good snapshot; here
+  every step copies the states into the graph's buffers, so that holds on
+  every step, guarded or not (``_check_states_alive`` asserts it after a
+  failure).
 
 On the CPU (``device="cpu"``) each step runs the same step function
 directly with value checks off: the engine's plain version.
@@ -82,6 +96,7 @@ from metrics_tpu_torch.observability import flight as _flight
 from metrics_tpu_torch.observability import telemetry as _obs
 from metrics_tpu_torch.observability import trace as _trace
 from metrics_tpu_torch.parallel.backend import is_distributed_initialized
+from metrics_tpu_torch.reliability import guard as _rguard
 from metrics_tpu_torch.utilities.checks import shared_canonicalization
 from metrics_tpu_torch.utilities.data import apply_to_collection, tracing
 from metrics_tpu_torch.utilities.prints import warn_once
@@ -173,16 +188,18 @@ def _host_reads_raise():
 
 class _Graph:
     """One captured signature: the graph, its static inputs, the state
-    buffers it merges into, its captured values, and the tensors it reads
-    that live outside its pool (pinned, so they outlive every replay)."""
+    buffers it merges into, its captured outputs after the states (the
+    values, and with a guard the stacked finite flags), and the tensors it
+    reads that live outside its pool (pinned, so they outlive every
+    replay)."""
 
-    __slots__ = ("graph", "inputs", "states", "values", "pins", "pool_bytes", "build_ms")
+    __slots__ = ("graph", "inputs", "states", "outputs", "pins", "pool_bytes", "build_ms")
 
-    def __init__(self, graph, inputs, states, values, pins, pool_bytes, build_ms):
+    def __init__(self, graph, inputs, states, outputs, pins, pool_bytes, build_ms):
         self.graph = graph
         self.inputs = inputs
         self.states = states
-        self.values = values
+        self.outputs = outputs
         self.pins = pins
         self.pool_bytes = pool_bytes
         self.build_ms = build_ms
@@ -298,12 +315,18 @@ class CompiledStepEngine:
     # flows through ``states``, so it is pure despite the temporary
     # attribute changes that reuse the update/compute code)
     # ------------------------------------------------------------------
-    def _make_step_fn(self, names: Tuple[str, ...]) -> Callable:
+    def _make_step_fn(self, names: Tuple[str, ...], guard_token: Optional[str] = None) -> Callable:
+        """The step function of ``names``: ``(new_states, values)``, and with
+        a guard token also the members' all-finite flags over their merged
+        float states, stacked in ``names`` order (``"select"`` rolls a
+        member whose flag is false back to its prior state)."""
         metrics = self._metrics
+        device = self._device
 
         def step_fn(states, args, kwargs):
             new_states = {}
             values = {}
+            finites = []
             with shared_canonicalization(), regression_family_sharing():
                 for name in names:
                     m = metrics[name]
@@ -318,30 +341,62 @@ class CompiledStepEngine:
                                 values[name] = m.compute()
                             finally:
                                 m._batch_local_compute = False
-                        new_states[name] = {
+                        merged = {
                             s: Metric._merge_state_value(m._reductions[s], states[name][s], batch[s])
                             for s in m._defaults
                         }
+                        if guard_token is not None:
+                            # the fused all-finite flag over the MERGED float
+                            # states (a NaN batch and an accumulator overflow
+                            # alike), in the same step; "select" folds the
+                            # rollback in: a poisoned merge yields the prior
+                            finite = None
+                            for v in merged.values():
+                                if v.is_floating_point():
+                                    flag = torch.isfinite(v).all()
+                                    finite = flag if finite is None else finite & flag
+                            if finite is None:
+                                finite = torch.ones((), dtype=torch.bool, device=device)
+                            elif guard_token == "select":
+                                merged = {s: torch.where(finite, v, states[name][s]) for s, v in merged.items()}
+                            finites.append(finite)
+                        new_states[name] = merged
                     finally:
                         m._restore_state(saved)
                         m._computed = None
+            if guard_token is not None:
+                return new_states, values, torch.stack(finites)
             return new_states, values
 
         return step_fn
+
+    @staticmethod
+    def _guard_token(guard) -> Optional[str]:
+        """Step-function token of the active guard: None (no guard, the
+        unguarded step), ``"select"`` (raise / quarantine: the rollback
+        inside the step) or ``"flag"`` (warn: flags only, the state kept).
+        raise and quarantine share one graph; only the host verdict differs."""
+        if guard is None:
+            return None
+        return "select" if guard.policy in ("raise", "quarantine") else "flag"
 
     # ------------------------------------------------------------------
     # the cohort step function: the same step, vmapped over a leading
     # tenant axis
     # ------------------------------------------------------------------
-    def _make_cohort_step_fn(self, names: Tuple[str, ...], health: bool = False) -> Callable:
+    def _make_cohort_step_fn(
+        self, names: Tuple[str, ...], health: bool = False, guard_token: Optional[str] = None
+    ) -> Callable:
         """The step function of ``names`` under ``torch.func.vmap`` over the
         leading tenant axis of the states and of every tensor input. Each
         tenant's new state depends only on its own rows, so padding slots
         stay inert. ``health=True`` also advances the per-tenant health
         accumulators (``states[_COHORT_HEALTH_KEY]``) outside the vmap, in
         the same step, from ``aux`` (the ``valid`` slot mask and the
-        cohort's ``step`` index)."""
-        base = self._make_step_fn(names)
+        cohort's ``step`` index). With a guard token the flags come back as
+        one ``(capacity, members)`` tensor: one flag per tenant and member,
+        and a ``"select"`` rollback per tenant."""
+        base = self._make_step_fn(names, guard_token)
 
         def cohort_step_fn(states, args, kwargs):
             in_dims = (0, _cohort_in_dims(args), _cohort_in_dims(kwargs))
@@ -351,12 +406,12 @@ class CompiledStepEngine:
             return cohort_step_fn
 
         def cohort_health_step_fn(states, args, kwargs, aux):
-            new_states, values = cohort_step_fn({n: states[n] for n in names}, args, kwargs)
+            new_states, values, *finites = cohort_step_fn({n: states[n] for n in names}, args, kwargs)
             new_states = dict(new_states)
             new_states[_COHORT_HEALTH_KEY] = self._advance_health(
-                states[_COHORT_HEALTH_KEY], new_states, names, aux, args, kwargs
+                states[_COHORT_HEALTH_KEY], new_states, names, aux, args, kwargs, finites[0] if finites else None
             )
-            return new_states, values
+            return (new_states, values, *finites)
 
         return cohort_health_step_fn
 
@@ -368,16 +423,19 @@ class CompiledStepEngine:
         aux: Dict[str, torch.Tensor],
         args: tuple,
         kwargs: dict,
+        finites: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
         """One elementwise advance of the int32 ``(capacity,)`` health
         accumulators: rows seen, updates and the last active step of every
         live slot, and the slots whose merged float states are not all
-        finite. ``aux["valid"]`` masks the padding slots."""
+        finite. ``aux["valid"]`` masks the padding slots. With a guard the
+        guard's own per-tenant flags (``finites``, ``(capacity, members)``)
+        are counted: under a rollback they flag the update the step undid."""
         valid = aux["valid"].to(torch.bool)
         count = h["updates"].dtype
         nonfinite = torch.zeros(valid.shape, dtype=count, device=valid.device)
-        for name in names:
-            flag = _tenant_finite_flags(new_states[name])
+        for i, name in enumerate(names):
+            flag = _tenant_finite_flags(new_states[name]) if finites is None else finites[:, i]
             if flag is not None:
                 nonfinite = nonfinite + (valid & ~flag).to(count)
         live = valid.to(count)
@@ -391,15 +449,17 @@ class CompiledStepEngine:
     # ------------------------------------------------------------------
     # signature cache
     # ------------------------------------------------------------------
-    def _signature(self, names: Tuple[str, ...], states: dict, leaves: list, structure: tuple, extra: tuple = ()) -> tuple:
+    def _signature(self, names: Tuple[str, ...], states: dict, leaves: list, structure: tuple,
+                   guard_token: Optional[str] = None, extra: tuple = ()) -> tuple:
         # the quantized sync tier is part of the program's identity, as in
         # the JAX package: a precision flip adds or drops residual states,
-        # and a graph built for one tier is never replayed for another
+        # and a graph built for one tier is never replayed for another; so
+        # is the guard's token: a guarded graph never serves an unguarded step
         precisions = tuple(
             (n, tuple(sorted(getattr(self._metrics[n], "_sync_precisions", {}).items()))) for n in names
         )
         state_sig = tuple((n, s, tuple(v.shape), v.dtype) for n, d in states.items() for s, v in d.items())
-        return (names, precisions, state_sig, structure, tuple(_abstract_leaf(x) for x in leaves)) + extra
+        return (names, precisions, guard_token, state_sig, structure, tuple(_abstract_leaf(x) for x in leaves)) + extra
 
     def _lookup(self, signature: tuple) -> Tuple[Optional[_Graph], bool]:
         """``(program, cache_hit)``: the signature's program on a hit (None
@@ -477,12 +537,12 @@ class CompiledStepEngine:
         with torch.cuda.device(dev), tracing(), _trace.muted():
             # thread_local: other threads' CUDA calls stay legal during the capture
             with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-                new_states, values = step_fn(buffers, *call)
+                new_states, *outputs = step_fn(buffers, *call)
                 for n, d in new_states.items():
                     for s, v in d.items():
                         buffers[n][s].copy_(v)
         pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        return _Graph(graph, inputs, buffers, values, pins, pool_bytes, (time.perf_counter() - t0) * 1e3)
+        return _Graph(graph, inputs, buffers, tuple(outputs), pins, pool_bytes, (time.perf_counter() - t0) * 1e3)
 
     def _warm_up(self, step_fn: Callable, states: dict, call: tuple) -> torch.cuda.Stream:
         """Run ``step_fn(states, *call)`` once uncaptured on a new side
@@ -509,17 +569,18 @@ class CompiledStepEngine:
 
     def _run(self, program: Optional[_Graph], make_step: Callable, states: dict, leaves: list, structure: tuple,
              built: bool, watch_key: str):
-        """One step: ``(new_states, values)``. On the card the states and
-        inputs are already copied into the program's buffers. ``built`` says
-        the program was built in this step: on the CPU that run is the
-        build's, and every later run mutes the hooks inside the step."""
+        """One step: ``(new_states, values)``, and the stacked finite flags
+        with a guard. On the card the states and inputs are already copied
+        into the program's buffers. ``built`` says the program was built in
+        this step: on the CPU that run is the build's, and every later run
+        mutes the hooks inside the step."""
         with _obs.profile_span(watch_key):
             if program is None:  # the CPU: the step function itself, value checks off
                 with tracing(), (nullcontext() if built else _trace.muted()):
                     return make_step()(states, *_unflatten(structure, iter(leaves)))
             program.graph.replay()
         # clones: nothing handed out is a buffer the next replay writes
-        return apply_to_collection((program.states, program.values), torch.Tensor, torch.clone)
+        return apply_to_collection((program.states,) + program.outputs, torch.Tensor, torch.clone)
 
     def _current_states(self, names: Tuple[str, ...]) -> Dict[str, Dict[str, torch.Tensor]]:
         return {n: {s: getattr(self._metrics[n], s) for s in self._metrics[n]._defaults} for n in names}
@@ -557,11 +618,15 @@ class CompiledStepEngine:
                 # one engine dispatch = one step of the span and flight records
                 if _trace.tracing_enabled() or _flight.flight_enabled():
                     _trace.advance_step()
+                guard = _rguard.active()
+                guard_token = self._guard_token(guard)
                 with _trace.span("engine.cache_lookup", phase="dispatch", engine=self._watch_key):
-                    signature = self._signature(names, self._current_states(names), leaves, structure)
+                    signature = self._signature(names, self._current_states(names), leaves, structure, guard_token)
                     program, cache_hit = self._lookup(signature)
                 # the states handed to the step; on the card every one is
-                # copied into the graph's buffers (the JAX package donates)
+                # copied into the graph's buffers (the JAX package donates,
+                # copying every state first when a guard is on): the live
+                # attributes are the last-good snapshot on every step
                 with _trace.span("engine.donate", phase="dispatch", copy_all=self._device.type == "cuda"):
                     states = self._current_states(names)
                     if program is not None:
@@ -572,16 +637,17 @@ class CompiledStepEngine:
                 if telemetry_on:
                     _obs.get().count("engine.dispatches")
                 t0 = time.perf_counter()
-                make_step = lambda: self._make_step_fn(names)  # noqa: E731
+                make_step = lambda: self._make_step_fn(names, guard_token)  # noqa: E731
                 try:
                     with _trace.span("engine.dispatch", phase="dispatch", engine=self._watch_key, cache_hit=cache_hit):
                         if not cache_hit:
                             program = self._build(signature, names, make_step, states, leaves, structure,
                                                   self._watch_key, max(8, self._cache_size))
-                        new_states, values = self._run(program, make_step, states, leaves, structure,
-                                                       not cache_hit, self._watch_key)
+                        new_states, values, *finites = self._run(program, make_step, states, leaves, structure,
+                                                                 not cache_hit, self._watch_key)
                 except Exception as err:  # noqa: BLE001 - any build failure
                     self._compiled.pop(signature, None)
+                    self._check_states_alive(names, err)
                     # the metric attributes were never touched: rerun eagerly.
                     # If that raises too the batch was bad: it propagates and
                     # the engine stays compiled for the next batch. Only when
@@ -589,6 +655,10 @@ class CompiledStepEngine:
                     # pure step: demote the members that fail alone (all of
                     # them when none does)
                     out_eager = self._run_eager(tuple(self._metrics), args, kwargs)
+                    if guard is not None and telemetry_on:
+                        # the eager rerun succeeded where the step died: that
+                        # is the recovery (a bad input re-raises above)
+                        _obs.get().count("reliability.engine_dispatch_recoveries")
                     failed = self._failing_members(names, leaves, structure) or {n: err for n in names}
                     reason = f"trace failed: {type(err).__name__}: {err}"
                     # one dump per demotion, with the steps leading up to it
@@ -608,11 +678,22 @@ class CompiledStepEngine:
                         f"CompiledStepEngine: falling back to eager forward ({type(err).__name__}: {err})",
                         key=f"engine-demoted:{id(self)}",
                     )
+                    # a durable EvalSession wrapping these metrics checkpoints
+                    # the surviving state now; never allowed to turn the
+                    # recovery into a crash
+                    try:
+                        from metrics_tpu_torch.reliability import session as _rsession
+
+                        _rsession.notify_dispatch_failure(self._metrics.values())
+                    except Exception:  # noqa: BLE001 - best-effort hook
+                        pass
                     return self._finish(out_eager)
                 if not cache_hit and telemetry_on:
                     # a miss carries the build: warm-up and capture on the card
                     _obs.get().observe("engine.trace_s", time.perf_counter() - t0)
                 self._write_back(names, new_states, values)
+                if finites:
+                    self._apply_guard_verdicts(guard, names, finites[0])
                 for name in names:
                     out[name] = values.get(name)
 
@@ -624,6 +705,43 @@ class CompiledStepEngine:
         return self._finish({name: out[name] for name in self._metrics})
 
     __call__ = step
+
+    def _apply_guard_verdicts(self, guard, names: Tuple[str, ...], finites: torch.Tensor) -> None:
+        """Host-side epilogue of the in-step finite check: every member's
+        flag in one device-to-host copy, then the guard's policy. Under
+        raise / quarantine the step already selected the last-good states;
+        warn keeps the poisoned ones."""
+        rolled_back = guard.policy in ("raise", "quarantine")
+        host_flags = finites.cpu().tolist()
+        for name, flag in zip(names, host_flags):
+            guard.stats["checks"] += 1
+            # the opt-in integer-saturation warning runs on the written-back
+            # states; no-op unless guard.overflow_margin is set
+            guard.maybe_warn_overflow(self._metrics[name], context=f"compiled step ({name})")
+            if not flag:
+                guard.handle_violation(
+                    self._metrics[name], None, context=f"compiled step ({name})", already_rolled_back=rolled_back
+                )
+
+    def _buffer_ptrs(self) -> set:
+        """Data pointers of the engine's state buffers."""
+        return {b.data_ptr() for b in self._state_buffers.values() if b.numel()}
+
+    def _check_states_alive(self, names: Tuple[str, ...], err: Exception) -> None:
+        """After a failed step, no live state may be one of the engine's
+        buffers (the JAX package's check that no live state was donated):
+        every state handed out is a clone, so this holds by construction;
+        refuse to continue if it ever does not."""
+        owned = self._buffer_ptrs()
+        for name in names:
+            m = self._metrics[name]
+            for sname in m._defaults:
+                v = getattr(m, sname)
+                if isinstance(v, torch.Tensor) and v.numel() and v.data_ptr() in owned:
+                    raise RuntimeError(
+                        f"compiled step failed while state {name}.{sname} aliases an engine buffer;"
+                        " accumulated state lost: reset() the metric"
+                    ) from err
 
     def _failing_members(self, names: Tuple[str, ...], leaves: list, structure: tuple) -> Dict[str, Exception]:
         """The members of a failed group whose step fails alone, with their
@@ -665,10 +783,14 @@ class CompiledStepEngine:
 
         ``states`` is the stacked ``{member: {state: tensor}}`` (leading dim
         ``capacity``); the tensor leaves of ``args`` / ``kwargs`` carry the
-        same leading dim. Returns ``(new_states, values, new_health)``:
-        ``new_health`` is None unless ``health_state`` (the four
-        accumulators plus the ``valid`` mask and the ``step`` index) was
-        given, in which case the health variant, a separate program, runs.
+        same leading dim. Returns ``(new_states, values, finites, guard,
+        new_health)``: ``finites`` is None without a guard, else the
+        ``(capacity, members)`` bool flags, the rollback of the poisoned
+        tenants already selected under raise / quarantine; ``guard`` is the
+        guard the step ran under; ``new_health`` is None unless
+        ``health_state`` (the four accumulators plus the ``valid`` mask and
+        the ``step`` index) was given, in which case the health variant, a
+        separate program, runs.
 
         There is no eager fallback: the cohort exists to remove per-tenant
         eager reruns. A failed build or replay drops the program from the
@@ -695,8 +817,11 @@ class CompiledStepEngine:
         with self._lock:
             if _trace.tracing_enabled() or _flight.flight_enabled():
                 _trace.advance_step()
+            guard = _rguard.active()
+            guard_token = self._guard_token(guard)
             with _trace.span("engine.cache_lookup", phase="dispatch", engine=watch_key):
-                signature = self._signature(names, states, leaves, structure, ("cohort", int(capacity), health))
+                signature = self._signature(names, states, leaves, structure, guard_token,
+                                            ("cohort", int(capacity), health))
                 program, cache_hit = self._lookup(signature)
             telemetry_on = _obs.enabled()
             if telemetry_on:
@@ -708,7 +833,7 @@ class CompiledStepEngine:
             t0 = time.perf_counter()
             if _flight.flight_enabled():
                 _flight.record("cohort_dispatch", engine=watch_key, cache_hit=cache_hit, capacity=int(capacity))
-            make_step = lambda: self._make_cohort_step_fn(names, health)  # noqa: E731
+            make_step = lambda: self._make_cohort_step_fn(names, health, guard_token)  # noqa: E731
             try:
                 with _trace.span("engine.dispatch", phase="dispatch", engine=watch_key, cache_hit=cache_hit):
                     if not cache_hit:
@@ -716,8 +841,8 @@ class CompiledStepEngine:
                                                max(_COHORT_TRACE_BUDGET, self._cache_size))
                     elif program is not None:
                         self._copy_in(program.inputs, leaves, program.states, states)
-                    new_states, values = self._run(program, make_step, states, leaves, structure, not cache_hit,
-                                                   watch_key)
+                    new_states, values, *finites = self._run(program, make_step, states, leaves, structure,
+                                                             not cache_hit, watch_key)
             except Exception:
                 # never reuse a program whose build or replay died
                 self._compiled.pop(signature, None)
@@ -731,7 +856,7 @@ class CompiledStepEngine:
         if health:
             new_states = dict(new_states)
             new_health = new_states.pop(_COHORT_HEALTH_KEY)
-        return new_states, values, new_health
+        return new_states, values, (finites[0] if finites else None), guard, new_health
 
     @property
     def _cohort_watch_key(self) -> str:

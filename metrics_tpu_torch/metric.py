@@ -32,6 +32,7 @@ from metrics_tpu_torch.observability import trace as _obs_trace
 from metrics_tpu_torch.parallel import hierarchy as _hier
 from metrics_tpu_torch.parallel import quantize as _quant
 from metrics_tpu_torch.parallel.backend import get_sync_backend, is_distributed_initialized
+from metrics_tpu_torch.reliability import guard as _rguard
 from metrics_tpu_torch.reliability import sync as _rsync
 from metrics_tpu_torch.utilities.checks import shared_canonicalization
 from metrics_tpu_torch.utilities.data import (
@@ -52,6 +53,24 @@ from metrics_tpu_torch.utilities.prints import warn_once
 # state it compensates — but it never crosses the wire (``_sync_dist``
 # excludes it) and always stays f32 (``astype`` skips it)
 _SYNC_RESIDUAL_SUFFIX = "__qres"
+
+
+def _encode_session_cursor(cursor: int) -> torch.Tensor:
+    """The durable-session step cursor as a checkpointable 0-d int32 tensor
+    on the host (JAX's x64-off default, so the spec a save writes and the
+    spec a load validates against agree with the JAX package's). The one
+    encoding, shared by Metric, CompositionalMetric and MetricCollection."""
+    return torch.tensor(int(cursor), dtype=torch.int32)
+
+
+def _decode_session_cursor(value: Any) -> int:
+    return int(value.item()) if isinstance(value, torch.Tensor) else int(value)
+
+
+def _device_owned(v: Any, device: torch.device) -> torch.Tensor:
+    """A checkpoint value as state on ``device`` that aliases nothing the
+    caller holds: a copy, even when it already lies there."""
+    return torch.as_tensor(v).detach().to(device, copy=True)
 
 
 def _resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
@@ -97,6 +116,20 @@ class Metric(ABC):
 
     # provenance of the `_computed` cache (see `_wrap_compute`)
     _computed_batch_local = False
+
+    # True only during the classic forward's batch-local re-update, which
+    # runs on throwaway post-reset state: the state guard skips it
+    _batch_local_pass = False
+
+    # Durable-session step cursor (reliability/session.py): the index of the
+    # last batch folded into the accumulated state, or None when the metric
+    # is not enrolled in an EvalSession. When set, it travels with the
+    # state: state_dict() and _named_states() emit it under
+    # _SESSION_CURSOR_KEY, so a checkpoint of the state and the cursor that
+    # describes it are one artifact. reset() keeps it: the session, not the
+    # state, owns batch accounting.
+    _session_cursor: Optional[int] = None
+    _SESSION_CURSOR_KEY = "__session_cursor__"
 
     # Opt-in fused forward: when every state merge commutes with its
     # registered reduction — sum/min/max counters, list appends — forward
@@ -312,7 +345,11 @@ class Metric(ABC):
                 for res_name in self._sync_residual_names():
                     setattr(self, res_name, cache[res_name])
                 try:
-                    self.update(*args, **kwargs)
+                    self._batch_local_pass = True
+                    try:
+                        self.update(*args, **kwargs)
+                    finally:
+                        self._batch_local_pass = False
                     # a mini-batch may be partial (e.g. miss classes) in ways the
                     # epoch-end compute treats as errors; computes can key on this
                     self._batch_local_compute = True
@@ -368,6 +405,12 @@ class Metric(ABC):
                 self._merge_states(accumulated)
                 self._to_sync = True
                 self._computed = None
+            # reliability hook: the merge can go non-finite even when the
+            # batch stats were healthy (accumulator overflow); the guard rolls
+            # back to the pre-batch snapshot per its policy
+            guard = _rguard.active()
+            if guard is not None:
+                guard.check_states(self, accumulated, context="merge")
             return self._forward_cache
 
     @staticmethod
@@ -569,7 +612,13 @@ class Metric(ABC):
             with _obs.metric_scope(self, "update"):
                 args = apply_to_collection(args, torch.Tensor, self._to_own_device)
                 kwargs = apply_to_collection(kwargs, torch.Tensor, self._to_own_device)
-                return update(*args, **kwargs)
+                # reliability hook: with a StateGuard installed the update
+                # runs snapshot -> update -> fused isfinite check -> policy;
+                # without one the cost is this one global read
+                guard = _rguard.active()
+                if guard is None:
+                    return update(*args, **kwargs)
+                return guard.run_update(self, update, args, kwargs)
 
         return wrapped_func
 
@@ -698,18 +747,32 @@ class Metric(ABC):
         for key in self._persistent:
             self._persistent[key] = mode
 
+    def _cursor_state(self) -> torch.Tensor:
+        """The session cursor as a checkpointable scalar (see
+        :func:`_encode_session_cursor`)."""
+        return _encode_session_cursor(self._session_cursor)
+
+    def _route_cursor(self, state_dict: dict, prefix: str) -> bool:
+        """Restore a session cursor riding in ``state_dict`` (if any);
+        returns True when one was found. Shared by the metric, composition
+        and collection loaders so the cursor follows the state everywhere."""
+        key = prefix + self._SESSION_CURSOR_KEY
+        if key in state_dict:
+            self._session_cursor = _decode_session_cursor(state_dict[key])
+            return True
+        return False
+
     def state_dict(self, destination: Optional[dict] = None, prefix: str = "") -> dict:
-        """Collect persistent states into a checkpointable dict."""
+        """Collect persistent states into a checkpointable dict. A metric
+        enrolled in an :class:`~metrics_tpu_torch.reliability.EvalSession`
+        also emits its step cursor (see ``_session_cursor``)."""
         destination = {} if destination is None else destination
         for key in self._defaults:
             if self._persistent[key]:
                 destination[prefix + key] = getattr(self, key)
+        if self._session_cursor is not None:
+            destination[prefix + self._SESSION_CURSOR_KEY] = self._cursor_state()
         return destination
-
-    def _owned(self, v: Any) -> torch.Tensor:
-        """A checkpoint value as a tensor on this metric's device that aliases
-        nothing the caller holds."""
-        return torch.as_tensor(v).detach().to(self.device, copy=True)
 
     def load_state_dict(
         self,
@@ -724,7 +787,9 @@ class Metric(ABC):
         Args:
             strict: require every registered state (at ``prefix + name``)
                 to be present in ``state_dict``; raises ``KeyError`` listing
-                the missing keys otherwise.
+                the missing keys otherwise. For checkpoint validation beyond
+                key presence (schema version, payload checksum, dtype/shape
+                specs) use :func:`metrics_tpu_torch.reliability.load_envelope`.
             _warn_on_zero_match: internal — a collection passes False and runs
                 the zero-match check over ALL its members instead.
         """
@@ -735,15 +800,15 @@ class Metric(ABC):
                     f"strict load_state_dict: {type(self).__name__} is missing"
                     f" state keys {missing}"
                 )
-        loaded = False
+        loaded = self._route_cursor(state_dict, prefix)
         for key in self._defaults:
             name = prefix + key
             if name in state_dict:
                 val = state_dict[name]
                 if isinstance(val, list):
-                    setattr(self, key, [self._owned(v) for v in val])
+                    setattr(self, key, [_device_owned(v, self.device) for v in val])
                 else:
-                    setattr(self, key, self._owned(val))
+                    setattr(self, key, _device_owned(val, self.device))
                 loaded = True
         if loaded:
             # a cached pre-load result no longer describes the state
@@ -762,8 +827,14 @@ class Metric(ABC):
 
     def _named_states(self, prefix: str = "") -> list:
         """Every loadable ``(key, value)`` pair, prefixed as :meth:`state_dict`
-        prefixes it, whatever the ``persistent`` flags say."""
-        return [(prefix + key, getattr(self, key)) for key in self._defaults]
+        prefixes it, whatever the ``persistent`` flags say: the key universe
+        a strict envelope load checks against. A session-enrolled metric
+        includes its step cursor, so an envelope carries the cursor under
+        the same checksum as the state it describes."""
+        pairs = [(prefix + key, getattr(self, key)) for key in self._defaults]
+        if self._session_cursor is not None:
+            pairs.append((prefix + self._SESSION_CURSOR_KEY, self._cursor_state()))
+        return pairs
 
     def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:
         """Filter kwargs to those accepted by this metric's ``update`` signature."""
@@ -1076,6 +1147,8 @@ class CompositionalMetric(Metric):
             self.metric_a.state_dict(destination, prefix + "metric_a.")
         if isinstance(self.metric_b, Metric):
             self.metric_b.state_dict(destination, prefix + "metric_b.")
+        if self._session_cursor is not None:
+            destination[prefix + self._SESSION_CURSOR_KEY] = self._cursor_state()
         return destination
 
     def load_state_dict(
@@ -1085,6 +1158,7 @@ class CompositionalMetric(Metric):
         strict: bool = False,
         _warn_on_zero_match: bool = True,
     ) -> None:
+        self._route_cursor(state_dict, prefix)
         if isinstance(self.metric_a, Metric):
             self.metric_a.load_state_dict(state_dict, prefix + "metric_a.", strict=strict, _warn_on_zero_match=False)
         if isinstance(self.metric_b, Metric):

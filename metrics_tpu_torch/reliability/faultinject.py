@@ -1,37 +1,125 @@
-"""Fault injection for the sync paths: make the failure paths testable on demand.
+"""Fault injection: make the failure paths testable on demand.
 
-Port of the sync-facing part of ``metrics_tpu/reliability/faultinject.py``.
-Recovery code that only runs during real outages is recovery code that has
-never run. Each helper here injects one sync failure mode — a backend that
-fails or hangs, one level of a hierarchical backend that fails or hangs, an
-unreachable slice, a simulated multi-slice fleet in one process — as a
-scoped context manager that restores the previous backend on exit. The
-injectors for inputs, checkpoint envelopes, the engine and the fleet come
-with the rest of ``reliability/``.
+Port of ``metrics_tpu/reliability/faultinject.py``. Recovery code that only
+runs during real outages is recovery code that has never run. Each helper
+here injects one production failure mode — NaN/Inf in update inputs, a sync
+backend that fails or hangs (one level of a hierarchical backend, an
+unreachable slice, a simulated multi-slice fleet in one process), a step
+engine build that fails, a corrupted checkpoint envelope, a preempted or
+skewed eval session, a torn checkpoint file, a cut transport — as a scoped
+context manager (or a function) that restores the previous world on exit.
+
+Not ported yet, each with the part of the JAX package whose port brings its
+target: ``expire_lease`` and ``kill_at_migration_phase`` (``fleet/``),
+``slow_consumer`` and ``preempt_at_step(during="background_write")``
+(``serving/``), ``donation_unsafe_engine`` (its only reader is the
+sanitizer of ``analysis/``; the port donates no buffer).
 
 Nothing here is imported by the runtime hot paths.
 """
+import os
 import time
 from contextlib import contextmanager
-from typing import Any, Iterator, List, Optional, Type
+from copy import deepcopy
+from typing import Any, Dict, Iterator, List, Optional, Type
 
+import numpy as np
 import torch
 
 from metrics_tpu_torch.parallel.backend import SyncBackend, get_sync_backend, set_sync_backend
 
 __all__ = [
     "FaultInjected",
+    "Preempted",
+    "TransportPartitioned",
+    "partition_transport",
+    "poison",
+    "nonfinite_updates",
     "flaky_sync_backend",
     "flaky_level",
     "hung_level",
     "pod_dropout",
     "simulated_pods",
+    "failing_engine_compile",
+    "corrupt_envelope",
+    "preempt_at_step",
+    "torn_write",
+    "cursor_skew",
 ]
 
 
 class FaultInjected(RuntimeError):
     """Marker exception raised by injected faults (distinguishable from
     organic failures in assertions and logs)."""
+
+
+class Preempted(FaultInjected):
+    """Raised by :func:`preempt_at_step`: the process "died" here. A test
+    catches it, abandons the session object, and drives recovery purely from
+    what reached disk, the same evidence a real SIGKILL leaves."""
+
+
+class TransportPartitioned(FaultInjected):
+    """Raised by :func:`partition_transport`: the network between this
+    process and its peers is unreachable, but the process survives, its
+    in-memory and durable state intact, and every transport call fails until
+    the partition heals."""
+
+
+# ----------------------------------------------------------------------
+# non-finite inputs
+# ----------------------------------------------------------------------
+def poison(x: torch.Tensor, mode: str = "nan", index: Any = 0) -> torch.Tensor:
+    """``x`` with ``x[index]`` replaced by NaN (``mode="nan"``) or +Inf
+    (``mode="inf"``), as a new tensor. For crafting poisoned batches fed to
+    *compiled* paths, where wrapping ``update`` would poison the step
+    function instead of one batch's data."""
+    if mode not in ("nan", "inf"):
+        raise ValueError(f"mode must be 'nan' or 'inf', got {mode!r}")
+    x = torch.as_tensor(x)
+    if not x.is_floating_point():
+        raise ValueError("poison() needs a floating-point tensor")
+    out = x.clone()
+    out[index] = float("nan") if mode == "nan" else float("inf")
+    return out
+
+
+def _target_metrics(obj: Any) -> List[Any]:
+    values = getattr(obj, "values", None)
+    if values is not None and not hasattr(obj, "_defaults"):
+        return list(obj.values())  # MetricCollection
+    return [obj]
+
+
+@contextmanager
+def nonfinite_updates(obj: Any, mode: str = "nan", times: int = 1, arg_index: int = 0) -> Iterator[Dict[str, int]]:
+    """Poison the first ``times`` ``update()`` calls of a metric (or of every
+    member of a collection): positional argument ``arg_index`` gets one
+    element overwritten with NaN/Inf before the real update runs.
+
+    Eager-path injection only: under the step engine ``update`` runs inside
+    the step function, and a wrapper would poison the captured program;
+    feed :func:`poison`-ed batch data instead."""
+    metrics = _target_metrics(obj)
+    injected = {"count": 0}
+    originals = [(m, m.update) for m in metrics]
+
+    def _wrap(orig):
+        def poisoned_update(*args, **kwargs):
+            if injected["count"] < times and len(args) > arg_index:
+                injected["count"] += 1
+                args = (*args[:arg_index], poison(args[arg_index], mode), *args[arg_index + 1:])
+            return orig(*args, **kwargs)
+
+        return poisoned_update
+
+    try:
+        for m, orig in originals:
+            m.update = _wrap(orig)
+        yield injected
+    finally:
+        for m, orig in originals:
+            m.update = orig
 
 
 # ----------------------------------------------------------------------
@@ -250,3 +338,219 @@ def simulated_pods(
         yield backend
     finally:
         set_sync_backend(prev)
+
+
+# ----------------------------------------------------------------------
+# step engine build failure
+# ----------------------------------------------------------------------
+@contextmanager
+def failing_engine_compile(times: int = 1, exc_type: Type[BaseException] = FaultInjected) -> Iterator[Dict[str, int]]:
+    """Make the next ``times`` step-engine builds raise ``exc_type`` when
+    their step function runs (its warm-up on the card, its first run on the
+    CPU): the failure shape of a step that cannot be captured, which drives
+    the rerun-eagerly-then-demote recovery. ``exc_type=KeyboardInterrupt``
+    drills an operator ^C inside a step: a BaseException the engine lets
+    escape while the accumulated states stay at the last-good snapshot."""
+    from metrics_tpu_torch.engine import CompiledStepEngine  # lazy: cycle-free
+
+    orig = CompiledStepEngine._make_step_fn
+    injected = {"count": 0}
+
+    def patched(self, names, *fn_args, **fn_kwargs):
+        real = orig(self, names, *fn_args, **fn_kwargs)
+
+        def step_fn(states, args, kwargs):
+            if injected["count"] < times:
+                injected["count"] += 1
+                raise exc_type("injected engine compile failure")
+            return real(states, args, kwargs)
+
+        return step_fn
+
+    CompiledStepEngine._make_step_fn = patched
+    try:
+        yield injected
+    finally:
+        CompiledStepEngine._make_step_fn = orig
+
+
+# ----------------------------------------------------------------------
+# checkpoint corruption
+# ----------------------------------------------------------------------
+def _flip_first_byte(value: Any) -> Any:
+    """A copy of one payload value with the bits of its first byte flipped."""
+    if isinstance(value, torch.Tensor):  # a bfloat16 payload entry
+        out = value.clone()
+        out.reshape(-1)[:1].view(torch.int16).bitwise_xor_(0xFF)
+        return out
+    arr = np.array(np.asarray(value), copy=True)
+    raw = np.atleast_1d(arr).view(np.uint8)  # a view: mutates arr in place
+    raw.reshape(-1)[0] ^= 0xFF
+    return arr
+
+
+def corrupt_envelope(envelope: Dict[str, Any], mode: str = "payload") -> Dict[str, Any]:
+    """A corrupted copy of a state envelope (the original is left intact).
+    The modes mirror real checkpoint damage:
+
+    * ``"payload"``  — flip bits in one payload array, checksum untouched
+      (bit rot in storage; caught by the checksum).
+    * ``"checksum"`` — clobber the stored checksum (a partial write of the
+      header).
+    * ``"schema"``   — bump ``schema_version`` past what this build knows
+      (a checkpoint from a future library version).
+    * ``"truncate"`` — drop one payload entry and its spec, recomputing the
+      checksum (a consistent but incomplete envelope; caught by strict key
+      matching, not by the checksum).
+    """
+    from metrics_tpu_torch.reliability.checkpoint import _checksum  # lazy: cycle-free
+
+    env = deepcopy({k: v for k, v in envelope.items() if k != "payload"})
+    env["payload"] = dict(envelope["payload"])
+    if mode == "payload":
+        key = sorted(env["payload"])[0]
+        val = env["payload"][key]
+        first = val[0] if isinstance(val, list) else val
+        flipped = _flip_first_byte(first)
+        env["payload"][key] = [flipped, *val[1:]] if isinstance(val, list) else flipped
+    elif mode == "checksum":
+        env["checksum"] = "crc32:00000000"
+    elif mode == "schema":
+        env["schema_version"] = envelope["schema_version"] + 999
+    elif mode == "truncate":
+        key = sorted(env["payload"])[-1]
+        del env["payload"][key]
+        env["spec"] = {k: v for k, v in env["spec"].items() if k != key}
+        env["checksum"] = _checksum(env["payload"])
+    else:
+        raise ValueError(f"mode must be one of 'payload'|'checksum'|'schema'|'truncate', got {mode!r}")
+    return env
+
+
+# ----------------------------------------------------------------------
+# durable-session faults (preemption, torn files, cursor skew, partitions)
+# ----------------------------------------------------------------------
+class _PartitionedBackend(SyncBackend):
+    """A transport with the cable cut: every collective raises
+    :class:`TransportPartitioned` until :meth:`heal`, after which calls pass
+    through to the wrapped backend unchanged."""
+
+    def __init__(self, inner: Optional[SyncBackend]):
+        self.inner = inner
+        self.healed = False
+        self.calls = 0
+
+    @property
+    def world_size(self) -> int:
+        return self.inner.world_size if self.inner is not None else 1
+
+    def rank(self, group: Optional[Any] = None) -> int:
+        return self.inner.rank(group) if self.inner is not None else 0
+
+    def heal(self) -> None:
+        self.healed = True
+
+    def _check(self, what: str) -> None:
+        if not self.healed:
+            self.calls += 1
+            raise TransportPartitioned(f"injected network partition: {what} unreachable")
+
+    def gather(self, x: Any, group: Optional[Any] = None) -> List[Any]:
+        self._check("gather")
+        return self.inner.gather(x, group=group)
+
+    def heartbeat(self):
+        self._check("heartbeat")
+        return self.inner.heartbeat()
+
+
+@contextmanager
+def partition_transport(owner: Any, attr: str = "backend") -> Iterator[Dict[str, Any]]:
+    """Cut the network under ``owner.<attr>`` (an object's
+    :class:`SyncBackend`): every collective on it raises
+    :class:`TransportPartitioned` until ``info["heal"]()`` runs, so a test can
+    drive the blocked, healed and recovered sequence inside one block. Exit
+    restores the original backend object. ``info`` reports ``calls``
+    (transport attempts refused) and ``heal``."""
+    inner = getattr(owner, attr)
+    wrapper = _PartitionedBackend(inner)
+    setattr(owner, attr, wrapper)
+    info: Dict[str, Any] = {"heal": wrapper.heal, "wrapper": wrapper, "calls": 0}
+    try:
+        yield info
+    finally:
+        info["calls"] = wrapper.calls
+        setattr(owner, attr, inner)
+
+
+@contextmanager
+def preempt_at_step(session: Any, step: int, during: str = "step") -> Iterator[Dict[str, int]]:
+    """Simulate a preemption: while active, the session "dies" (raises
+    :class:`Preempted`) the moment it is fed ``step_index >= step``, before
+    that batch touches any state. Everything the session checkpointed before
+    that instant is exactly what a real preemption leaves; drive recovery by
+    building a fresh metric and session over the same journal directory and
+    calling ``resume()``. ``during="background_write"`` needs the background
+    checkpoint writer of ``serving/``, not ported yet."""
+    if during == "background_write":
+        raise NotImplementedError(
+            "preempt_at_step(during='background_write') needs EvalSession's"
+            " background checkpoint writer (serving/bgcheckpoint.py), which is"
+            " not ported yet (ROADMAP Queue 1 item 5)"
+        )
+    if during != "step":
+        raise ValueError(f"during must be 'step' or 'background_write', got {during!r}")
+    orig = session.step
+    info = {"preempted_at": -1, "torn_writes": 0}
+
+    def dying(step_index, *args: Any, **kwargs: Any):
+        if int(step_index) >= step:
+            info["preempted_at"] = int(step_index)
+            raise Preempted(f"injected preemption at step {step_index}")
+        return orig(step_index, *args, **kwargs)
+
+    session.step = dying
+    try:
+        yield info
+    finally:
+        del session.step  # uncover the bound method
+
+
+def torn_write(path: Any, keep_fraction: float = 0.5) -> int:
+    """Truncate a checkpoint file in place to ``keep_fraction`` of its bytes:
+    the carcass of a process killed mid-write (possible only for files
+    written without the atomic tmp-and-rename path, which is why the journal
+    uses it; injected against a finished generation it drills the
+    resume-time fallback). Returns the new size."""
+    if not 0.0 <= keep_fraction < 1.0:
+        raise ValueError(f"keep_fraction must be in [0, 1), got {keep_fraction}")
+    size = os.path.getsize(path)
+    new_size = int(size * keep_fraction)
+    os.truncate(path, new_size)
+    return new_size
+
+
+@contextmanager
+def cursor_skew(session: Any, delta: int) -> Iterator[None]:
+    """While active, every checkpoint the session commits records a step
+    cursor offset by ``delta`` (state untouched): the accounting drift of a
+    rank that counted batches its peers did not. Drives the multi-process
+    resume agreement: skewed ranks must roll back to a common generation or
+    raise ``SessionResumeError``."""
+    orig = session.checkpoint
+
+    def skewed(*args: Any, **kwargs: Any):
+        real_cursor = session.cursor
+        session.cursor = real_cursor + delta
+        session.metric._session_cursor = session.cursor
+        try:
+            return orig(*args, **kwargs)
+        finally:
+            session.cursor = real_cursor
+            session.metric._session_cursor = real_cursor
+
+    session.checkpoint = skewed
+    try:
+        yield
+    finally:
+        del session.checkpoint

@@ -42,7 +42,19 @@ def dim_zero_cat(x):
     return torch.cat([torch.atleast_1d(el) for el in x], dim=0)
 
 
+_NARROW_SIGNED = (torch.bool, torch.int8, torch.int16, torch.int32)
+_UNSIGNED = (torch.uint8, torch.uint16, torch.uint32)
+
+
 def dim_zero_sum(x):
+    """Sum along dim 0 in the dtype ``jnp.sum(x, axis=0)`` gives with x64
+    off: bool and signed integers up to 32 bits sum to int32, unsigned ones
+    to uint32 (both wrap past their range, as JAX's do), anything else keeps
+    its dtype. ``torch.sum`` would widen every integer to int64."""
+    if x.dtype in _NARROW_SIGNED:
+        return torch.sum(x, dim=0, dtype=torch.int32)
+    if x.dtype in _UNSIGNED:
+        return torch.sum(x, dim=0, dtype=torch.int64).to(torch.uint32)
     return torch.sum(x, dim=0)
 
 

@@ -27,13 +27,18 @@ shape-polymorphic loop, kernels attributed to the metric and engine
 profiler ranges); and the sync tiers' codec on the card (int8 codes, scales,
 bf16 payloads, residuals and the rank-order merge bit-equal to its CPU run,
 no host synchronization in the codec, the quantized and hierarchical syncs
-of a metric and a cohort under ``simulated_pods`` equal to their CPU runs).
+of a metric and a cohort under ``simulated_pods`` equal to their CPU runs);
+and the reliability layer on the card (an exact sync of int32 states
+keeping int32, flat and two-level; a guarded compiled step reading the host
+once per replay, rolling a poisoned batch back bit for bit, and the
+unguarded graph kept as it was).
 
 Every test here is marked ``cuda`` and skips without a card. This file
 imports neither JAX nor the JAX package, so it also runs on a machine that
 has only PyTorch: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
 (``--noconftest`` because the suite's conftest pins JAX to the CPU).
 """
+import contextlib
 import warnings
 
 import numpy as np
@@ -1488,3 +1493,62 @@ def test_quantized_and_hierarchical_syncs_on_the_card_equal_their_cpu_runs(cuda_
             cpu_values, cpu_states = run("cpu", precision, drop)
             for a, b in zip(gpu_values + gpu_states, cpu_values + cpu_states):
                 assert torch.equal(a, b), (precision, drop)
+
+
+def _host_reads(fn):
+    """Synchronizing CUDA calls in ``fn()`` (PyTorch's sync debug mode)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def test_exact_integer_sync_and_the_guarded_replay_on_the_card(cuda_device):
+    """An exact sync of a ``ConfusionMatrix`` keeps its int32 counts, flat
+    over a 4-rank mirror world and two-level under ``simulated_pods(2, 2)``
+    (4x the local counts); a compiled collection under a quarantine guard
+    reads the host once per replayed step (the stacked finite flags), rolls
+    a poisoned batch back to the bits before it, and switching the guard
+    off replays the unguarded graph, which reads the host 0 times."""
+    from metrics_tpu_torch import MeanAbsoluteError, MeanSquaredError
+    from metrics_tpu_torch.parallel.backend import set_sync_backend
+    from metrics_tpu_torch.reliability import faultinject as fi
+    from metrics_tpu_torch.reliability import guard_scope
+
+    preds, target = _multiclass(4_096, 5, 61)
+    for layout in ("flat", "two_level"):
+        m = ConfusionMatrix(num_classes=5)
+        m.update(preds.to(cuda_device), target.to(cuda_device))
+        local = m.confmat.clone()
+        prev = set_sync_backend(fi._MirrorBackend(4) if layout == "flat" else None)
+        try:
+            with (fi.simulated_pods(2, 2) if layout == "two_level" else contextlib.nullcontext()):
+                m._sync_dist()
+        finally:
+            set_sync_backend(prev)
+        assert m.confmat.dtype == torch.int32 and torch.equal(m.confmat, 4 * local), layout
+
+    rng = np.random.default_rng(62)
+    batches = [tuple(torch.from_numpy(rng.random(100_000, dtype=np.float32)).to(cuda_device) for _ in range(2))
+               for _ in range(4)]
+    col = MetricCollection([MeanSquaredError(), MeanAbsoluteError()], compiled=True)
+    col(*batches[0])  # the unguarded graph
+    assert _host_reads(lambda: col(*batches[1])) == 0
+    with guard_scope("quarantine") as guard:
+        col(*batches[2])  # builds the guarded graph
+        assert _host_reads(lambda: col(*batches[2])) == 1
+        before = {(k, s): getattr(m, s).clone() for k, m in col.items() for s in m._defaults}
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            col(fi.poison(batches[3][0], "nan"), batches[3][1])
+        for (k, s), v in before.items():
+            assert torch.equal(getattr(col[k], s), v), (k, s)
+    assert guard.stats["quarantined"] == 2 and guard.stats["checks"] == 6
+    assert _host_reads(lambda: col(*batches[3])) == 0
+    info = col._engine.cache_info()
+    assert info["compiled_signatures"] == 2 and info["trace_count"] == 2 and info["eager_fallbacks"] == {}

@@ -27,7 +27,10 @@ and on NCCL; and the sync tiers (exact, bf16 and int8 states synced flat and
 two-level over a 2 x (world / 2) topology, both ``over_flat`` and over
 ``new_group`` slices whose level-1 exchange carries one entry per slice),
 every rank's bits equal to one process's codec and merge, on gloo in a world
-of 4 and on NCCL.
+of 4 and on NCCL; and a durable ``EvalSession`` whose one rank checkpointed
+a skewed cursor: every rank resumes at the same agreed cursor with the same
+state bits and ends on the same synced values, on gloo in a world of 4 and
+on NCCL.
 """
 import json
 import multiprocessing
@@ -45,6 +48,7 @@ from tests.torch_workers import (
     distributed_paths_world,
     identity_world,
     run_world,
+    session_world,
     sharded_cases,
     sharded_metric_values,
     sharded_retrieval_cases,
@@ -483,10 +487,12 @@ def _assert_tiers(ranks, payload, world):
                     floor = 2.0 if precision == "bf16" else 3.0
                     assert (counters["sync.payload_bytes"] - 4) / (wire - 4) >= floor, (rank, name, precision, counters)
         # the new_group leaders' exchange carries one entry per slice, never
-        # the world: 11 level-1 gathers a leader (3 states exact, 3 bf16, and
-        # int8's codes and scales of 2 states plus the exact peak), none on
-        # the other ranks, which take the leaders' list by a broadcast
-        expected_widths = [2] * 11 if rank in (0, world // 2) else []
+        # the world: 11 level-1 gathers a leader per sync of the three tiers
+        # (3 states exact, 3 bf16, and int8's codes and scales of 2 states
+        # plus the exact peak), for the checked sync and each timed repeat;
+        # none on the other ranks, which take the leaders' list by a broadcast
+        syncs = 1 + payload.get("repeats", 0)
+        expected_widths = [2] * 11 * syncs if rank in (0, world // 2) else []
         assert out["leader_widths"] == expected_widths, (rank, out["leader_widths"])
         locals_ = payload["locals"]
         stacked = np.stack([h for h, _ in locals_])
@@ -526,3 +532,49 @@ def test_nccl_sync_tiers_are_the_same_on_every_card():
                      for name in ("flat", "new_group") for precision in ("exact", "bf16", "int8")},
     }}))
     _assert_tiers(ranks, payload, world)
+
+
+def _session_payload(directory, n_batches=6, rows=256, seed=29):
+    rng = np.random.RandomState(seed)
+    batches = [((rng.randint(0, 64, size=rows) / 64).astype(np.float32), rng.randint(2, size=rows).astype(np.int32))
+               for _ in range(n_batches)]
+    return {"dir": str(directory), "batches": batches, "skewed": 1}
+
+
+def _assert_sessions_agree(ranks, payload):
+    last = len(payload["batches"]) - 1
+    for rank, out in ranks.items():
+        # the skewed rank advertises last + 1, the others last: all roll back
+        # to the newest cursor every rank holds on disk
+        assert out["cursor"] == last - 1, (rank, out["cursor"])
+        assert out["rollbacks"] == 1 and out["replays"] == last, (rank, out)
+        for key, value in out["states"].items():
+            want = ranks[0]["states"][key]
+            if isinstance(value, list):
+                assert len(value) == len(want) and all(np.array_equal(a, b) for a, b in zip(value, want)), (rank, key)
+            else:
+                assert value.dtype == want.dtype and np.array_equal(value, want), (rank, key)
+        for key, value in out["values"].items():
+            assert np.array_equal(value, ranks[0]["values"][key]), (rank, key)
+
+
+def test_gloo_session_resume_agrees_on_every_rank(tmp_path):
+    """A gloo world of 4: rank 1's last checkpoint carries a skewed cursor
+    (``cursor_skew(+1)``); every rank resumes at the same cursor, rolls back
+    once, holds the same state bits and ends on the same synced values."""
+    payload = _session_payload(tmp_path)
+    _assert_sessions_agree(run_world(4, session_world, payload), payload)
+
+
+@pytest.mark.cuda
+def test_nccl_session_resume_agrees_on_every_card(tmp_path):
+    """The gloo case's twin over NCCL, one rank per card (the cursor
+    agreement's gathers are CUDA tensors)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    payload = _session_payload(tmp_path)
+    ranks = run_world(4, session_world, payload, device_type="cuda", timeout=300)
+    print(json.dumps({"nccl_session": {r: {"cursor": out["cursor"], "rollbacks": out["rollbacks"],
+                                           "values": {k: float(v) for k, v in out["values"].items()}}
+                                       for r, out in ranks.items()}}))
+    _assert_sessions_agree(ranks, payload)

@@ -106,8 +106,8 @@ def _failing_build_once(monkeypatch):
     make = CompiledStepEngine._make_step_fn
     left = {"n": 1}
 
-    def make_step_fn(self, names):
-        step = make(self, names)
+    def make_step_fn(self, names, *args):
+        step = make(self, names, *args)
 
         def failing(states, args, kwargs):
             if left["n"]:

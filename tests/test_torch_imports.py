@@ -81,24 +81,6 @@ JAX_INITS = {
 # names JAX exports that the port does not have yet, by the part of the
 # JAX package whose port brings them
 NOT_YET_PORTED = {
-    "CheckpointCorruptionError": "reliability/ (Queue 1 item 4): checkpoint.py's envelope",
-    "CheckpointError": "reliability/ (Queue 1 item 4): checkpoint.py's envelope",
-    "CheckpointMismatchError": "reliability/ (Queue 1 item 4): checkpoint.py's envelope",
-    "CheckpointSchemaError": "reliability/ (Queue 1 item 4): checkpoint.py's envelope",
-    "load_envelope": "reliability/ (Queue 1 item 4): checkpoint.py's envelope",
-    "read_envelope": "reliability/ (Queue 1 item 4): checkpoint.py's envelope",
-    "save_envelope": "reliability/ (Queue 1 item 4): checkpoint.py's envelope",
-    "write_envelope": "reliability/ (Queue 1 item 4): checkpoint.py's envelope",
-    "CheckpointJournal": "reliability/ (Queue 1 item 4): journal.py",
-    "EvalSession": "reliability/ (Queue 1 item 4): session.py",
-    "SessionError": "reliability/ (Queue 1 item 4): session.py",
-    "SessionResumeError": "reliability/ (Queue 1 item 4): session.py",
-    "SessionStepTimeoutError": "reliability/ (Queue 1 item 4): session.py",
-    "NonFiniteStateError": "reliability/ (Queue 1 item 4): guard.py",
-    "StateGuard": "reliability/ (Queue 1 item 4): guard.py",
-    "guard_scope": "reliability/ (Queue 1 item 4): guard.py",
-    "install_guard": "reliability/ (Queue 1 item 4): guard.py",
-    "uninstall_guard": "reliability/ (Queue 1 item 4): guard.py",
     "serving": "serving/",
     "fleet": "fleet/",
     "analysis": "analysis/",

@@ -608,3 +608,84 @@ def sync_tiers_world(rank: int, world: int, device: torch.device, payload: dict)
         "qsum_bf16": qsync_sum(hist, "bf16").cpu().numpy(),
     }
     return out
+
+
+def int_sync_world(rank: int, world: int, device: torch.device, payload: dict) -> dict:
+    """An exact sync of integer states in a ``torch.distributed`` world:
+    ``payload["batches"][r]`` is rank r's ``(probs, target)``. A
+    ``ConfusionMatrix`` and a macro ``StatScores`` (int32 states) are synced
+    flat (the ``TorchDistributedBackend``) and two-level over a 2 x (world/2)
+    topology built ``over_flat``; returns each synced state as numpy (its
+    dtype kept) and the sync counters of each layout (telemetry on)."""
+    import metrics_tpu_torch.observability as obs
+    from metrics_tpu_torch import ConfusionMatrix, StatScores
+    from metrics_tpu_torch.parallel.backend import set_sync_backend
+    from metrics_tpu_torch.parallel.hierarchy import HierarchicalSyncBackend, SyncTopology
+
+    probs, target = (torch.from_numpy(a).to(device) for a in payload["batches"][rank])
+    classes = probs.shape[1]
+    topology = SyncTopology.regular(2, world // 2)
+    out = {}
+    for name, backend in (("flat", None), ("two_level", HierarchicalSyncBackend.over_flat(topology, TorchDistributedBackend()))):
+        set_sync_backend(backend)
+        try:
+            metrics = {
+                "ConfusionMatrix": ConfusionMatrix(num_classes=classes, device=device),
+                "StatScores": StatScores(reduce="macro", num_classes=classes, device=device),
+            }
+            obs.get().reset()
+            with obs.telemetry_scope() as tel:
+                for key, m in metrics.items():
+                    m.update(probs, target)
+                    m._sync_dist()
+                    for sname in m._defaults:
+                        out[(name, key, sname)] = getattr(m, sname).cpu().numpy()
+                out[(name, "counters")] = {k: v for k, v in tel.counters.items() if k.startswith("sync.")}
+        finally:
+            set_sync_backend(None)
+    return out
+
+
+def session_world(rank: int, world: int, device: torch.device, payload: dict) -> dict:
+    """``EvalSession`` over the world's backend (gloo or NCCL): every rank
+    steps the same batches of a compiled-free ``Accuracy`` + ``AUROC`` +
+    ``MeanSquaredError`` collection, checkpointing each step into its own
+    journal under ``payload["dir"]``; rank ``payload["skewed"]`` records its
+    last checkpoint with ``cursor_skew(+1)``. Then each rank builds a fresh
+    collection and session and resumes: returns the agreed cursor, the
+    rollbacks, the resumed states (numpy) and the synced epoch values after
+    replaying the whole stream."""
+    import os
+
+    from metrics_tpu_torch import AUROC, Accuracy, MeanSquaredError, MetricCollection
+    from metrics_tpu_torch.reliability import EvalSession
+    from metrics_tpu_torch.reliability import faultinject as fi
+
+    def collection():
+        return MetricCollection([Accuracy(device=device), AUROC(device=device), MeanSquaredError(device=device)])
+
+    batches = [tuple(torch.from_numpy(a).to(device) for a in b) for b in payload["batches"]]
+    directory = os.path.join(payload["dir"], f"rank{rank}")
+
+    def feed(session, i):
+        preds, target = batches[i]
+        session.step(i, preds, target)
+
+    first = EvalSession(collection(), directory, checkpoint_every=1, keep_last=3)
+    last = len(batches) - 1
+    for i in range(last):
+        feed(first, i)
+    if rank == payload["skewed"]:
+        with fi.cursor_skew(first, +1):
+            feed(first, last)
+    else:
+        feed(first, last)
+    resumed = EvalSession(collection(), directory, checkpoint_every=1, keep_last=3)
+    cursor = resumed.resume()
+    states = {k: ([x.cpu().numpy() for x in v] if isinstance(v, list) else v.cpu().numpy())
+              for k, v in resumed.metric._named_states()}
+    for i in range(len(batches)):
+        feed(resumed, i)
+    values = {k: v.cpu().numpy() for k, v in resumed.compute().items()}
+    return {"cursor": cursor, "rollbacks": resumed.stats["resume_rollbacks"],
+            "replays": resumed.stats["replays_skipped"], "states": states, "values": values}
