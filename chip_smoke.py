@@ -239,6 +239,25 @@ that is unset. Phases (any failure exits non-zero before the result line):
    uninterrupted run with one ``tie_scan`` launch; after a torn newest
    generation the resume falls back to the one before it; the checkpoint
    steps' and the resume's ms;
+   4m. ``serving/``: (a) the JAX bench's serving leg uncut (1M 4-class rows,
+   the forward leg compiled, 12 steps of a host sleep of 1.5 x the blocking
+   metric cost, at least 20 ms): step ms blocking and through an
+   ``AsyncServingEngine`` (the drain inside the timed window), p50 / p95 /
+   p99, the overhead over the measured sleep, the cold first dispatch and
+   each dispatch's stage-to-device-complete ms, the values bit-equal;
+   (b) the same loop with the model's time as a device sleep on the
+   caller's stream, each step synchronizing that stream only: a worker on
+   the caller's or the legacy default stream would show no overlap here;
+   (c) ``IngestQueue``, 64 tenants x 256 rows x 8 waves into a cohort,
+   directly and behind a pipeline: rows/s, values bit-equal to direct
+   ``route_rows`` forwards; (d) ``EvalSession(background_checkpoints=True)``
+   over phase 4l's session: the checkpointing steps' ms, submit-to-commit
+   ms, the background envelope's checksum equal to the synchronous one's,
+   a preemption mid background write resumed bit-equal with one
+   ``tie_scan`` launch in ``compute``; (e) admission: the north-star
+   collection refused (AUROC) and served blocking with one ``tie_scan``
+   launch in ``compute``, the two hazard metrics refused, and ``.item()``
+   on the serve loop while the worker replays without a raise;
 5. times on the card (CUDA events over launches queued behind a device
    sleep, so host overhead does not show, or the host clock ending in a
    synchronize for whole steps): the one-stream kernel, its plain version
@@ -391,6 +410,17 @@ RELIABILITY_SESSION_STEPS = 20
 RELIABILITY_CHECKPOINT_EVERY = 5
 RELIABILITY_PREEMPT_AT = 12
 RELIABILITY_TENANTS = 1024
+# serving (phase 4m): the JAX bench's serving leg uncut (bench.py:954-1128):
+# 1M 4-class rows, 12 steps; its ingest leg, 64 tenants x 256 rows x 8 waves
+SERVING_N = 1_000_000
+SERVING_STEPS = 12
+SERVING_TENANTS = 64
+SERVING_ROWS_PER_STEP = 256
+SERVING_WAVES = 8
+# device cycles of the probe that converts the model's ms into a device sleep
+SERVING_SLEEP_PROBE_CYCLES = 10_000_000
+# serve-loop reads to the host while the worker holds a batch
+SERVING_READ_STEPS = 40
 
 
 def _pin_one_card() -> str:
@@ -2777,6 +2807,533 @@ def _reliability_phase(torch, dev, card):
     return out
 
 
+def _serving_phase(torch, dev, card):
+    """Phase 4m: ``serving/`` on the card. Returns the phase's timings;
+    closes every pipeline and writer it opens."""
+    import tempfile
+    import threading
+
+    from metrics_tpu_torch import (
+        AUROC,
+        F1,
+        Accuracy,
+        MetricCohort,
+        MetricCollection,
+        Precision,
+        Recall,
+        reliability,
+    )
+    from metrics_tpu_torch.cohort import route_rows
+    from metrics_tpu_torch.engine import _flags_to_host
+    from metrics_tpu_torch.metric import Metric
+    from metrics_tpu_torch.observability.telemetry import LATENCY_BUCKETS_MS, Telemetry, percentile
+    from metrics_tpu_torch.ops import tie_scan
+    from metrics_tpu_torch.reliability import faultinject as fi
+    from metrics_tpu_torch.reliability.checkpoint import read_envelope, save_envelope
+    from metrics_tpu_torch.serving import AsyncServingEngine, IngestQueue
+
+    out = {"card": card}
+    scan = tie_scan.tie_group_reduce
+    opened = []  # every pipeline and writer, closed before the phase returns
+
+    def pcts(samples):
+        """p50 / p95 / p99 through the shared fixed-bucket estimator (a local
+        registry: the global one stays untouched)."""
+        tel = Telemetry()
+        for s in samples:
+            tel.observe_hist("leg", s, LATENCY_BUCKETS_MS)
+        return {q: percentile(tel.histograms["leg"], q) for q in (50, 95, 99)}
+
+    def leg():
+        return MetricCollection([Accuracy(), Precision(num_classes=4, average="macro"),
+                                 Recall(num_classes=4, average="macro"), F1(num_classes=4, average="macro")],
+                                compiled=True)
+
+    def states(c):
+        return {(k, s): getattr(m, s) for k, m in c.items() for s in m._defaults}
+
+    def bit_equal(a, b):
+        return set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+    def caller_sync():
+        torch.cuda.current_stream().synchronize()
+
+    try:
+        # a. the JAX bench's serving leg, uncut: 1M 4-class rows, 12 steps
+        rs = np.random.RandomState(0)
+        probs = rs.rand(SERVING_N, 4).astype(np.float32)
+        probs /= probs.sum(1, keepdims=True)
+        probs = torch.from_numpy(probs).to(dev)
+        target = torch.from_numpy(rs.randint(4, size=SERVING_N)).to(dev)
+
+        def run_blocking(c):
+            c(probs, target)
+            caller_sync()  # blocks on the state, as the bench's block_until_ready
+
+        blocking = leg()
+        t0 = time.perf_counter()
+        run_blocking(blocking)  # the cold first dispatch: build + replay
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        best = 1e9
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run_blocking(blocking)
+            best = min(best, time.perf_counter() - t0)
+        metric_ms = best * 1e3
+        model_s = max(0.02, 1.5 * best)
+        t0 = time.perf_counter()
+        for _ in range(SERVING_STEPS):
+            time.sleep(model_s)
+        model_ms = (time.perf_counter() - t0) / SERVING_STEPS * 1e3
+
+        blocking = leg()
+        run_blocking(blocking)
+        samples_b = []
+        t0 = time.perf_counter()
+        for _ in range(SERVING_STEPS):
+            t1 = time.perf_counter()
+            time.sleep(model_s)
+            run_blocking(blocking)
+            samples_b.append((time.perf_counter() - t1) * 1e3)
+        step_b = (time.perf_counter() - t0) / SERVING_STEPS * 1e3
+
+        served = leg()
+        pipe = AsyncServingEngine(served)
+        opened.append(pipe)
+        if not pipe.is_async:
+            raise AssertionError(f"4m a. the forward leg was refused: {pipe.refusal_reason}")
+        pipe.forward(probs, target)  # the first dispatch, on the caller thread
+        pipe.drain()
+        caller_sync()
+        # each dispatch's stage-to-device-complete time: an event on the
+        # caller's stream before forward(), one on the dispatching stream
+        # after the step is queued
+        staged, finished = [], []
+        real_dispatch = pipe._dispatch
+
+        def timed_dispatch(args, kwargs):
+            result = real_dispatch(args, kwargs)
+            done = torch.cuda.Event(enable_timing=True)
+            done.record()
+            finished.append(done)
+            return result
+
+        pipe._dispatch = timed_dispatch
+        samples_a = []
+        t0 = time.perf_counter()
+        for _ in range(SERVING_STEPS):
+            t1 = time.perf_counter()
+            time.sleep(model_s)
+            ready = torch.cuda.Event(enable_timing=True)
+            ready.record()
+            staged.append(ready)
+            pipe.forward(probs, target)
+            samples_a.append((time.perf_counter() - t1) * 1e3)
+        pipe.drain()
+        caller_sync()  # the drain and the last step's kernels inside the window
+        step_a = (time.perf_counter() - t0) / SERVING_STEPS * 1e3
+        pipe._dispatch = real_dispatch
+        device_ms = [a.elapsed_time(b) for a, b in zip(staged, finished)]
+        if len(finished) != SERVING_STEPS:
+            raise AssertionError(f"4m a. {len(finished)} timed dispatches of {SERVING_STEPS}")
+        if pipe.stats["dispatches"] != SERVING_STEPS + 1 or pipe.stats["inline_steps"] != 1:
+            raise AssertionError(f"4m a. pipeline stats {pipe.stats}")
+        if not bit_equal(served.compute(), blocking.compute()) or not bit_equal(states(served), states(blocking)):
+            raise AssertionError("4m a. the async loop's values or states differ from the blocking loop's")
+        pipe.close()
+        pb, pa = pcts(samples_b), pcts(samples_a)
+        over_b, over_a = step_b - model_ms, step_a - model_ms
+        out["bench_leg"] = {
+            "rows": SERVING_N, "steps": SERVING_STEPS, "cold_first_dispatch_ms": cold_ms, "metric_ms": metric_ms,
+            "model_ms": model_ms, "blocking_step_ms": step_b, "async_step_ms": step_a,
+            "blocking_p50_p95_p99": [pb[50], pb[95], pb[99]], "async_p50_p95_p99": [pa[50], pa[95], pa[99]],
+            "blocking_overhead_ms": over_b, "async_overhead_ms": over_a,
+            "overhead_ratio": over_a / over_b if over_b > 0 else None,
+            "device_complete_ms": device_ms,
+        }
+        print(f"4m a. [{card}] the JAX bench's serving leg ({SERVING_N} 4-class rows, Accuracy + macro"
+              f" Precision/Recall/F1 compiled, {SERVING_STEPS} steps, a host sleep of {model_s * 1e3:.1f} ms a step,"
+              f" measured {model_ms:.3f}): cold first dispatch {cold_ms:.1f} ms, blocking metric {metric_ms:.3f} ms;"
+              f" step blocking {step_b:.3f} ms (p50/p95/p99 {pb[50]:.2f}/{pb[95]:.2f}/{pb[99]:.2f}), async"
+              f" {step_a:.3f} ms ({pa[50]:.2f}/{pa[95]:.2f}/{pa[99]:.2f}); overhead over the sleep blocking"
+              f" {over_b:.3f} ms, async {over_a:.3f} ms; each dispatch stage-to-device-complete "
+              + ", ".join(f"{ms:.2f}" for ms in device_ms) + " ms; values and states bit-equal")
+
+        # b. the same loop with the model's work on the card
+        probe_start, probe_end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        probe_start.record()
+        torch.cuda._sleep(SERVING_SLEEP_PROBE_CYCLES)
+        probe_end.record()
+        probe_end.synchronize()
+        cycles = int(SERVING_SLEEP_PROBE_CYCLES * model_s * 1e3 / probe_start.elapsed_time(probe_end))
+
+        def device_loop(step):
+            times, sleeps = [], []
+            for _ in range(SERVING_STEPS):
+                t1 = time.perf_counter()
+                before, after = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                before.record()
+                torch.cuda._sleep(cycles)  # the model's work, on the caller's stream
+                after.record()
+                step()
+                caller_sync()  # the caller's stream only
+                times.append((time.perf_counter() - t1) * 1e3)
+                sleeps.append(before.elapsed_time(after))
+            return float(np.median(times)), float(np.median(sleeps))
+
+        on_card = leg()
+        on_card(probs, target)
+        caller_sync()
+        dev_b, sleep_b = device_loop(lambda: on_card(probs, target))
+        served = leg()
+        pipe = AsyncServingEngine(served)
+        opened.append(pipe)
+        pipe.forward(probs, target)
+        pipe.drain()
+        dev_a, sleep_a = device_loop(lambda: pipe.forward(probs, target))
+        pipe.drain()
+        if not bit_equal(states(served), states(on_card)):
+            raise AssertionError("4m b. the async loop's states differ from the blocking loop's")
+        pipe.close()
+        out["device_model_leg"] = {"model_ms": model_s * 1e3, "sleep_cycles": cycles, "blocking_step_ms": dev_b,
+                                   "async_step_ms": dev_a, "device_sleep_ms_blocking": sleep_b,
+                                   "device_sleep_ms_async": sleep_a, "blocking_over_sleep_ms": dev_b - sleep_b,
+                                   "async_over_sleep_ms": dev_a - sleep_a, "blocking_minus_async_ms": dev_b - dev_a}
+        print(f"4m b. [{card}] the same loop with the model's work on the card (torch.cuda._sleep of {cycles} cycles"
+              f" on the caller's stream, aimed at {model_s * 1e3:.1f} ms; each step ends in a synchronize of that"
+              f" stream): the sleep alone {sleep_b:.3f} ms blocking / {sleep_a:.3f} ms async (CUDA events, median);"
+              f" step blocking {dev_b:.3f} ms ({dev_b - sleep_b:+.3f} over its sleep), async {dev_a:.3f} ms"
+              f" ({dev_a - sleep_a:+.3f}), blocking minus async {dev_b - dev_a:.3f} ms (host clock, median of"
+              f" {SERVING_STEPS}); states bit-equal")
+
+        # c. ingest: 64 tenants x 256 rows x 8 waves, coalesce_max=4
+        tenants, rows_per_step = SERVING_TENANTS, SERVING_ROWS_PER_STEP
+        chunk = tenants * rows_per_step
+        ids = np.tile(np.arange(tenants, dtype=np.int32), rows_per_step)
+        flat_p = rs.rand(chunk).astype(np.float32)
+        flat_t = (flat_p > 0.5).astype(np.int32)
+        direct = MetricCohort(Accuracy(), tenants=tenants)
+        routed = route_rows(torch.from_numpy(ids).to(dev), torch.from_numpy(flat_p).to(dev),
+                            torch.from_numpy(flat_t).to(dev), num_tenants=tenants)
+        for _ in range(SERVING_WAVES + 1):
+            direct(*routed)
+        want = direct.compute()
+        ingest = {}
+        for mode in ("cohort", "pipeline"):
+            cohort = MetricCohort(Accuracy(), tenants=tenants)
+            sink = cohort
+            if mode == "pipeline":
+                sink = AsyncServingEngine(cohort)
+                opened.append(sink)
+            q = IngestQueue(sink, rows_per_step=rows_per_step, max_buffered_rows=1 << 22, coalesce_max=4)
+            q.submit(ids, flat_p, flat_t)  # warm the wave's step
+            if mode == "pipeline":
+                sink.drain()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SERVING_WAVES):
+                q.submit(ids, flat_p, flat_t)
+            q.flush()
+            if mode == "pipeline":
+                sink.drain()
+            caller_sync()
+            ingest[mode] = SERVING_WAVES * chunk / (time.perf_counter() - t0)
+            got = cohort.compute()
+            if not torch.equal(got, want) or q.stats["admitted_rows"] != (SERVING_WAVES + 1) * chunk:
+                raise AssertionError(f"4m c. {mode}: ingest values differ from direct route_rows forwards"
+                                     f" ({q.stats})")
+            if mode == "pipeline":
+                sink.close()
+        out["ingest"] = {"tenants": tenants, "rows_per_step": rows_per_step, "waves": SERVING_WAVES,
+                         "rows_per_s": ingest}
+        print(f"4m c. [{card}] ingest of {tenants} tenants x {rows_per_step} rows x {SERVING_WAVES} waves"
+              f" (coalesce_max=4): {ingest['cohort']:.0f} rows/s into the cohort, {ingest['pipeline']:.0f} rows/s"
+              f" behind an AsyncServingEngine (host clock, ending in a synchronize); the cohort's values bit-equal to"
+              f" direct route_rows forwards of the same rows")
+
+        # d. the background checkpoint: EvalSession over the north-star collection
+        def north_star():
+            return MetricCollection([Accuracy(), AUROC(pos_label=1)])
+
+        def step_batch(i):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(SEED + 1000 + i)
+            p = torch.rand(MAIN_N, generator=gen, device=dev)
+            return p, (torch.rand(MAIN_N, generator=gen, device=dev) < p).to(torch.int32)
+
+        last, every = RELIABILITY_SESSION_STEPS, RELIABILITY_CHECKPOINT_EVERY
+        with tempfile.TemporaryDirectory() as d:
+            straight = reliability.EvalSession(north_star(), os.path.join(d, "straight"), checkpoint_every=every,
+                                               background_checkpoints=True)
+            commit_ms = []  # submit to durable commit, on the writer's thread
+            real_commit = straight._bg._commit_job
+
+            def timed_commit(job):
+                record = real_commit(job)
+                commit_ms.append((time.perf_counter_ns() - job["t_submit_ns"]) / 1e6)
+                return record
+
+            straight._bg._commit_job = timed_commit
+            ckpt_ms = []
+            for i in range(1, last + 1):
+                caller_sync()
+                t0 = time.perf_counter()
+                straight.step(i, *step_batch(i))
+                caller_sync()
+                if i % every == 0:
+                    ckpt_ms.append((time.perf_counter() - t0) * 1e3)
+            straight.flush_checkpoints()
+            want = straight.compute()
+            record = straight.journal.records()[-1]
+            bg_checksum = read_envelope(straight.journal._gen_path(int(record["generation"])))["checksum"]
+            sync_checksum = save_envelope(straight.metric)["checksum"]
+            if int(record["cursor"]) != last or bg_checksum != sync_checksum:
+                raise AssertionError(f"4m d. the background envelope at cursor {record['cursor']}: checksum"
+                                     f" {bg_checksum} vs the synchronous {sync_checksum}")
+            straight.close()
+            del straight
+            journal = os.path.join(d, "preempted")
+            first = reliability.EvalSession(north_star(), journal, checkpoint_every=every,
+                                            background_checkpoints=True)
+            for i in range(1, every + 1):
+                first.step(i, *step_batch(i))
+            first.flush_checkpoints()
+            with fi.preempt_at_step(first, RELIABILITY_PREEMPT_AT, during="background_write") as info:
+                try:
+                    for i in range(every + 1, last + 1):
+                        if i == RELIABILITY_PREEMPT_AT:
+                            first._bg.drain(raise_errors=False)  # the torn write has happened
+                        first.step(i, *step_batch(i))
+                except fi.Preempted:
+                    pass
+                else:
+                    raise AssertionError("4m d. the session was not preempted")
+            if info != {"preempted_at": RELIABILITY_PREEMPT_AT, "torn_writes": 1}:
+                raise AssertionError(f"4m d. the drill's record {info}")
+            first._bg.close()
+            del first
+            resumed = reliability.EvalSession(north_star(), journal, checkpoint_every=every,
+                                              background_checkpoints=True)
+            caller_sync()
+            t0 = time.perf_counter()
+            cursor = resumed.resume()
+            caller_sync()
+            resume_ms = (time.perf_counter() - t0) * 1e3
+            if cursor != every:
+                raise AssertionError(f"4m d. resume() returned cursor {cursor}; the torn write's was {2 * every}")
+            for i in range(1, last + 1):
+                resumed.step(i, *step_batch(i))
+            zero = scan.launches
+            got = resumed.compute()
+            launches = scan.launches - zero
+            if not bit_equal(got, want) or launches != 1:
+                raise AssertionError(f"4m d. resumed compute {got} vs {want}, {launches} tie_scan launches")
+            resumed.flush_checkpoints()
+            stats = dict(resumed.stats)
+            resumed.close()
+            del resumed
+        out["session"] = {"steps": last, "checkpoint_every": every, "preempt_at": RELIABILITY_PREEMPT_AT,
+                          "resumed_cursor": cursor, "checkpoint_step_ms": ckpt_ms, "commit_ms": commit_ms,
+                          "resume_ms": resume_ms, "stats": stats, "checksum": bg_checksum,
+                          "compute_tie_scan_launches": launches}
+        print(f"4m d. [{card}] EvalSession(background_checkpoints=True) over the north-star step, {last} steps of"
+              f" {MAIN_N}, a checkpoint every {every}: steps that checkpoint "
+              + ", ".join(f"{ms:.1f}" for ms in ckpt_ms) + " ms (host clock ending in a synchronize of the"
+              " caller's stream; phase 4l's synchronous ones above), submit-to-commit "
+              + ", ".join(f"{ms:.1f}" for ms in commit_ms) + f" ms; the newest envelope's checksum {bg_checksum}"
+              f" equals the synchronous envelope's; preempted mid background write at step"
+              f" {RELIABILITY_PREEMPT_AT}: resume() -> {cursor} in {resume_ms:.1f} ms, the rerun's compute() bit-equal"
+              f" to the uninterrupted run's ({launches} tie_scan launch)")
+
+        # e. admission
+        refused = AsyncServingEngine(north_star())
+        opened.append(refused)
+        if refused.is_async or "'AUROC' is not engine-eligible" not in refused.refusal_reason:
+            raise AssertionError(f"4m e. the north-star collection was admitted: {refused.refusal_reason}")
+        reference = north_star()
+        for i in range(1, 4):
+            batch = step_batch(i)
+            if refused.forward(*batch) is None:
+                raise AssertionError("4m e. the refused pipeline returned no forward value")
+            reference(*batch)
+        zero = scan.launches
+        got = refused.compute()
+        launches_e = scan.launches - zero
+        if not bit_equal(got, reference.compute()) or launches_e != 1 or refused.stats["blocking_steps"] != 3:
+            raise AssertionError(f"4m e. the refused pipeline: {got}, {launches_e} tie_scan launches, {refused.stats}")
+        refused.close()
+
+        class DoubleBufferAliaser(Metric):
+            _fused_forward = True
+
+            def __init__(self):
+                super().__init__()
+                self._pool = torch.zeros((), device=dev)
+                self.add_state("acc", default=torch.zeros(()), dist_reduce_fx="sum")
+
+            def update(self, x):
+                self.acc = self.acc + torch.sum(x)
+
+            def compute(self):
+                return self.acc
+
+            def reset(self):
+                super().reset()
+                self.acc = self._pool
+
+        class HostReadOfDonated(Metric):
+            _fused_forward = True
+
+            def __init__(self):
+                super().__init__()
+                self.add_state("acc", default=torch.zeros(()), dist_reduce_fx="sum")
+                self._last_value = None
+
+            def update(self, x):
+                self.acc = self.acc + torch.sum(x)
+
+            def compute(self):
+                self._last_value = self.acc
+                return self.acc
+
+        hazards = {}
+        for cls in (DoubleBufferAliaser, HostReadOfDonated):
+            pipe = AsyncServingEngine(cls())
+            opened.append(pipe)
+            if pipe.is_async or "MTA009" not in pipe.refusal_reason:
+                raise AssertionError(f"4m e. {cls.__name__} was admitted")
+            if float(pipe.forward(torch.ones(4, device=dev))) != 4.0:
+                raise AssertionError(f"4m e. {cls.__name__} on the blocking path")
+            hazards[cls.__name__] = pipe.refusal_reason.split("(")[1].split(" line")[0]
+            pipe.close()
+
+        # the serve loop reads values to the host while the worker replays,
+        # with a new signature (built on the caller) in the middle
+        served = leg()
+        pipe = AsyncServingEngine(served)
+        opened.append(pipe)
+        short = (probs[: SERVING_N // 2], target[: SERVING_N // 2])
+        pipe.forward(probs, target)
+        reads = 0
+        worker_busy = 0
+        for i in range(SERVING_READ_STEPS):
+            pipe.forward(*(short if i == SERVING_READ_STEPS // 2 else (probs, target)))
+            worker_busy += pipe._outstanding > 0
+            reads += int(target[i].item()) >= 0  # a synchronizing read on the serve loop
+        pipe.drain()
+        if worker_busy == 0 or pipe.stats["inline_steps"] != 2 or pipe.stats["errors"]:
+            raise AssertionError(f"4m e. the read drill: worker busy at {worker_busy} reads, {pipe.stats}")
+        pipe.close()
+
+        # back-to-back forwards under a guard: the worker holds the engine's
+        # lock until the card has run its step (the guard's flag read), here
+        # behind a device sleep; the next forward must not wait for it
+        with reliability.guard_scope("quarantine"):
+            served = leg()
+            pipe = AsyncServingEngine(served)
+            opened.append(pipe)
+            pipe.forward(probs, target)  # built on the caller
+            step_end = []
+            real_dispatch = pipe._dispatch
+
+            def held_dispatch(args, kwargs):
+                torch.cuda._sleep(4 * cycles)
+                result = real_dispatch(args, kwargs)
+                step_end.append(time.perf_counter())
+                return result
+
+            pipe._dispatch = held_dispatch
+            pipe.forward(probs, target)
+            deadline = time.perf_counter() + 10.0
+            while not served._engine._lock.locked() and time.perf_counter() < deadline:
+                time.sleep(0.0002)
+            time.sleep(0.01)  # the worker is now waiting on the card inside its step
+            t0 = time.perf_counter()
+            pipe.forward(probs, target)
+            t_returned = time.perf_counter()
+            torch.ones(1 << 20, device=dev).add_(1)  # the serve loop's next allocation and launch
+            t_launched = time.perf_counter()
+            pipe.drain()
+            if not step_end or not t_launched + 0.01 < step_end[0] or pipe.stats["errors"]:
+                raise AssertionError(f"4m e. forward() and a launch returned {(t_launched - step_end[0]) * 1e3:+.1f} ms"
+                                     f" after the worker's guarded step ended ({pipe.stats})")
+            held_forward_ms = (t_returned - t0) * 1e3
+            held_launch_ms = (t_launched - t_returned) * 1e3
+            held_margin_ms = (step_end[0] - t_launched) * 1e3
+            pipe.close()
+
+            # why the guard reads its flags through pinned memory: a thread
+            # waiting in a copy into pageable memory stalls another thread's
+            # launch until the card reaches the copy; and what that read
+            # costs a guarded step against the pageable one, in turns
+            def stalled_launch_ms(read):
+                side, x, entered = torch.cuda.Stream(), torch.ones(4, device=dev), threading.Event()
+
+                def waiter():
+                    with torch.cuda.stream(side):
+                        torch.cuda._sleep(4 * cycles)
+                        y = x + 1
+                        entered.set()
+                        read(y)
+
+                th = threading.Thread(target=waiter)
+                th.start()
+                entered.wait(10.0)
+                time.sleep(0.01)
+                t1 = time.perf_counter()
+                x.add_(0)
+                ms = (time.perf_counter() - t1) * 1e3
+                th.join(30.0)
+                return ms
+
+            stall_ms = {"pageable": stalled_launch_ms(lambda y: y.cpu()), "pinned": stalled_launch_ms(_flags_to_host)}
+            if stall_ms["pinned"] > 10.0:
+                raise AssertionError(f"4m e. a launch waited {stall_ms['pinned']:.1f} ms behind the pinned flag read")
+
+            def guarded_step_ms():
+                times = []
+                for _ in range(20):
+                    caller_sync()
+                    t1 = time.perf_counter()
+                    served(probs, target)
+                    caller_sync()
+                    times.append((time.perf_counter() - t1) * 1e3)
+                return float(np.median(times))
+
+            import metrics_tpu_torch.engine as engine_module
+
+            read_ms = {"pinned": [], "pageable": []}
+            try:
+                for _ in range(4):
+                    for how in read_ms:
+                        engine_module._flags_to_host = _flags_to_host if how == "pinned" else (lambda f: f.cpu())
+                        read_ms[how].append(guarded_step_ms())
+            finally:
+                engine_module._flags_to_host = _flags_to_host
+        out["admission"] = {"north_star": refused.refusal_reason, "compute_tie_scan_launches": launches_e,
+                            "hazards": hazards, "reads_while_replaying": reads, "worker_busy_at_reads": worker_busy,
+                            "forward_ms_while_worker_holds_guarded_step": held_forward_ms,
+                            "alloc_and_launch_ms_meanwhile": held_launch_ms,
+                            "launch_ms_behind_other_threads_read": stall_ms,
+                            "guarded_step_ms_by_flag_read": read_ms,
+                            "returned_before_that_step_ended_ms": held_margin_ms}
+        print(f"4m e. [{card}] admission: the north-star collection refused ({refused.refusal_reason}), served"
+              f" on the blocking path bit-equal, its compute() {launches_e} tie_scan launch; the hazard metrics"
+              f" refused ({hazards}); {reads} .item() reads on the serve loop, {worker_busy} of them while the worker"
+              f" held a batch, none raised (a new signature built on the caller thread between them); under a"
+              f" guard, forward() took {held_forward_ms:.3f} ms while the worker held the engine's lock on its step,"
+              f" an allocation and a launch after it {held_launch_ms:.3f} ms, done {held_margin_ms:.1f} ms before"
+              f" that step ended (host clock); a launch behind another thread's wait in a pageable .cpu() took"
+              f" {stall_ms['pageable']:.3f} ms, behind the pinned read {stall_ms['pinned']:.3f} ms; the guarded step"
+              f" (median of 20, in turns) with the pinned read "
+              + " / ".join(f"{ms:.3f}" for ms in read_ms["pinned"]) + " ms, with a pageable one "
+              + " / ".join(f"{ms:.3f}" for ms in read_ms["pageable"]) + " ms")
+    finally:
+        for thing in opened:
+            thing.close()
+    return out
+
+
 def main() -> int:
     card_index = _pin_one_card()
     import torch
@@ -3587,6 +4144,16 @@ def main() -> int:
     if counts()["tie_scan"] < 1 or any(v for k, v in counts().items() if k != "tie_scan"):
         raise AssertionError(f"phase 4l's north-star steps: only tie_scan may launch, and at least once: {counts()}")
 
+    # ---- 4m. serving ------------------------------------------------------------
+    zero_counts()
+    t0 = time.perf_counter()
+    srv_timings = _serving_phase(torch, dev, card)
+    srv_timings["phase_s"] = time.perf_counter() - t0
+    srv_timings["scan_launches"] = counts()
+    if counts()["tie_scan"] < 1 or any(v for k, v in counts().items() if k != "tie_scan"):
+        raise AssertionError(f"phase 4m's north-star steps: only tie_scan may launch, and at least once: {counts()}")
+    print(f"4m. {srv_timings['phase_s']:.1f} s")
+
     # ---- 5. times ---------------------------------------------------------
     all_preds = torch.cat(list(collection["AUROC"].preds))
     all_rel = (torch.cat(list(collection["AUROC"].target)) == 1).to(torch.float32)
@@ -3769,6 +4336,7 @@ def main() -> int:
         "observability": obs_timings,
         "sync_tiers": tier_timings,
         "reliability": rel_timings,
+        "serving": srv_timings,
         "card": card,
     }
     print(json.dumps({"timings": timings}))

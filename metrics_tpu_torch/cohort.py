@@ -57,7 +57,7 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
-from metrics_tpu_torch.engine import CompiledStepEngine
+from metrics_tpu_torch.engine import CompiledStepEngine, LeafSpec, _flags_to_host
 from metrics_tpu_torch.metric import Metric
 from metrics_tpu_torch.observability import flight as _flight
 from metrics_tpu_torch.observability import telemetry as _obs
@@ -186,6 +186,10 @@ class MetricCohort:
         >>> cohort.capacity, cohort.compute(tenant=2)
         (4, tensor(2.))
     """
+
+    # Serving enrollment (serving/async_engine.py): a weakref to the
+    # pipeline whose worker steps this cohort; compute() drains it first
+    _serving_pipeline: Optional[Any] = None
 
     def __init__(
         self,
@@ -551,6 +555,35 @@ class MetricCohort:
         base[self._membership_tensor("slots").to(x.device)] = x
         return base
 
+    def _step_is_built(self, args: tuple, kwargs: dict) -> bool:
+        """Whether :meth:`forward` on these inputs would replay a program
+        already built (``CompiledStepEngine.cohort_is_built`` over stand-ins
+        of the routed inputs); routes nothing and builds nothing."""
+        n = len(self)
+
+        def spec(x: Any) -> Any:
+            if not isinstance(x, torch.Tensor):
+                return x
+            if x.ndim == 0 or x.shape[0] not in (n, self._capacity):
+                raise ValueError  # forward raises on this leaf
+            return LeafSpec((self._capacity,) + tuple(x.shape[1:]), x.dtype, x.device)
+
+        try:
+            stacked_args = pytree.tree_map(spec, tuple(args))
+            stacked_kwargs = pytree.tree_map(spec, dict(kwargs))
+        except ValueError:
+            return False
+        health_state = None
+        if self._health_enabled():
+            if self._health is None:
+                return False
+            health_state = dict(self._health)
+            health_state["valid"] = LeafSpec((self._capacity,), torch.int8, self._device)
+            health_state["step"] = LeafSpec((), torch.int32, self._device)
+        return n > 0 and self._engine.cohort_is_built(
+            self._states, stacked_args, stacked_kwargs, capacity=self._capacity, health_state=health_state
+        )
+
     def forward(self, *args: Any, **kwargs: Any):
         """One step folding every tenant's batch into its stacked state;
         returns the per-tenant batch-local values (leading dim = live tenant
@@ -621,7 +654,7 @@ class MetricCohort:
         the offending tenants. Under raise / quarantine the step already
         rolled the poisoned tenants back, per tenant."""
         rolled_back = guard.policy in ("raise", "quarantine")
-        host_flags = finites.cpu().numpy()
+        host_flags = _flags_to_host(finites).numpy()
         for i, name in enumerate(names):
             guard.stats["checks"] += 1
             bad = np.flatnonzero(self._active & ~host_flags[:, i])
@@ -691,7 +724,13 @@ class MetricCohort:
         ``torch.distributed`` world the stacked states are synced first,
         one collective per state for the whole cohort, and restored after,
         as ``Metric.compute`` does, keeping the error-feedback residuals the
-        sync committed."""
+        sync committed. On a cohort enrolled in an
+        :class:`~metrics_tpu_torch.serving.AsyncServingEngine` this is a
+        drain barrier, as ``MetricCollection.compute`` is."""
+        if self._serving_pipeline is not None:
+            pipe = self._serving_pipeline()
+            if pipe is not None:
+                pipe.drain()
         synced_cache = None
         if is_distributed_initialized():
             synced_cache = {name: dict(d) for name, d in self._states.items()}
@@ -969,7 +1008,7 @@ class MetricCohort:
     # the engine's graphs close over the template instances: copies and
     # pickles drop them and build anew against their own template objects
     def __getstate__(self) -> dict:
-        return {k: v for k, v in self.__dict__.items() if k not in ("_engine", "_compute_cache")}
+        return {k: v for k, v in self.__dict__.items() if k not in ("_engine", "_compute_cache", "_serving_pipeline")}
 
     def __setstate__(self, state: dict) -> None:
         self.__dict__.update(state)

@@ -187,7 +187,14 @@ class MetricCollection:
                 m.update(*args, **m._filter_kwargs(**kwargs))
 
     def compute(self) -> Dict[str, Any]:
-        """Epoch values from every member's (possibly synced) state."""
+        """Epoch values from every member's (possibly synced) state. On a
+        collection enrolled in an
+        :class:`~metrics_tpu_torch.serving.AsyncServingEngine` this is a
+        drain barrier: every batch already staged folds in first."""
+        if self._serving_pipeline is not None:
+            pipe = self._serving_pipeline()
+            if pipe is not None:
+                pipe.drain()
         return {self._set_prefix(k): m.compute() for k, m in self.items()}
 
     def reset(self) -> None:
@@ -216,9 +223,10 @@ class MetricCollection:
 
     # a compiled step closes over THESE metric instances and holds CUDA
     # graphs: a copy or pickle drops the engine and rebuilds it lazily
-    # against its own metrics on the next forward
+    # against its own metrics on the next forward; a copy serves its own
+    # stream, so the serving enrollment is dropped too
     def __getstate__(self) -> dict:
-        return {k: v for k, v in self.__dict__.items() if k != "_engine"}
+        return {k: v for k, v in self.__dict__.items() if k not in ("_engine", "_serving_pipeline")}
 
     def __setstate__(self, state: dict) -> None:
         self.__dict__.update(state)
@@ -233,6 +241,10 @@ class MetricCollection:
     # whole collection (the members advance in lockstep under one forward),
     # riding state_dict / _named_states as Metric's does
     _session_cursor: Optional[int] = None
+
+    # Serving enrollment (serving/async_engine.py): a weakref to the
+    # pipeline whose worker steps this collection; compute() drains it first
+    _serving_pipeline: Optional[Any] = None
 
     def state_dict(self, destination: Optional[dict] = None, prefix: str = "") -> dict:
         destination = {} if destination is None else destination

@@ -135,12 +135,34 @@ def _unflatten(structure: tuple, leaves) -> Any:
     return structure[0](_unflatten(s, leaves) for s in structure[1])
 
 
+class LeafSpec:
+    """A tensor leaf's shape, dtype and device without its data: what a
+    signature keys on, for asking whether a step is built
+    (:meth:`CompiledStepEngine.cohort_is_built`)."""
+
+    __slots__ = ("shape", "dtype", "device")
+
+    def __init__(self, shape: Tuple[int, ...], dtype: torch.dtype, device: torch.device):
+        self.shape, self.dtype, self.device = tuple(shape), dtype, device
+
+
 def _abstract_leaf(x: Any) -> tuple:
     """Cache-key atom of one input leaf: tensors key on (shape, dtype,
     device); anything else on its type and value (a capture bakes it in)."""
-    if isinstance(x, torch.Tensor):
+    if isinstance(x, (torch.Tensor, LeafSpec)):
         return ("arr", tuple(x.shape), x.dtype, x.device)
     return ("val", type(x), x)
+
+
+def _cohort_call(states: dict, args: tuple, kwargs: dict, health_state: Optional[dict]) -> Tuple[dict, tuple]:
+    """The cohort step's states and call tree: with health accounting the
+    accumulators ride among the states and the validity mask and step index
+    in an extra ``aux`` argument."""
+    if health_state is None:
+        return states, (args, kwargs)
+    health_state = dict(health_state)
+    aux = {"valid": health_state.pop("valid"), "step": health_state.pop("step")}
+    return {**states, _COHORT_HEALTH_KEY: health_state}, (args, kwargs, aux)
 
 
 def _cohort_in_dims(tree: Any) -> Any:
@@ -172,6 +194,21 @@ def _tenant_finite_flags(state_rows: Dict[str, torch.Tensor]) -> Optional[torch.
             flag = torch.isfinite(v).reshape(v.shape[0], -1).all(1)
             flags = flag if flags is None else flags & flag
     return flags
+
+
+def _flags_to_host(flags: torch.Tensor) -> torch.Tensor:
+    """The guard's stacked flags on the host: one read, one synchronization.
+    On the card they land in pinned memory and the thread waits on its
+    current stream: a copy into pageable memory would, for as long as it
+    waits for the device, stall every other thread's launches and
+    allocations (an asynchronous server's serve loop behind its worker's
+    guarded step)."""
+    if flags.device.type != "cuda":
+        return flags
+    host = torch.empty(flags.shape, dtype=flags.dtype, pin_memory=True)
+    host.copy_(flags, non_blocking=True)
+    torch.cuda.current_stream(flags.device).synchronize()
+    return host
 
 
 @contextmanager
@@ -712,7 +749,7 @@ class CompiledStepEngine:
         raise / quarantine the step already selected the last-good states;
         warn keeps the poisoned ones."""
         rolled_back = guard.policy in ("raise", "quarantine")
-        host_flags = finites.cpu().tolist()
+        host_flags = _flags_to_host(finites).tolist()
         for name, flag in zip(names, host_flags):
             guard.stats["checks"] += 1
             # the opt-in integer-saturation warning runs on the written-back
@@ -805,12 +842,7 @@ class CompiledStepEngine:
                 f" engine-eligible; eager fallbacks: {self._eager_names}"
             )
         health = health_state is not None
-        call: tuple = (args, kwargs)
-        if health:
-            health_state = dict(health_state)
-            aux = {"valid": health_state.pop("valid"), "step": health_state.pop("step")}
-            states = {**states, _COHORT_HEALTH_KEY: health_state}
-            call = (args, kwargs, aux)
+        states, call = _cohort_call(states, args, kwargs, health_state)
         leaves: List[Any] = []
         structure = _flatten(call, leaves)
         watch_key = self._cohort_watch_key
@@ -857,6 +889,47 @@ class CompiledStepEngine:
             new_states = dict(new_states)
             new_health = new_states.pop(_COHORT_HEALTH_KEY)
         return new_states, values, (finites[0] if finites else None), guard, new_health
+
+    # ------------------------------------------------------------------
+    # lookups that build nothing
+    # ------------------------------------------------------------------
+    def is_built(self, *args: Any, **kwargs: Any) -> bool:
+        """Whether :meth:`step` on these inputs would build nothing: its
+        signature is cached, or the step runs no build at all (every member
+        eager, or a distributed world). Counts nothing, builds nothing and
+        leaves the LRU order as it is. An asynchronous server sends only
+        such steps to its worker thread: a build's warm-up turns on the
+        process-global sync debug mode, under which another thread's
+        synchronizing call raises.
+
+        Takes no lock, so the serve loop never waits for a step in flight on
+        the worker: a step installs states of the shapes and dtypes it read,
+        and a membership test of the cache is one atomic dict read."""
+        if is_distributed_initialized():
+            return True
+        names = self._compiled_names()
+        if not names:
+            return True
+        leaves: List[Any] = []
+        structure = _flatten((args, kwargs), leaves)
+        signature = self._signature(names, self._current_states(names), leaves, structure,
+                                    self._guard_token(_rguard.active()))
+        return signature in self._compiled
+
+    def cohort_is_built(self, states: Dict[str, Dict[str, torch.Tensor]], args: tuple, kwargs: Optional[dict] = None,
+                        *, capacity: int, health_state: Optional[Dict[str, Any]] = None) -> bool:
+        """:meth:`is_built` for :meth:`cohort_step` (same arguments; input
+        leaves may be :class:`LeafSpec` stand-ins of the routed tensors;
+        lock-free like it)."""
+        names = self._compiled_names()
+        if self._eager_names or not names:
+            return True  # cohort_step raises without building
+        states, call = _cohort_call(states, args, dict(kwargs or {}), health_state)
+        leaves: List[Any] = []
+        structure = _flatten(call, leaves)
+        signature = self._signature(names, states, leaves, structure, self._guard_token(_rguard.active()),
+                                    ("cohort", int(capacity), health_state is not None))
+        return signature in self._compiled
 
     @property
     def _cohort_watch_key(self) -> str:

@@ -131,6 +131,12 @@ class Metric(ABC):
     _session_cursor: Optional[int] = None
     _SESSION_CURSOR_KEY = "__session_cursor__"
 
+    # Serving enrollment (serving/async_engine.py): a weakref to the
+    # AsyncServingEngine whose worker steps this metric, or None. While
+    # set, compute() drains the pipeline's staged batches first, so an
+    # epoch value never misses a batch the serve loop already submitted.
+    _serving_pipeline: Optional[Any] = None
+
     # Opt-in fused forward: when every state merge commutes with its
     # registered reduction — sum/min/max counters, list appends — forward
     # runs ONE update on fresh state, computes the batch value from it, and
@@ -629,6 +635,12 @@ class Metric(ABC):
                 return _inner(*args, **kwargs)
 
         def _inner(*args: Any, **kwargs: Any):
+            # serving drain barrier: an enrolled metric folds every staged
+            # batch into state first (a no-op on the pipeline's own worker)
+            if self._serving_pipeline is not None:
+                pipe = self._serving_pipeline()
+                if pipe is not None:
+                    pipe.drain()
             # the cache carries its provenance: a value computed under
             # batch-local (forward) semantics must never serve an epoch-end
             # compute, or vice versa
@@ -691,7 +703,7 @@ class Metric(ABC):
 
     def __getstate__(self) -> dict:
         # drop the wrapped bound methods for pickling
-        return {k: v for k, v in self.__dict__.items() if k not in ["update", "compute"]}
+        return {k: v for k, v in self.__dict__.items() if k not in ["update", "compute", "_serving_pipeline"]}
 
     def __setstate__(self, state: dict) -> None:
         self.__dict__.update(state)

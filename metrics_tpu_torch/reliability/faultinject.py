@@ -11,9 +11,9 @@ context manager (or a function) that restores the previous world on exit.
 
 Not ported yet, each with the part of the JAX package whose port brings its
 target: ``expire_lease`` and ``kill_at_migration_phase`` (``fleet/``),
-``slow_consumer`` and ``preempt_at_step(during="background_write")``
-(``serving/``), ``donation_unsafe_engine`` (its only reader is the
-sanitizer of ``analysis/``; the port donates no buffer).
+``donation_unsafe_engine`` (its only reader is the sanitizer of
+``analysis/``; the port donates no buffer). ``slow_consumer`` and
+``preempt_at_step(during="background_write")`` drill ``serving/``.
 
 Nothing here is imported by the runtime hot paths.
 """
@@ -43,6 +43,7 @@ __all__ = [
     "failing_engine_compile",
     "corrupt_envelope",
     "preempt_at_step",
+    "slow_consumer",
     "torn_write",
     "cursor_skew",
 ]
@@ -490,15 +491,15 @@ def preempt_at_step(session: Any, step: int, during: str = "step") -> Iterator[D
     that batch touches any state. Everything the session checkpointed before
     that instant is exactly what a real preemption leaves; drive recovery by
     building a fresh metric and session over the same journal directory and
-    calling ``resume()``. ``during="background_write"`` needs the background
-    checkpoint writer of ``serving/``, not ported yet."""
-    if during == "background_write":
-        raise NotImplementedError(
-            "preempt_at_step(during='background_write') needs EvalSession's"
-            " background checkpoint writer (serving/bgcheckpoint.py), which is"
-            " not ported yet (ROADMAP Queue 1 item 5)"
-        )
-    if during != "step":
+    calling ``resume()``.
+
+    ``during="background_write"`` (a session with
+    ``background_checkpoints=True``) also kills the background writer
+    mid-write: every commit attempted while active tears as a kill inside
+    ``atomic_file`` would, leaving a truncated ``.tmp`` carcass at the next
+    generation's path, nothing renamed into place and the manifest
+    untouched (``info["torn_writes"]`` counts them)."""
+    if during not in ("step", "background_write"):
         raise ValueError(f"during must be 'step' or 'background_write', got {during!r}")
     orig = session.step
     info = {"preempted_at": -1, "torn_writes": 0}
@@ -509,11 +510,71 @@ def preempt_at_step(session: Any, step: int, during: str = "step") -> Iterator[D
             raise Preempted(f"injected preemption at step {step_index}")
         return orig(step_index, *args, **kwargs)
 
+    bg = getattr(session, "_bg", None)
+    if during == "background_write" and bg is None:
+        raise RuntimeError(
+            "preempt_at_step(during='background_write') needs a session"
+            " constructed with background_checkpoints=True"
+        )
     session.step = dying
+    if during == "background_write":
+
+        def torn_commit(job):
+            # the carcass a kill mid-write leaves: partial bytes at
+            # <generation>.npz.tmp, target path and manifest untouched
+            records = bg._journal.records()
+            nxt = (int(records[-1]["generation"]) + 1) if records else 1
+            with open(bg._journal._gen_path(nxt) + ".tmp", "wb") as f:
+                f.write(b"PK\x03\x04torn-mid-write")
+            info["torn_writes"] += 1
+            raise Preempted(f"injected preemption mid background write (cursor {job['cursor']})")
+
+        bg._commit_job = torn_commit
     try:
         yield info
     finally:
         del session.step  # uncover the bound method
+        if during == "background_write":
+            del bg._commit_job
+
+
+@contextmanager
+def slow_consumer(target: Any, delay_s: float = 0.05, calls: int = 1_000_000) -> Iterator[Dict[str, int]]:
+    """Make a serving consumer slow: the first ``calls`` dispatches sleep
+    ``delay_s`` before running (a wedged card or an oversubscribed host),
+    filling the admission queue and driving the backpressure policies.
+
+    ``target`` is an :class:`~metrics_tpu_torch.serving.AsyncServingEngine`
+    (its dispatch is wrapped) or an
+    :class:`~metrics_tpu_torch.serving.IngestQueue` (its downstream target is
+    wrapped, a cohort or a pipeline)."""
+    info = {"delayed": 0}
+
+    def slowed(call):
+        def slow(*args: Any, **kwargs: Any):
+            if info["delayed"] < calls:
+                info["delayed"] += 1
+                time.sleep(delay_s)
+            return call(*args, **kwargs)
+
+        return slow
+
+    if hasattr(target, "_dispatch") and hasattr(target, "drain"):
+        target._dispatch = slowed(target._dispatch)
+        try:
+            yield info
+        finally:
+            del target._dispatch
+        return
+    if hasattr(target, "_target") and hasattr(target, "submit"):
+        orig_target = target._target
+        target._target = slowed(orig_target)
+        try:
+            yield info
+        finally:
+            target._target = orig_target
+        return
+    raise TypeError(f"slow_consumer wraps an AsyncServingEngine or an IngestQueue; got {type(target).__name__}")
 
 
 def torn_write(path: Any, keep_fraction: float = 0.5) -> int:

@@ -38,11 +38,16 @@ every replayed batch twice. :class:`EvalSession` closes both holes:
   protective checkpoint of the surviving state
   (``reliability.session_protective_checkpoints``).
 
+* **Background checkpoints** — ``background_checkpoints=True`` moves the
+  checkpoint write off the step path: :meth:`~EvalSession.checkpoint`
+  snapshots the state on the card at the barrier and returns; the writer of
+  ``serving/bgcheckpoint.py`` fetches, checksums and commits it behind the
+  journal's atomic rename (:meth:`~EvalSession.flush_checkpoints` is the
+  barrier). Protective checkpoints stay synchronous.
+
 Nothing here runs for code that never constructs a session: the runtime
 hooks live in the engine's failure path and in ``state_dict``'s
-``cursor is not None`` branch. ``background_checkpoints=True`` (the JAX
-package's background writer, ``serving/bgcheckpoint.py``) waits for the
-port of ``serving/``.
+``cursor is not None`` branch.
 """
 import weakref
 from typing import Any, Dict, Iterable, List, Optional
@@ -156,9 +161,10 @@ class EvalSession:
             watchdog.
         degraded_ok: demote an unresolvable multi-process cursor skew from
             :class:`SessionResumeError` to one rate-limited warning.
-        background_checkpoints: the JAX package's background writer; not
-            ported yet (it lives in ``serving/``): True raises
-            ``NotImplementedError``.
+        background_checkpoints: write checkpoints off the step path (module
+            docstring): a snapshot on the card at the barrier, the fetch and
+            commit on a daemon writer
+            (:class:`~metrics_tpu_torch.serving.BackgroundCheckpointer`).
 
     Attributes:
         cursor: index of the last batch folded into the accumulated state
@@ -186,13 +192,6 @@ class EvalSession:
             )
         if checkpoint_every is not None and checkpoint_every < 1:
             raise ValueError("checkpoint_every must be >= 1 (or None)")
-        if background_checkpoints:
-            raise NotImplementedError(
-                "EvalSession(background_checkpoints=True) needs the background"
-                " checkpoint writer of serving/ (serving/bgcheckpoint.py), which"
-                " is not ported yet (ROADMAP Queue 1 item 5); checkpoints are"
-                " written on the step path"
-            )
         self.metric = metric
         self._is_collection = isinstance(metric, MetricCollection)
         self.journal = CheckpointJournal(directory, keep_last=keep_last)
@@ -212,6 +211,16 @@ class EvalSession:
             "partial_quorum_resumes": 0,
             "deadline_exceeded": 0,
         }
+        self._bg = None
+        if background_checkpoints:
+            # lazy: the synchronous path never imports serving/
+            from metrics_tpu_torch.serving.bgcheckpoint import BackgroundCheckpointer
+
+            self._bg = BackgroundCheckpointer(self.journal)
+            # the writer does not outlive the session: a dropped session
+            # finishes its queued commit and stops the writer (the finalizer
+            # holds the writer, not the session)
+            weakref.finalize(self, self._bg.close)
         # enroll: the cursor now rides state_dict / _named_states / envelopes
         metric._session_cursor = self.cursor
         self._member_ids = self._collect_member_ids(metric)
@@ -347,10 +356,19 @@ class EvalSession:
     # ------------------------------------------------------------------
     def checkpoint(self, note: Optional[str] = None) -> Dict[str, Any]:
         """Commit the current state (cursor embedded) as a new journal
-        generation; returns the manifest record."""
+        generation; returns the manifest record, or with
+        ``background_checkpoints=True`` a pending descriptor: the snapshot is
+        taken here and the writer commits it (:meth:`flush_checkpoints` is
+        the barrier)."""
         self.metric._session_cursor = self.cursor
         with _trace.span("session.checkpoint", phase="checkpoint", cursor=self.cursor):
-            record = self.journal.commit(save_envelope(self.metric), self.cursor, note=note)
+            if self._bg is not None:
+                from metrics_tpu_torch.serving.bgcheckpoint import snapshot_pairs
+
+                record = self._bg.submit(snapshot_pairs(self.metric), type(self.metric).__name__, self.cursor,
+                                         note=note)
+            else:
+                record = self.journal.commit(save_envelope(self.metric), self.cursor, note=note)
         self._steps_since_checkpoint = 0
         self.stats["checkpoints"] += 1
         if _obs.enabled():
@@ -358,12 +376,22 @@ class EvalSession:
         return record
 
     def flush_checkpoints(self) -> None:
-        """Barrier for background checkpoints: a no-op, every checkpoint of
-        this package is written on the step path."""
+        """Barrier for ``background_checkpoints=True``: block until every
+        queued snapshot is committed, re-raising the first writer error. A
+        no-op for a synchronous session."""
+        if self._bg is not None:
+            self._bg.drain()
 
     def close(self) -> None:
-        """Stop the background writer: a no-op without one (see
-        :meth:`flush_checkpoints`)."""
+        """Flush background checkpoints (re-raising a writer error) and stop
+        the writer; later checkpoints are synchronous. A no-op for a
+        synchronous session."""
+        if self._bg is not None:
+            try:
+                self._bg.drain()
+            finally:
+                self._bg.close()
+                self._bg = None
 
     def _protective_checkpoint(self, reason: str) -> None:
         """An out-of-cadence checkpoint after a survived failure: persist the
@@ -373,7 +401,15 @@ class EvalSession:
         cursor = self._inflight if self._inflight is not None else self.cursor
         self.metric._session_cursor = cursor
         try:
-            self.journal.commit(save_envelope(self.metric), cursor, note=f"protective: {reason}")
+            if self._bg is not None:
+                # durable now: through the writer's synchronous seam, which
+                # drains the queued snapshot and commits under its lock
+                from metrics_tpu_torch.serving.bgcheckpoint import snapshot_pairs
+
+                self._bg.commit_sync(snapshot_pairs(self.metric), type(self.metric).__name__, cursor,
+                                     note=f"protective: {reason}")
+            else:
+                self.journal.commit(save_envelope(self.metric), cursor, note=f"protective: {reason}")
         finally:
             self.metric._session_cursor = self.cursor if self._inflight is None else cursor
         self.stats["protective_checkpoints"] += 1
@@ -390,6 +426,9 @@ class EvalSession:
         ranks on the cursor, and return it (-1 when the journal is empty: a
         fresh start). Then re-feed the stream from the top: the replay
         guard makes it exactly-once."""
+        if self._bg is not None:
+            # a resume mid-life must not race the writer over the journal
+            self._bg.drain(raise_errors=False)
         with _trace.span("session.resume", phase="checkpoint"):
             envelope, record, _skipped = self.journal.load_latest_good()
             if envelope is None:

@@ -31,7 +31,12 @@ of a metric and a cohort under ``simulated_pods`` equal to their CPU runs);
 and the reliability layer on the card (an exact sync of int32 states
 keeping int32, flat and two-level; a guarded compiled step reading the host
 once per replay, rolling a poisoned batch back bit for bit, and the
-unguarded graph kept as it was).
+unguarded graph kept as it was); and serving on the card (the asynchronous
+pipeline bit-equal to the blocking path on a compiled collection and a
+1,024-tenant cohort, the caller's stream ordered after the worker's by
+``drain()`` alone, inputs freed right after ``forward()`` not corrupted,
+host reads on the serve loop that never raise, and the background writer's
+envelope equal to the synchronous one).
 
 Every test here is marked ``cuda`` and skips without a card. This file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -39,6 +44,8 @@ has only PyTorch: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.
 (``--noconftest`` because the suite's conftest pins JAX to the CPU).
 """
 import contextlib
+import threading
+import time
 import warnings
 
 import numpy as np
@@ -1552,3 +1559,258 @@ def test_exact_integer_sync_and_the_guarded_replay_on_the_card(cuda_device):
     assert _host_reads(lambda: col(*batches[3])) == 0
     info = col._engine.cache_info()
     assert info["compiled_signatures"] == 2 and info["trace_count"] == 2 and info["eager_fallbacks"] == {}
+
+
+# ----------------------------------------------------------------------
+# serving: the asynchronous pipeline's streams and the background writer
+# ----------------------------------------------------------------------
+def _serving_leg():
+    return MetricCollection(
+        [Accuracy(), Precision(num_classes=4, average="macro"), Recall(num_classes=4, average="macro"),
+         F1(num_classes=4, average="macro")],
+        compiled=True,
+    )
+
+
+def _serving_batches(device, n=6, rows=100_000, seed=70):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        p = rng.random((rows, 4), dtype=np.float32)
+        p /= p.sum(1, keepdims=True)
+        out.append((torch.from_numpy(p).to(device), torch.from_numpy(rng.integers(0, 4, rows)).to(device)))
+    return out
+
+
+def _slowed_worker(pipe, cycles=20_000_000):
+    """Queue a device sleep on the dispatching thread's stream before each
+    dispatch, and note which stream that was."""
+    streams = []
+    real = pipe._dispatch
+
+    def slow(args, kwargs):
+        streams.append(torch.cuda.current_stream())
+        torch.cuda._sleep(cycles)
+        return real(args, kwargs)
+
+    pipe._dispatch = slow
+    return streams
+
+
+@pytest.mark.parametrize("target", ["collection", "cohort_1024"])
+def test_serving_async_is_bit_equal_to_blocking_on_the_card(cuda_device, target):
+    from metrics_tpu_torch.serving import AsyncServingEngine
+
+    if target == "collection":
+        batches = _serving_batches(cuda_device)
+        make = _serving_leg
+    else:
+        rng = np.random.default_rng(71)
+        batches = []
+        for _ in range(5):
+            p = rng.random((1024, 64, 4), dtype=np.float32)
+            p /= p.sum(-1, keepdims=True)
+            batches.append((torch.from_numpy(p).to(cuda_device),
+                            torch.from_numpy(rng.integers(0, 4, (1024, 64))).to(cuda_device)))
+
+        def make():
+            return MetricCohort(MetricCollection([Accuracy(), Precision(num_classes=4, average="macro")]),
+                                tenants=1024)
+
+    blocking = make()
+    for b in batches:
+        blocking(*b)
+    served = make()
+    pipe = AsyncServingEngine(served)
+    assert pipe.is_async, pipe.refusal_reason
+    for b in batches:
+        pipe.forward(*b)
+    got, want = pipe.compute(), blocking.compute()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert pipe.stats["dispatches"] == len(batches) and pipe.stats["inline_steps"] == 1
+    pipe.close()
+
+
+def test_serving_drain_orders_the_callers_stream_after_the_worker(cuda_device):
+    """With a device sleep ahead of every worker dispatch, drain() returns
+    while the worker's kernels are still queued; states read on the caller's
+    stream (no torch.cuda.synchronize()) are the final ones, and the worker
+    stepped on the pipeline's own stream."""
+    from metrics_tpu_torch.serving import AsyncServingEngine
+
+    batches = _serving_batches(cuda_device, seed=72)
+    blocking = _serving_leg()
+    for b in batches:
+        blocking(*b)
+    want = {(k, s): getattr(m, s).cpu() for k, m in blocking.items() for s in m._defaults}
+    served = _serving_leg()
+    pipe = AsyncServingEngine(served)
+    pipe.forward(*batches[0])
+    streams = _slowed_worker(pipe)
+    for b in batches[1:]:
+        pipe.forward(*b)
+    pipe.drain()
+    got = {(k, s): getattr(m, s).clone().cpu() for k, m in served.items() for s in m._defaults}
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    assert streams and all(s == pipe._stream for s in streams)
+    assert pipe._stream != torch.cuda.default_stream() and pipe._stream != torch.cuda.current_stream()
+    pipe.close()
+
+
+def test_serving_input_freed_after_forward_is_not_corrupted(cuda_device):
+    """The caller drops its inputs right after forward() and writes new
+    tensors of the same size while the worker's copy is still queued behind
+    a device sleep: the allocator must not hand the inputs' blocks back."""
+    from metrics_tpu_torch.serving import AsyncServingEngine
+
+    batches = _serving_batches(cuda_device, seed=73)
+    blocking = _serving_leg()
+    for b in batches:
+        blocking(*b)
+    served = _serving_leg()
+    pipe = AsyncServingEngine(served)
+    pipe.forward(*[x.clone() for x in batches[0]])
+    _slowed_worker(pipe, cycles=50_000_000)
+    garbage = []
+    for b in batches[1:]:
+        p, t = b[0].clone(), b[1].clone()
+        pipe.forward(p, t)
+        del p, t
+        for _ in range(4):  # new blocks of the inputs' sizes, written on the caller's stream
+            garbage.append((torch.full_like(b[0], 7.0), torch.full_like(b[1], 3)))
+    got = pipe.compute()
+    for k, v in blocking.compute().items():
+        assert torch.equal(got[k], v), k
+    del garbage
+    pipe.close()
+
+
+def test_serving_loop_reads_the_host_while_the_worker_replays(cuda_device):
+    """Synchronizing calls on the serve loop never raise: a signature warms
+    up (sync debug mode "error", process-global) only on the caller thread,
+    after the worker went idle."""
+    from metrics_tpu_torch.serving import AsyncServingEngine
+
+    batches = _serving_batches(cuda_device, n=3, seed=74)
+    short = tuple(x[:50_000] for x in batches[0])
+    served = _serving_leg()
+    pipe = AsyncServingEngine(served)
+    reference = _serving_leg()
+    sequence = [batches[i % 3] if i != 10 else short for i in range(20)]
+    for b in sequence:
+        pipe.forward(*b)
+        assert int(b[1][0].item()) >= 0  # a host read while the worker holds a batch
+        reference(*b)
+    got = pipe.compute()
+    for k, v in reference.compute().items():
+        assert torch.equal(got[k], v), k
+    assert pipe.stats["inline_steps"] == 2 and pipe.stats["errors"] == 0
+    assert served._engine.trace_count == 2
+    pipe.close()
+
+
+@pytest.mark.parametrize("target", ["guarded_collection", "cohort_1024"])
+def test_serving_forward_returns_while_the_worker_holds_a_batch(cuda_device, target):
+    """Back-to-back forwards: a batch staged while the worker is inside a
+    step (the engine's lock held) returns at once, and the serve loop's next
+    allocation and launch (its model's work) do not wait either. Under a
+    guard the worker holds the lock until the card has run its step (the
+    flags' read), here behind a device sleep of about half a second; the
+    cohort's worker is held on the host for as long."""
+    from metrics_tpu_torch.reliability import guard_scope
+    from metrics_tpu_torch.serving import AsyncServingEngine
+
+    if target == "guarded_collection":
+        batches = _serving_batches(cuda_device, n=4, seed=76)
+        make = _serving_leg
+    else:
+        rng = np.random.default_rng(77)
+        batches = []
+        for _ in range(4):
+            p = rng.random((1024, 64, 4), dtype=np.float32)
+            p /= p.sum(-1, keepdims=True)
+            batches.append((torch.from_numpy(p).to(cuda_device),
+                            torch.from_numpy(rng.integers(0, 4, (1024, 64))).to(cuda_device)))
+
+        def make():
+            return MetricCohort(MetricCollection([Accuracy(), Precision(num_classes=4, average="macro")]),
+                                tenants=1024)
+
+    with guard_scope("quarantine") if target == "guarded_collection" else contextlib.nullcontext():
+        reference = make()
+        for b in batches:
+            reference(*b)
+        served = make()
+        pipe = AsyncServingEngine(served)
+        assert pipe.is_async, pipe.refusal_reason
+        pipe.forward(*batches[0])  # built on the caller
+        engine = served._engine
+        step_done = []
+        real_dispatch = pipe._dispatch
+
+        def timed(args, kwargs):
+            if target == "guarded_collection":
+                torch.cuda._sleep(1_000_000_000)
+            out = real_dispatch(args, kwargs)
+            step_done.append(time.perf_counter())
+            return out
+
+        pipe._dispatch = timed
+        if target == "cohort_1024":
+            real_run = engine._run
+
+            def held(*args, **kwargs):
+                if threading.current_thread() is pipe._worker:
+                    time.sleep(0.5)
+                return real_run(*args, **kwargs)
+
+            engine._run = held
+        pipe.forward(*batches[1])
+        deadline = time.perf_counter() + 10.0
+        while not engine._lock.locked() and time.perf_counter() < deadline:
+            time.sleep(0.0005)
+        assert engine._lock.locked(), "the worker never entered its step"
+        time.sleep(0.02)  # the worker is now waiting inside its step
+        staged = []
+
+        def serve_loop_step():
+            pipe.forward(*batches[2])
+            torch.ones(1 << 20, device=cuda_device).add_(1)  # the model's next allocation and launch
+            staged.append(time.perf_counter())
+
+        stager = threading.Thread(target=serve_loop_step, daemon=True)
+        stager.start()
+        stager.join(30.0)
+        assert staged, "forward() hung"
+        pipe.drain(timeout_s=30.0)
+        assert step_done, "the worker's step did not end"
+        assert staged[0] + 0.05 < step_done[0], (
+            f"forward() and a launch returned {(staged[0] - step_done[0]) * 1e3:+.1f} ms after the worker's step ended"
+        )
+        pipe.forward(*batches[3])
+        got = pipe.compute()
+        for k, v in reference.compute().items():
+            assert torch.equal(got[k], v), k
+        assert pipe.stats["dispatches"] == 4 and pipe.stats["inline_steps"] == 1 and pipe.stats["errors"] == 0
+        pipe.close()
+
+
+def test_serving_background_envelope_equals_the_synchronous_one(cuda_device, tmp_path):
+    from metrics_tpu_torch.reliability import EvalSession, read_envelope, save_envelope
+
+    rng = np.random.default_rng(75)
+    batches = [(torch.from_numpy(rng.random(200_000, dtype=np.float32)).to(cuda_device),
+                torch.from_numpy(rng.integers(0, 2, 200_000)).to(cuda_device)) for _ in range(4)]
+    session = EvalSession(MetricCollection([Accuracy(), AUROC(pos_label=1)]), tmp_path / "j", checkpoint_every=2,
+                          background_checkpoints=True)
+    for i, b in enumerate(batches):
+        session.step(i, *b)
+    session.flush_checkpoints()
+    record = session.journal.records()[-1]
+    written = read_envelope(session.journal._gen_path(int(record["generation"])))
+    sync = save_envelope(session.metric)
+    assert record["cursor"] == 3 and written["checksum"] == sync["checksum"] and written["spec"] == sync["spec"]
+    assert session._bg.stats["errors"] == 0
+    session.close()

@@ -30,11 +30,16 @@ every rank's bits equal to one process's codec and merge, on gloo in a world
 of 4 and on NCCL; and a durable ``EvalSession`` whose one rank checkpointed
 a skewed cursor: every rank resumes at the same agreed cursor with the same
 state bits and ends on the same synced values, on gloo in a world of 4 and
-on NCCL.
+on NCCL; and serving: each rank stages its batches through an
+``AsyncServingEngine`` with an ``EvalSession(background_checkpoints=True)``
+checkpointing behind drains, and every rank's ``compute()`` after the last
+drain equals one process's bits, on gloo in a world of 4 and on NCCL. Every
+NCCL case prints the cards' names and power limits (``nvidia-smi``).
 """
 import json
 import multiprocessing
 import socket
+import subprocess
 
 import numpy as np
 import pytest
@@ -48,6 +53,7 @@ from tests.torch_workers import (
     distributed_paths_world,
     identity_world,
     run_world,
+    serving_world,
     session_world,
     sharded_cases,
     sharded_metric_values,
@@ -55,6 +61,17 @@ from tests.torch_workers import (
     stat_scores_world,
     sync_tiers_world,
 )
+
+
+@pytest.fixture(autouse=True)
+def _card_and_power_limit(request):
+    """Every case across the cards prints the cards' names and power limits
+    (``nvidia-smi``) beside its numbers."""
+    if request.node.name.startswith("test_nccl_") and torch.cuda.is_available():
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60)
+        print(json.dumps({"cards": out.stdout.strip().splitlines(), "test": request.node.name}))
+    yield
 
 
 def _rows(rank):
@@ -578,3 +595,56 @@ def test_nccl_session_resume_agrees_on_every_card(tmp_path):
                                            "values": {k: float(v) for k, v in out["values"].items()}}
                                        for r, out in ranks.items()}}))
     _assert_sessions_agree(ranks, payload)
+
+
+def _serving_payload(directory, world=4, n_batches=6, rows=5_000, seed=31):
+    rng = np.random.RandomState(seed)
+    batches = []
+    for _ in range(world):
+        mine = []
+        for _ in range(n_batches):
+            p = rng.rand(rows, 4).astype(np.float32)
+            p /= p.sum(1, keepdims=True)
+            mine.append((p, rng.randint(4, size=rows).astype(np.int64)))
+        batches.append(mine)
+    return {"dir": str(directory), "batches": batches}
+
+
+def _assert_serving_world(ranks, payload):
+    from metrics_tpu_torch import F1
+
+    one = MetricCollection([Accuracy(device="cpu"), F1(num_classes=4, average="macro", device="cpu")])
+    for mine in payload["batches"]:
+        for p, t in mine:
+            one.update(torch.from_numpy(p), torch.from_numpy(t))
+    want = {k: v.numpy() for k, v in one.compute().items()}
+    n = len(payload["batches"][0])
+    for rank, out in ranks.items():
+        for k, v in want.items():
+            assert np.array_equal(out["values"][k], v), (rank, k)
+        assert out["stats"]["dispatches"] == n and out["stats"]["errors"] == 0, (rank, out["stats"])
+        assert out["writer"]["errors"] == 0 and out["cursors"][-1] == n - 1 and out["same_checksum"], (rank, out)
+
+
+def test_gloo_serving_with_background_checkpoints_equals_one_process(tmp_path):
+    """A gloo world of 4: every rank serves its batches asynchronously and
+    checkpoints in the background; every rank's synced values equal one
+    process's bits."""
+    payload = _serving_payload(tmp_path)
+    _assert_serving_world(run_world(4, serving_world, payload), payload)
+
+
+@pytest.mark.cuda
+def test_nccl_serving_with_background_checkpoints_is_the_same_on_every_card(tmp_path):
+    """The gloo case's twin over NCCL, one rank per card: each rank's worker
+    steps on its own stream of its own card, the writer fetches on its own,
+    and every rank's ``compute()`` after the drain equals one process's
+    bits."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    payload = _serving_payload(tmp_path)
+    ranks = run_world(4, serving_world, payload, device_type="cuda", timeout=300)
+    print(json.dumps({"nccl_serving": {r: {"stats": out["stats"], "writer": out["writer"], "cursors": out["cursors"],
+                                           "values": {k: v.tolist() for k, v in out["values"].items()}}
+                                       for r, out in ranks.items()}}))
+    _assert_serving_world(ranks, payload)

@@ -76,12 +76,12 @@ JAX_INITS = {
     "metrics_tpu_torch.wrappers": REPO / "metrics_tpu" / "wrappers" / "__init__.py",
     "metrics_tpu_torch.observability": REPO / "metrics_tpu" / "observability" / "__init__.py",
     "metrics_tpu_torch.reliability": REPO / "metrics_tpu" / "reliability" / "__init__.py",
+    "metrics_tpu_torch.serving": REPO / "metrics_tpu" / "serving" / "__init__.py",
 }
 
 # names JAX exports that the port does not have yet, by the part of the
 # JAX package whose port brings them
 NOT_YET_PORTED = {
-    "serving": "serving/",
     "fleet": "fleet/",
     "analysis": "analysis/",
     "MetricsExporter": "the rest of observability/ (Queue 1 item 6): exporter.py",

@@ -20,7 +20,8 @@ quorum). The main scenarios run through the JAX package too, and its
 cursors, replay counts and values must equal the port's.
 
 ``NOT_PORTED`` names the JAX session cases that need a part of the JAX
-package the port does not have yet.
+package the port does not have yet: none since the port has ``serving/``
+(its background-checkpoint cases are in ``tests/test_torch_serving_chaos.py``).
 
 Tolerance: none for states, cursors and stats (bit-equal); port values
 against JAX's within rtol 1e-5 (their own float32 sums).
@@ -54,16 +55,9 @@ CPU = "cpu"
 N_BATCHES = 8
 KILL_AT = 5
 
-NOT_PORTED = {
-    "tests/reliability/test_serving_chaos.py::test_preempt_mid_background_write_resumes_bit_identical":
-        "EvalSession(background_checkpoints=True): serving/ (ROADMAP Queue 1 item 5)",
-    "tests/reliability/test_serving_chaos.py::test_background_checkpoints_healthy_run_writes_zero_dumps":
-        "EvalSession(background_checkpoints=True): serving/ (ROADMAP Queue 1 item 5)",
-    "tests/reliability/test_serving_chaos.py::test_parked_bg_error_survives_nonraising_drain_until_flush":
-        "EvalSession(background_checkpoints=True): serving/ (ROADMAP Queue 1 item 5)",
-    "tests/reliability/test_serving_chaos.py::test_session_close_stops_writer_and_falls_back_to_sync":
-        "EvalSession(background_checkpoints=True): serving/ (ROADMAP Queue 1 item 5)",
-}
+# every JAX session case is ported: the four background-checkpoint cases of
+# tests/reliability/test_serving_chaos.py are in tests/test_torch_serving_chaos.py
+NOT_PORTED = {}
 
 
 @pytest.fixture(autouse=True)
@@ -146,10 +140,18 @@ def _run_preempt_resume(make_metric, batches, tmp_path, checkpoint_every=2, jax_
 def test_not_ported_cases_exist_in_the_jax_suite():
     from pathlib import Path
 
+    import re
+
     repo = Path(__file__).resolve().parent.parent
     for case in NOT_PORTED:
         path, name = case.split("::")
         assert f"def {name}(" in (repo / path).read_text(), case
+    # the session cases of the serving chaos suite: each one is ported under
+    # its own name, or listed above
+    jax_cases = re.findall(r"^def (test_\w+)\(", (repo / "tests/reliability/test_serving_chaos.py").read_text(), re.M)
+    port = (repo / "tests/test_torch_serving_chaos.py").read_text()
+    missing = [n for n in jax_cases if f"def {n}(" not in port and f"tests/reliability/test_serving_chaos.py::{n}" not in NOT_PORTED]
+    assert jax_cases and not missing, missing
 
 
 def test_preempted_plain_metric_resumes_bit_identical(tmp_path):
@@ -419,11 +421,18 @@ def test_session_validates_inputs(tmp_path):
     session = EvalSession(tm.MeanSquaredError(device=CPU), tmp_path)
     with pytest.raises(ValueError, match="step_index"):
         session.step(-1, torch.zeros(3), torch.zeros(3))
-    with pytest.raises(NotImplementedError, match="serving"):
-        EvalSession(tm.MeanSquaredError(device=CPU), tmp_path, background_checkpoints=True)
-    with pytest.raises(NotImplementedError, match="serving"):
+    with pytest.raises(RuntimeError, match="background_checkpoints=True"):
         with fi.preempt_at_step(session, 3, during="background_write"):
             pass
+    with pytest.raises(ValueError, match="during must be"):
+        with fi.preempt_at_step(session, 3, during="commit"):
+            pass
+    background = EvalSession(tm.MeanSquaredError(device=CPU), tmp_path / "bg", background_checkpoints=True)
+    assert background._bg is not None
+    with fi.preempt_at_step(background, 3, during="background_write") as info:
+        assert info == {"preempted_at": -1, "torn_writes": 0}
+    background.close()
+    assert background._bg is None
 
 
 def test_state_dict_carries_cursor_for_enrolled_metrics_only(tmp_path):

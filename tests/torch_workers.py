@@ -689,3 +689,43 @@ def session_world(rank: int, world: int, device: torch.device, payload: dict) ->
     values = {k: v.cpu().numpy() for k, v in resumed.compute().items()}
     return {"cursor": cursor, "rollbacks": resumed.stats["resume_rollbacks"],
             "replays": resumed.stats["replays_skipped"], "states": states, "values": values}
+
+
+def serving_world(rank: int, world: int, device: torch.device, payload: dict) -> dict:
+    """Serving across the world's backend (gloo or NCCL): each rank stages
+    its own batches through an ``AsyncServingEngine`` over a compiled
+    ``Accuracy`` + macro ``F1`` collection (eager in a world, so every batch
+    goes to the worker), checkpointing every second batch through an
+    ``EvalSession(background_checkpoints=True)`` after a drain. Returns the
+    synced epoch values after the last drain, the pipeline's and the
+    writer's stats, the committed cursors and whether the newest background
+    envelope's checksum equals the synchronous envelope's."""
+    import os
+
+    from metrics_tpu_torch import F1, Accuracy, MetricCollection
+    from metrics_tpu_torch.reliability import EvalSession, read_envelope, save_envelope
+    from metrics_tpu_torch.serving import AsyncServingEngine
+
+    collection = MetricCollection([Accuracy(device=device), F1(num_classes=4, average="macro", device=device)],
+                                  compiled=True)
+    pipe = AsyncServingEngine(collection)
+    session = EvalSession(collection, os.path.join(payload["dir"], f"rank{rank}"), checkpoint_every=None,
+                          background_checkpoints=True)
+    try:
+        for i, batch in enumerate(payload["batches"][rank]):
+            pipe.forward(*(torch.from_numpy(a).to(device) for a in batch))
+            if i % 2 == 1:
+                pipe.drain(timeout_s=120)
+                session.adopt_cursor(i)
+                session.checkpoint()
+        pipe.drain(timeout_s=120)
+        session.flush_checkpoints()
+        record = session.journal.records()[-1]
+        written = read_envelope(session.journal._gen_path(int(record["generation"])))
+        same_checksum = written["checksum"] == save_envelope(collection)["checksum"]
+        values = {k: v.cpu().numpy() for k, v in pipe.compute().items()}
+        return {"values": values, "stats": dict(pipe.stats), "writer": dict(session._bg.stats),
+                "cursors": [r["cursor"] for r in session.journal.records()], "same_checksum": same_checksum}
+    finally:
+        session.close()
+        pipe.close()
