@@ -258,6 +258,28 @@ that is unset. Phases (any failure exits non-zero before the result line):
    collection refused (AUROC) and served blocking with one ``tie_scan``
    launch in ``compute``, the two hazard metrics refused, and ``.item()``
    on the serve loop while the worker replays without a raise;
+4n. the export surface and the cost ledger (``observability/exporter.py``,
+   ``costledger.py``): (a) 4m's 64-tenant health-armed cohort and 4h's
+   compiled forward leg with the exporter and the ledger off and then armed
+   (``exporter_scope(port=0)``, ``cost_ledger_scope()``): values, states and
+   health bit-equal, the same kernels and copies a replay and a step; (b)
+   that cohort served through an ``AsyncServingEngine`` while an
+   ``EvalSession(background_checkpoints=True)`` over the north-star
+   collection takes 10 steps of 100,000 beside it and a client thread
+   scrapes ``/metrics`` and ``/healthz`` 50 times each (urllib, a timeout on
+   each): every scrape parses with ``parse_prometheus_text``, carries the 64
+   tenants' rows of whole steps, the session gauges and the compile and
+   per-program families; scrape ms; (c) ``/healthz`` degraded after an
+   injected SLO breach; (d) the serve-loop step with and without a
+   concurrent scrape, in turns; (e) a worker step held behind a device
+   sleep while a scrape waits on its health event: the serve loop's
+   forward, allocation and launch return before the scrape, which reads
+   the step it waited on (and, for comparison, the same read into pageable
+   memory), and ``health()`` alone pinned and pageable; (f) the cold count
+   equal to the signatures built, a forced LRU eviction counted as one warm
+   build, ``engine.compile_ms`` per build; (g) the session's ``compute()``
+   over 1M rows: one ``tie_scan`` launch, within 1e-5 of float64 and 1e-6
+   of the plain scan;
 5. times on the card (CUDA events over launches queued behind a device
    sleep, so host overhead does not show, or the host clock ending in a
    synchronize for whole steps): the one-stream kernel, its plain version
@@ -290,6 +312,12 @@ that is unset. Phases (any failure exits non-zero before the result line):
    batched at ``(1000, 50000)``, and the two weighted ones at their paths'
    shapes), each of which must show one kernel and at most the memset of
    its scratch.
+
+Every count read off a ``torch.profiler`` trace (kernels and copies of a
+step or a replay, the kernels inside a range, one kernel an entry) reads a
+trace whose count of device records a second trace of the same call agrees
+on (``_steady_profile``): CUPTI has dropped records from a trace on this
+card, and once showed one record more than its twin.
 
 Prints the card's name and power limit (``nvidia-smi``), ``{"timings": ...}``
 and ``{"profile": ...}`` lines, a ``{"kernels": [...]}`` line and, last,
@@ -402,6 +430,14 @@ OBS_PAIRS = 25
 # the names of the port's profiler ranges: on the device timeline a range is an
 # annotation spanning the kernels launched inside it, not a kernel
 RANGE_PREFIXES = ("metrics_tpu.", "engine[")
+# every count read off a torch.profiler trace reads a trace that a second
+# non-empty trace of the same call agrees with (_steady_profile), taking at
+# most this many; PROFILE_TRACES_TAKEN tallies the reads by the traces each
+# took
+PROFILE_TRACES_MAX = 8
+PROFILE_PAD_S = 0.02
+PROFILE_TRACES_TAKEN = {}
+PROFILE_LAST_RECORDS = []  # the device records of each trace of the last read
 # the reliability layer (phase 4l): the north-star collection's envelope after
 # 10 steps, the session's 20 steps with a checkpoint every 5 and a preemption
 # at step 12, the guarded cohort's tenants
@@ -421,6 +457,13 @@ SERVING_WAVES = 8
 SERVING_SLEEP_PROBE_CYCLES = 10_000_000
 # serve-loop reads to the host while the worker holds a batch
 SERVING_READ_STEPS = 40
+# the export surface (phase 4n): /metrics and /healthz scrapes beside the
+# serve loop of 4m's 64-tenant cohort, serve-loop steps with and without a
+# concurrent scrape (in turns), a worker's step held behind a device sleep
+EXPORTER_SCRAPES = 50
+EXPORTER_STEP_PAIRS = 20
+EXPORTER_HOLD_MS = 80.0
+EXPORTER_TIMEOUT_S = 30.0
 
 
 def _pin_one_card() -> str:
@@ -1560,18 +1603,71 @@ def _retrieval_phase(torch, dev):
     return out, ms
 
 
-def _device_ops(torch, fn):
-    """(kernels, copies and fills) the device runs for ``fn()``, counted in
-    a ``torch.profiler`` trace."""
+def _steady_profile(torch, fn, shows=None):
+    """A ``torch.profiler`` trace of ``fn()`` whose count of device records
+    another trace of the same call agrees on: ``fn`` runs under the profiler
+    until two traces agree, at most ``PROFILE_TRACES_MAX`` times (then the
+    median trace). CUPTI has dropped records from a trace on this card (all
+    of them, five times in a row; or, twice in a row, a ctypes-launched
+    kernel's record but not its memset's) and once showed one record more
+    than its twin; a real extra kernel or copy shows in every trace, so a
+    check on the agreed trace is as strict as on a complete one. A trace
+    without a device record, or without one whose name contains ``shows``
+    (a kernel the call certainly launches, as the check also requires), is
+    a lost trace and never agreed on. Lost traces come in runs late in a
+    long process (eight in a row once, 25 s apart), and a trace once held
+    the copies of a read made just before it: short windows lose their
+    device records and gain their neighbours', as when the GPU's clock
+    drifts from the host's one the profiler keeps records by. So the card
+    idles ``PROFILE_PAD_S`` before a trace, and the window holds that much
+    host time on each side of the call, doubled after each lost trace."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    cuda = torch.autograd.DeviceType.CUDA
+    traces = []
+    lost = 0
+    PROFILE_LAST_RECORDS.clear()
+    for taken in range(1, PROFILE_TRACES_MAX + 1):
+        pad = PROFILE_PAD_S * 2 ** lost
         torch.cuda.synchronize()
+        time.sleep(pad)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        names = [e.name for e in prof.events() if e.device_type == cuda]
+        n = len(names)
+        PROFILE_LAST_RECORDS.append(n)
+        if not n or (shows is not None and not any(shows in name for name in names)):
+            lost += 1
+            continue
+        if any(m == n for m, _ in traces):
+            PROFILE_TRACES_TAKEN[taken] = PROFILE_TRACES_TAKEN.get(taken, 0) + 1
+            PROFILE_TRACES_TAKEN["lost"] = PROFILE_TRACES_TAKEN.get("lost", 0) + lost
+            return prof
+        traces.append((n, prof))
+    PROFILE_TRACES_TAKEN["none agreed"] = PROFILE_TRACES_TAKEN.get("none agreed", 0) + 1
+    PROFILE_TRACES_TAKEN["lost"] = PROFILE_TRACES_TAKEN.get("lost", 0) + lost
+    if not traces:
+        return prof
+    return sorted(traces, key=lambda t: t[0])[len(traces) // 2][1]
+
+
+def _is_copy(name: str) -> bool:
+    """A device record of a copy or a fill: ``Memcpy ...`` / ``Memset ...``,
+    and ``memcpy32_post``, the kernel a CUDA graph's copy node runs as in
+    the first graph a process captures (a copy record in later ones)."""
+    return name.lower().startswith(("memcpy", "memset"))
+
+
+def _device_ops(torch, fn):
+    """(kernels, copies and fills) the device runs for ``fn()``, counted in
+    an agreed ``torch.profiler`` trace (``fn`` runs two to eight times)."""
+    prof = _steady_profile(torch, fn)
     ops = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith(RANGE_PREFIXES)]
-    copies = sum(e.count for e in ops if e.key.startswith(("Memcpy", "Memset")))
+    copies = sum(e.count for e in ops if _is_copy(e.key))
     return sum(e.count for e in ops) - copies, copies
 
 
@@ -2155,16 +2251,26 @@ def _observability_phase(torch, dev, binary):
             for b in range(3):
                 values.update({("cohort", b, k): v for k, v in cohort(*rows).items()})
             values.update({("cohort", "epoch", k): v for k, v in cohort.compute().items()})
-            sites = _syncs(torch, lambda: (leg(*leg_batches[1]), cohort(*rows)))
-            if on and sites:
-                raise AssertionError(f"4j. a replayed step synchronized the host with every recorder on at {sites}")
-            ops = {"leg": _device_ops(torch, lambda: leg(*leg_batches[1])),
-                   "cohort": _device_ops(torch, lambda: cohort(*rows))}
+            # the states before the measuring steps (each profiled count
+            # steps its workload two to eight times)
             states = {("ns",) + k: v for k, v in states_of(ns).items()}
             states.update({("leg",) + k: v for k, v in states_of(leg).items()})
             states.update({("cohort",) + k: v for k, v in states_of(cohort).items()})
+            sites = _syncs(torch, lambda: (leg(*leg_batches[1]), cohort(*rows)))
+            if on and sites:
+                raise AssertionError(f"4j. a replayed step synchronized the host with every recorder on at {sites}")
+            profiled = {"leg": 0, "cohort": 0}
+
+            def measured(key, step):
+                def run():
+                    profiled[key] += 1
+                    step()
+                return run
+
+            ops = {"leg": _device_ops(torch, measured("leg", lambda: leg(*leg_batches[1]))),
+                   "cohort": _device_ops(torch, measured("cohort", lambda: cohort(*rows)))}
             workloads[on] = {"values": values, "states": states, "syncs": len(sites), "ops": ops,
-                             "objects": (ns, leg, cohort)}
+                             "objects": (ns, leg, cohort), "profiled": profiled}
             if on:
                 spans = list(obs.get_tracer().spans)
                 perfetto = obs.get_tracer().to_perfetto()
@@ -2175,7 +2281,11 @@ def _observability_phase(torch, dev, binary):
         bit_equal("states", off["states"], on["states"])
         if off["ops"] != on["ops"]:
             raise AssertionError(f"4j. kernels per replayed step: {off['ops']} off, {on['ops']} on")
-        if counters["engine.dispatches"] != BATCHES + 2 + 3 + 2 or counters["cohort.dispatch_tenants"] != 5 * OBS_TENANTS:
+        # the leg's batches, the cohort's 3 steps, one step each under the sync
+        # count and one each per profiler trace
+        profiled = on["profiled"]
+        if (counters["engine.dispatches"] != BATCHES + 3 + 2 + profiled["leg"] + profiled["cohort"]
+                or counters["cohort.dispatch_tenants"] != (4 + profiled["cohort"]) * OBS_TENANTS):
             raise AssertionError(f"4j. dispatch counters {counters}")
         ns, leg, cohort = off["objects"]
         ns_on, leg_on, cohort_on = on["objects"]
@@ -2255,14 +2365,9 @@ def _observability_phase(torch, dev, binary):
               f" dump ({len(dump['events'])} events, identity rank 0/1): {verdicts[0]['reason']}")
 
         # c. attribution under torch.profiler with telemetry on
-        from torch.profiler import ProfilerActivity, profile
-
         obs.enable()
         try:
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                ns_compute(ns_on["AUROC"])
-                torch.cuda.synchronize()
+            prof = _steady_profile(torch, lambda: ns_compute(ns_on["AUROC"]), shows="tie_scan")
             inside = _range_kernels(torch, prof, "metrics_tpu.AUROC.compute")
             names = [k for k, _ in inside]
             if not any("tie_scan" in k for k in names) or not any("RadixSort" in k for k in names):
@@ -2270,20 +2375,18 @@ def _observability_phase(torch, dev, binary):
                                      f" metrics_tpu.AUROC.compute: {names}")
             # a compiled step: the copies in and the clones out run outside
             # the replay, every kernel inside it
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                leg_on(*leg_batches[1])
-                torch.cuda.synchronize()
+            prof = _steady_profile(torch, lambda: leg_on(*leg_batches[1]))
             step_kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                            and not e.name.startswith(RANGE_PREFIXES + ("Memcpy", "Memset"))]
+                            and not e.name.startswith(RANGE_PREFIXES) and not _is_copy(e.name)]
             replay = _range_kernels(torch, prof, leg_on._engine._watch_key)
-            replay_kernels = [k for k, _ in replay if not k.startswith(("Memcpy", "Memset"))]
+            replay_kernels = [k for k, _ in replay if not _is_copy(k)]
             if sorted(replay_kernels) != sorted(step_kernels) or not step_kernels:
                 raise AssertionError(f"4j. {len(replay_kernels)} kernels inside {leg_on._engine._watch_key},"
                                      f" the step runs {len(step_kernels)}")
         finally:
             obs.disable()
         out["attribution"] = {
-            "metrics_tpu.AUROC.compute": {"kernels": sum(not k.startswith(("Memcpy", "Memset")) for k in names),
+            "metrics_tpu.AUROC.compute": {"kernels": sum(not _is_copy(k) for k in names),
                                           "device_events": len(inside), "device_ms": sum(ms for _, ms in inside),
                                           "tie_scan_ms": sum(ms for k, ms in inside if "tie_scan" in k),
                                           "sort_ms": sum(ms for k, ms in inside if "RadixSort" in k)},
@@ -3334,6 +3437,382 @@ def _serving_phase(torch, dev, card):
     return out
 
 
+def _exporter_phase(torch, dev, card):
+    """Phase 4n: the export surface and the cost ledger on the card, beside
+    a live serve loop. Returns the phase's timings; closes every pipeline,
+    session and listener it opens, and turns every recorder off."""
+    import gc
+    import tempfile
+    import threading
+    import urllib.request
+
+    import metrics_tpu_torch.observability as obs
+    from metrics_tpu_torch import AUROC, F1, Accuracy, MetricCohort, MetricCollection, Precision, Recall, reliability
+    from metrics_tpu_torch.cohort import route_rows
+    from metrics_tpu_torch.engine import _HostMirror
+    from metrics_tpu_torch.ops import tie_scan
+    from metrics_tpu_torch.ops.auroc_kernel import _co_sort
+    from metrics_tpu_torch.serving import AsyncServingEngine, ServingSLO
+
+    gc.collect()  # earlier phases' cohorts and sessions leave the weak registries
+    out = {"card": card}
+    scan = tie_scan.tie_group_reduce
+    tenants, rows_per_step = SERVING_TENANTS, SERVING_ROWS_PER_STEP
+    chunk = tenants * rows_per_step
+    rs = np.random.RandomState(SEED + 70)
+    ids = torch.from_numpy(np.tile(np.arange(tenants, dtype=np.int32), rows_per_step)).to(dev)
+
+    def wave():
+        p = torch.from_numpy(rs.rand(chunk).astype(np.float32)).to(dev)
+        return route_rows(ids, p, (p > 0.5).to(torch.int32), num_tenants=tenants)
+
+    waves = [wave() for _ in range(4)]
+    _, _, p4, t4 = _forward_leg_inputs(torch, dev)
+    leg_batches = [(p4[b * BATCH:(b + 1) * BATCH], t4[b * BATCH:(b + 1) * BATCH]) for b in range(3)]
+
+    def leg():
+        return MetricCollection([Accuracy(), Precision(num_classes=4, average="macro"),
+                                 Recall(num_classes=4, average="macro"), F1(num_classes=4, average="macro")],
+                                compiled=True)
+
+    def health_cohort():
+        return MetricCohort(Accuracy(), tenants=tenants, track_health=True)
+
+    def caller_sync():
+        torch.cuda.current_stream().synchronize()
+
+    def get(url):
+        with urllib.request.urlopen(url, timeout=EXPORTER_TIMEOUT_S) as r:
+            return r.read().decode()
+
+    def tenant_rows(samples, cid, family):
+        return {labels["tenant"]: v for labels, v in samples[f"metrics_tpu_cohort_tenant_{family}"]
+                if labels["cohort"] == cid}
+
+    pinned_read = _HostMirror.read
+
+    def paged_read(mirror, tensors, ready):
+        """The same event-ordered read into pageable memory (the read the
+        port does not make: a thread waiting in it stalls other threads)."""
+        mirror.stream.wait_event(ready)
+        with torch.cuda.stream(mirror.stream):
+            return torch.stack([t.cpu() for t in tensors])
+
+    # a. values, states and kernels a replay with the exporter and the ledger off, then armed
+    def workload():
+        cohort, col = health_cohort(), leg()
+        values = [cohort(*w) for w in waves] + [v for b in leg_batches for v in col(*b).values()]
+        # the states before the measuring steps (each count steps two to eight times)
+        states = [v for d in cohort._states.values() for v in d.values()]
+        states += [v for v in cohort._health.values()] + [getattr(m, s) for m in col.values() for s in m._defaults]
+        health = cohort.health()
+        replay = _cohort_replay_ops(torch, cohort)
+        steps = {"cohort": _device_ops(torch, lambda: cohort(*waves[0])),
+                 "leg": _device_ops(torch, lambda: col(*leg_batches[0]))}
+        return values, states, replay, steps, {k: health[k] for k in ("rows_seen", "updates", "last_step")}
+
+    plain = workload()
+    with obs.exporter_scope(port=0), obs.cost_ledger_scope() as ledger:
+        armed = workload()
+        entries_a = len(ledger.entries())
+    for label, a, b in (("values", plain[0], armed[0]), ("states", plain[1], armed[1])):
+        if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"4n a. {label} differ with the exporter and the ledger armed")
+    if plain[2:4] != armed[2:4] or any(not np.array_equal(plain[4][k], armed[4][k]) for k in plain[4]):
+        raise AssertionError(f"4n a. kernels and copies a replay / a step off {plain[2:4]}, armed {armed[2:4]}")
+    if entries_a != 2:
+        raise AssertionError(f"4n a. the armed ledger holds {entries_a} programs; the workload built 2")
+    out["armed_vs_off"] = {"kernels_copies_per_cohort_replay": list(plain[2]),
+                           "kernels_copies_per_step": {k: list(v) for k, v in plain[3].items()}}
+    print(f"4n a. [{card}] a {tenants}-tenant health-armed cohort ({len(waves)} steps) and the compiled forward leg"
+          f" (3 batches of {BATCH}) with the exporter and the cost ledger off, then armed: values, states and"
+          f" health bit-equal; kernels and copies a cohort replay {plain[2]}, a step {plain[3]} (agreed"
+          " torch.profiler traces) the same armed")
+    del plain, armed
+
+    opened = []
+    engines = []
+    try:
+        with tempfile.TemporaryDirectory(dir="build") as d, obs.telemetry_scope() as tel, \
+                obs.exporter_scope(port=0) as ex, obs.cost_ledger_scope() as ledger:
+            base = f"http://127.0.0.1:{ex.port}"
+            # b. the serve loop, a session beside it, and a client scraping both endpoints
+            slo = ServingSLO(e2e_p99_ms=60_000.0, max_queue_age_ms=60_000.0, name="smoke-serving")
+            cohort = health_cohort()
+            engines.append(cohort._engine)
+            pipe = AsyncServingEngine(cohort, slo=slo)
+            opened.append(pipe)
+            session = reliability.EvalSession(MetricCollection([Accuracy(), AUROC(pos_label=1)]),
+                                              os.path.join(d, "session"), checkpoint_every=5,
+                                              background_checkpoints=True)
+            opened.append(session)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(SEED + 71)
+            session_batches = []
+            for _ in range(BATCHES):
+                p = torch.rand(BATCH, generator=gen, device=dev)
+                session_batches.append((p, (torch.rand(BATCH, generator=gen, device=dev) < p).to(torch.int32)))
+            pipe.forward(*waves[0])  # built on the caller
+            scrapes, scrape_errors = [], []
+
+            def scraper():
+                try:
+                    for _ in range(EXPORTER_SCRAPES):
+                        for path in ("/metrics", "/healthz"):
+                            t1 = time.perf_counter()
+                            body = get(base + path)
+                            scrapes.append((path, (time.perf_counter() - t1) * 1e3, body))
+                except Exception as err:  # noqa: BLE001 - surfaced below
+                    scrape_errors.append(err)
+
+            client = threading.Thread(target=scraper, daemon=True)
+            client.start()
+            served = 1
+            while client.is_alive() or served < len(session_batches):
+                pipe.forward(*waves[served % len(waves)])
+                if served <= len(session_batches):
+                    session.step(served - 1, *session_batches[served - 1])
+                served += 1
+            client.join(EXPORTER_TIMEOUT_S)
+            pipe.drain(timeout_s=EXPORTER_TIMEOUT_S)
+            if scrape_errors or client.is_alive():
+                raise AssertionError(f"4n b. the scrape client failed: {scrape_errors}")
+            cid = str(cohort._exporter_id)
+            label = str(session.journal.directory)
+            metrics = [body for path, _, body in scrapes if path == "/metrics"]
+            healthz = [json.loads(body) for path, _, body in scrapes if path == "/healthz"]
+            if len(metrics) < EXPORTER_SCRAPES or len(healthz) < EXPORTER_SCRAPES:
+                raise AssertionError(f"4n b. {len(metrics)} /metrics and {len(healthz)} /healthz scrapes")
+            updates_seen = []
+            for body in metrics:
+                samples = obs.parse_prometheus_text(body)
+                updates = tenant_rows(samples, cid, "updates")
+                rows = tenant_rows(samples, cid, "rows_seen")
+                last = tenant_rows(samples, cid, "last_step")
+                u = set(updates.values())
+                if len(updates) != tenants or len(u) != 1 or set(rows.values()) != {u.pop() * rows_per_step} \
+                        or set(last.values()) != set(updates.values()):
+                    raise AssertionError(f"4n b. a scrape's tenant rows: {len(updates)} tenants, updates"
+                                         f" {sorted(set(updates.values()))}, rows {sorted(set(rows.values()))}")
+                updates_seen.append(next(iter(updates.values())))
+                for family in ("metrics_tpu_session_cursor", "metrics_tpu_session_generation",
+                               "metrics_tpu_engine_compile_cold_total", "metrics_tpu_engine_programs_cold",
+                               "metrics_tpu_engine_program_compiles", "metrics_tpu_engine_program_compile_ms"):
+                    if family not in samples:
+                        raise AssertionError(f"4n b. a scrape lacks {family}")
+                if label not in {lab["journal"] for lab, _ in samples["metrics_tpu_session_cursor"]}:
+                    raise AssertionError("4n b. a scrape lacks the session's gauges")
+            if updates_seen != sorted(updates_seen) or any(h["status"] != "ok" for h in healthz):
+                raise AssertionError(f"4n b. updates went back ({updates_seen}) or /healthz was not ok")
+            metrics_ms = [ms for path, ms, _ in scrapes if path == "/metrics"]
+            healthz_ms = [ms for path, ms, _ in scrapes if path == "/healthz"]
+            out["scrapes"] = {"metrics": len(metrics), "healthz": len(healthz), "serve_steps": served,
+                              "metrics_ms_median": float(np.median(metrics_ms)), "metrics_ms_max": max(metrics_ms),
+                              "healthz_ms_median": float(np.median(healthz_ms)), "healthz_ms_max": max(healthz_ms),
+                              "updates_first_last": [updates_seen[0], updates_seen[-1]]}
+            print(f"4n b. [{card}] {len(metrics)} /metrics and {len(healthz)} /healthz scrapes (urllib on 127.0.0.1,"
+                  f" port {ex.port} from the OS) beside {served} serve-loop steps of a {tenants}-tenant cohort"
+                  f" through an AsyncServingEngine and {len(session_batches)} session steps: each parsed, {tenants}"
+                  f" tenants a scrape with whole steps (updates {updates_seen[0]}..{updates_seen[-1]}, rows ="
+                  f" {rows_per_step} x updates), session and compile families present, /healthz ok; scrape ms"
+                  f" /metrics median {out['scrapes']['metrics_ms_median']:.3f} max {max(metrics_ms):.3f}, /healthz"
+                  f" median {out['scrapes']['healthz_ms_median']:.3f} max {max(healthz_ms):.3f} (host clock)")
+
+            # c. /healthz after an injected SLO breach
+            breach = ServingSLO(e2e_p99_ms=1e-6, sustain=1, name="smoke-breach")
+            breach.evaluate()
+            probe = json.loads(get(base + "/healthz"))
+            verdicts = {v["name"]: v for v in probe.get("serving_slo", {}).get("slos", [])}
+            if probe["status"] != "degraded" or not verdicts.get("smoke-breach", {}).get("breaching"):
+                raise AssertionError(f"4n c. /healthz after an injected breach: {probe}")
+            del breach
+            gc.collect()
+            if json.loads(get(base + "/healthz"))["status"] != "ok":
+                raise AssertionError("4n c. /healthz stayed degraded after the breaching SLO was dropped")
+            print(f"4n c. [{card}] /healthz degraded after an injected SLO breach (smoke-breach, e2e burn"
+                  f" {verdicts['smoke-breach']['burns']['e2e']:.3g}), ok again once it is dropped")
+
+            # d. the serve-loop step with and without a concurrent scrape, in turns
+            scraping, stop = threading.Event(), threading.Event()
+
+            def background_scraper():
+                while not stop.is_set():
+                    if scraping.wait(0.05):
+                        get(base + "/metrics")
+
+            bg = threading.Thread(target=background_scraper, daemon=True)
+            bg.start()
+            step_ms = {False: [], True: []}
+            try:
+                for i in range(2 * EXPORTER_STEP_PAIRS + 2):
+                    on = bool(i % 2) if (i // 2) % 2 else not (i % 2)
+                    (scraping.set if on else scraping.clear)()
+                    time.sleep(0.002)
+                    caller_sync()
+                    t1 = time.perf_counter()
+                    pipe.forward(*waves[i % len(waves)])
+                    pipe.drain(timeout_s=EXPORTER_TIMEOUT_S)
+                    caller_sync()
+                    if i >= 2:
+                        step_ms[on].append((time.perf_counter() - t1) * 1e3)
+            finally:
+                stop.set()
+                scraping.set()
+                bg.join(EXPORTER_TIMEOUT_S)
+            out["serve_step_ms"] = {"without_scrape": float(np.median(step_ms[False])),
+                                    "with_scrape": float(np.median(step_ms[True]))}
+            print(f"4n d. [{card}] serve-loop step (forward + drain, host clock ending in a synchronize, median of"
+                  f" {EXPORTER_STEP_PAIRS}, in turns): {out['serve_step_ms']['without_scrape']:.3f} ms without a"
+                  f" concurrent scrape, {out['serve_step_ms']['with_scrape']:.3f} ms with one")
+
+            # e. a forward returns while a scrape waits on the health read (behind a device sleep)
+            probe_start, probe_end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            probe_start.record()
+            torch.cuda._sleep(SERVING_SLEEP_PROBE_CYCLES)
+            probe_end.record()
+            probe_end.synchronize()
+            cycles = int(SERVING_SLEEP_PROBE_CYCLES * EXPORTER_HOLD_MS / probe_start.elapsed_time(probe_end))
+            real_dispatch = pipe._dispatch
+            held = {}
+            for how, read in (("pinned", pinned_read), ("pageable", paged_read)):
+                reading, dispatched = threading.Event(), threading.Event()
+
+                def watched(mirror, tensors, ready, read=read, reading=reading):
+                    if mirror is cohort._health_mirror:
+                        reading.set()
+                    return read(mirror, tensors, ready)
+
+                def hold(args, kwargs, dispatched=dispatched):
+                    torch.cuda._sleep(cycles)
+                    result = real_dispatch(args, kwargs)
+                    dispatched.set()
+                    return result
+
+                pipe.drain(timeout_s=EXPORTER_TIMEOUT_S)
+                pipe._dispatch = hold
+                _HostMirror.read = watched
+                try:
+                    pipe.forward(*waves[0])
+                    if not dispatched.wait(EXPORTER_TIMEOUT_S):
+                        raise AssertionError("4n e. the worker never dispatched")
+                    done = []
+                    waiter = threading.Thread(target=lambda: done.append((get(base + "/metrics"),
+                                                                          time.perf_counter())), daemon=True)
+                    waiter.start()
+                    if not reading.wait(EXPORTER_TIMEOUT_S):
+                        raise AssertionError("4n e. the scrape never read the cohort's health")
+                    time.sleep(0.01)  # the scrape now waits on the worker's step
+                    t1 = time.perf_counter()
+                    pipe.forward(*waves[1])
+                    t_returned = time.perf_counter()
+                    torch.ones(1 << 20, device=dev).add_(1)  # the serve loop's next allocation and launch
+                    t_launched = time.perf_counter()
+                    waiter.join(EXPORTER_TIMEOUT_S)
+                    if not done:
+                        raise AssertionError("4n e. the scrape hung")
+                    pipe.drain(timeout_s=EXPORTER_TIMEOUT_S)
+                finally:
+                    pipe._dispatch = real_dispatch
+                    _HostMirror.read = pinned_read
+                held[how] = {"forward_ms": (t_returned - t1) * 1e3, "launch_ms": (t_launched - t_returned) * 1e3,
+                             "returned_before_scrape_ms": (done[0][1] - t_launched) * 1e3}
+                if how == "pinned":
+                    samples = obs.parse_prometheus_text(done[0][0])
+                    updates = set(tenant_rows(samples, cid, "updates").values())
+                    if held[how]["returned_before_scrape_ms"] < 10.0 or updates != {cohort._steps - 1}:
+                        raise AssertionError(f"4n e. with the pinned read: {held[how]}, the scrape read updates"
+                                             f" {updates}, the step it waited on was {cohort._steps - 1}")
+
+            # the health read alone on an idle card, pinned against pageable, in turns
+            read_ms = {"pinned": [], "pageable": []}
+            for i in range(20):
+                for how, read in (("pinned", pinned_read), ("pageable", paged_read))[:: 1 if i % 2 else -1]:
+                    _HostMirror.read = read
+                    try:
+                        caller_sync()
+                        t1 = time.perf_counter()
+                        cohort.health()
+                        read_ms[how].append((time.perf_counter() - t1) * 1e3)
+                    finally:
+                        _HostMirror.read = pinned_read
+            out["health_read"] = {"held_step": held, "idle_read_ms": {k: float(np.median(v)) for k, v in read_ms.items()},
+                                  "hold_ms": EXPORTER_HOLD_MS}
+            print(f"4n e. [{card}] a worker step held behind a {EXPORTER_HOLD_MS:.0f} ms device sleep, a /metrics scrape"
+                  " waiting on its health event: with the pinned read the serve loop's forward took"
+                  f" {held['pinned']['forward_ms']:.3f} ms and an allocation and launch"
+                  f" {held['pinned']['launch_ms']:.3f} ms, returned {held['pinned']['returned_before_scrape_ms']:.1f}"
+                  " ms before the scrape (which read the step it waited on); with the same read into pageable"
+                  f" memory: {held['pageable']['forward_ms']:.3f} / {held['pageable']['launch_ms']:.3f} ms,"
+                  f" {held['pageable']['returned_before_scrape_ms']:+.1f} ms; health() alone on an idle card"
+                  f" {out['health_read']['idle_read_ms']['pinned']:.3f} ms pinned,"
+                  f" {out['health_read']['idle_read_ms']['pageable']:.3f} ms pageable (median of 20, in turns)")
+
+            # f. the ledger: cold builds = signatures built, a forced LRU eviction = one warm build
+            col = leg()
+            col(*leg_batches[0])  # the engine exists after the first step
+            engines.append(col._engine)
+            col._engine._cache_size = 1
+            half = (leg_batches[1][0][: BATCH // 2], leg_batches[1][1][: BATCH // 2])
+            before = (tel.counters.get("engine.compile.cold", 0), tel.counters.get("engine.compile.warm", 0))
+            col(*half)  # cold, evicts the full-batch signature
+            col(*leg_batches[2])  # warm: built before, evicted since
+            after = (tel.counters.get("engine.compile.cold", 0), tel.counters.get("engine.compile.warm", 0))
+            if (after[0] - before[0], after[1] - before[1]) != (1, 1):
+                raise AssertionError(f"4n f. cold / warm builds {before} -> {after}; want one each")
+            built = sum(e.trace_count for e in engines)
+            seen = sum(len(e._seen_signatures) for e in engines)
+            counted = (tel.counters.get("engine.compile.cold", 0), tel.counters.get("engine.compile.warm", 0))
+            hist = tel.snapshot()["histograms"]["engine.compile_ms"]
+            if counted != (seen, built - seen) or hist["count"] != built \
+                    or tel.gauges["engine.programs.warm"] != counted[1]:
+                raise AssertionError(f"4n f. cold / warm {counted}, {seen} signatures in {built} builds,"
+                                     f" {hist['count']} observed")
+            entries = ledger.entries()
+            mine = [e for e in entries if e["engine"] == col._engine._watch_key]
+            if sorted((e["compiles"], e["cold_compiles"], e["warm_compiles"]) for e in mine) != [(1, 1, 0), (2, 1, 1)]:
+                raise AssertionError(f"4n f. the leg's ledger entries {mine}")
+            out["ledger"] = {"cold": counted[0], "warm": counted[1], "builds": built,
+                             "compile_ms": {f"{e['kind']} {e['engine']} {e['fingerprint']}":
+                                            e["compile_ms_total"] / e["compiles"] for e in entries}}
+            print(f"4n f. [{card}] engine.compile.cold {counted[0]} = the signatures built, a forced LRU eviction"
+                  f" counted 1 warm build ({counted[1]} in all, {built} builds observed in engine.compile_ms); the"
+                  f" ledger's programs, engine.compile_ms per build (warm-up, capture and the first replay's"
+                  " enqueue, host clock): " + "; ".join(
+                      f"{e['kind']} {e['engine']} {e['compile_ms_total'] / e['compiles']:.1f} ms x {e['compiles']}"
+                      for e in entries))
+
+            # g. the session's compute(): one tie_scan launch, against float64 and the plain version
+            session.flush_checkpoints()
+            zero = scan.launches
+            got = session.compute()
+            launches = scan.launches - zero
+            auroc = session.metric["AUROC"]
+            preds = torch.cat(list(auroc.preds))
+            rel = torch.cat(list(auroc.target)) == 1
+            key_s, pay_s = _co_sort(preds, rel.to(torch.float32))
+            stats = tie_scan.tie_group_reduce_reference(key_s, pay_s).double()
+            plain_auroc = float(stats[0] / stats[2] / stats[3])
+            oracle = _oracle_auroc(preds.cpu().numpy(), rel.cpu().numpy())
+            value = float(got["AUROC"])
+            if launches != 1 or preds.numel() != MAIN_N or abs(value - oracle) > ORACLE_TOL \
+                    or abs(value - plain_auroc) > SCORE_TOL:
+                raise AssertionError(f"4n g. session compute: {launches} tie_scan launches over {preds.numel()}"
+                                     f" rows, AUROC {value} vs float64 {oracle} and plain {plain_auroc}")
+            out["session"] = {"rows": preds.numel(), "tie_scan_launches": launches, "auroc": value,
+                              "err_float64": abs(value - oracle), "err_plain": abs(value - plain_auroc),
+                              "checkpoints": session.stats["checkpoints"]}
+            print(f"4n g. [{card}] EvalSession(background_checkpoints=True) over the north-star collection,"
+                  f" {len(session_batches)} steps of {BATCH} beside the serve loop: compute() over {preds.numel()}"
+                  f" rows, 1 tie_scan launch, AUROC within {abs(value - oracle):.2g} of float64 and"
+                  f" {abs(value - plain_auroc):.2g} of the plain scan (ops/tie_scan.py::tie_group_reduce_reference),"
+                  f" {session.stats['checkpoints']} background checkpoints")
+    finally:
+        for thing in opened:
+            thing.close()
+        _HostMirror.read = pinned_read
+    return out
+
+
 def main() -> int:
     card_index = _pin_one_card()
     import torch
@@ -4154,6 +4633,17 @@ def main() -> int:
         raise AssertionError(f"phase 4m's north-star steps: only tie_scan may launch, and at least once: {counts()}")
     print(f"4m. {srv_timings['phase_s']:.1f} s")
 
+    # ---- 4n. the export surface and the cost ledger ----------------------------
+    zero_counts()
+    t0 = time.perf_counter()
+    exp_timings = _exporter_phase(torch, dev, card)
+    exp_timings["phase_s"] = time.perf_counter() - t0
+    exp_timings["scan_launches"] = counts()
+    # the session's forwards launch it for each batch value, its compute() once (checked in the phase)
+    if counts()["tie_scan"] < 1 or any(v for k, v in counts().items() if k != "tie_scan"):
+        raise AssertionError(f"phase 4n's session: only tie_scan may launch, and at least once: {counts()}")
+    print(f"4n. {exp_timings['phase_s']:.1f} s")
+
     # ---- 5. times ---------------------------------------------------------
     all_preds = torch.cat(list(collection["AUROC"].preds))
     all_rel = (torch.cat(list(collection["AUROC"].target)) == 1).to(torch.float32)
@@ -4337,6 +4827,7 @@ def main() -> int:
         "sync_tiers": tier_timings,
         "reliability": rel_timings,
         "serving": srv_timings,
+        "exporter": exp_timings,
         "card": card,
     }
     print(json.dumps({"timings": timings}))
@@ -4475,13 +4966,15 @@ def main() -> int:
         ("weighted_rows", "::tie_scan_w_kernel(",
          lambda: tie_scan.tie_group_reduce_rows(rows_w_key_s, rows_w_pay_s, weights_s=rows_w_s)),
     ):
-        with profile(activities=activities) as prof_entry:
-            call()
-            torch.cuda.synchronize()
+        prof_entry = _steady_profile(torch, call, shows=kernel)
         split = _device_ms_by_kernel(torch, prof_entry, sort_key)
         others = [k for k in split if kernel not in k]
         if len(split) - len(others) != 1 or len(others) > 1 or any("Memset" not in k for k in others):
-            raise AssertionError(f"one {label} call ran {sorted(split)}; want one kernel and at most its memset")
+            device = [(e.name[:40], e.device_type == torch.autograd.DeviceType.CUDA) for e in prof_entry.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA or "tie_scan" in e.name]
+            raise AssertionError(f"one {label} call ran {sorted(split)}; want one kernel and at most its memset"
+                                 f" (device records of each trace: {PROFILE_LAST_RECORDS}; the kept trace's"
+                                 f" device events: {device[:8]})")
         entry_splits[label] = split
     print(json.dumps({"profile": {
         "window": "one forward batch of 100k + compute at 1.1M, under torch.profiler",
@@ -4585,6 +5078,9 @@ def main() -> int:
             "library_ms": None,
         },
     ]
+    reads = sum(v for k, v in PROFILE_TRACES_TAKEN.items() if k != "lost")
+    print(f"profiler: {reads} counts read off an agreed trace; traces taken per count: {PROFILE_TRACES_TAKEN}"
+          " (2: the first two agreed; lost: traces with no device record or without the kernel required)")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check")
     print(json.dumps({"kernels": kernels}))
     # the run used one card (pinned above)

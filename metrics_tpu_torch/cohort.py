@@ -57,8 +57,9 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
-from metrics_tpu_torch.engine import CompiledStepEngine, LeafSpec, _flags_to_host
+from metrics_tpu_torch.engine import CompiledStepEngine, LeafSpec, _flags_to_host, _HostMirror
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.observability import exporter as _exporter
 from metrics_tpu_torch.observability import flight as _flight
 from metrics_tpu_torch.observability import telemetry as _obs
 from metrics_tpu_torch.observability import trace as _trace
@@ -71,6 +72,9 @@ from metrics_tpu_torch.utilities.distributed import gather_all_tensors
 from metrics_tpu_torch.utilities.prints import warn_once
 
 __all__ = ["MetricCohort", "bucket_capacity", "route_rows"]
+
+#: the per-tenant health accumulators, in the order a health read stacks them
+_HEALTH_KEYS = ("rows_seen", "updates", "last_step", "nonfinite")
 
 #: checkpoint key of the active-slot table: a fixed-shape ``(capacity,)``
 #: int8 validity mask, carried like a member state
@@ -225,6 +229,11 @@ class MetricCohort:
         # health-armed step (None until then) and the cohort's step count
         self._track_health = track_health
         self._health: Optional[Dict[str, torch.Tensor]] = None
+        # what a reader on another thread (the exporter's scrape) reads,
+        # published together: the accumulators and, on the card, the event
+        # recorded after their last write and their pinned host mirror
+        self._health_view: Optional[Tuple[Dict[str, torch.Tensor], Any, Optional[_HostMirror]]] = None
+        self._health_mirror: Optional[_HostMirror] = None
         # host-side tally of guard verdicts per slot (the guard's epilogue
         # reads its flags anyway): health()'s guard_verdicts column
         self._guard_verdicts = np.zeros(self._capacity, dtype=np.int64)
@@ -232,6 +241,9 @@ class MetricCohort:
         # slot index and validity mask on the device, per membership: a
         # step reads them without a host-to-device copy
         self._membership_tensors: Dict[str, torch.Tensor] = {}
+        # scrape source enrollment: one weak reference (the exporter never
+        # keeps a dropped cohort alive)
+        self._exporter_id = _exporter.register_cohort(self)
         self._note_membership()
 
     # ------------------------------------------------------------------
@@ -433,7 +445,7 @@ class MetricCohort:
         self._guard_verdicts = np.concatenate([self._guard_verdicts, np.zeros(grown, dtype=np.int64)])
         if self._health is not None:
             pad_health = self._default_health(grown)
-            self._health = {k: torch.cat([v, pad_health[k]]) for k, v in self._health.items()}
+            self._publish_health({k: torch.cat([v, pad_health[k]]) for k, v in self._health.items()})
         self._capacity = new_capacity
 
     # ------------------------------------------------------------------
@@ -452,7 +464,23 @@ class MetricCohort:
         if self._health is None:
             return
         fresh = self._default_health(1)
-        self._health = {k: _set_rows(v, slots, fresh[k][0]) for k, v in self._health.items()}
+        self._publish_health({k: _set_rows(v, slots, fresh[k][0]) for k, v in self._health.items()})
+
+    def _publish_health(self, health: Optional[Dict[str, torch.Tensor]]) -> None:
+        """Install new health accumulators (never written in place: a step
+        clones them out of its graph), or None. On the card they are
+        published with an event recorded on the writer's stream after their
+        producers, which a reader waits on; the pinned mirror a reader
+        copies into is made here, by the writer, when the capacity changes."""
+        written = None
+        if health is not None and self._device.type == "cuda":
+            like = health["rows_seen"]
+            if self._health_mirror is None or self._health_mirror.shape != (len(_HEALTH_KEYS),) + tuple(like.shape):
+                self._health_mirror = _HostMirror(len(_HEALTH_KEYS), like)
+            written = torch.cuda.Event()
+            written.record(torch.cuda.current_stream(self._device))
+        self._health = health
+        self._health_view = None if health is None else (health, written, self._health_mirror)
 
     def _health_enabled(self) -> bool:
         return self._track_health if self._track_health is not None else _obs.enabled()
@@ -476,10 +504,13 @@ class MetricCohort:
         naming the stale and poisoned slots rides the event window into any
         later dump. Health is process-local diagnostics: it does not
         checkpoint, and a restored cohort starts a fresh window."""
-        if self._health is None:
+        view = self._health_view
+        if view is None:
             return None
-        keys = ("rows_seen", "updates", "last_step", "nonfinite")
-        host = dict(zip(keys, torch.stack([self._health[k] for k in keys]).cpu().numpy()))
+        health, written, mirror = view
+        rows = [health[k] for k in _HEALTH_KEYS]
+        stacked = torch.stack(rows) if written is None else mirror.read(rows, written)
+        host = dict(zip(_HEALTH_KEYS, stacked.numpy()))
         slots = self._slot_index()
         step = self._steps
         last = host["last_step"][slots]
@@ -600,7 +631,7 @@ class MetricCohort:
         health_state = None
         if self._health_enabled():
             if self._health is None:
-                self._health = self._default_health(self._capacity)
+                self._publish_health(self._default_health(self._capacity))
             health_state = dict(self._health)
             health_state["valid"] = self._membership_tensor("valid")
             health_state["step"] = torch.full((), self._steps + 1, dtype=torch.int32, device=self._device)
@@ -625,7 +656,7 @@ class MetricCohort:
         self._states = {name: dict(new_states[name]) for name in names}
         self._steps += 1
         if new_health is not None:
-            self._health = new_health
+            self._publish_health(new_health)
         if finites is not None:
             self._apply_guard_verdicts(guard, names, finites)
         out = {name: (self._valid_rows(values[name]) if name in values else None) for name in names}
@@ -895,7 +926,7 @@ class MetricCohort:
         described."""
         self._states = self._default_states(self._capacity)
         if self._health is not None:
-            self._health = self._default_health(self._capacity)
+            self._publish_health(self._default_health(self._capacity))
         self._guard_verdicts = np.zeros(self._capacity, dtype=np.int64)
         self._steps = 0
 
@@ -974,7 +1005,7 @@ class MetricCohort:
                 )
             self._capacity = int(new_capacity)
             self._active = np.zeros(self._capacity, dtype=bool)
-            self._health = None
+            self._publish_health(None)
             self.reset()
         for name, d in incoming.items():
             for sname, v in d.items():
@@ -994,7 +1025,7 @@ class MetricCohort:
             self._active = np.ones(self._capacity, dtype=bool)
         # any restore starts a fresh health window: the loaded state has
         # another history
-        self._health = None
+        self._publish_health(None)
         self._guard_verdicts = np.zeros(self._capacity, dtype=np.int64)
         self._steps = 0
         self._note_membership()
@@ -1008,12 +1039,19 @@ class MetricCohort:
     # the engine's graphs close over the template instances: copies and
     # pickles drop them and build anew against their own template objects
     def __getstate__(self) -> dict:
-        return {k: v for k, v in self.__dict__.items() if k not in ("_engine", "_compute_cache", "_serving_pipeline")}
+        return {k: v for k, v in self.__dict__.items()
+                if k not in ("_engine", "_compute_cache", "_serving_pipeline", "_health_view", "_health_mirror")}
 
     def __setstate__(self, state: dict) -> None:
         self.__dict__.update(state)
+        # the copy's accumulators were made on this thread's stream
+        self._health_mirror = None
+        self._publish_health(self._health)
         self._engine = CompiledStepEngine(self._template, cache_size=self._cache_size, observe=False)
         self._compute_cache = (None, None)
+        # a copied or unpickled cohort is a new scrape source (the weak
+        # registry entry belongs to the original)
+        self._exporter_id = _exporter.register_cohort(self)
 
     # ------------------------------------------------------------------
     # diagnostics

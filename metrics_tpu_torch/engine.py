@@ -92,6 +92,7 @@ import torch.utils._pytree as pytree
 
 from metrics_tpu_torch.functional.regression.sufficient_stats import regression_family_sharing
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.observability import costledger as _costledger
 from metrics_tpu_torch.observability import flight as _flight
 from metrics_tpu_torch.observability import telemetry as _obs
 from metrics_tpu_torch.observability import trace as _trace
@@ -209,6 +210,39 @@ def _flags_to_host(flags: torch.Tensor) -> torch.Tensor:
     host.copy_(flags, non_blocking=True)
     torch.cuda.current_stream(flags.device).synchronize()
     return host
+
+
+class _HostMirror:
+    """Pinned host rows that mirror a few same-shaped device tensors, read
+    after an event: each :meth:`read` makes the mirror's own stream wait on
+    the event a writer recorded after its step wrote the tensors, copies
+    each tensor into its pinned row on that stream, and waits for that
+    stream alone. It never waits on the device or on another stream's later
+    work, and it allocates nothing on the card: a device allocation on a
+    new stream (the caching allocator's first segment) or a copy into
+    pageable memory would, while the card is busy, stall every other
+    thread's allocations and launches (a scrape thread beside a serve
+    loop). The buffer and the stream are made once, by the writer; reads
+    are serialized."""
+
+    def __init__(self, rows: int, like: torch.Tensor):
+        self.shape = (rows,) + tuple(like.shape)
+        # the high-priority pool: never a serving worker's or a background
+        # writer's stream, whose later work a read must not wait for
+        self.stream = torch.cuda.Stream(device=like.device, priority=-1)
+        self.host = torch.empty(self.shape, dtype=like.dtype, pin_memory=True)
+        self._lock = threading.Lock()
+
+    def read(self, tensors: List[torch.Tensor], ready: "torch.cuda.Event") -> torch.Tensor:
+        """``tensors`` (of the mirror's shape) stacked on the host, in a
+        tensor of the caller's own."""
+        with self._lock:
+            self.stream.wait_event(ready)
+            with torch.cuda.stream(self.stream):
+                for row, t in zip(self.host, tensors):
+                    row.copy_(t, non_blocking=True)
+            self.stream.synchronize()
+            return self.host.clone()
 
 
 @contextmanager
@@ -407,6 +441,14 @@ class CompiledStepEngine:
 
         return step_fn
 
+    def _program_definition(self, names: Tuple[str, ...], guard_token: Optional[str], health: Optional[bool] = None):
+        """What defines the step function of ``names`` apart from its call
+        (the cost ledger's digest): each member's name, class and
+        configuration, the guard's token and, for a cohort step, whether
+        the health accounting rides it. Nothing of this engine."""
+        members = tuple((n, _costledger.metric_config(self._metrics[n])) for n in names)
+        return {"members": members, "guard": guard_token, "health": health}
+
     @staticmethod
     def _guard_token(guard) -> Optional[str]:
         """Step-function token of the active guard: None (no guard, the
@@ -498,19 +540,20 @@ class CompiledStepEngine:
         state_sig = tuple((n, s, tuple(v.shape), v.dtype) for n, d in states.items() for s, v in d.items())
         return (names, precisions, guard_token, state_sig, structure, tuple(_abstract_leaf(x) for x in leaves)) + extra
 
-    def _lookup(self, signature: tuple) -> Tuple[Optional[_Graph], bool]:
-        """``(program, cache_hit)``: the signature's program on a hit (None
-        on the CPU, where the step function runs directly). A miss returns
-        no program after its bookkeeping: counters, the watchdog's thrash
-        verdict for a signature built before, the LRU eviction the build's
-        insert needs."""
+    def _lookup(self, signature: tuple) -> Tuple[Optional[_Graph], bool, bool]:
+        """``(program, cache_hit, cold)``: the signature's program on a hit
+        (None on the CPU, where the step function runs directly). A miss
+        returns no program after its bookkeeping: counters, the watchdog's
+        thrash verdict for a signature built before, the LRU eviction the
+        build's insert needs; ``cold`` says the signature was never built by
+        this engine (the cost ledger's classification; False on a hit)."""
         if signature in self._compiled:
             self._compiled.move_to_end(signature)
             if _obs.enabled():
                 tel = _obs.get()
                 tel.count("engine.cache_hits")
                 tel.watchdog.note_steady(self._watch_key)
-            return self._compiled[signature], True
+            return self._compiled[signature], True, False
         cold = signature not in self._seen_signatures
         if _obs.enabled():
             tel = _obs.get()
@@ -526,7 +569,7 @@ class CompiledStepEngine:
             if _obs.enabled():
                 _obs.get().count("engine.cache_evictions")
                 _obs.get().event("cache_eviction", engine=self._watch_key)
-        return None, False
+        return None, False, cold
 
     def _build(self, signature: tuple, names: Tuple[str, ...], make_step: Callable, states: dict, leaves: list,
                structure: tuple, watch_key: str, budget: int) -> Optional[_Graph]:
@@ -659,7 +702,7 @@ class CompiledStepEngine:
                 guard_token = self._guard_token(guard)
                 with _trace.span("engine.cache_lookup", phase="dispatch", engine=self._watch_key):
                     signature = self._signature(names, self._current_states(names), leaves, structure, guard_token)
-                    program, cache_hit = self._lookup(signature)
+                    program, cache_hit, cold = self._lookup(signature)
                 # the states handed to the step; on the card every one is
                 # copied into the graph's buffers (the JAX package donates,
                 # copying every state first when a guard is on): the live
@@ -674,6 +717,11 @@ class CompiledStepEngine:
                 if telemetry_on:
                     _obs.get().count("engine.dispatches")
                 t0 = time.perf_counter()
+                # the cost ledger's shapes of the build's inputs, taken
+                # before the step replaces the states
+                ledger_inputs = None
+                if not cache_hit and _costledger.cost_ledger_enabled():
+                    ledger_inputs = _costledger.shape_tree((states, args, kwargs))
                 make_step = lambda: self._make_step_fn(names, guard_token)  # noqa: E731
                 try:
                     with _trace.span("engine.dispatch", phase="dispatch", engine=self._watch_key, cache_hit=cache_hit):
@@ -725,9 +773,14 @@ class CompiledStepEngine:
                     except Exception:  # noqa: BLE001 - best-effort hook
                         pass
                     return self._finish(out_eager)
-                if not cache_hit and telemetry_on:
-                    # a miss carries the build: warm-up and capture on the card
-                    _obs.get().observe("engine.trace_s", time.perf_counter() - t0)
+                if not cache_hit:
+                    # a miss carries the build: warm-up and capture on the
+                    # card, and the first replay's enqueue
+                    dt = time.perf_counter() - t0
+                    if telemetry_on:
+                        _obs.get().observe("engine.trace_s", dt)
+                    _costledger.note_compile(self._watch_key, "step", signature, dt, cold,
+                                             lambda: self._program_definition(names, guard_token), ledger_inputs)
                 self._write_back(names, new_states, values)
                 if finites:
                     self._apply_guard_verdicts(guard, names, finites[0])
@@ -854,7 +907,7 @@ class CompiledStepEngine:
             with _trace.span("engine.cache_lookup", phase="dispatch", engine=watch_key):
                 signature = self._signature(names, states, leaves, structure, guard_token,
                                             ("cohort", int(capacity), health))
-                program, cache_hit = self._lookup(signature)
+                program, cache_hit, cold = self._lookup(signature)
             telemetry_on = _obs.enabled()
             if telemetry_on:
                 tel = _obs.get()
@@ -863,6 +916,9 @@ class CompiledStepEngine:
                 if n_tenants is not None:
                     tel.count("cohort.dispatch_tenants", n_tenants)
             t0 = time.perf_counter()
+            ledger_inputs = None
+            if not cache_hit and _costledger.cost_ledger_enabled():
+                ledger_inputs = _costledger.shape_tree((states,) + call)
             if _flight.flight_enabled():
                 _flight.record("cohort_dispatch", engine=watch_key, cache_hit=cache_hit, capacity=int(capacity))
             make_step = lambda: self._make_cohort_step_fn(names, health, guard_token)  # noqa: E731
@@ -881,8 +937,12 @@ class CompiledStepEngine:
                 if telemetry_on:
                     _obs.get().count("engine.trace_failures")
                 raise
-            if not cache_hit and telemetry_on:
-                _obs.get().observe("engine.trace_s", time.perf_counter() - t0)
+            if not cache_hit:
+                dt = time.perf_counter() - t0
+                if telemetry_on:
+                    _obs.get().observe("engine.trace_s", dt)
+                _costledger.note_compile(watch_key, "cohort_step", signature, dt, cold,
+                                         lambda: self._program_definition(names, guard_token, health), ledger_inputs)
             self.dispatch_generation += 1
         new_health = None
         if health:

@@ -6,11 +6,14 @@ step-indexed nested spans exported as Perfetto JSON (``trace.py``), the
 recompilation watchdog (``watchdog.py``), the failure flight recorder
 (``flight.py``) and the rank identity stamp (``identity.py``), wired
 through the ``Metric`` lifecycle, the step engine, the cohort and the
-collectives. Everything is off by default, and a disabled hook costs one
-global read. The registry keys, span names, event kinds, flag names and
-artifact formats are the JAX package's (glossary: its
-``docs/observability.md``). The exporter and the cost ledger are not ported
-yet.
+collectives, the Prometheus export surface (``exporter.py``: ``/metrics``
+and ``/healthz`` on a daemon thread, scraping the registry, every live
+cohort's per-tenant health, the sessions, the sync quorum and the cost
+ledger) and the compiled-program cost ledger (``costledger.py``: cold and
+warm builds of the engine's CUDA graphs). Everything is off by default, and
+a disabled hook costs one global read. The registry keys, span names, event
+kinds, flag names, exposition families and artifact formats are the JAX
+package's (glossary: its ``docs/observability.md``).
 
 Quick start::
 
@@ -25,9 +28,31 @@ Quick start::
         ... one eval pass ...
         assert tel.watchdog.retrace_count() == 0
 
+    with obs.exporter_scope(port=0) as ex, obs.cost_ledger_scope() as ledger:
+        ... serve ...               # scrape http://127.0.0.1:<ex.port>/metrics
+        print(ledger.report())      # one row per built program
+
 Timers are the host clock and no hook synchronizes with the card: a timer
 around asynchronous work measures its enqueue.
 """
+from metrics_tpu_torch.observability.costledger import (  # noqa: F401
+    CostLedger,
+    cost_ledger_enabled,
+    cost_ledger_scope,
+    disable_cost_ledger,
+    enable_cost_ledger,
+    get_ledger,
+)
+from metrics_tpu_torch.observability.exporter import (  # noqa: F401
+    MetricsExporter,
+    disable_exporter,
+    enable_exporter,
+    exporter_enabled,
+    exporter_scope,
+    get_exporter,
+    parse_prometheus_text,
+    render_exposition,
+)
 from metrics_tpu_torch.observability.flight import (  # noqa: F401
     FlightRecorder,
     disable_flight,
@@ -107,6 +132,20 @@ __all__ = [
     "report",
     "to_json",
     "to_prometheus",
+    "MetricsExporter",
+    "enable_exporter",
+    "disable_exporter",
+    "exporter_enabled",
+    "exporter_scope",
+    "get_exporter",
+    "render_exposition",
+    "parse_prometheus_text",
+    "CostLedger",
+    "enable_cost_ledger",
+    "disable_cost_ledger",
+    "cost_ledger_enabled",
+    "cost_ledger_scope",
+    "get_ledger",
 ]
 
 
@@ -121,5 +160,7 @@ def to_json(indent=None) -> str:
 
 
 def to_prometheus() -> str:
-    """Shorthand for ``get().to_prometheus()``: the registry alone."""
+    """Shorthand for ``get().to_prometheus()``: the registry alone; see
+    :func:`render_exposition` for the full ``/metrics`` payload (registry,
+    cohort health, session gauges, quorum, cost ledger)."""
     return get().to_prometheus()

@@ -240,9 +240,9 @@ def _telemetry_snapshot() -> Optional[Dict[str, Any]]:
 
 
 def _cost_ledger_brief() -> Optional[Dict[str, Any]]:
-    """The compiled-program cost ledger riding the dump when armed. The
-    port's ledger (``observability/costledger.py``) is not ported yet, so
-    this is None (schema-stable) until it is; never raises."""
+    """The compiled-program cost ledger riding the dump when armed
+    (``costledger.py``'s brief: one row per program); None when disarmed
+    or empty, so the field is always present; never raises."""
     try:
         from metrics_tpu_torch.observability import costledger as _cl
 

@@ -1,7 +1,10 @@
 """Step-structured tracing: where inside a step the time goes.
 
 Port of ``metrics_tpu/observability/trace.py``, unchanged in behaviour and
-format. The telemetry registry (``telemetry.py``) counts and totals; the
+format but for one field: a span's ``tid`` is the thread's native id
+(``threading.get_native_id()``), where the JAX package keeps the low 16 bits
+of ``threading.get_ident()``, a stack address whose low bits few threads
+tell apart (two threads then share a Perfetto track). The telemetry registry (``telemetry.py``) counts and totals; the
 :class:`TraceRecorder` records step-indexed spans:
 
 * every span carries a **step index** (the engine's dispatch counter, or a
@@ -142,7 +145,7 @@ class TraceRecorder:
                 "step": current_step() if step is None else int(step),
                 "ts_us": (t0 - self._origin_ns) / 1e3,
                 "dur_us": dur / 1e3,
-                "tid": threading.get_ident() & 0xFFFF,
+                "tid": threading.get_native_id(),
                 "id": sid,
                 "parent": parent,
                 "args": attrs,
@@ -167,7 +170,7 @@ class TraceRecorder:
             "step": current_step() if step is None else int(step),
             "ts_us": (time.perf_counter_ns() - self._origin_ns) / 1e3,
             "dur_us": None,
-            "tid": threading.get_ident() & 0xFFFF,
+            "tid": threading.get_native_id(),
             "id": next(self._ids),
             "parent": None,
             "args": attrs,
@@ -200,7 +203,7 @@ class TraceRecorder:
             "step": current_step() if step is None else int(step),
             "ts_us": (int(t0_ns) - self._origin_ns) / 1e3,
             "dur_us": max(0, int(t1_ns) - int(t0_ns)) / 1e3,
-            "tid": threading.get_ident() & 0xFFFF,
+            "tid": threading.get_native_id(),
             "id": next(self._ids),
             "parent": None,
             "args": attrs,

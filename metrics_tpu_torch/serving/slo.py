@@ -19,7 +19,8 @@ The pipeline evaluates its SLO after every staged and served batch; while
 telemetry is off an evaluation is a no-op. Percentiles come from the shared
 fixed-bucket estimator. As in the JAX package the histograms and gauges are
 process-wide and cumulative over the process lifetime: attach one SLO per
-process; a windowed view is the exporter's (not ported yet).
+process; a windowed view is the exporter's (``/healthz`` carries the verdict
+of every live SLO: ``observability/exporter.py``).
 """
 import threading
 import weakref

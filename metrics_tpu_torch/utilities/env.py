@@ -86,14 +86,14 @@ def flight_dir() -> Optional[str]:
 
 def cost_ledger_requested() -> bool:
     """``METRICS_TPU_COST_LEDGER``: arm the compiled-program cost ledger at
-    import (read by the cost ledger, which the port does not have yet)."""
+    import (read by ``observability/costledger.py``)."""
     return _flags["cost_ledger"]
 
 
 def exporter_port() -> Optional[int]:
     """``METRICS_TPU_EXPORTER=<port>``: the Prometheus export surface's port
-    (read by the exporter, which the port does not have yet). None =
-    disabled; -1 = set but unparseable."""
+    (read by ``observability/exporter.py`` at import). None = disabled;
+    -1 = set but unparseable."""
     return _flags["exporter"]
 
 

@@ -414,10 +414,10 @@ def test_polymorphic_loop_flight_matches_jax(tmp_path):
     assert pd["reason"] == jd["reason"] == "watchdog_retrace" and pd["context"] == jd["context"]
     assert sorted(pd["identity"]) == sorted(jd["identity"])
     assert _comparable(pd["events"]) == _comparable(jd["events"])
-    # the telemetry snapshot riding the dump: the same counters but the
-    # cost ledger's (Queue 1 item 6)
-    ledger = ("engine.compile.cold", "engine.compile.warm")
-    assert pd["telemetry"]["counters"] == {k: v for k, v in jd["telemetry"]["counters"].items() if k not in ledger}
+    # the telemetry snapshot riding the dump: the same counters, the cost
+    # ledger's engine.compile.{cold,warm} among them
+    assert pd["telemetry"]["counters"] == jd["telemetry"]["counters"]
+    assert pd["telemetry"]["counters"]["engine.compile.cold"] == 8
 
 
 def test_demotion_flight_matches_jax_but_the_demoted_list(tmp_path):

@@ -84,20 +84,6 @@ JAX_INITS = {
 NOT_YET_PORTED = {
     "fleet": "fleet/",
     "analysis": "analysis/",
-    "MetricsExporter": "the rest of observability/ (Queue 1 item 6): exporter.py",
-    "disable_exporter": "the rest of observability/ (Queue 1 item 6): exporter.py",
-    "enable_exporter": "the rest of observability/ (Queue 1 item 6): exporter.py",
-    "exporter_enabled": "the rest of observability/ (Queue 1 item 6): exporter.py",
-    "exporter_scope": "the rest of observability/ (Queue 1 item 6): exporter.py",
-    "get_exporter": "the rest of observability/ (Queue 1 item 6): exporter.py",
-    "parse_prometheus_text": "the rest of observability/ (Queue 1 item 6): exporter.py",
-    "render_exposition": "the rest of observability/ (Queue 1 item 6): exporter.py",
-    "CostLedger": "the rest of observability/ (Queue 1 item 6): costledger.py",
-    "cost_ledger_enabled": "the rest of observability/ (Queue 1 item 6): costledger.py",
-    "cost_ledger_scope": "the rest of observability/ (Queue 1 item 6): costledger.py",
-    "disable_cost_ledger": "the rest of observability/ (Queue 1 item 6): costledger.py",
-    "enable_cost_ledger": "the rest of observability/ (Queue 1 item 6): costledger.py",
-    "get_ledger": "the rest of observability/ (Queue 1 item 6): costledger.py",
     # not ported by design: the JAX package's numpy twin of its SPMD sample
     # sort for CPU meshes, where XLA's co-sort is slow; the port's
     # sample_sort_auroc_ap runs on any device

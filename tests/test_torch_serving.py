@@ -981,13 +981,12 @@ def test_batch_followable_admission_to_checkpoint_commit(tmp_path, _tracing):
     q.submit(ids, p, (p > 0.5).astype(np.int32))  # the warm wave
     pipe.drain(timeout_s=WAIT_S)
     _tracing.reset()
-    # the threads each stage ran on (a span's tid keeps 16 bits of the
-    # thread ident, as in the JAX package, and two threads can share them)
-    threads = {"submit": threading.get_ident()}
+    # the threads each stage ran on (a span's tid is the thread's native id)
+    threads = {"submit": threading.get_native_id()}
     real_dispatch = pipe._dispatch
 
     def spy_dispatch(args, kwargs):
-        threads["dispatch"] = threading.get_ident()
+        threads["dispatch"] = threading.get_native_id()
         return real_dispatch(args, kwargs)
 
     pipe._dispatch = spy_dispatch
@@ -999,7 +998,7 @@ def test_batch_followable_admission_to_checkpoint_commit(tmp_path, _tracing):
     real_commit = bg._commit_job
 
     def spy_commit(job):
-        threads["commit"] = threading.get_ident()
+        threads["commit"] = threading.get_native_id()
         return real_commit(job)
 
     bg._commit_job = spy_commit
@@ -1017,8 +1016,8 @@ def test_batch_followable_admission_to_checkpoint_commit(tmp_path, _tracing):
                  "checkpoint.commit"):
         assert name in by_name, (name, sorted(by_name))
     assert len(set(threads.values())) == 3
-    assert {s["tid"] for s in by_name["serving.dispatch"]} == {threads["dispatch"] & 0xFFFF}
-    assert {s["tid"] for s in by_name["checkpoint.commit"]} == {threads["commit"] & 0xFFFF}
+    assert {s["tid"] for s in by_name["serving.dispatch"]} == {threads["dispatch"]}
+    assert {s["tid"] for s in by_name["checkpoint.commit"]} == {threads["commit"]}
     phs = [e["ph"] for e in _tracing.to_perfetto()["traceEvents"]
            if e.get("cat") == "flow" and e["args"].get("batch") == fid]
     assert phs[0] == "s" and phs[-1] == "f" and len(phs) >= 3

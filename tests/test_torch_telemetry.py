@@ -48,13 +48,6 @@ NOT_PORTED = {
 
 # registry keys and event fields that differ by design, with the reason
 BY_DESIGN = {
-    # JAX's costledger.note_compile records these on every signature-cache
-    # miss whenever telemetry is on; the cost ledger is Queue 1 item 6
-    "engine.compile.cold": "cost ledger (Queue 1 item 6)",
-    "engine.compile.warm": "cost ledger (Queue 1 item 6)",
-    "engine.programs.cold": "cost ledger (Queue 1 item 6)",
-    "engine.programs.warm": "cost ledger (Queue 1 item 6)",
-    "engine.compile_ms": "cost ledger (Queue 1 item 6)",
     # JAX jits its canonicalizer and counts its traces; the port has none
     "trace.checks._canonicalize_jit": "no compiled canonicalizer in the port",
     "checks._canonicalize_jit": "no compiled canonicalizer in the port (watchdog key)",
@@ -67,8 +60,9 @@ BY_DESIGN = {
 }
 
 # histograms of host-clock durations: their bucket is the host's timing,
-# so only the observation count is compared
-WALL_CLOCK_HISTOGRAMS = ("sync.latency_ms",)
+# so only the observation count is compared (engine.compile_ms: a build's
+# wall time, a trace and compile in JAX, a step function's first run here)
+WALL_CLOCK_HISTOGRAMS = ("sync.latency_ms", "engine.compile_ms")
 
 
 def _pristine():

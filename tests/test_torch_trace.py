@@ -319,6 +319,40 @@ def test_perfetto_flow_events_link_spans_across_threads():
     assert all(e["args"].get("batch") == [bid] for e in spans)
 
 
+def test_live_threads_spans_land_on_their_own_perfetto_tracks():
+    """Threads alive at the same time have distinct native ids, so their
+    spans land on distinct tracks (the low 16 bits of ``get_ident()``, a
+    stack address, collide between live threads)."""
+    rec = trace_mod.TraceRecorder()
+    threads = 16
+    together = threading.Barrier(threads)
+    ids = {}
+
+    def worker(i):
+        together.wait(timeout=30)  # every thread is alive before any records
+        ids[i] = threading.get_native_id()
+        t0 = time.perf_counter_ns()
+        with rec.span(f"w{i}.span", phase="dispatch"):
+            rec.instant(f"w{i}.instant", phase="dispatch")
+        rec.complete_span(f"w{i}.leg", phase="queue", t0_ns=t0, t1_ns=time.perf_counter_ns())
+        together.wait(timeout=30)
+
+    pool = [threading.Thread(target=worker, args=(i,)) for i in range(threads)]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join(timeout=30)
+    assert not any(th.is_alive() for th in pool)
+    tracks = {}
+    events = [e for e in trace_mod.spans_to_perfetto(list(rec.spans))["traceEvents"] if e["ph"] in ("X", "i")]
+    assert len(events) == 3 * threads
+    for e in events:
+        tracks.setdefault(int(e["name"].split(".")[0][1:]), set()).add(e["tid"])
+    assert sorted(tracks) == list(range(threads))
+    assert all(tracks[i] == {ids[i]} for i in range(threads)), (tracks, ids)
+    assert len({ids[i] for i in range(threads)}) == threads
+
+
 def test_single_span_flow_emits_no_dangling_arrow():
     rec = trace_mod.TraceRecorder()
     with rec.span("only", phase="queue", flow=9):
