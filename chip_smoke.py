@@ -280,6 +280,37 @@ that is unset. Phases (any failure exits non-zero before the result line):
    build, ``engine.compile_ms`` per build; (g) the session's ``compute()``
    over 1M rows: one ``tie_scan`` launch, within 1e-5 of float64 and 1e-6
    of the plain scan;
+4o. the elastic fleet (``fleet/``), every shard's cohort on the card, in two
+   parts: (a), (b), (e), (h) and (f) after 4n (``_fleet_phase``), and the
+   failover leg and the kills, (c), (g) and (d), last, after phase 6
+   (``_fleet_failover_phase``: minutes of host work, which no profiler read
+   follows): (a) the JAX bench's fleet leg (``bench.py:676-727``):
+   10,000 keys over two shards and a third added, the churn ratio (bar
+   0.45, equal to the rendezvous rule computed here from ``hashlib``) and
+   the rescan ms; (b) 24 two-phase handoffs of ``MeanSquaredError`` tenants
+   between two live shards after a warm-up move: ms a tenant, every tenant
+   on exactly one side, states bit-equal; (c) the failover leg uncut
+   (``bench.py:756-915``): 3 leased shards of 10,000 tenants, 2 rows x 8
+   features a tenant a step, a replicator, the dead shard's waves 4-5
+   retained by an ``IngestQueue(redelivery_window=8)``: first and delta
+   replicate ms, steady lag (0), failover to the first redelivered wave,
+   rows redelivered (exactly 2 x dead tenants x 2), every tenant bit-equal
+   to a never-failed twin; (g) ``/metrics`` of that fleet before and after
+   the failover (OS-assigned port): the six fleet families equal the
+   coordinator's and replicator's stats; (d) a kill at each yield point
+   (``prepare``, ``in_flight``, ``pre_commit``, ``pre_gc``, ``recover``)
+   and mid-rebalance over 10,000 tenants, each followed by a rebuild from
+   the journals and ``recover()``: every tenant on exactly one shard, the
+   stream resubmitted from step 0 folding each step once, bit-equal to the
+   twin; (e) partial waves of 1, 3, half and all but one of 5,000 tenants,
+   and at capacities grown by migrations and shrunk by a restore, bit-equal
+   to the full-shard dispatch; (h) one full wave through
+   ``FleetShard.submit_wave`` running the kernels and copies of the cohort
+   stepped bare; (f) a binary ``AUROC`` tenant of 1M predictions moved as an
+   eager tenant (its envelope through ``SingleProcessBackend.stream`` as a
+   CUDA ``uint8`` tensor): one ``tie_scan`` launch in its ``compute()``,
+   bit-equal to the unmoved tenant's, within 1e-6 of the plain scan and
+   1e-5 of float64;
 5. times on the card (CUDA events over launches queued behind a device
    sleep, so host overhead does not show, or the host clock ending in a
    synchronize for whole steps): the one-stream kernel, its plain version
@@ -320,7 +351,8 @@ on (``_steady_profile``): CUPTI has dropped records from a trace on this
 card, and once showed one record more than its twin.
 
 Prints the card's name and power limit (``nvidia-smi``), ``{"timings": ...}``
-and ``{"profile": ...}`` lines, a ``{"kernels": [...]}`` line and, last,
+lines (phase 4o's, ``fleet_*``, on a line of its own) and a
+``{"profile": ...}`` line, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Exits with 1 and prints no result when no
 CUDA device is available.
 """
@@ -464,6 +496,14 @@ EXPORTER_SCRAPES = 50
 EXPORTER_STEP_PAIRS = 20
 EXPORTER_HOLD_MS = 80.0
 EXPORTER_TIMEOUT_S = 30.0
+# phase 4o: the fleet legs of the JAX bench (bench.py:676-727, 756-915) and
+# the chaos bed's size (tests/reliability/test_fleet_chaos.py:37)
+FLEET_TENANTS = 10_000
+FLEET_MOVES = 24
+FLEET_ROWS = 2
+FLEET_FEATURES = 8
+FLEET_REDELIVERY_WINDOW = 8
+FLEET_PARTIAL_N = 5_000
 
 
 def _pin_one_card() -> str:
@@ -3813,6 +3853,491 @@ def _exporter_phase(torch, dev, card):
     return out
 
 
+def _fleet_wave(keys, step):
+    """The failover leg's rows (``bench.py:829-838``): 2 rows x 8 features a
+    tenant, host arrays as a feeder hands them over."""
+    base = np.asarray(keys, dtype=np.float64)[:, None, None]
+    preds = (base * 1e-4 + step * 0.125 + np.arange(FLEET_FEATURES) * 0.01).astype(np.float32)
+    preds = np.broadcast_to(preds, (len(keys), FLEET_ROWS, FLEET_FEATURES)).copy()
+    target = np.broadcast_to((base * 2e-4).astype(np.float32), preds.shape).copy()
+    return preds, target
+
+
+def _fleet_feed(shards, steps, only=None):
+    for step in steps:
+        for sh in shards:
+            keys = list(sh.tenants())
+            if keys and (only is None or sh.name in only):
+                sh.submit_wave(step, keys, *_fleet_wave(keys, step))
+
+
+def _fleet_on_card(dev, shards, when):
+    for sh in shards:
+        for member, d in sh.cohort._states.items():
+            for sname, v in d.items():
+                if v.device.type != dev.type:
+                    raise AssertionError(f"4o: shard {sh.name}'s {member}.{sname} lies on {v.device} {when}")
+
+
+def _fleet_by_key(torch, dev, shards, total):
+    """Every tenant's stacked states gathered by fleet key on the card;
+    raises unless each of ``range(total)`` lives on exactly one shard."""
+    out, owners = {}, np.zeros(total, dtype=np.int64)
+    for sh in shards:
+        keys = list(sh.tenants())
+        if not keys:
+            continue
+        owners[keys] += 1
+        idx = torch.as_tensor(keys, device=dev)
+        slots = torch.as_tensor([sh.slot_of(k) for k in keys], device=dev)
+        for member, d in sh.cohort._states.items():
+            for sname, v in d.items():
+                dest = out.setdefault(f"{member}.{sname}",
+                                      torch.zeros((total,) + tuple(v.shape[1:]), dtype=v.dtype, device=dev))
+                dest[idx] = v[slots]
+    if not (owners == 1).all():
+        raise AssertionError(f"4o: {int((owners == 0).sum())} tenants lost, {int((owners > 1).sum())} on two shards")
+    return out
+
+
+def _fleet_bit_equal(torch, got, want, what):
+    if set(got) != set(want) or not all(torch.equal(got[k], want[k]) for k in want):
+        bad = [k for k in want if k in got and not torch.equal(got[k], want[k])]
+        raise AssertionError(f"4o {what}: states differ from the twin's in {bad or sorted(set(got) ^ set(want))}")
+
+
+def _fleet_phase(torch, dev, card):
+    """Phase 4o's first part, the fleet's moves on the card: placement churn
+    (a), 24 handoffs (b), partial waves (e), a full wave's device work (h)
+    and the migrated AUROC tenant (f). Returns its ``fleet_*`` timings;
+    removes the directories it writes."""
+    import gc
+    import hashlib
+    import itertools
+    import tempfile
+
+    from metrics_tpu_torch import AUROC, MeanSquaredError
+    from metrics_tpu_torch.fleet import FleetPlacement, FleetShard, MigrationCoordinator, adopt_into, tenant_envelope
+    from metrics_tpu_torch.ops import tie_scan
+    from metrics_tpu_torch.ops.auroc_kernel import _co_sort
+    from metrics_tpu_torch.parallel.backend import SingleProcessBackend
+    from metrics_tpu_torch.reliability.checkpoint import envelope_from_bytes, envelope_to_bytes
+
+    gc.collect()  # earlier phases' cohorts leave the weak registries
+    out = {"fleet_card": card}
+    scan = tie_scan.tie_group_reduce
+    n = FLEET_TENANTS
+    phase_t0 = time.perf_counter()
+
+    # a. placement churn at 10,000 keys (bench.py:699-707), against the
+    # rendezvous rule computed here from hashlib alone
+    place = FleetPlacement(["shard-0", "shard-1"])
+    homes = [place.assign(k) for k in range(n)]
+    t0 = time.perf_counter()
+    place.add_shard("shard-2")
+    moved = sum(1 for k in range(n) if place.assign(k) != homes[k])
+    reassign_ms = (time.perf_counter() - t0) * 1e3
+
+    def hrw(names, k):
+        return max(names, key=lambda s: int.from_bytes(
+            hashlib.blake2b(f"{s}\x00{k}".encode(), digest_size=8).digest(), "big"))
+
+    two, three = ["shard-0", "shard-1"], ["shard-0", "shard-1", "shard-2"]
+    ref_moved = sum(1 for k in range(n) if hrw(two, k) != hrw(three, k))
+    churn = moved / n
+    if moved != ref_moved or not 0 < churn <= 0.45:
+        raise AssertionError(f"4o a. churn {moved} / {n} (rendezvous rule: {ref_moved}); bar <= 0.45")
+    out.update(fleet_churn_ratio_10k=churn, fleet_reassign_10k_ms=reassign_ms)
+    print(f"4o a. [{card}] placement: {moved} of {n} keys move to a third shard (churn {churn:.4f}, bar 0.45,"
+          f" equal to the rendezvous rule's count), rescan {reassign_ms:.1f} ms (host)")
+
+    with tempfile.TemporaryDirectory(prefix="fleet-") as root:
+        def shard(name):
+            return FleetShard(name, MeanSquaredError(), os.path.join(root, name))
+
+        # b. 24 two-phase handoffs between two live shards after one warm-up move (bench.py:709-726)
+        src, dst = shard("b-src"), shard("b-dst")
+        keys = list(range(FLEET_MOVES + 1))
+        src.add_tenants(keys)
+        rs = np.random.RandomState(SEED)
+        src.submit_wave(0, keys, *(torch.from_numpy(rs.rand(len(keys), 64).astype(np.float32)).to(dev)
+                                   for _ in range(2)))
+        src.checkpoint()
+        before = _fleet_by_key(torch, dev, [src], len(keys))
+        coord = MigrationCoordinator(FleetPlacement(["b-src", "b-dst"]), [src, dst])
+        coord.migrate(keys[0], "b-dst")  # warm-up: the first checkpoints and programs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in keys[1:]:
+            coord.migrate(k, "b-dst")
+        torch.cuda.synchronize()
+        per_tenant_ms = (time.perf_counter() - t0) * 1e3 / FLEET_MOVES
+        _fleet_bit_equal(torch, _fleet_by_key(torch, dev, [src, dst], len(keys)), before, "b. moved tenants")
+        if len(src) or dst.tenants() != tuple(keys) or any(dst.cursor_of(k) != 0 for k in keys):
+            raise AssertionError(f"4o b. after the moves: src {src.tenants()}, dst {dst.tenants()}")
+        _fleet_on_card(dev, [src, dst], "after adoption")
+        out["fleet_migration_ms_per_tenant"] = per_tenant_ms
+        print(f"4o b. [{card}] {FLEET_MOVES} two-phase handoffs (drain, envelope, wire bytes, target import and"
+              f" commit, source GC and commit) {per_tenant_ms:.2f} ms a tenant; every tenant on exactly one side,"
+              " states bit-equal, cohorts on the card")
+
+        # e. partial waves, bit for bit the full-shard dispatch
+        part, full = shard("e-part"), shard("e-full")
+        keys = list(range(FLEET_PARTIAL_N))
+        for sh in (part, full):
+            sh.add_tenants(keys)
+            sh.submit_wave(0, keys, *_fleet_wave(keys, 0))
+        sizes = {"1": 1, "3": 3, "half": FLEET_PARTIAL_N // 2, "all_but_one": FLEET_PARTIAL_N - 1}
+        for step, (label, size) in enumerate(sizes.items(), start=1):
+            subset = sorted(np.random.RandomState(SEED + step).choice(FLEET_PARTIAL_N, size, replace=False).tolist())
+            rest = sorted(set(keys) - set(subset))
+            part.submit_wave(step, subset[::-1], *_fleet_wave(subset[::-1], step))
+            part.submit_wave(step, rest, *_fleet_wave(rest, step))
+            full.submit_wave(step, keys, *_fleet_wave(keys, step))
+            _fleet_bit_equal(torch, _fleet_by_key(torch, dev, [part], FLEET_PARTIAL_N),
+                             _fleet_by_key(torch, dev, [full], FLEET_PARTIAL_N), f"e. after a partial wave of {label}")
+        for sh in (part, full):  # a full wave replayed after the partial ones reads their rows
+            sh.submit_wave(len(sizes) + 1, keys, *_fleet_wave(keys, len(sizes) + 1))
+        _fleet_bit_equal(torch, _fleet_by_key(torch, dev, [part], FLEET_PARTIAL_N),
+                         _fleet_by_key(torch, dev, [full], FLEET_PARTIAL_N), "e. a full wave after")
+        # capacity grown through migrations in, and shrunk through a restore
+        src, dst, twin = shard("e-src"), shard("e-dst"), shard("e-twin")
+        for sh in (src, twin):
+            sh.add_tenants(keys)
+            sh.submit_wave(0, keys, *_fleet_wave(keys, 0))
+        coord = MigrationCoordinator(FleetPlacement(["e-src", "e-dst"]), [src, dst])
+        moved = keys[::97][:40]
+        for k in moved:
+            coord.migrate(k, "e-dst")
+        stay = sorted(set(keys) - set(moved))
+        for sh, ks in ((dst, moved), (src, stay)):
+            sh.submit_wave(1, ks[1::2], *_fleet_wave(ks[1::2], 1))
+            sh.submit_wave(1, ks, *_fleet_wave(ks, 1))
+        twin.submit_wave(1, keys, *_fleet_wave(keys, 1))
+        _fleet_bit_equal(torch, _fleet_by_key(torch, dev, [src, dst], FLEET_PARTIAL_N),
+                         _fleet_by_key(torch, dev, [twin], FLEET_PARTIAL_N),
+                         f"e. at capacities {src.cohort.capacity} and {dst.cohort.capacity} (grown)")
+        grown = shard("e-src")
+        grown.add_tenants(range(10 * FLEET_PARTIAL_N, 10 * FLEET_PARTIAL_N + 9_000))
+        grown_cap = grown.cohort.capacity
+        if not grown.restore() or grown.cohort.capacity >= grown_cap or grown.tenants() != tuple(stay):
+            raise AssertionError(f"4o e. restore() left capacity {grown.cohort.capacity} (grown to {grown_cap})")
+        _fleet_on_card(dev, [grown], "after restore()")
+        grown.submit_wave(1, stay, *_fleet_wave(stay, 1))  # the restored generation predates step 1
+        half = stay[: len(stay) // 2]
+        grown.submit_wave(2, half, *_fleet_wave(half, 2))
+        grown.submit_wave(2, stay, *_fleet_wave(stay, 2))
+        twin.submit_wave(2, keys, *_fleet_wave(keys, 2))
+        live = torch.as_tensor(stay, device=dev)
+        want = {k: v[live] for k, v in _fleet_by_key(torch, dev, [twin], FLEET_PARTIAL_N).items()}
+        slots = torch.as_tensor([grown.slot_of(k) for k in stay], device=dev)
+        got = {f"{m}.{s}": v[slots] for m, d in grown.cohort._states.items() for s, v in d.items()}
+        _fleet_bit_equal(torch, got, want, f"e. at capacity {grown.cohort.capacity} (shrunk from {grown_cap})")
+        out["fleet_partial_capacities"] = {"shard": full.cohort.capacity, "grown": dst.cohort.capacity,
+                                           "shrunk": grown.cohort.capacity}
+        print(f"4o e. [{card}] partial waves of 1, 3, {FLEET_PARTIAL_N // 2} and {FLEET_PARTIAL_N - 1} of"
+              f" {FLEET_PARTIAL_N} tenants (capacity {full.cohort.capacity}), a full wave after them, and partial"
+              f" waves at capacity {dst.cohort.capacity} (grown by 40 migrations) and {grown.cohort.capacity}"
+              f" (restored down from {grown_cap}): every tenant bit-equal to the full-shard dispatch")
+
+        # h. a full wave through FleetShard.submit_wave runs the cohort's own device work
+        p_dev, t_dev = (torch.from_numpy(a).to(dev) for a in _fleet_wave(keys, 0))
+        steps = itertools.count(1_000)
+        via_fleet = _device_ops(torch, lambda: full.submit_wave(next(steps), keys, p_dev, t_dev))
+        bare = _device_ops(torch, lambda: full.cohort(p_dev, t_dev))
+        if via_fleet != bare:
+            raise AssertionError(f"4o h. a full wave through submit_wave ran {via_fleet} kernels and copies, the"
+                                 f" cohort stepped bare {bare}")
+        out["fleet_full_wave_ops"] = {"submit_wave": list(via_fleet), "cohort": list(bare)}
+        print(f"4o h. [{card}] one full wave of {FLEET_PARTIAL_N} tenants: {via_fleet[0]} kernels and {via_fleet[1]}"
+              " copies through FleetShard.submit_wave, the same as the cohort stepped bare")
+
+    # f. a binary AUROC tenant at the north-star size migrates as an eager tenant
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    home = AUROC(pos_label=1)
+    for _ in range(BATCHES):
+        p = torch.rand(BATCH, generator=gen, device=dev)
+        home.update(p, (torch.rand(BATCH, generator=gen, device=dev) < p).to(torch.int32))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blob = envelope_to_bytes(tenant_envelope(home, 4242, cursor=BATCHES - 1))
+    wire = SingleProcessBackend().stream(torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(dev))
+    if wire.device.type != dev.type or wire.dtype != torch.uint8:
+        raise AssertionError(f"4o f. the envelope crossed the wire as {wire.dtype} on {wire.device}")
+    moved = AUROC(pos_label=1)
+    cursor = adopt_into(moved, envelope_from_bytes(wire.cpu().numpy().tobytes()))
+    torch.cuda.synchronize()
+    move_ms = (time.perf_counter() - t0) * 1e3
+    zero = scan.launches
+    value = moved.compute()
+    launches = scan.launches - zero
+    want = home.compute()
+    preds = torch.cat(list(moved.preds))
+    rel = torch.cat(list(moved.target)) == 1
+    key_s, pay_s = _co_sort(preds, rel.to(torch.float32))
+    stats = tie_scan.tie_group_reduce_reference(key_s, pay_s).double()
+    plain = float(stats[0] / stats[2] / stats[3])
+    oracle = _oracle_auroc(preds.cpu().numpy(), rel.cpu().numpy())
+    if launches != 1 or cursor != BATCHES - 1 or not torch.equal(value, want) or preds.numel() != MAIN_N \
+            or abs(float(value) - plain) > SCORE_TOL or abs(float(value) - oracle) > ORACLE_TOL:
+        raise AssertionError(f"4o f. moved AUROC tenant: {launches} tie_scan launches, {float(value)} vs unmoved"
+                             f" {float(want)}, plain {plain}, float64 {oracle}")
+    out.update(fleet_auroc_move_ms=move_ms, fleet_auroc_envelope_bytes=len(blob),
+               fleet_auroc_tie_scan_launches=launches, fleet_auroc_err_plain=abs(float(value) - plain),
+               fleet_auroc_err_float64=abs(float(value) - oracle))
+    print(f"4o f. [{card}] an AUROC tenant of {preds.numel()} predictions moved as an eager tenant (envelope of"
+          f" {len(blob)} bytes through SingleProcessBackend.stream as a CUDA uint8 tensor, adopt_into) in"
+          f" {move_ms:.1f} ms; its compute() launched tie_scan {launches} time, bit-equal to the unmoved tenant's,"
+          f" within {abs(float(value) - plain):.2g} of the plain scan and {abs(float(value) - oracle):.2g} of"
+          " float64")
+    out["fleet_moves_phase_s"] = time.perf_counter() - phase_t0
+    return out
+
+
+def _fleet_failover_phase(torch, dev, card):
+    """Phase 4o's second part, run last: the JAX bench's failover leg uncut
+    (c) with ``/metrics`` of the live fleet (g), and a kill at every yield
+    point mid-rebalance (d), at 10,000 tenants. Returns its ``fleet_*``
+    timings; removes the directories it writes and turns the exporter off."""
+    import gc
+    import tempfile
+    import urllib.request
+
+    import metrics_tpu_torch.observability as obs
+    from metrics_tpu_torch import MeanSquaredError
+    from metrics_tpu_torch.fleet import (
+        FleetPlacement,
+        FleetRebalancer,
+        FleetShard,
+        LeaseAuthority,
+        MigrationCoordinator,
+        ShardReplicator,
+    )
+    from metrics_tpu_torch.observability.exporter import parse_prometheus_text
+    from metrics_tpu_torch.reliability.faultinject import Preempted, kill_at_migration_phase
+    from metrics_tpu_torch.serving import IngestQueue
+
+    gc.collect()
+    out = {}
+    n = FLEET_TENANTS
+    phase_t0 = time.perf_counter()
+
+    def ms_since(t):
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    with tempfile.TemporaryDirectory(prefix="fleet-") as root:
+        def shard(name, where):
+            return FleetShard(name, MeanSquaredError(), os.path.join(root, where, name))
+
+        # c. the failover leg uncut (bench.py:756-915)
+        names = ["s0", "s1", "s2"]
+        placement = FleetPlacement(names)
+        shards = {nm: shard(nm, "c") for nm in names}
+        twin = [shard(nm, "c-twin") for nm in names]
+        by_shard = {nm: [] for nm in names}
+        for k in range(n):
+            by_shard[placement.assign(k)].append(k)
+        for i, nm in enumerate(names):
+            shards[nm].add_tenants(by_shard[nm])
+            twin[i].add_tenants(by_shard[nm])
+        coord = MigrationCoordinator(placement, shards.values())
+        auth = LeaseAuthority(ttl_s=3600.0)  # failover is driven, not timed out (bench.py:808-811)
+        for sh in shards.values():
+            sh.attach_lease(auth)
+        rep = ShardReplicator(coord, authority=auth)
+        reb = FleetRebalancer(coord, replicator=rep, authority=auth)
+        _fleet_feed(shards.values(), (0, 1))
+        for sh in shards.values():
+            sh.checkpoint()
+        t0 = time.perf_counter()
+        for sh in shards.values():
+            rep.replicate(sh)
+        first_ms = ms_since(t0)
+        _fleet_feed(shards.values(), (2, 3))
+        t0 = time.perf_counter()
+        for sh in shards.values():
+            sh.checkpoint()
+        commit_ms = ms_since(t0)
+        t0 = time.perf_counter()
+        for sh in shards.values():
+            rep.replicate(sh)
+        delta_ms = ms_since(t0)
+        lag = rep.lag()
+        if lag != 0:
+            raise AssertionError(f"4o c. steady replication lag {lag} after a commit and a delta cycle")
+
+        def scrape(port, label):
+            """g. the six fleet families of a live ``/metrics`` scrape against the stats."""
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=EXPORTER_TIMEOUT_S) as r:
+                samples = parse_prometheus_text(r.read().decode())
+            fid = str(coord.export_id)
+            want = {
+                "metrics_tpu_fleet_placement_generation": {None: float(placement.generation)},
+                "metrics_tpu_fleet_migrations_total": {k: float(v) for k, v in coord.migrations_by_shard().items()},
+                "metrics_tpu_fleet_tenants_in_flight": {nm: 0.0 for nm in coord.shards},
+                "metrics_tpu_fleet_shard_epoch": {nm: float(sh.epoch) for nm, sh in coord.shards.items()},
+                "metrics_tpu_fleet_shard_replication_lag": {k: float(v) for k, v in rep.lag_by_shard().items()},
+                "metrics_tpu_fleet_failovers": {None: float(rep.stats["failovers"])},
+            }
+            got = {name: {lbl.get("shard"): v for lbl, v in samples[name] if lbl["fleet"] == fid} for name in want}
+            if got != want:
+                raise AssertionError(f"4o g. {label}: /metrics fleet families {got}, the stats hold {want}")
+
+        dead = "s0"
+        dead_keys = by_shard[dead]
+        slot_of = {k: shards[dead].slot_of(k) for k in dead_keys}
+        key_of = {s: k for k, s in slot_of.items()}
+        q = IngestQueue(shards[dead].cohort, rows_per_step=FLEET_ROWS, coalesce_max=1,
+                        redelivery_window=FLEET_REDELIVERY_WINDOW)
+        ids = np.repeat(np.asarray([slot_of[k] for k in dead_keys], dtype=np.int64), FLEET_ROWS)
+        for step in (4, 5):
+            preds, target = _fleet_wave(dead_keys, step)
+            q.submit(ids, preds.reshape(-1, FLEET_FEATURES), target.reshape(-1, FLEET_FEATURES))
+            _fleet_feed(shards.values(), [step], only=[nm for nm in names if nm != dead])
+        _fleet_feed(twin, range(6))
+        first_wave_ms = []
+
+        def resubmit(tids, *arrs):
+            step = 4 + len(resubmit.waves)
+            resubmit.waves.append(step)
+            order = np.argsort(np.asarray(tids), kind="stable")
+            keys = [key_of[int(s)] for s in np.asarray(tids)[order][::FLEET_ROWS]]
+            blocks = [np.asarray(a)[order].reshape(len(keys), FLEET_ROWS, -1) for a in arrs]
+            owners = {}
+            for j, k in enumerate(keys):
+                owners.setdefault(coord.find_tenant(k), []).append(j)
+            for nm, idx in owners.items():
+                coord.shards[nm].submit_wave(step, [keys[j] for j in idx], *[b[idx] for b in blocks])
+            if not first_wave_ms:
+                first_wave_ms.append(ms_since(t0))
+
+        resubmit.waves = []
+        with obs.exporter_scope(port=0) as ex:
+            t_scrape = time.perf_counter()
+            scrape(ex.port, "before the failover")
+            scrape_ms = (time.perf_counter() - t_scrape) * 1e3
+            t0 = time.perf_counter()
+            promoted = reb.failover(dead)
+            promote_ms = ms_since(t0)
+            redelivered = q.redeliver(submit=resubmit)
+            scrape(ex.port, "after the failover")
+        expected = 2 * len(dead_keys) * FLEET_ROWS
+        deviation = abs(redelivered / expected - 1.0)
+        if promoted != len(dead_keys) or redelivered != expected or deviation != 0.0:
+            raise AssertionError(f"4o c. promoted {promoted} of {len(dead_keys)}, redelivered {redelivered} rows"
+                                 f" of {expected}")
+        _fleet_on_card(dev, coord.shards.values(), "after the promotion")
+        _fleet_bit_equal(torch, _fleet_by_key(torch, dev, coord.shards.values(), n),
+                         _fleet_by_key(torch, dev, twin, n), "c. after the redelivered waves")
+        out.update(fleet_replicate_first_ms=first_ms, fleet_commit_ms=commit_ms, fleet_replicate_delta_ms=delta_ms,
+                   fleet_steady_lag=lag, fleet_failover_promote_ms=promote_ms,
+                   fleet_failover_to_first_wave_ms=first_wave_ms[0], fleet_rows_redelivered=redelivered,
+                   fleet_redelivery_deviation=deviation, fleet_scrape_ms=scrape_ms)
+        print(f"4o c. [{card}] failover leg, {n} tenants over 3 shards: first replicate {first_ms:.0f} ms, commit"
+              f" {commit_ms:.1f} ms, delta replicate {delta_ms:.0f} ms, steady lag {lag}; failover of {dead}"
+              f" ({promoted} tenants promoted) {promote_ms:.0f} ms, to the first redelivered wave"
+              f" {first_wave_ms[0]:.0f} ms; {redelivered} rows redelivered (deviation {deviation}); every tenant"
+              " bit-equal to a never-failed twin, cohorts on the card")
+        print(f"4o g. [{card}] /metrics before and after the failover: the six fleet families equal the"
+              f" coordinator's and replicator's stats ({scrape_ms:.1f} ms a scrape)")
+        del coord, rep, reb, shards, twin, q
+
+        # d. a kill at every yield point mid-rebalance over 10,000 tenants
+        # (test_kill_at_every_phase_and_mid_rebalance_10k), recovered from the journals alone
+        two = ["s0", "s1"]
+        placement = FleetPlacement(two)
+        homes = [placement.assign(k) for k in range(n)]
+
+        def build(where):
+            built = {nm: shard(nm, where) for nm in two}
+            for nm in two:
+                built[nm].add_tenants([k for k in range(n) if homes[k] == nm])
+            return built
+
+        def reopen(names_):
+            fresh = {}
+            for nm in names_:
+                fresh[nm] = shard(nm, "d")
+                fresh[nm].restore()
+            return fresh
+
+        shards, twin = build("d"), build("d-twin")
+        _fleet_feed(shards.values(), range(4))
+        _fleet_feed(twin.values(), range(4))
+        for sh in shards.values():
+            sh.checkpoint()
+        recover_ms = {}
+        for i, point in enumerate(MigrationCoordinator.YIELD_POINTS):
+            coord = MigrationCoordinator(FleetPlacement(two), list(shards.values()))
+            victim = shards["s0"].tenants()[i]
+            if point == "recover":
+                # strand a handoff first, then kill the recovery that replays it
+                with kill_at_migration_phase(coord, "pre_commit"):
+                    try:
+                        coord.migrate(victim, "s1")
+                    except Preempted:
+                        pass
+                shards = reopen(two)
+                coord = MigrationCoordinator(FleetPlacement(two), list(shards.values()))
+                with kill_at_migration_phase(coord, "recover") as info:
+                    try:
+                        coord.recover()
+                    except Preempted:
+                        pass
+            else:
+                with kill_at_migration_phase(coord, point) as info:
+                    try:
+                        coord.migrate(victim, "s1")
+                    except Preempted:
+                        pass
+            if info["kills"] != 1:
+                raise AssertionError(f"4o d. the kill at {point} fired {info['kills']} times")
+            t0 = time.perf_counter()
+            shards = reopen(two)
+            coord = MigrationCoordinator(FleetPlacement(two), list(shards.values()))
+            outcomes = [o[1] for o in coord.recover()]
+            recover_ms[point] = ms_since(t0)
+            home = "s1" if point == "pre_gc" else "s0"
+            want = [] if point == "prepare" else ["completed"] if point == "pre_gc" else ["aborted"]
+            if outcomes != want or not shards[home].has_tenant(victim) or coord.recover() != []:
+                raise AssertionError(f"4o d. kill at {point}: recover() gave {outcomes}, tenant {victim} on"
+                                     f" {coord.find_tenant(victim)}")
+            _fleet_by_key(torch, dev, shards.values(), n)
+        three = two + ["s2"]
+        shards["s2"] = shard("s2", "d")
+        placement.add_shard("s2")
+        coord = MigrationCoordinator(placement, list(shards.values()))
+        with kill_at_migration_phase(coord, "pre_commit", after=3) as info:
+            try:
+                FleetRebalancer(coord).converge(max_moves=8)
+            except Preempted:
+                pass
+        shards = reopen(three)
+        coord = MigrationCoordinator(FleetPlacement(three), list(shards.values()))
+        outcomes = [o[1] for o in coord.recover()]
+        if info["kills"] != 1 or len(shards["s2"]) != 3 or outcomes != ["aborted"]:
+            raise AssertionError(f"4o d. mid-rebalance: {len(shards['s2'])} moves survived, recover() {outcomes}")
+        if FleetRebalancer(coord).converge(max_moves=12) != 12 or len(shards["s2"]) != 15:
+            raise AssertionError(f"4o d. the resumed rebalance left {len(shards['s2'])} tenants on s2")
+        _fleet_on_card(dev, shards.values(), "after restore()")
+        _fleet_feed(shards.values(), range(6))
+        skipped = sum(sh.stats["replays_skipped"] for sh in shards.values())
+        _fleet_feed(twin.values(), (4, 5))
+        if skipped != 4 * n or any(sh.cursor_of(k) != 5 for sh in shards.values() for k in sh.tenants()):
+            raise AssertionError(f"4o d. the resubmitted stream skipped {skipped} tenant-steps, want {4 * n}")
+        _fleet_bit_equal(torch, _fleet_by_key(torch, dev, shards.values(), n),
+                         _fleet_by_key(torch, dev, twin.values(), n), "d. after the resubmitted stream")
+        out["fleet_recover_ms"] = recover_ms
+        print(f"4o d. [{card}] a kill at each of {', '.join(MigrationCoordinator.YIELD_POINTS)} and mid-rebalance"
+              f" over {n} tenants: rebuilt from the journals, recover() left every tenant on exactly one shard,"
+              f" the stream resubmitted from step 0 folded each step once ({skipped} skipped), bit-equal to the"
+              " twin; rebuild and recover ms " + ", ".join(f"{k} {v:.0f}" for k, v in recover_ms.items()))
+    out["fleet_failover_phase_s"] = time.perf_counter() - phase_t0
+    return out
+
+
 def main() -> int:
     card_index = _pin_one_card()
     import torch
@@ -4644,6 +5169,14 @@ def main() -> int:
         raise AssertionError(f"phase 4n's session: only tie_scan may launch, and at least once: {counts()}")
     print(f"4n. {exp_timings['phase_s']:.1f} s")
 
+    # ---- 4o, first part: the fleet's moves (its failover leg runs last) ----------
+    zero_counts()
+    fleet_timings = _fleet_phase(torch, dev, card)
+    fleet_timings["fleet_scan_launches"] = counts()
+    # the moved AUROC tenant's compute() and the unmoved one's launch it once each (checked in the phase)
+    if counts()["tie_scan"] != 2 or any(v for k, v in counts().items() if k != "tie_scan"):
+        raise AssertionError(f"phase 4o: the two AUROC computes launch tie_scan once each and nothing else: {counts()}")
+
     # ---- 5. times ---------------------------------------------------------
     all_preds = torch.cat(list(collection["AUROC"].preds))
     all_rel = (torch.cat(list(collection["AUROC"].target)) == 1).to(torch.float32)
@@ -5078,6 +5611,14 @@ def main() -> int:
             "library_ms": None,
         },
     ]
+    # ---- 4o, second part: the failover leg and the kills (last: minutes of host work) ----
+    zero_counts()
+    fleet_timings.update(_fleet_failover_phase(torch, dev, card))
+    if any(counts().values()):
+        raise AssertionError(f"phase 4o's failover leg launched a scan kernel: {counts()}")
+    print(f"4o. {fleet_timings['fleet_moves_phase_s'] + fleet_timings['fleet_failover_phase_s']:.1f} s")
+    print(json.dumps({"timings": {"fleet": fleet_timings}}))
+
     reads = sum(v for k, v in PROFILE_TRACES_TAKEN.items() if k != "lost")
     print(f"profiler: {reads} counts read off an agreed trace; traces taken per count: {PROFILE_TRACES_TAKEN}"
           " (2: the first two agreed; lost: traces with no device record or without the kernel required)")

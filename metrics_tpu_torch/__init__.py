@@ -40,7 +40,9 @@ default, under the JAX package's ``METRICS_TPU_*`` flags); and the sync
 tiers: ``add_state(sync_precision="int8"|"bf16")`` with error-feedback
 residuals (``parallel.quantize``), the two-level ``HierarchicalSyncBackend``
 (``parallel.hierarchy``) and the ``SyncPolicy`` retry / timeout /
-degradation with its fault injectors (``reliability``).
+degradation with its fault injectors (``reliability``); and the elastic
+fleet (``fleet``: placement, leases, tenant migration, replication and
+failover over cohorts).
 """
 from metrics_tpu_torch.info import __version__  # noqa: F401
 from metrics_tpu_torch.metric import CompositionalMetric, Metric  # noqa: F401
@@ -98,6 +100,7 @@ from metrics_tpu_torch.cohort import MetricCohort  # noqa: F401
 from metrics_tpu_torch import observability  # noqa: F401
 from metrics_tpu_torch import reliability  # noqa: F401
 from metrics_tpu_torch import serving  # noqa: F401
+from metrics_tpu_torch import fleet  # noqa: F401
 from metrics_tpu_torch.wrappers import BootStrapper  # noqa: F401
 from metrics_tpu_torch.functional.regression import (  # noqa: F401
     explained_variance,

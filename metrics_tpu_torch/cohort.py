@@ -383,6 +383,7 @@ class MetricCohort:
         cached). ``state`` seeds the new tenant: a template-shaped
         collection or metric (its current state is adopted) or nothing
         (registered defaults)."""
+        self._drain_serving()
         free = np.flatnonzero(~self._active)
         if free.size:
             slot = int(free[0])
@@ -405,6 +406,7 @@ class MetricCohort:
         re-defaulted at removal and grown slots are born at defaults."""
         if n <= 0:
             return []
+        self._drain_serving()
         need = len(self) + int(n)
         if need > self._capacity:
             self._grow(bucket_capacity(need))
@@ -422,6 +424,7 @@ class MetricCohort:
         re-defaulted and reusable either way. Capacity never shrinks: the
         bucket's program stays warm for the next admission wave."""
         self._check_tenant(tenant)
+        self._drain_serving()
         out = self.tenant_collection(tenant) if return_state else None
         self._active[int(tenant)] = False
         self._default_slots(int(tenant))
@@ -543,6 +546,19 @@ class MetricCohort:
             )
         return snapshot
 
+    def _drain_serving(self) -> None:
+        """The serving drain barrier, taken before every read or write of
+        the stacked states from outside a step: on a cohort enrolled in an
+        :class:`~metrics_tpu_torch.serving.AsyncServingEngine`, every staged
+        step folds in first and the caller's stream is ordered after the
+        worker's, so what is read is final (reading a JAX array waits for
+        the work that produces it; a CUDA tensor read on another stream
+        does not). A no-op unenrolled and on the pipeline's own worker."""
+        if self._serving_pipeline is not None:
+            pipe = self._serving_pipeline()
+            if pipe is not None:
+                pipe.drain()
+
     def _check_tenant(self, tenant: int) -> None:
         if not (0 <= int(tenant) < self._capacity) or not self._active[int(tenant)]:
             raise KeyError(f"no live tenant at slot {tenant} (live: {self.tenant_ids()})")
@@ -551,8 +567,10 @@ class MetricCohort:
         """Unstack one tenant into an independent object (the inverse of
         :meth:`from_collections`): a deep copy of the template (a
         :class:`MetricCollection` for multi-metric cohorts, a bare metric
-        otherwise) holding that tenant's current state."""
+        otherwise) holding that tenant's current state. A drain barrier
+        on an enrolled cohort, as :meth:`compute` is."""
         self._check_tenant(tenant)
+        self._drain_serving()
         clones = OrderedDict((n, deepcopy(m)) for n, m in self._template.items())
         for name, clone in clones.items():
             for sname in clone._defaults:
@@ -664,6 +682,36 @@ class MetricCohort:
 
     __call__ = forward
 
+    def forward_slots(self, slots: Sequence[int], *args: Any, **kwargs: Any):
+        """:meth:`forward` for the live tenants at ``slots`` alone, the others
+        left as they were. Inputs carry one row-block per listed slot, in
+        slot order (or the capacity-padded layout). The step is the full
+        step's own program at this capacity (on the card the same CUDA
+        graph), run with the validity mask set to ``slots``; ``torch.where``
+        over that mask then keeps the other slots' states. So each listed
+        tenant's fold is bit for bit the full step's. Returns the listed
+        tenants' batch-local values, in slot order."""
+        slots = np.unique(np.asarray(slots, dtype=np.int64))
+        for slot in slots:
+            self._check_tenant(int(slot))
+        self._drain_serving()
+        mask = np.zeros(self._capacity, dtype=bool)
+        mask[slots] = True
+        held_states = self._states
+        held = (self._active, self._membership_tensors)
+        self._active, self._membership_tensors = mask, {}
+        valid = self._membership_tensor("valid").to(torch.bool)
+        try:
+            return self.forward(*args, **kwargs)
+        finally:
+            if self._states is not held_states:
+                self._states = {
+                    name: {sname: torch.where(valid.view((-1,) + (1,) * (v.ndim - 1)), v, held_states[name][sname])
+                           for sname, v in d.items()}
+                    for name, d in self._states.items()
+                }
+            self._active, self._membership_tensors = held
+
     def _check_states_alive(self) -> None:
         """After a failed step, no stacked state may be one of the engine's
         buffers (the JAX package's check that no live state was donated):
@@ -758,10 +806,7 @@ class MetricCohort:
         sync committed. On a cohort enrolled in an
         :class:`~metrics_tpu_torch.serving.AsyncServingEngine` this is a
         drain barrier, as ``MetricCollection.compute`` is."""
-        if self._serving_pipeline is not None:
-            pipe = self._serving_pipeline()
-            if pipe is not None:
-                pipe.drain()
+        self._drain_serving()
         synced_cache = None
         if is_distributed_initialized():
             synced_cache = {name: dict(d) for name, d in self._states.items()}
@@ -924,6 +969,7 @@ class MetricCohort:
         """Reset every tenant to the registered defaults (membership and
         capacity are kept). Health accounting resets with the state it
         described."""
+        self._drain_serving()
         self._states = self._default_states(self._capacity)
         if self._health is not None:
             self._publish_health(self._default_health(self._capacity))
@@ -936,6 +982,7 @@ class MetricCohort:
     def state_dict(self, destination: Optional[dict] = None, prefix: str = "") -> dict:
         """Persistent stacked states plus the active-slot table, member-
         prefixed like ``MetricCollection.state_dict``."""
+        self._drain_serving()
         destination = {} if destination is None else destination
         for name, m in self._template.items():
             for sname in m._defaults:
@@ -947,6 +994,7 @@ class MetricCohort:
     def _named_states(self, prefix: str = "") -> list:
         """Every loadable ``(key, value)`` pair: the full stacked state plus
         the slot table."""
+        self._drain_serving()
         pairs = [
             (f"{prefix}{name}.{sname}", self._states[name][sname])
             for name, m in self._template.items()
@@ -960,6 +1008,7 @@ class MetricCohort:
         on any device or numpy arrays. A checkpoint of another capacity
         bucket resizes this cohort to match: every loaded stack must agree
         on its leading dim."""
+        self._drain_serving()
         incoming: Dict[str, Dict[str, torch.Tensor]] = {}
         caps = set()
         missing = []

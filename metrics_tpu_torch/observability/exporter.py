@@ -93,8 +93,9 @@ _FLEETS: "weakref.WeakValueDictionary[int, Any]" = weakref.WeakValueDictionary()
 def register_fleet(coordinator: Any) -> int:
     """Enroll a fleet's ``MigrationCoordinator`` as a scrape source (called
     by its constructor; weak reference — a dropped fleet disappears from the
-    exposition). Returns the stable ``fleet=`` label value. The port has no
-    ``fleet/`` yet, so nothing registers and no fleet family renders."""
+    exposition). Returns the stable ``fleet=`` label value; the fleet
+    families render each live coordinator's placement, shards and
+    replicator."""
     fid = next(_FLEET_SEQ)
     _FLEETS[fid] = coordinator
     return fid

@@ -9,11 +9,10 @@ engine build that fails, a corrupted checkpoint envelope, a preempted or
 skewed eval session, a torn checkpoint file, a cut transport — as a scoped
 context manager (or a function) that restores the previous world on exit.
 
-Not ported yet, each with the part of the JAX package whose port brings its
-target: ``expire_lease`` and ``kill_at_migration_phase`` (``fleet/``),
-``donation_unsafe_engine`` (its only reader is the sanitizer of
-``analysis/``; the port donates no buffer). ``slow_consumer`` and
-``preempt_at_step(during="background_write")`` drill ``serving/``.
+Not ported yet: ``donation_unsafe_engine`` (its only reader is the
+sanitizer of ``analysis/``; the port donates no buffer). ``slow_consumer``
+and ``preempt_at_step(during="background_write")`` drill ``serving/``;
+``expire_lease`` and ``kill_at_migration_phase`` drill ``fleet/``.
 
 Nothing here is imported by the runtime hot paths.
 """
@@ -42,6 +41,8 @@ __all__ = [
     "simulated_pods",
     "failing_engine_compile",
     "corrupt_envelope",
+    "expire_lease",
+    "kill_at_migration_phase",
     "preempt_at_step",
     "slow_consumer",
     "torn_write",
@@ -482,6 +483,76 @@ def partition_transport(owner: Any, attr: str = "backend") -> Iterator[Dict[str,
     finally:
         info["calls"] = wrapper.calls
         setattr(owner, attr, inner)
+
+
+def expire_lease(authority: Any, shard: str) -> None:
+    """Force ``shard``'s lease past its TTL on ``authority``: the lease-loss
+    drill. The next ``FleetRebalancer.check_failover()`` treats the shard as
+    dead and promotes its followers, and any write the old owner attempts
+    before re-acquiring is refused typed (``LeaseExpiredError``, one
+    ``fleet_fenced_write`` dump)."""
+    authority.expire(str(shard))
+
+
+@contextmanager
+def kill_at_migration_phase(
+    coordinator: Any, phase: str, after: int = 0, mode: str = "kill"
+) -> Iterator[Dict[str, Any]]:
+    """Simulate a process death at the START of one tenant-migration yield
+    point (``"prepare"``, ``"in_flight"``, ``"pre_commit"``, ``"pre_gc"``,
+    or the per-txn ``"recover"`` entry; see the state-machine table in
+    :mod:`metrics_tpu_torch.fleet.migration`): the coordinator raises
+    :class:`Preempted` the moment a handoff enters ``phase``, after skipping
+    the first ``after`` entries (so a kill can land mid-rebalance, N
+    successful moves in). Everything durably written before that instant
+    (the staged envelope, the ``prepared`` record, the target's committed
+    generation) is exactly what a real kill leaves; drive recovery by
+    rebuilding the shards from their journals (``FleetShard.restore``) and
+    calling ``MigrationCoordinator.recover()``, which must land every tenant
+    on exactly one side. ``info`` reports ``seen`` (phase entries observed)
+    and ``kills``.
+
+    ``mode="partition"`` injects a network partition instead of a death:
+    entering ``phase`` raises :class:`TransportPartitioned`, and the
+    coordinator's sync backend (when it has one) keeps refusing every
+    collective until ``info["heal"]()`` runs or the context exits. The
+    coordinator object survives with its in-memory state intact: the
+    recovery to prove is ``recover()`` on the live objects after the heal,
+    not a rebuild from disk. Exit restores the class's no-op seam and the
+    original backend."""
+    from metrics_tpu_torch.fleet.migration import MigrationCoordinator
+
+    if phase not in MigrationCoordinator.YIELD_POINTS:
+        raise ValueError(f"phase must be one of {MigrationCoordinator.YIELD_POINTS}, got {phase!r}")
+    if mode not in ("kill", "partition"):
+        raise ValueError(f"mode must be 'kill' or 'partition', got {mode!r}")
+    inner_backend = coordinator.backend
+    info: Dict[str, Any] = {"seen": 0, "kills": 0}
+
+    def heal() -> None:
+        if isinstance(coordinator.backend, _PartitionedBackend):
+            coordinator.backend.heal()
+        coordinator.backend = inner_backend
+
+    info["heal"] = heal
+
+    def dying(ph: str, txn: str) -> None:
+        if ph == phase and coordinator.backend is inner_backend:
+            info["seen"] += 1
+            if info["seen"] > int(after):
+                info["kills"] += 1
+                if mode == "partition":
+                    if inner_backend is not None:
+                        coordinator.backend = _PartitionedBackend(inner_backend)
+                    raise TransportPartitioned(f"injected partition at migration phase {ph!r} (txn {txn})")
+                raise Preempted(f"injected kill at migration phase {ph!r} (txn {txn})")
+
+    coordinator._phase = dying
+    try:
+        yield info
+    finally:
+        del coordinator._phase  # uncover the class-level no-op hook
+        coordinator.backend = inner_backend
 
 
 @contextmanager

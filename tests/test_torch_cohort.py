@@ -578,6 +578,30 @@ def test_rows_updates_laststep_accounting():
     assert h["nonfinite"].tolist() == [0] * 4
 
 
+def test_forward_slots_folds_only_the_listed_tenants():
+    """A step for some slots: the listed tenants fold bit for bit as in the
+    full step (the same program at the same capacity), their values are the
+    full step's rows, the other slots keep their states, and health counts
+    the listed tenants' rows alone."""
+    port, _ = _mse_cohorts(5)
+    twin, _ = _mse_cohorts(5)
+    for c in (port, twin):
+        c(*_t(*_batch(5)))
+    before = {s: v.clone() for s, v in port._states["metric"].items()}
+    preds, target = _t(*_batch(5, seed=1))
+    listed = [3, 1]
+    got = port.forward_slots(listed, preds[[1, 3]], target[[1, 3]])
+    want = twin(preds, target)
+    assert port.capacity == twin.capacity == 8 and port.tenant_ids() == (0, 1, 2, 3, 4)
+    assert torch.equal(got, want[[1, 3]])
+    for sname, v in port._states["metric"].items():
+        assert torch.equal(v[[1, 3]], twin._states["metric"][sname][[1, 3]]), sname
+        assert torch.equal(v[[0, 2, 4]], before[sname][[0, 2, 4]]), sname
+    assert port.health()["rows_seen"].tolist() == [16, 32, 16, 32, 16]
+    with pytest.raises(KeyError):
+        port.forward_slots([5], preds[:1], target[:1])
+
+
 def test_new_tenant_starts_fresh_and_never_active_reads_stale():
     port, jax_cohort = _mse_cohorts(2)
     for _ in range(2):

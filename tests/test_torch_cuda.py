@@ -39,7 +39,13 @@ host reads on the serve loop that never raise, and the background writer's
 envelope equal to the synchronous one); and the export surface on the card
 (a forward that returns while a ``/metrics`` scrape waits on a cohort's
 health event, and a reader racing a live pipeline that only ever sees whole
-steps). Counts read off a ``torch.profiler`` trace read a trace that a
+steps); and the elastic fleet on the card (a partial wave of 1, 3, half and
+all but one of 5,000 tenants bit-equal to the full-shard dispatch; leased
+shards that replicate, migrate and fail over with every state on the card
+after adoption, promotion and ``restore()``; tenant envelope bytes through
+``stream`` as a CUDA ``uint8`` tensor; a handoff from a served shard
+while the serving worker's step is still queued, carrying the drained
+state). Counts read off a ``torch.profiler`` trace read a trace that a
 second trace of the same call agrees with (``_steady_profile``).
 
 Every test here is marked ``cuda`` and skips without a card. This file
@@ -1975,3 +1981,199 @@ def test_serving_scrape_loop_never_reads_a_torn_health_row(cuda_device):
         last_u = u
     assert cohort.health()["updates"].tolist() == [steps + 1] * tenants
 
+
+
+# ----------------------------------------------------------------------
+# the elastic fleet: every shard's cohort on the card
+# ----------------------------------------------------------------------
+_FLEET_N = 5_000
+
+
+def _fleet_wave(keys, step):
+    """2 rows x 8 features a tenant, distinct per tenant and step."""
+    base = np.asarray(keys, dtype=np.float64)[:, None, None]
+    preds = (base * 1e-4 + step * 0.125 + np.arange(8) * 0.01).astype(np.float32)
+    preds = np.broadcast_to(preds, (len(keys), 2, 8)).copy()
+    preds[:, 1] *= 0.75
+    target = np.broadcast_to((base * 2e-4).astype(np.float32), preds.shape).copy()
+    return preds, target
+
+
+def _fleet_states(shards, keys):
+    """Each key's states, from whichever shard holds it (exactly one)."""
+    out = {}
+    for k in keys:
+        (sh,) = [s for s in shards if s.has_tenant(k)]
+        for member, d in sh.cohort._states.items():
+            for sname, v in d.items():
+                out[(k, f"{member}.{sname}")] = v[sh.slot_of(k)]
+    return out
+
+
+def _on_card(shards):
+    return all(v.is_cuda for sh in shards for d in sh.cohort._states.values() for v in d.values())
+
+
+@pytest.mark.parametrize("size", [1, 3, _FLEET_N // 2, _FLEET_N - 1], ids=["1", "3", "half", "all_but_one"])
+def test_fleet_partial_wave_is_bit_identical_to_the_full_dispatch_on_the_card(cuda_device, tmp_path, size):
+    from metrics_tpu_torch.fleet import FleetShard
+
+    keys = list(range(_FLEET_N))
+    part, full = (FleetShard(nm, MeanSquaredError(), tmp_path / nm) for nm in ("part", "full"))
+    for sh in (part, full):
+        sh.add_tenants(keys)
+        sh.submit_wave(0, keys, *_fleet_wave(keys, 0))
+    subset = sorted(np.random.RandomState(size).choice(_FLEET_N, size, replace=False).tolist())
+    rest = sorted(set(keys) - set(subset))
+    part.submit_wave(1, subset[::-1], *_fleet_wave(subset[::-1], 1))
+    part.submit_wave(1, rest, *_fleet_wave(rest, 1))
+    full.submit_wave(1, keys, *_fleet_wave(keys, 1))
+    for sh in (part, full):  # a full wave replayed after the partial ones reads their rows
+        sh.submit_wave(2, keys, *_fleet_wave(keys, 2))
+    assert _on_card([part, full]) and part.cohort.capacity == full.cohort.capacity == 8192
+    live = torch.as_tensor(full.cohort.tenant_ids(), device=cuda_device)  # padding slots are inert by design
+    for name, d in full.cohort._states.items():
+        for sname, v in d.items():
+            assert torch.equal(part.cohort._states[name][sname][live], v[live]), f"{name}.{sname}"
+
+
+def test_fleet_migration_and_failover_keep_every_cohort_on_the_card(cuda_device, tmp_path):
+    """Leased shards replicate, migrate and fail over with every state
+    tensor on the card after adoption, after the promotion and after a
+    ``restore()``, and every tenant equal to a never-failed twin."""
+    from metrics_tpu_torch.fleet import (
+        FleetPlacement,
+        FleetRebalancer,
+        FleetShard,
+        LeaseAuthority,
+        MigrationCoordinator,
+        ShardReplicator,
+    )
+
+    names, n = ["s0", "s1", "s2"], 600
+    placement = FleetPlacement(names)
+    shards = {nm: FleetShard(nm, MeanSquaredError(), tmp_path / nm) for nm in names}
+    twin = {nm: FleetShard(nm, MeanSquaredError(), tmp_path / "twin" / nm) for nm in names}
+    for k in range(n):
+        shards[placement.assign(k)].add_tenant(k)
+        twin[placement.assign(k)].add_tenant(k)
+    coord = MigrationCoordinator(placement, shards.values())
+    auth = LeaseAuthority(ttl_s=3600.0)
+    for sh in shards.values():
+        sh.attach_lease(auth)
+    rep = ShardReplicator(coord, authority=auth)
+
+    def feed(fleet, steps):
+        for step in steps:
+            for sh in fleet.values():
+                ks = list(sh.tenants())
+                sh.submit_wave(step, ks, *_fleet_wave(ks, step))
+
+    feed(shards, range(2))
+    feed(twin, range(4))
+    for sh in shards.values():
+        sh.checkpoint()
+        rep.replicate(sh)
+    moved = list(shards["s1"].tenants())[:4]
+    for k in moved:
+        coord.migrate(k, "s0")
+    assert all(shards["s0"].has_tenant(k) for k in moved) and _on_card(shards.values())
+    feed(shards, [2])
+    for sh in shards.values():
+        sh.checkpoint()
+        rep.replicate(sh)
+    dead_keys = list(shards["s0"].tenants())
+    assert FleetRebalancer(coord, replicator=rep, authority=auth).failover("s0") == len(dead_keys)
+    assert "s0" not in coord.shards and _on_card(coord.shards.values())
+    feed(coord.shards, range(4))  # the promoted tenants fold step 3 in partial waves
+    survivors = list(coord.shards.values())
+    got, want = _fleet_states(survivors, range(n)), _fleet_states(twin.values(), range(n))
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    for sh in survivors:
+        sh.checkpoint()
+    restored = [FleetShard(sh.name, MeanSquaredError(), tmp_path / sh.name) for sh in survivors]
+    assert all(r.restore() for r in restored) and _on_card(restored)
+    got = _fleet_states(restored, range(n))
+    assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+def test_fleet_envelope_round_trip_through_stream_as_a_cuda_tensor(cuda_device, tmp_path):
+    """The bytes cross ``backend.stream`` as a ``torch.uint8`` tensor on the
+    card, come back through ``.cpu()``, and the far side's checksum holds:
+    a migration through a backend that sees only CUDA tensors, and an eager
+    AUROC tenant's envelope through the same wire."""
+    from metrics_tpu_torch.fleet import FleetPlacement, FleetShard, MigrationCoordinator, adopt_into, tenant_envelope
+    from metrics_tpu_torch.parallel.backend import SingleProcessBackend
+    from metrics_tpu_torch.reliability.checkpoint import envelope_from_bytes, envelope_to_bytes
+
+    class CardOnly(SingleProcessBackend):
+        def __init__(self):
+            self.streamed = []
+
+        def stream(self, x, source=0, group=None):
+            assert x.is_cuda and x.dtype == torch.uint8
+            self.streamed.append(x.numel())
+            return super().stream(x, source=source, group=group)
+
+    backend = CardOnly()
+    src, dst = (FleetShard(nm, MeanSquaredError(), tmp_path / nm) for nm in ("src", "dst"))
+    src.add_tenants(range(3))
+    src.submit_wave(0, [0, 1, 2], *_fleet_wave([0, 1, 2], 0))
+    before = _fleet_states([src], [1])
+    coord = MigrationCoordinator(FleetPlacement(["src", "dst"]), [src, dst], backend=backend)
+    coord.migrate(1, "dst")
+    assert len(backend.streamed) == 1 and dst.has_tenant(1) and _on_card([dst])
+    after = _fleet_states([dst], [1])
+    assert all(torch.equal(after[k], before[k]) for k in before)
+
+    rng = np.random.RandomState(3)
+    home = AUROC(pos_label=1)
+    p = torch.from_numpy(rng.rand(4096).astype(np.float32)).to(cuda_device)
+    home.update(p, (torch.from_numpy(rng.rand(4096).astype(np.float32)).to(cuda_device) < p).to(torch.int32))
+    blob = envelope_to_bytes(tenant_envelope(home, 9, cursor=0))
+    wire = backend.stream(torch.frombuffer(bytearray(blob), dtype=torch.uint8).to(cuda_device))
+    moved = AUROC(pos_label=1)
+    assert adopt_into(moved, envelope_from_bytes(wire.cpu().numpy().tobytes())) == 0
+    assert all(t.is_cuda for t in moved.preds) and torch.equal(moved.compute(), home.compute())
+
+
+def test_fleet_migrate_behind_a_queued_serving_step_holds_the_drained_state_on_the_card(cuda_device, tmp_path):
+    """A shard cohort served by an ``AsyncServingEngine`` whose worker stream
+    holds a device sleep ahead of the step: a tenant migrated while that step
+    is still queued on the card carries the state after ``drain()`` (the
+    verb's reads are ordered after the worker's stream), equal to a twin
+    stepped in order; so does the source's committed generation."""
+    from metrics_tpu_torch.fleet import FleetPlacement, FleetShard, MigrationCoordinator
+    from metrics_tpu_torch.serving import AsyncServingEngine
+
+    keys = list(range(64))
+    src, dst, twin = (FleetShard(nm, MeanSquaredError(), tmp_path / nm) for nm in ("src", "dst", "twin"))
+    for sh in (src, twin):
+        sh.add_tenants(keys)
+        sh.submit_wave(0, keys, *_fleet_wave(keys, 0))
+    coord = MigrationCoordinator(FleetPlacement(["src", "dst"]), [src, dst])
+    pipe = AsyncServingEngine(src.cohort)
+    try:
+        for step in (1, 2):
+            wave = [torch.from_numpy(a).to(cuda_device) for a in _fleet_wave(keys, step)]
+            if step == 2:  # the worker's step waits behind about 150 ms of card time
+                with torch.cuda.stream(pipe._worker_stream()):
+                    torch.cuda._sleep(300_000_000)
+            pipe.forward(*wave)
+            twin.cohort(*wave)
+        assert pipe.stats["inline_steps"] == 1
+        deadline = time.monotonic() + 30.0
+        while pipe._outstanding and time.monotonic() < deadline:  # the step is enqueued, not run
+            time.sleep(0.001)
+        assert not pipe._last_done.query(), "the worker's step finished before the handoff began"
+        coord.migrate(0, "dst")
+    finally:
+        pipe.close()
+    assert dst.has_tenant(0) and not src.has_tenant(0) and _on_card([src, dst])
+    want = _fleet_states([twin], keys)
+    got = _fleet_states([src, dst], keys)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    restored = FleetShard("src", MeanSquaredError(), tmp_path / "src")
+    assert restored.restore() and _on_card([restored])
+    got = _fleet_states([restored], keys[1:])
+    assert all(torch.equal(got[k], want[k]) for k in got)

@@ -16,7 +16,9 @@ values wherever they are not a clock or an identity.
 Every server binds port 0 (OS-assigned) and every scrape and wait has a
 timeout.
 """
+import gc
 import json
+import os
 import re
 import socket
 import sys
@@ -46,6 +48,7 @@ WAIT_S = 30.0
 
 
 def _clean():
+    gc.collect()  # cohorts of an earlier file's reference cycles leave the weak registries
     for pkg, ledger in ((obs, cl), (jobs, jcl)):
         pkg.disable()
         pkg.get().reset()
@@ -604,7 +607,7 @@ _CLOCKED = re.compile(r"(_s_sum|_ms_sum|_ms_bucket|_s_bucket|_compile_ms)$")
 # and the port cannot (no cost model: flops / bytes None by design)
 _JAX_ONLY = {"metrics_tpu_engine_program_flops", "metrics_tpu_engine_program_bytes_accessed"}
 # label values that name a process-local object, not a quantity
-_OBJECT_LABELS = {"cohort", "journal", "program", "host"}
+_OBJECT_LABELS = {"cohort", "journal", "program", "host", "fleet"}
 # JAX's armed ledger traces and lowers each new program once more, and those
 # runs of the step function count in metric.<Name>.{update,compute}_calls
 # and their timers (its docstring says the ledger touches no trace counter);
@@ -615,9 +618,11 @@ _LEDGER_COUNTED = re.compile(r"^metrics_tpu_metric_\w+_(update|compute)_(calls_t
 
 def _workload(pkg, o, ledger_mod, conv, kw, directory, armed):
     """A cohort with a poisoned tenant under quarantine, a compiled
-    collection over two signatures and a session of three steps, with
-    telemetry on and the ledger armed or not; returns the rendered
-    exposition."""
+    collection over two signatures, a session of three steps and a live
+    fleet (two leased shards of 4 tenants: two waves, a commit, a
+    replication, a migration and one more wave), with telemetry on and the
+    ledger armed or not; returns the rendered exposition."""
+    gc.collect()  # the first workload's fleet (a coordinator-replicator cycle) leaves the weak registries
     rng = np.random.RandomState(7)
     preds, target = _grid(rng, (4, 16)), _grid(rng, (4, 16))
     poison = preds.copy()
@@ -639,9 +644,27 @@ def _workload(pkg, o, ledger_mod, conv, kw, directory, armed):
         session = pkg.reliability.EvalSession(pkg.MeanSquaredError(**kw), directory, checkpoint_every=2)
         for i in range(3):
             session.step(i, conv(preds[0]), conv(target[0]))
+        fl = pkg.fleet
+        shards = [fl.FleetShard(nm, pkg.MeanSquaredError(**kw), os.path.join(directory, "fleet", nm))
+                  for nm in ("s0", "s1")]
+        shards[0].add_tenants(range(4))
+        shards[1].add_tenants(range(4, 8))
+        coord = fl.MigrationCoordinator(fl.FleetPlacement(["s0", "s1"]), shards)
+        authority = fl.LeaseAuthority(ttl_s=3600.0)
+        for sh in shards:
+            sh.attach_lease(authority)
+        replicator = fl.ShardReplicator(coord, authority=authority)
+        for step in range(2):
+            for sh in shards:
+                sh.submit_wave(step, list(sh.tenants()), conv(preds), conv(target))
+        for sh in shards:
+            sh.checkpoint()
+            replicator.replicate(sh)
+        coord.migrate(0, "s1")
+        shards[0].submit_wave(2, list(shards[0].tenants()), conv(preds[:3]), conv(target[:3]))
         cohort.health()
         text = o.render_exposition()
-        del session, cohort
+        del session, cohort, coord, replicator, shards
     return text
 
 
@@ -670,7 +693,10 @@ def test_exposition_matches_jax_on_one_seeded_workload(tmp_path, armed):
     jax_fams, port_fams = _families(jax_text, armed), _families(port_text, armed)
     assert {k: v for k, v in jax_fams.items() if k not in _JAX_ONLY} == port_fams
     # the comparison saw every kind of source
-    for family in ("metrics_tpu_cohort_tenant_guard_verdicts", "metrics_tpu_session_cursor",
+    for family in ("metrics_tpu_fleet_placement_generation", "metrics_tpu_fleet_migrations_total",
+                   "metrics_tpu_fleet_tenants_in_flight", "metrics_tpu_fleet_shard_epoch",
+                   "metrics_tpu_fleet_shard_replication_lag", "metrics_tpu_fleet_failovers",
+                   "metrics_tpu_cohort_tenant_guard_verdicts", "metrics_tpu_session_cursor",
                    "metrics_tpu_engine_compile_cold_total", "metrics_tpu_engine_compile_ms_bucket",
                    "metrics_tpu_metric_MeanSquaredError_update_calls_total", "metrics_tpu_identity"):
         assert family in port_fams, family

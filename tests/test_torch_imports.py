@@ -77,12 +77,12 @@ JAX_INITS = {
     "metrics_tpu_torch.observability": REPO / "metrics_tpu" / "observability" / "__init__.py",
     "metrics_tpu_torch.reliability": REPO / "metrics_tpu" / "reliability" / "__init__.py",
     "metrics_tpu_torch.serving": REPO / "metrics_tpu" / "serving" / "__init__.py",
+    "metrics_tpu_torch.fleet": REPO / "metrics_tpu" / "fleet" / "__init__.py",
 }
 
 # names JAX exports that the port does not have yet, by the part of the
 # JAX package whose port brings them
 NOT_YET_PORTED = {
-    "fleet": "fleet/",
     "analysis": "analysis/",
     # not ported by design: the JAX package's numpy twin of its SPMD sample
     # sort for CPU meshes, where XLA's co-sort is slow; the port's
