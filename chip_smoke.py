@@ -289,17 +289,21 @@ that is unset. Phases (any failure exits non-zero before the result line):
    0.45, equal to the rendezvous rule computed here from ``hashlib``) and
    the rescan ms; (b) 24 two-phase handoffs of ``MeanSquaredError`` tenants
    between two live shards after a warm-up move: ms a tenant, every tenant
-   on exactly one side, states bit-equal; (c) the failover leg uncut
-   (``bench.py:756-915``): 3 leased shards of 10,000 tenants, 2 rows x 8
+   on exactly one side, states bit-equal; (c) the failover leg
+   (``bench.py:756-915``) at 1,000 tenants (``FLEET_FAILOVER_TENANTS``; the
+   bench's 10,000 spent 131-155 s a replicate cycle on the card's host, and
+   the kill schedule at 10,000 stays on the CPU in
+   ``tests/test_torch_fleet_chaos.py``): 3 leased shards, 2 rows x 8
    features a tenant a step, a replicator, the dead shard's waves 4-5
    retained by an ``IngestQueue(redelivery_window=8)``: first and delta
    replicate ms, steady lag (0), failover to the first redelivered wave,
    rows redelivered (exactly 2 x dead tenants x 2), every tenant bit-equal
-   to a never-failed twin; (g) ``/metrics`` of that fleet before and after
+   to a never-failed twin with a promoted cohort's capacity grown past its
+   twin's; (g) ``/metrics`` of that fleet before and after
    the failover (OS-assigned port): the six fleet families equal the
    coordinator's and replicator's stats; (d) a kill at each yield point
    (``prepare``, ``in_flight``, ``pre_commit``, ``pre_gc``, ``recover``)
-   and mid-rebalance over 10,000 tenants, each followed by a rebuild from
+   and mid-rebalance over 1,000 tenants, each followed by a rebuild from
    the journals and ``recover()``: every tenant on exactly one shard, the
    stream resubmitted from step 0 folding each step once, bit-equal to the
    twin; (e) partial waves of 1, 3, half and all but one of 5,000 tenants,
@@ -311,6 +315,19 @@ that is unset. Phases (any failure exits non-zero before the result line):
    CUDA ``uint8`` tensor): one ``tie_scan`` launch in its ``compute()``,
    bit-equal to the unmoved tenant's, within 1e-6 of the plain scan and
    1e-5 of float64;
+4p. the host-side analysis passes (``analysis/``), after 4o's first part and
+   before phase 5: (a) ``explore_crash_consistency`` and ``explore_fencing``
+   with every shard's cohort on the card (each rebuilt shard checked),
+   without a finding and with coverage (crash: 6 states, 25 schedules, 14
+   crash points; fencing: 2 states, 16 schedules, 16 points) equal to a CPU
+   run's and to the committed ``PROTOCOL_BASELINE.json``, and no
+   ``tie_scan`` launch (the template metric is MSE); (b) the fleet fixtures
+   ``GcBeforeDurableCoordinator``, ``UnfencedCheckpointShard`` and
+   ``NonAtomicManifestWriter`` tripping exactly MTA013, MTA014 and MTL107, at
+   or above the baseline's ``min_violations``, with the CPU's first
+   counterexample; (c) ``hint_for_watch_key`` naming each fixture's rule;
+   (d) ``lint_paths()`` over the package this run imports, under this
+   machine's Python: no unsuppressed finding;
 5. times on the card (CUDA events over launches queued behind a device
    sleep, so host overhead does not show, or the host clock ending in a
    synchronize for whole steps): the one-stream kernel, its plain version
@@ -499,6 +516,12 @@ EXPORTER_TIMEOUT_S = 30.0
 # phase 4o: the fleet legs of the JAX bench (bench.py:676-727, 756-915) and
 # the chaos bed's size (tests/reliability/test_fleet_chaos.py:37)
 FLEET_TENANTS = 10_000
+# the failover leg and the kills, (c), (g) and (d), at a smaller depth: at
+# 10,000 tenants its two replicate cycles took 131-155 s each on the card's
+# host (the replica manifest rewritten whole a tenant, O(n^2) in a shard's
+# tenants). The kill schedule at 10,000 stays on the CPU
+# (tests/test_torch_fleet_chaos.py::test_kill_at_every_phase_and_mid_rebalance_10k)
+FLEET_FAILOVER_TENANTS = 1_000
 FLEET_MOVES = 24
 FLEET_ROWS = 2
 FLEET_FEATURES = 8
@@ -3871,12 +3894,12 @@ def _fleet_feed(shards, steps, only=None):
                 sh.submit_wave(step, keys, *_fleet_wave(keys, step))
 
 
-def _fleet_on_card(dev, shards, when):
+def _fleet_on_card(dev, shards, when, phase="4o"):
     for sh in shards:
         for member, d in sh.cohort._states.items():
             for sname, v in d.items():
                 if v.device.type != dev.type:
-                    raise AssertionError(f"4o: shard {sh.name}'s {member}.{sname} lies on {v.device} {when}")
+                    raise AssertionError(f"{phase}: shard {sh.name}'s {member}.{sname} lies on {v.device} {when}")
 
 
 def _fleet_by_key(torch, dev, shards, total):
@@ -4096,10 +4119,12 @@ def _fleet_phase(torch, dev, card):
 
 
 def _fleet_failover_phase(torch, dev, card):
-    """Phase 4o's second part, run last: the JAX bench's failover leg uncut
-    (c) with ``/metrics`` of the live fleet (g), and a kill at every yield
-    point mid-rebalance (d), at 10,000 tenants. Returns its ``fleet_*``
-    timings; removes the directories it writes and turns the exporter off."""
+    """Phase 4o's second part, run last: the JAX bench's failover leg (c)
+    with ``/metrics`` of the live fleet (g), and a kill at every yield point
+    mid-rebalance (d), at ``FLEET_FAILOVER_TENANTS`` (1,000) tenants over the
+    bench's 3 leased shards, rows, steps, redelivery window and kill points.
+    Returns its ``fleet_*`` timings; removes the directories it writes and
+    turns the exporter off."""
     import gc
     import tempfile
     import urllib.request
@@ -4120,7 +4145,7 @@ def _fleet_failover_phase(torch, dev, card):
 
     gc.collect()
     out = {}
-    n = FLEET_TENANTS
+    n = FLEET_FAILOVER_TENANTS
     phase_t0 = time.perf_counter()
 
     def ms_since(t):
@@ -4131,7 +4156,7 @@ def _fleet_failover_phase(torch, dev, card):
         def shard(name, where):
             return FleetShard(name, MeanSquaredError(), os.path.join(root, where, name))
 
-        # c. the failover leg uncut (bench.py:756-915)
+        # c. the failover leg (bench.py:756-915) at FLEET_FAILOVER_TENANTS
         names = ["s0", "s1", "s2"]
         placement = FleetPlacement(names)
         shards = {nm: shard(nm, "c") for nm in names}
@@ -4229,23 +4254,32 @@ def _fleet_failover_phase(torch, dev, card):
             raise AssertionError(f"4o c. promoted {promoted} of {len(dead_keys)}, redelivered {redelivered} rows"
                                  f" of {expected}")
         _fleet_on_card(dev, coord.shards.values(), "after the promotion")
+        # the promoted tenants land on grown cohorts: the bit identity below
+        # holds across capacity buckets
+        capacity = {nm: sh.cohort.capacity for nm, sh in coord.shards.items()}
+        twin_capacity = {sh.name: sh.cohort.capacity for sh in twin if sh.name in capacity}
+        if not any(capacity[nm] > twin_capacity[nm] for nm in capacity):
+            raise AssertionError(f"4o c. promoted capacities {capacity} grew past none of the twin's {twin_capacity}")
         _fleet_bit_equal(torch, _fleet_by_key(torch, dev, coord.shards.values(), n),
                          _fleet_by_key(torch, dev, twin, n), "c. after the redelivered waves")
         out.update(fleet_replicate_first_ms=first_ms, fleet_commit_ms=commit_ms, fleet_replicate_delta_ms=delta_ms,
                    fleet_steady_lag=lag, fleet_failover_promote_ms=promote_ms,
                    fleet_failover_to_first_wave_ms=first_wave_ms[0], fleet_rows_redelivered=redelivered,
-                   fleet_redelivery_deviation=deviation, fleet_scrape_ms=scrape_ms)
+                   fleet_redelivery_deviation=deviation, fleet_scrape_ms=scrape_ms,
+                   fleet_failover_tenants=n, fleet_promoted_capacity=capacity, fleet_twin_capacity=twin_capacity)
         print(f"4o c. [{card}] failover leg, {n} tenants over 3 shards: first replicate {first_ms:.0f} ms, commit"
               f" {commit_ms:.1f} ms, delta replicate {delta_ms:.0f} ms, steady lag {lag}; failover of {dead}"
               f" ({promoted} tenants promoted) {promote_ms:.0f} ms, to the first redelivered wave"
               f" {first_wave_ms[0]:.0f} ms; {redelivered} rows redelivered (deviation {deviation}); every tenant"
-              " bit-equal to a never-failed twin, cohorts on the card")
+              f" bit-equal to a never-failed twin at promoted capacities {capacity} (the twin's {twin_capacity}),"
+              " cohorts on the card")
         print(f"4o g. [{card}] /metrics before and after the failover: the six fleet families equal the"
               f" coordinator's and replicator's stats ({scrape_ms:.1f} ms a scrape)")
         del coord, rep, reb, shards, twin, q
 
-        # d. a kill at every yield point mid-rebalance over 10,000 tenants
-        # (test_kill_at_every_phase_and_mid_rebalance_10k), recovered from the journals alone
+        # d. a kill at every yield point mid-rebalance over FLEET_FAILOVER_TENANTS
+        # (test_kill_at_every_phase_and_mid_rebalance_10k at 10,000 on the CPU),
+        # recovered from the journals alone
         two = ["s0", "s1"]
         placement = FleetPlacement(two)
         homes = [placement.assign(k) for k in range(n)]
@@ -4335,6 +4369,130 @@ def _fleet_failover_phase(torch, dev, card):
               f" the stream resubmitted from step 0 folded each step once ({skipped} skipped), bit-equal to the"
               " twin; rebuild and recover ms " + ", ".join(f"{k} {v:.0f}" for k, v in recover_ms.items()))
     out["fleet_failover_phase_s"] = time.perf_counter() - phase_t0
+    return out
+
+
+def _analysis_phase(torch, dev, card):
+    """Phase 4p: the port's host-side analysis passes with every shard's
+    cohort on ``dev``. (a) ``explore_crash_consistency`` and
+    ``explore_fencing`` over the port's real fleet: no finding, coverage
+    equal to a CPU run's and to the committed ``PROTOCOL_BASELINE.json``;
+    (b) the three fleet fixtures trip exactly their rules, at or above the
+    baseline's ``min_violations``, with the CPU's minimal counterexample;
+    (c) the watchdog's cross-link names each fixture's rule; (d)
+    ``lint_paths()`` over the checkout's package has no unsuppressed
+    finding. Returns its timings."""
+    import inspect
+    import textwrap
+
+    from metrics_tpu_torch.analysis import fixtures as fx
+    from metrics_tpu_torch.analysis import lint_paths, protocol
+    from metrics_tpu_torch.analysis.lint import lint_source
+    from metrics_tpu_torch.analysis.program import hint_for_watch_key
+    from metrics_tpu_torch.analysis.protocol import (
+        build_protocol_entry,
+        counterexample_report,
+        explore_crash_consistency,
+        explore_fencing,
+        load_protocol_baseline,
+    )
+
+    out = {}
+    phase_t0 = time.perf_counter()
+    where = dev.type
+    baseline = load_protocol_baseline()
+    entries = baseline.get("entries", {})
+    if not {"crash_consistency", "fencing", *baseline.get("fixtures", ())} <= set(entries):
+        raise AssertionError(f"4p: PROTOCOL_BASELINE.json lacks entries: {sorted(entries)}")
+
+    # a. the explorers, every shard the explorers rebuild checked on the card
+    real_reopen, reopened = protocol._reopen, []
+
+    def reopen_on_card(*args, **kwargs):
+        shards = real_reopen(*args, **kwargs)
+        _fleet_on_card(dev, shards.values(), "when the explorer rebuilt it", phase="4p")
+        reopened.append(len(shards))
+        return shards
+
+    protocol._reopen = reopen_on_card
+    try:
+        t0 = time.perf_counter()
+        crash_ev, crash_findings = explore_crash_consistency(device=where)
+        out["crash_explorer_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fence_ev, fence_findings = explore_fencing(device=where)
+        out["fencing_explorer_s"] = time.perf_counter() - t0
+    finally:
+        protocol._reopen = real_reopen
+    t0 = time.perf_counter()
+    cpu_crash_ev, cpu_crash_findings = explore_crash_consistency(device="cpu")
+    cpu_fence_ev, cpu_fence_findings = explore_fencing(device="cpu")
+    out["cpu_explorers_s"] = time.perf_counter() - t0
+    if crash_findings or fence_findings or cpu_crash_findings or cpu_fence_findings:
+        raise AssertionError("4p a. the explorers found " + counterexample_report(crash_findings + fence_findings))
+    coverage = {"crash_consistency": build_protocol_entry(crash_ev), "fencing": build_protocol_entry(fence_ev)}
+    cpu_coverage = {"crash_consistency": build_protocol_entry(cpu_crash_ev),
+                    "fencing": build_protocol_entry(cpu_fence_ev)}
+    committed = {k: entries[k] for k in coverage}
+    if coverage != cpu_coverage or coverage != committed or crash_ev["crash_points"] != cpu_crash_ev["crash_points"]:
+        raise AssertionError(f"4p a. coverage {coverage}, on the CPU {cpu_coverage}, committed {committed}")
+    out.update(coverage=coverage, shards_rebuilt=sum(reopened))
+    print(f"4p a. [{card}] explore_crash_consistency and explore_fencing on the card: no finding; coverage"
+          f" {coverage} equal to the CPU's and PROTOCOL_BASELINE.json's; {sum(reopened)} shard rebuilds, every"
+          f" cohort on the card; {out['crash_explorer_s']:.2f} s and {out['fencing_explorer_s']:.2f} s"
+          f" ({out['cpu_explorers_s']:.2f} s both on the CPU)")
+
+    # b. the fleet fixtures trip exactly their rules
+    t0 = time.perf_counter()
+    tripped = {}
+    runs = {
+        "GcBeforeDurableCoordinator": lambda device: explore_crash_consistency(
+            coordinator_cls=fx.GcBeforeDurableCoordinator, device=device)[1],
+        "UnfencedCheckpointShard": lambda device: explore_fencing(
+            shard_cls=fx.UnfencedCheckpointShard, device=device)[1],
+    }
+    for name, run in runs.items():
+        cpu_findings = run("cpu")
+        findings = run(where)
+        want = entries[name]
+        first = counterexample_report(findings).split("\n[1]")[0]
+        if ({f.rule for f in findings} != {want["expected_rule"]} or len(findings) < want["min_violations"]
+                or len(findings) != len(cpu_findings)
+                or first != counterexample_report(cpu_findings).split("\n[1]")[0]):
+            raise AssertionError(f"4p b. {name}: {len(findings)} findings {sorted({f.rule for f in findings})}"
+                                 f" ({len(cpu_findings)} on the CPU), want {want}")
+        tripped[name] = len(findings)
+    src = "import json\nimport os\n" + textwrap.dedent(inspect.getsource(fx.NonAtomicManifestWriter))
+    stripped = "\n".join(line for line in src.splitlines() if "metrics-tpu: allow" not in line)
+    fired = [f for f in lint_source(stripped, "analysis/fixtures.py") if not f.suppressed]
+    want = entries["NonAtomicManifestWriter"]
+    if {f.rule for f in fired} != {want["expected_rule"]} or len(fired) < want["min_violations"]:
+        raise AssertionError(f"4p b. NonAtomicManifestWriter fired {[str(f) for f in fired]}, want {want}")
+    tripped["NonAtomicManifestWriter"] = len(fired)
+    out["fixtures_s"] = time.perf_counter() - t0
+    out["fixture_violations"] = tripped
+    print(f"4p b. [{card}] the fleet fixtures trip exactly MTA013, MTA014 and MTL107 ({tripped}), each at or"
+          " above its min_violations, the first counterexample the CPU's"
+          f" ({out['fixtures_s']:.2f} s with the CPU runs)")
+
+    # c. the watchdog's cross-link
+    for name, rule in (("GcBeforeDurableCoordinator", "MTA013"), ("UnfencedCheckpointShard", "MTA014")):
+        hint = hint_for_watch_key(f"engine[{name}]@cohort")
+        if hint is None or rule not in hint:
+            raise AssertionError(f"4p c. the hint for {name}: {hint!r}")
+    print("4p c. the watchdog's hint names MTA013 and MTA014 for the fixtures' classes")
+
+    # d. the lint over the package this run imports
+    t0 = time.perf_counter()
+    findings = lint_paths()
+    out["lint_s"] = time.perf_counter() - t0
+    live = [str(f) for f in findings if not f.suppressed]
+    if live:
+        raise AssertionError(f"4p d. {len(live)} unsuppressed lint findings: {live}")
+    out["lint_suppressed"] = len(findings)
+    print(f"4p d. lint_paths() over {os.path.dirname(protocol.__file__).rsplit(os.sep, 1)[0]} under Python"
+          f" {sys.version.split()[0]}: no unsuppressed finding, {len(findings)} suppressed, {out['lint_s']:.2f} s")
+    out["phase_s"] = time.perf_counter() - phase_t0
     return out
 
 
@@ -5177,6 +5335,13 @@ def main() -> int:
     if counts()["tie_scan"] != 2 or any(v for k, v in counts().items() if k != "tie_scan"):
         raise AssertionError(f"phase 4o: the two AUROC computes launch tie_scan once each and nothing else: {counts()}")
 
+    # ---- 4p. the analysis passes (before 4o's failover leg and phase 6) --------
+    zero_counts()
+    analysis_timings = _analysis_phase(torch, dev, card)
+    if any(counts().values()):
+        raise AssertionError(f"phase 4p launched a scan kernel (its template metric is MSE): {counts()}")
+    print(f"4p. {analysis_timings['phase_s']:.1f} s")
+
     # ---- 5. times ---------------------------------------------------------
     all_preds = torch.cat(list(collection["AUROC"].preds))
     all_rel = (torch.cat(list(collection["AUROC"].target)) == 1).to(torch.float32)
@@ -5361,6 +5526,7 @@ def main() -> int:
         "reliability": rel_timings,
         "serving": srv_timings,
         "exporter": exp_timings,
+        "analysis": analysis_timings,
         "card": card,
     }
     print(json.dumps({"timings": timings}))

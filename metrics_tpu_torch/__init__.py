@@ -101,6 +101,7 @@ from metrics_tpu_torch import observability  # noqa: F401
 from metrics_tpu_torch import reliability  # noqa: F401
 from metrics_tpu_torch import serving  # noqa: F401
 from metrics_tpu_torch import fleet  # noqa: F401
+from metrics_tpu_torch import analysis  # noqa: F401
 from metrics_tpu_torch.wrappers import BootStrapper  # noqa: F401
 from metrics_tpu_torch.functional.regression import (  # noqa: F401
     explained_variance,

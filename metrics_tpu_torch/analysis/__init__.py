@@ -1,0 +1,70 @@
+"""Static analysis for the port: catch the bad program before it
+dispatches, not after it corrupts an epoch.
+
+Port of ``metrics_tpu/analysis/``, its host-side passes first. One rule
+namespace (:mod:`metrics_tpu_torch.analysis.rules`, the JAX package's
+catalog, MTA001–MTA014 and MTL101–MTL107):
+
+* **Pass 2 — repo-invariant lint** (:mod:`metrics_tpu_torch.analysis.lint`):
+  AST checks over the ``metrics_tpu_torch`` source tree — host reads in a
+  path a CUDA graph captures (MTL101), graph capture or ``torch.compile``
+  outside ``engine.py`` (MTL102), step-rate warnings that bypass
+  ``warn_once`` (MTL103), array states registered without a
+  ``dist_reduce_fx`` (MTL104), stale suppressions (MTL105), and the legs
+  of passes 4 and 6 below (MTL106, MTL107).
+* **Pass 4 — concurrency soundness, its host legs**
+  (:mod:`metrics_tpu_torch.analysis.concurrency`): the thread-shared-state
+  lint (MTL106) with its thread-shared model, and the double-buffer
+  admission checks ``AsyncServingEngine`` runs (MTA009's AST and tensor
+  legs).
+* **Pass 6 — fleet-protocol model checking**
+  (:mod:`metrics_tpu_torch.analysis.protocol`): a deterministic explorer
+  drives the port's REAL migration/lease/replication/failover code over
+  small on-disk fleets whose cohorts live on the card (or the CPU, when
+  asked), enumerating every phase-boundary kill, double kill, partition,
+  and recovery permutation (MTA013), a stale-epoch owner's writes against
+  failover promotion (MTA014), and the MTL107 durability lint leg — gated
+  against the committed tighten-only ``PROTOCOL_BASELINE.json``.
+
+The program audit's registry (:mod:`metrics_tpu_torch.analysis.program`)
+resolves the watchdog's cross-link. The passes that audit step programs
+(the program audit, distributed equivalence, the host-seam and
+double-buffer provers, numerics, the sanitizer) are not ported yet.
+
+Suppress a rule at a site with ``# metrics-tpu: allow(<RULE-ID>)``
+(stale allows are themselves flagged, MTL105).
+"""
+from metrics_tpu_torch.analysis.rules import RULES, Finding, Rule  # noqa: F401
+from metrics_tpu_torch.analysis.program import hint_for_watch_key  # noqa: F401
+from metrics_tpu_torch.analysis.concurrency import (  # noqa: F401
+    register_threadsan_target,
+    thread_shared_model,
+)
+from metrics_tpu_torch.analysis.lint import lint_file, lint_paths  # noqa: F401
+from metrics_tpu_torch.analysis.protocol import (  # noqa: F401
+    check_protocol,
+    counterexample_report,
+    durability_findings,
+    explore_crash_consistency,
+    explore_fencing,
+    load_protocol_baseline,
+    tighten_protocol_baseline,
+)
+
+__all__ = [
+    "Finding",
+    "Rule",
+    "RULES",
+    "check_protocol",
+    "counterexample_report",
+    "durability_findings",
+    "explore_crash_consistency",
+    "explore_fencing",
+    "hint_for_watch_key",
+    "lint_file",
+    "lint_paths",
+    "load_protocol_baseline",
+    "register_threadsan_target",
+    "thread_shared_model",
+    "tighten_protocol_baseline",
+]

@@ -83,6 +83,8 @@ def _confmat_fast_update(
             threshold=threshold, num_classes=None, is_multiclass=None, top_k=None, extra=max_label,
         )
         if probe is not None and not multilabel:
+            # metrics-tpu: allow(MTL101) — the probe is host floats, read once
+            # under _fast_path_validate's _is_concrete guard (None otherwise)
             _check_max_label(int(probe.extra), num_classes)
         return _confmat_count(pred_labels, t, num_classes, multilabel)
 

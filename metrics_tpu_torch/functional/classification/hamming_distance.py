@@ -32,7 +32,7 @@ def _hamming_label_count(preds: torch.Tensor, target: torch.Tensor, threshold: f
     return torch.sum(preds != target)
 
 
-def _hamming_fast_update(preds, target, threshold) -> Optional[Tuple[torch.Tensor, int]]:
+def _hamming_fast_update(preds, target, threshold: float) -> Optional[Tuple[torch.Tensor, int]]:
     """The label-space path for the common cases; None = take the canonical
     path. Validation parity through the canonical checks on one probe."""
     shapes = _fast_path_inputs(preds, target)
@@ -66,7 +66,10 @@ def _hamming_fast_update(preds, target, threshold) -> Optional[Tuple[torch.Tenso
                 n_cells *= d
             return count, n_cells
         if label_pairs:
-            # the canonical one-hot width is the data maximum's (at least 2)
+            # the canonical one-hot width is the data maximum's (at least 2);
+            # metrics-tpu: allow(MTL101) — the probe is host floats, read once
+            # under _fast_path_validate's _is_concrete guard (label pairs
+            # return above unless concrete)
             width = max(2, int(max(probe.preds_max, probe.target_max)) + 1)
         else:
             width = implied_classes

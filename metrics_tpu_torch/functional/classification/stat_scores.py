@@ -240,7 +240,7 @@ def _stat_scores_label_count(
 
 
 def _stat_scores_fast_update(
-    preds, target, reduce, mdmc_reduce, num_classes, top_k, threshold, is_multiclass, ignore_index
+    preds, target, reduce, mdmc_reduce, num_classes, top_k, threshold: float, is_multiclass, ignore_index
 ):
     """The label-space path for the common cases; None = take the canonical path.
 

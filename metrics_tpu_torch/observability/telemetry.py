@@ -635,8 +635,10 @@ def _dump_at_exit() -> None:
         atomic_write_json(path, _telemetry.snapshot())
     except Exception:  # noqa: BLE001 — interpreter is exiting; best-effort
         try:
-            # last resort when the atomic path itself failed at interpreter
-            # exit: a possibly-torn dump beats no dump
+            # metrics-tpu: allow(MTL107) — deliberate last-resort fallback
+            # when the atomic path itself failed at interpreter exit: a
+            # possibly-torn dump beats no dump, and readers already treat
+            # this file as best-effort (parse failures are tolerated)
             with open(path, "w") as f:
                 f.write(_telemetry.to_json(indent=1))
         except OSError:

@@ -35,9 +35,9 @@ _MAX_KEYS = 256
 
 
 def _analysis_hint(key: str) -> Optional[str]:
-    """Best-effort attribution from the static analyzer's last audit. The
-    port's analyzer (``metrics_tpu_torch.analysis``) is not ported yet, so
-    this returns None until it is; the import is lazy and never raises, so
+    """Best-effort attribution from the static analyzer's last audit
+    (``metrics_tpu_torch.analysis.program``'s registry, which the protocol
+    explorers fill today). The import is lazy and never raises, so
     observability stays importable before analysis and a watchdog warning
     never crashes on the cross-link."""
     try:

@@ -65,7 +65,13 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
         if proc.returncode != 0:
             failures.append(f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n{output}")
             continue
-        # atomic publish: a concurrent builder of the same hash writes the same bytes
+        # atomic publish: the bytes reach the disk before the name does, and a
+        # concurrent builder of the same hash writes the same bytes
+        fd = os.open(tmp, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+        finally:
+            os.close(fd)
         os.replace(tmp, todo[name])
     if failures:
         raise RuntimeError("\n".join(failures))

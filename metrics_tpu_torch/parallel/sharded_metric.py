@@ -49,7 +49,11 @@ class ShardedStreamsMixin:
         self._n_seen = 0  # this rank's fill, on the host
         for name, (dtype, suffix) in stream_specs.items():
             zeros = torch.zeros((capacity_per_device, *suffix), dtype=dtype, device=self.device)
+            # metrics-tpu: allow(MTL104) — per-rank stream: it merges in
+            # _gather_streams (masked_cat_sync over the process group),
+            # never through the gather path a dist_reduce_fx describes
             self.add_state(name, default=zeros, dist_reduce_fx=None)
+        # metrics-tpu: allow(MTL104) — same merge as the streams
         self.add_state("counts", default=torch.zeros(self.world, dtype=torch.int32, device=self.device))
 
     def _append_streams(self, *tensors: torch.Tensor) -> None:

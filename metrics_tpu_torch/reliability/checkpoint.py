@@ -350,6 +350,9 @@ def atomic_file(path: Any) -> Iterator[Any]:
     file is removed and ``path`` is untouched."""
     path = os.fspath(path)
     tmp = path + ".tmp"
+    # metrics-tpu: allow(MTL107) — this IS the atomic primitive MTL107
+    # steers writers toward: the raw open targets the .tmp sidecar, and
+    # the fsync + os.replace below are the discipline itself
     f = open(tmp, "wb")
     try:
         yield f

@@ -595,6 +595,9 @@ def preempt_at_step(session: Any, step: int, during: str = "step") -> Iterator[D
             # <generation>.npz.tmp, target path and manifest untouched
             records = bg._journal.records()
             nxt = (int(records[-1]["generation"]) + 1) if records else 1
+            # metrics-tpu: allow(MTL107) — the torn write is the POINT:
+            # this injector manufactures the exact carcass a non-atomic
+            # writer leaves, so recovery tests can prove it is ignored
             with open(bg._journal._gen_path(nxt) + ".tmp", "wb") as f:
                 f.write(b"PK\x03\x04torn-mid-write")
             info["torn_writes"] += 1

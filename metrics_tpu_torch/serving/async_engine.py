@@ -18,7 +18,7 @@ the blocking path (``strict=True`` raises :class:`ServingAdmissionError`).
 The JAX package then traces a two-generation program at the first batch;
 the port, which has no trace and donates nothing, runs the first batch on
 the caller thread and checks the real tensors it installed
-(``_admission.first_dispatch_hazards``).
+(``analysis.concurrency.first_dispatch_hazards``).
 
 What CUDA needs that JAX's asynchronous dispatch gave for free:
 
@@ -68,7 +68,6 @@ from metrics_tpu_torch.metric import Metric
 from metrics_tpu_torch.observability import flight as _flight
 from metrics_tpu_torch.observability import telemetry as _obs
 from metrics_tpu_torch.observability import trace as _trace
-from metrics_tpu_torch.serving import _admission
 from metrics_tpu_torch.utilities.prints import warn_once
 
 __all__ = ["AsyncServingEngine", "ServingAdmissionError"]
@@ -93,6 +92,7 @@ def _members(target: Any) -> Dict[str, Metric]:
 def _admission_refusal(target: Any) -> Optional[str]:
     """Why ``target`` cannot serve asynchronously, or None when the checks
     made at enrollment all pass."""
+    from metrics_tpu_torch.analysis import concurrency as _conc
     from metrics_tpu_torch.cohort import MetricCohort
 
     if not isinstance(target, (MetricCohort, MetricCollection, Metric)):
@@ -104,7 +104,7 @@ def _admission_refusal(target: Any) -> Optional[str]:
         reason = CompiledStepEngine._static_ineligibility(m)
         if reason is not None:
             return f"member {name!r} is not engine-eligible: {reason}"
-        hazards = _admission._host_reference_hazards(type(m), set(m._defaults))
+        hazards = _conc._host_reference_hazards(type(m), set(m._defaults))
         if hazards:
             flavor, method, attr, lineno = hazards[0]
             return (
@@ -112,7 +112,7 @@ def _admission_refusal(target: Any) -> Optional[str]:
                 f" ({flavor}: {type(m).__name__}.{method} line {lineno},"
                 f" attr {attr!r}): two generations would share a held tensor"
             )
-    if not _admission.writeback_generation_monotonic():
+    if not _conc.writeback_generation_monotonic():
         return (
             "the engine's state read and write-back do not run inside one"
             " lock extent (MTA009): generations could install out of order"
@@ -254,22 +254,24 @@ class AsyncServingEngine:
         """The check on the real tensors the first batch installed (module
         docstring): a refusal moves the target to the blocking path while
         no batch is queued."""
+        from metrics_tpu_torch.analysis import concurrency as _conc
+
         try:
             owned, defaults, states = set(), set(), []
             if self._is_cohort:
-                owned = _admission.engine_owned(self._target._engine)
+                owned = _conc.engine_owned(self._target._engine)
                 for name, d in self._target._states.items():
                     states.extend((f"{name}.{s}", v) for s, v in d.items())
             else:
                 engine = self._resolve_engine()
                 if engine is not None:
-                    owned = _admission.engine_owned(engine)
+                    owned = _conc.engine_owned(engine)
                 for name, m in _members(self._target).items():
                     states.extend((f"{name}.{s}", getattr(m, s)) for s in m._defaults)
             for m in _members(self._target).values():
-                defaults |= {_admission._storage(d) for d in _admission.tensor_leaves(list(m._defaults.values()))}
+                defaults |= {_conc._storage(d) for d in _conc.tensor_leaves(list(m._defaults.values()))}
             defaults.discard(None)
-            hazards = _admission.first_dispatch_hazards(states, owned, defaults, values)
+            hazards = _conc.first_dispatch_hazards(states, owned, defaults, values)
         except Exception as err:  # noqa: BLE001 - what cannot be checked is refused
             hazards = [{"kind": "uncheckable", "error": f"{type(err).__name__}: {err}"}]
         if hazards:
@@ -331,8 +333,10 @@ class AsyncServingEngine:
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(dev))
             if not inline:
+                from metrics_tpu_torch.analysis.concurrency import tensor_leaves
+
                 stream = self._worker_stream()
-                for t in _admission.tensor_leaves((args, kwargs)):
+                for t in tensor_leaves((args, kwargs)):
                     if t.is_cuda:
                         t.record_stream(stream)
         t_stage_ns = time.perf_counter_ns()
@@ -410,11 +414,13 @@ class AsyncServingEngine:
 
     def _live_tensors(self) -> List[torch.Tensor]:
         """The target's tensors a step reads and then replaces."""
+        from metrics_tpu_torch.analysis import concurrency as _conc
+
         if self._is_cohort:
             c = self._target
-            return list(_admission.tensor_leaves((c._states, c._health, c._membership_tensors)))
+            return list(_conc.tensor_leaves((c._states, c._health, c._membership_tensors)))
         members = _members(self._target).values()
-        return list(_admission.tensor_leaves([[getattr(m, s) for s in m._defaults] for m in members]))
+        return list(_conc.tensor_leaves([[getattr(m, s) for s in m._defaults] for m in members]))
 
     def _serve(self, job: tuple) -> tuple:
         """Run one staged job on this thread and current stream: the

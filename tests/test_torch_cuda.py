@@ -45,8 +45,11 @@ shards that replicate, migrate and fail over with every state on the card
 after adoption, promotion and ``restore()``; tenant envelope bytes through
 ``stream`` as a CUDA ``uint8`` tensor; a handoff from a served shard
 while the serving worker's step is still queued, carrying the drained
-state). Counts read off a ``torch.profiler`` trace read a trace that a
-second trace of the same call agrees with (``_steady_profile``).
+state); and the fleet-protocol explorers with every shard's cohort on the
+card (coverage equal to the CPU run's and the committed baseline's, the
+fleet fixtures tripping exactly their rules with the CPU's minimal
+counterexample). Counts read off a ``torch.profiler`` trace read a trace
+that a second trace of the same call agrees with (``_steady_profile``).
 
 Every test here is marked ``cuda`` and skips without a card. This file
 imports neither JAX nor the JAX package, so it also runs on a machine that
@@ -2177,3 +2180,74 @@ def test_fleet_migrate_behind_a_queued_serving_step_holds_the_drained_state_on_t
     assert restored.restore() and _on_card([restored])
     got = _fleet_states([restored], keys[1:])
     assert all(torch.equal(got[k], want[k]) for k in got)
+
+
+# ---------------------------------------------------------------------------
+# the fleet-protocol explorers with every shard's cohort on the card
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def _reopened_on(device_type):
+    """Count the shards the explorers rebuild and check each one's cohort
+    lies on ``device_type``."""
+    from metrics_tpu_torch.analysis import protocol
+
+    real, seen = protocol._reopen, {"shards": 0, "off": 0}
+
+    def reopen(*args, **kwargs):
+        shards = real(*args, **kwargs)
+        for sh in shards.values():
+            seen["shards"] += 1
+            seen["off"] += sum(v.device.type != device_type for d in sh.cohort._states.values() for v in d.values())
+        return shards
+
+    protocol._reopen = reopen
+    try:
+        yield seen
+    finally:
+        protocol._reopen = real
+
+
+def test_protocol_explorers_on_the_card_equal_the_cpu_coverage(cuda_device):
+    from metrics_tpu_torch.analysis.protocol import (
+        build_protocol_entry,
+        explore_crash_consistency,
+        explore_fencing,
+        load_protocol_baseline,
+    )
+
+    with _reopened_on("cuda") as seen:
+        crash, crash_findings = explore_crash_consistency(device="cuda")
+        fence, fence_findings = explore_fencing(device="cuda")
+    assert crash_findings == [] and fence_findings == []
+    assert seen["shards"] > 0 and seen["off"] == 0
+    cpu_crash, _ = explore_crash_consistency(device="cpu")
+    cpu_fence, _ = explore_fencing(device="cpu")
+    entries = load_protocol_baseline()["entries"]
+    for card, cpu, name in ((crash, cpu_crash, "crash_consistency"), (fence, cpu_fence, "fencing")):
+        assert build_protocol_entry(card) == build_protocol_entry(cpu) == entries[name]
+    assert crash["crash_points"] == cpu_crash["crash_points"]
+
+
+def test_protocol_fixtures_on_the_card_trip_exactly_their_rules(cuda_device):
+    from metrics_tpu_torch.analysis import fixtures as fx
+    from metrics_tpu_torch.analysis.program import hint_for_watch_key
+    from metrics_tpu_torch.analysis.protocol import (
+        counterexample_report,
+        explore_crash_consistency,
+        explore_fencing,
+        load_protocol_baseline,
+    )
+
+    entries = load_protocol_baseline()["entries"]
+    runs = {
+        "GcBeforeDurableCoordinator": lambda device: explore_crash_consistency(
+            coordinator_cls=fx.GcBeforeDurableCoordinator, device=device),
+        "UnfencedCheckpointShard": lambda device: explore_fencing(shard_cls=fx.UnfencedCheckpointShard, device=device),
+    }
+    for name, run in runs.items():
+        _, cpu = run("cpu")
+        _, card = run("cuda")
+        assert {f.rule for f in card} == {entries[name]["expected_rule"]}
+        assert len(card) == len(cpu) >= entries[name]["min_violations"]
+        assert counterexample_report(card).split("\n[1]")[0] == counterexample_report(cpu).split("\n[1]")[0]
+        assert entries[name]["expected_rule"] in hint_for_watch_key(name)

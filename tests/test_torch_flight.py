@@ -192,7 +192,8 @@ def test_watchdog_retrace_dumps_once_with_analysis_hint(tmp_path):
     assert dump["reason"] == "watchdog_retrace"
     assert dump["context"]["key"] == "engine[drill]"
     assert "recompiled a previously compiled signature" in dump["context"]["verdict"]
-    # the analyzer's hint: None until the port's analysis/ lands, present
+    # the analyzer's hint rides along: None, since no audit has named a
+    # class "drill" (analysis/program.py's registry resolves class names)
     assert "hint" in dump and dump["hint"] is None
     assert sum(e["kind"] == "watchdog_retrace" for e in rec.events) == 2
 

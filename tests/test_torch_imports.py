@@ -78,12 +78,42 @@ JAX_INITS = {
     "metrics_tpu_torch.reliability": REPO / "metrics_tpu" / "reliability" / "__init__.py",
     "metrics_tpu_torch.serving": REPO / "metrics_tpu" / "serving" / "__init__.py",
     "metrics_tpu_torch.fleet": REPO / "metrics_tpu" / "fleet" / "__init__.py",
+    "metrics_tpu_torch.analysis": REPO / "metrics_tpu" / "analysis" / "__init__.py",
 }
 
 # names JAX exports that the port does not have yet, by the part of the
 # JAX package whose port brings them
 NOT_YET_PORTED = {
-    "analysis": "analysis/",
+    # analysis/program.py: the audit of each family's step program
+    "AuditResult": "analysis/program.py",
+    "audit_collection": "analysis/program.py",
+    "audit_metric": "analysis/program.py",
+    "audit_registry": "analysis/program.py",
+    "iter_eqns": "analysis/program.py",
+    # analysis/distributed.py
+    "check_donation_lifetime": "analysis/distributed.py",
+    "check_lifecycle": "analysis/distributed.py",
+    "check_replica_equivalence": "analysis/distributed.py",
+    "fingerprint_jaxpr": "analysis/distributed.py",
+    # analysis/concurrency.py: the host-seam and double-buffer legs
+    "check_double_buffer": "analysis/concurrency.py (double-buffer leg)",
+    "check_host_seam": "analysis/concurrency.py (host-seam leg)",
+    "host_seam_budget": "analysis/concurrency.py (host-seam leg)",
+    "host_seam_sites": "analysis/concurrency.py (host-seam leg)",
+    "load_seam_baseline": "analysis/concurrency.py (host-seam leg)",
+    # analysis/numerics.py
+    "check_numerics": "analysis/numerics.py",
+    "equivariance_verdict": "analysis/numerics.py",
+    "eval_jaxpr_intervals": "analysis/numerics.py",
+    "load_numerics_baseline": "analysis/numerics.py",
+    "measure_error_budget": "analysis/numerics.py",
+    "state_horizons": "analysis/numerics.py",
+    # analysis/sanitizer.py
+    "MetricSan": "analysis/sanitizer.py",
+    "MetricSanError": "analysis/sanitizer.py",
+    "disable_san": "analysis/sanitizer.py",
+    "enable_san": "analysis/sanitizer.py",
+    "san_scope": "analysis/sanitizer.py",
     # not ported by design: the JAX package's numpy twin of its SPMD sample
     # sort for CPU meshes, where XLA's co-sort is slow; the port's
     # sample_sort_auroc_ap runs on any device

@@ -6,7 +6,7 @@ Every case of ``tests/bases/test_serving.py`` is mirrored but two: the
 of ``observability/``, not ported): its ``healthz_payload()`` part is held
 directly. With them, the two admission cases of
 ``tests/analysis/test_serving_concurrency.py``, run against the port's own
-``serving/_admission.py`` with test-only twins of the JAX package's
+admission checks (``analysis/concurrency.py``) with test-only twins of the JAX package's
 ``DoubleBufferAliaser`` and ``HostReadOfDonated``
 (``metrics_tpu/analysis/fixtures.py``), and parity scenarios that run both
 packages on the same seeded numpy batches: values, admission verdicts,
@@ -45,7 +45,7 @@ from metrics_tpu_torch.serving import (
     ServingAdmissionError,
     ServingSLO,
 )
-from metrics_tpu_torch.serving import _admission
+from metrics_tpu_torch.analysis import concurrency as _admission
 
 CPU = "cpu"
 WAIT_S = 30.0
