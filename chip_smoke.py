@@ -328,6 +328,25 @@ that is unset. Phases (any failure exits non-zero before the result line):
    counterexample; (c) ``hint_for_watch_key`` naming each fixture's rule;
    (d) ``lint_paths()`` over the package this run imports, under this
    machine's Python: no unsuppressed finding;
+4q. the program audit and the distributed-equivalence pass
+   (``analysis/program.py``, ``analysis/distributed.py``), after 4p: (a)
+   ``audit_registry`` over the 29 families with their ``@cohort``,
+   ``@int8`` and ``@bf16`` variants, metrics and inputs on the card, then
+   the 29 base families on the CPU in the same process (cut from all 89
+   after a whole smoke took 422.5 s; ``tests/test_torch_cuda.py`` compares
+   all 89): no unsuppressed finding, and every base family with the same
+   eligibility, findings, suppressions, MTA005 replica counts and
+   bit-identity verdicts, and fingerprints (a log1p family that needs the
+   8-ulp allowance on the card only is printed); the MTA006
+   purity probe's ``compute()`` of ``AUROC`` and ``AveragePrecision``
+   launches ``tie_scan`` once each; (b) the 15 metric fixtures trip exactly
+   their rules on the card, as on the CPU; (c) ``abstract_step`` and
+   ``abstract_cohort_step`` of ``MeanSquaredError``, ``Precision`` and
+   ``BinnedAUROC`` on the card: 0 bytes allocated by each (at its end and
+   at its peak, garbage collected before and no collection inside), no
+   signature built, 0 kernels and 0 copies (an agreed trace of all six beside one
+   marker kernel holds the marker alone); (d) ``hint_for_watch_key`` names MTA001
+   for ``NarrowAccumulator``'s engine key;
 5. times on the card (CUDA events over launches queued behind a device
    sleep, so host overhead does not show, or the host clock ending in a
    synchronize for whole steps): the one-stream kernel, its plain version
@@ -1724,10 +1743,16 @@ def _is_copy(name: str) -> bool:
     return name.lower().startswith(("memcpy", "memset"))
 
 
-def _device_ops(torch, fn):
+def _device_ops(torch, fn, shows=None):
     """(kernels, copies and fills) the device runs for ``fn()``, counted in
-    an agreed ``torch.profiler`` trace (``fn`` runs two to eight times)."""
-    prof = _steady_profile(torch, fn)
+    an agreed ``torch.profiler`` trace (``fn`` runs two to eight times) that
+    shows a kernel whose name contains ``shows``, where given."""
+    return _ops_in(torch, _steady_profile(torch, fn, shows))
+
+
+def _ops_in(torch, prof):
+    """(kernels, copies and fills) of a ``torch.profiler`` trace, the
+    ranges' own records left out."""
     ops = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith(RANGE_PREFIXES)]
     copies = sum(e.count for e in ops if _is_copy(e.key))
@@ -4496,6 +4521,191 @@ def _analysis_phase(torch, dev, card):
     return out
 
 
+#: the metric fixtures of the program audit and the rule each trips alone
+AUDIT_FIXTURE_RULES = {
+    "NarrowAccumulator": "MTA001", "SuppressedNarrowAccumulator": "MTA001", "CallbackInJit": "MTA002",
+    "HostSyncUpdate": "MTA002", "DonatedAlias": "MTA003", "NonCommutativeMerge": "MTA004",
+    "MeanWithoutCount": "MTA004", "UnscaledInt8Psum": "MTA004", "ReplicaDependentCount": "MTA005",
+    "NonIdentityReset": "MTA006", "ComputeMutatesState": "MTA006", "OrphanResidual": "MTA006",
+    "UntouchedStatePassthrough": "MTA007", "UnownedLoader": "MTA007", "StaleSuppression": "MTL105",
+}
+#: families whose exact tier sums log1p terms: the audit's 8-ulp allowance
+AUDIT_ULP_FAMILIES = ("MeanSquaredLogError",)
+
+
+def _audit_verdicts(report):
+    """Per family of an ``audit_registry`` report: eligibility, findings,
+    suppressions, MTA005 replica counts and bit-identity verdicts (flat and
+    two-level), and fingerprints."""
+    def rules(entry, bucket):
+        return sorted((f["rule"], f["subject"]) for f in entry[bucket])
+
+    verdicts = {}
+    for fam, entry in report["families"].items():
+        ev = entry["distributed"]
+        bits = None if ev is None else (ev["bit_identical"], (ev.get("topology") or {}).get("bit_identical"))
+        verdicts[fam] = {
+            "eligible": entry["engine_eligible"], "findings": rules(entry, "findings"),
+            "suppressed": rules(entry, "suppressed"), "replicas": None if ev is None else ev["replicas"],
+            "bits": bits, "fingerprints": report.get("fingerprints", {}).get(fam),
+        }
+    return verdicts
+
+
+def _program_audit_phase(torch, dev, card):
+    """Phase 4q: the program audit and the distributed-equivalence pass
+    (``analysis/program.py``, ``analysis/distributed.py``) on ``dev``.
+    (a) ``audit_registry`` over the 29 families and their cohort, int8 and
+    bf16 variants, metrics and inputs on the card, then the 29 base
+    families on the CPU in this process: no unsuppressed finding, and per
+    base family the same eligibility, findings, suppressions, MTA005
+    verdicts and fingerprints; (b) the 15
+    metric fixtures on the card trip exactly their rules, as on the CPU;
+    (c) ``abstract_step`` and ``abstract_cohort_step`` of three families on
+    the card launch no kernel and no copy, allocate nothing and build
+    nothing; (d) the watchdog's hint names MTA001 for
+    ``NarrowAccumulator``'s engine key. Returns its timings."""
+    import gc
+
+    from metrics_tpu_torch import BinnedAUROC, MeanSquaredError, Precision
+    from metrics_tpu_torch.analysis import audit_metric, audit_registry, hint_for_watch_key
+    from metrics_tpu_torch.analysis import fixtures as fx
+    from metrics_tpu_torch.engine import CompiledStepEngine
+
+    out = {}
+    phase_t0 = time.perf_counter()
+
+    # a. the registry on the card, then on the CPU
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # config-edge warnings from the factories
+        t0 = time.perf_counter()
+        report = audit_registry(device=dev.type, quantized=True, cohort=True, fingerprints=True)
+        out["registry_card_s"] = time.perf_counter() - t0
+        # the CPU twin audits the base families only: a whole smoke took
+        # 422.5 s with the full twin on a slow host (the aim is < 400 s);
+        # tests/test_torch_cuda.py compares all 89 families
+        t0 = time.perf_counter()
+        cpu_report = audit_registry(device="cpu", quantized=False, cohort=False, fingerprints=True)
+        out["registry_cpu_s"] = time.perf_counter() - t0
+    summary = report["summary"]
+    live = [f"{fam}: {f['rule']} {f['subject']}" for fam, e in report["families"].items() for f in e["findings"]]
+    if summary["findings"] or live:
+        raise AssertionError(f"4q a. the registry audit on the card found {live}")
+    kinds = {}
+    for fam in report["families"]:
+        kind = fam.split("@")[1] if "@" in fam else "base"
+        kinds[kind] = kinds.get(kind, 0) + 1
+    card_v = {fam: v for fam, v in _audit_verdicts(report).items() if "@" not in fam}
+    cpu_v = _audit_verdicts(cpu_report)
+    if sorted(card_v) != sorted(cpu_v) or cpu_report["summary"]["findings"]:
+        raise AssertionError(f"4q a. families on the card {summary}, on the CPU {cpu_report['summary']}")
+    ulp_only, differ = [], []
+    for fam in card_v:
+        a, b = card_v[fam], cpu_v[fam]
+        if a == b:
+            continue
+        if fam.split("@")[0] in AUDIT_ULP_FAMILIES and {k: v for k, v in a.items() if k != "bits"} == {
+                k: v for k, v in b.items() if k != "bits"}:
+            ev = report["families"][fam]["distributed"]
+            ulp_only.append(f"{fam} card {a['bits']} (max state err {ev['max_state_err']!r},"
+                            f" two-level {(ev.get('topology') or {}).get('max_state_err')!r}) vs CPU {b['bits']}")
+            continue
+        differ.append(f"{fam} on the card {a}, on the CPU {b}")
+    if differ:
+        raise AssertionError("4q a. " + "; ".join(differ))
+    out.update(families=summary["families"], family_kinds=kinds, suppressed=summary["suppressed"],
+               ulp_allowance_on_the_card_only=ulp_only)
+    print(f"4q a. [{card}] audit_registry(device={dev.type!r}) over {summary['families']} families ({kinds}):"
+          f" {summary['findings']} unsuppressed findings, {summary['suppressed']} suppressed,"
+          f" {out['registry_card_s']:.2f} s; the CPU's base families in this process {out['registry_cpu_s']:.2f} s,"
+          f" the same eligibility, findings, suppressions, MTA005 verdicts and fingerprints for all {len(cpu_v)}"
+          + (f"; needing the 8-ulp allowance on the card only: {ulp_only}" if ulp_only else ""))
+
+    # b. the metric fixtures trip exactly their rules
+    t0 = time.perf_counter()
+    x = np.linspace(0.0, 1.0, 8).astype(np.float32)
+    for name, rule in AUDIT_FIXTURE_RULES.items():
+        sets = []
+        for where in ("cpu", dev.type):
+            result = audit_metric(getattr(fx, name)(device=where), (torch.from_numpy(x).to(where),))
+            sets.append({(f.rule, f.subject, f.suppressed) for f in result.findings + result.suppressed})
+        if sets[1] != sets[0] or {r for r, _, _ in sets[1]} != {rule}:
+            raise AssertionError(f"4q b. {name} on the card {sorted(sets[1])}, on the CPU {sorted(sets[0])},"
+                                 f" want {rule} alone")
+    out["fixtures_s"] = time.perf_counter() - t0
+    print(f"4q b. [{card}] the {len(AUDIT_FIXTURE_RULES)} metric fixtures trip exactly their rules on the card,"
+          f" as on the CPU ({out['fixtures_s']:.2f} s with the CPU runs)")
+
+    # c. the abstract steps launch, allocate and build nothing: each traced
+    # once for its bytes and signatures, then all six in one profiled call
+    # beside a marker kernel (a trace without a device record reads as lost)
+    t0 = time.perf_counter()
+    marker = torch.zeros(1, device=dev)
+
+    def bump():
+        marker.add_(1)
+
+    prof = _steady_profile(torch, bump)
+    marker_name = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA][0]
+    alone = _ops_in(torch, prof)
+    rng = np.random.RandomState(0x7B0)
+    probs = rng.rand(32, 4).astype(np.float32)
+    probs /= probs.sum(1, keepdims=True)
+    mc = (torch.from_numpy(probs).to(dev), torch.from_numpy(rng.randint(4, size=32)).to(dev))
+    binary = (mc[0][:, 1].contiguous(), torch.from_numpy(rng.randint(2, size=32)).to(dev))
+    reg = (torch.from_numpy(rng.rand(32).astype(np.float32)).to(dev),) * 2
+    traced, traces, engines = {}, [], []
+    for metric, args in ((MeanSquaredError(device=dev), reg),
+                         (Precision(num_classes=4, average="macro", device=dev), mc),
+                         (BinnedAUROC(num_bins=16, device=dev), binary)):
+        engine = CompiledStepEngine(metric)
+        engines.append(engine)
+        name = type(metric).__name__
+        for kind, trace in (("step", lambda e=engine, a=args: e.abstract_step(*a)),
+                            ("cohort_step", lambda e=engine, a=args: e.abstract_cohort_step(*a, capacity=4))):
+            # earlier phases' garbage is freed first, and no collection runs
+            # inside the trace: a free of it would read as a change
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            gc.disable()
+            try:
+                t1 = time.perf_counter()
+                graph, shapes, _ = trace()
+                ms = (time.perf_counter() - t1) * 1e3
+            finally:
+                gc.enable()
+            allocated = torch.cuda.memory_allocated() - before
+            peak = torch.cuda.max_memory_allocated() - before
+            devices = {v.device.type for v in shapes[0]["metric"].values()}
+            if allocated or peak or devices != {"cuda"}:
+                raise AssertionError(f"4q c. {name}.abstract_{kind}: {allocated} bytes allocated ({peak} at the peak),"
+                                     f" states on {devices}")
+            traced[f"{name}.{kind}"] = {"ms": ms, "nodes": len(graph.graph.nodes)}
+            traces.append(trace)
+    ops = _device_ops(torch, lambda: (bump(), [trace() for trace in traces]), shows=marker_name)
+    built = [e.cache_info() for e in engines if e.cache_info()["compiled_signatures"] or e.trace_count]
+    if ops != alone or built:
+        raise AssertionError(f"4q c. the six abstract steps beside the marker ran (kernels, copies) {ops}, the marker"
+                             f" alone {alone}; engines that built: {built}")
+    out["abstract"] = traced
+    out["abstract_s"] = time.perf_counter() - t0
+    print(f"4q c. [{card}] abstract_step and abstract_cohort_step of MeanSquaredError, Precision and BinnedAUROC"
+          " on the card: 0 kernels and 0 copies (an agreed trace of all six beside one marker kernel holds the"
+          " marker alone), 0 bytes allocated at the end and at the peak, no signature built; ms a trace "
+          + ", ".join(f"{k} {v['ms']:.1f}" for k, v in traced.items()) + f" ({out['abstract_s']:.2f} s)")
+
+    # d. the watchdog's cross-link
+    key = CompiledStepEngine(fx.NarrowAccumulator(device=dev))._watch_key
+    hint = hint_for_watch_key(key)
+    if hint is None or "MTA001" not in hint:
+        raise AssertionError(f"4q d. the hint for {key}: {hint!r}")
+    print(f"4q d. the watchdog's hint for {key}: {hint}")
+    out["phase_s"] = time.perf_counter() - phase_t0
+    return out
+
+
 def main() -> int:
     card_index = _pin_one_card()
     import torch
@@ -5341,6 +5551,16 @@ def main() -> int:
     if any(counts().values()):
         raise AssertionError(f"phase 4p launched a scan kernel (its template metric is MSE): {counts()}")
     print(f"4p. {analysis_timings['phase_s']:.1f} s")
+
+    # ---- 4q. the program audit (before 4o's failover leg and phase 5) ----------
+    zero_counts()
+    audit_timings = _program_audit_phase(torch, dev, card)
+    # the MTA006 purity probe computes the registry's AUROC and AveragePrecision once each
+    if counts()["tie_scan"] != 2 or any(v for k, v in counts().items() if k != "tie_scan"):
+        raise AssertionError(f"phase 4q: the AUROC and AP computes launch tie_scan once each and nothing else:"
+                             f" {counts()}")
+    print(f"4q. {audit_timings['phase_s']:.1f} s")
+    print(json.dumps({"timings": {"program_audit": audit_timings}}))
 
     # ---- 5. times ---------------------------------------------------------
     all_preds = torch.cat(list(collection["AUROC"].preds))

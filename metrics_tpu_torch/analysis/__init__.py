@@ -1,10 +1,19 @@
 """Static analysis for the port: catch the bad program before it
 dispatches, not after it corrupts an epoch.
 
-Port of ``metrics_tpu/analysis/``, its host-side passes first. One rule
-namespace (:mod:`metrics_tpu_torch.analysis.rules`, the JAX package's
+Port of ``metrics_tpu/analysis/``. One rule namespace
+(:mod:`metrics_tpu_torch.analysis.rules`, the JAX package's
 catalog, MTA001–MTA014 and MTL101–MTL107):
 
+* **Pass 1 — the program audit** (:mod:`metrics_tpu_torch.analysis.program`):
+  each metric family's ``update`` and the step the engine would build,
+  traced with ``make_fx`` over fake tensors on the metric's device —
+  accumulator dtypes (MTA001), host reads and transfers in a traced
+  program (MTA002), buffers aliased across outputs (MTA003), reduction
+  soundness (MTA004) — over the JAX package's 29 families with their
+  cohort and quantized variants (:func:`audit_registry`, on the card unless
+  the caller asks for the CPU). Its registry resolves the watchdog's
+  cross-link.
 * **Pass 2 — repo-invariant lint** (:mod:`metrics_tpu_torch.analysis.lint`):
   AST checks over the ``metrics_tpu_torch`` source tree — host reads in a
   path a CUDA graph captures (MTL101), graph capture or ``torch.compile``
@@ -12,6 +21,11 @@ catalog, MTA001–MTA014 and MTL101–MTL107):
   ``warn_once`` (MTL103), array states registered without a
   ``dist_reduce_fx`` (MTL104), stale suppressions (MTL105), and the legs
   of passes 4 and 6 below (MTL106, MTL107).
+* **Pass 3 — distributed equivalence and lifecycle**
+  (:mod:`metrics_tpu_torch.analysis.distributed`): R ∈ {1, 2, 4} replicas
+  against one on concrete grid probes (MTA005), reset identity, compute
+  purity and residual coherence (MTA006), buffer lifetime and checkpoint
+  ownership (MTA007), and the program fingerprints.
 * **Pass 4 — concurrency soundness, its host legs**
   (:mod:`metrics_tpu_torch.analysis.concurrency`): the thread-shared-state
   lint (MTL106) with its thread-shared model, and the double-buffer
@@ -26,16 +40,27 @@ catalog, MTA001–MTA014 and MTL101–MTL107):
   failover promotion (MTA014), and the MTL107 durability lint leg — gated
   against the committed tighten-only ``PROTOCOL_BASELINE.json``.
 
-The program audit's registry (:mod:`metrics_tpu_torch.analysis.program`)
-resolves the watchdog's cross-link. The passes that audit step programs
-(the program audit, distributed equivalence, the host-seam and
-double-buffer provers, numerics, the sanitizer) are not ported yet.
+The host-seam and double-buffer provers, numerics and the sanitizer
+(passes 4–5 and MetricSan) are not ported yet.
 
 Suppress a rule at a site with ``# metrics-tpu: allow(<RULE-ID>)``
 (stale allows are themselves flagged, MTL105).
 """
 from metrics_tpu_torch.analysis.rules import RULES, Finding, Rule  # noqa: F401
-from metrics_tpu_torch.analysis.program import hint_for_watch_key  # noqa: F401
+from metrics_tpu_torch.analysis.program import (  # noqa: F401
+    AuditResult,
+    audit_collection,
+    audit_metric,
+    audit_registry,
+    hint_for_watch_key,
+    iter_eqns,
+)
+from metrics_tpu_torch.analysis.distributed import (  # noqa: F401
+    check_donation_lifetime,
+    check_lifecycle,
+    check_replica_equivalence,
+    fingerprint_jaxpr,
+)
 from metrics_tpu_torch.analysis.concurrency import (  # noqa: F401
     register_threadsan_target,
     thread_shared_model,
@@ -52,15 +77,24 @@ from metrics_tpu_torch.analysis.protocol import (  # noqa: F401
 )
 
 __all__ = [
+    "AuditResult",
     "Finding",
     "Rule",
     "RULES",
+    "audit_collection",
+    "audit_metric",
+    "audit_registry",
+    "check_donation_lifetime",
+    "check_lifecycle",
     "check_protocol",
+    "check_replica_equivalence",
     "counterexample_report",
     "durability_findings",
     "explore_crash_consistency",
     "explore_fencing",
+    "fingerprint_jaxpr",
     "hint_for_watch_key",
+    "iter_eqns",
     "lint_file",
     "lint_paths",
     "load_protocol_baseline",

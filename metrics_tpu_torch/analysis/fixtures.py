@@ -1,17 +1,22 @@
-"""Deliberately broken host code: negative tests proving each host-side
-analyzer rule fires.
+"""Deliberately broken code: negative tests proving each analyzer rule
+fires.
 
-Port of the host fixtures of ``metrics_tpu/analysis/fixtures.py``. The
-mirror of :mod:`metrics_tpu_torch.reliability.faultinject` for the static
-analyzer: faultinject injects runtime faults to prove the *dynamic*
-defenses catch them; these fixtures encode defects to prove the *static*
-passes catch them before anything runs. Each fixture is surgical — it
-violates exactly one rule and is otherwise clean, so the tests can pin
-"this fixture trips this rule and nothing else". The fleet fixtures
-subclass the port's own fleet classes and override the hooks those classes
-name for the purpose (``MigrationCoordinator._commit_target``,
-``FleetShard._check_fence``). The metric fixtures of the program-audit
-passes come with those passes.
+Port of ``metrics_tpu/analysis/fixtures.py``: the metric fixtures of the
+program audit (pass 1) and of the distributed-equivalence and lifecycle
+pass (pass 3), and the host fixtures. The mirror of
+:mod:`metrics_tpu_torch.reliability.faultinject` for the static analyzer:
+faultinject injects runtime faults to prove the *dynamic* defenses catch
+them; these fixtures encode defects to prove the *static* passes catch
+them before anything runs. Each fixture is surgical — it violates exactly
+one rule and is otherwise clean, so the tests can pin "this fixture trips
+this rule and nothing else". The fleet fixtures subclass the port's own
+fleet classes and override the hooks those classes name for the purpose
+(``MigrationCoordinator._commit_target``, ``FleetShard._check_fence``). The
+fixtures of the host-seam, double-buffer, numerics and sanitizer passes
+come with those passes.
+
+The metric fixtures take the :class:`~metrics_tpu_torch.Metric` base's
+``device`` (the card by default; ``"cpu"`` on the CPU).
 
 Never export these from the package root; they exist for the analyzer's
 test bed and for documentation of what each rule means in code.
@@ -20,14 +25,329 @@ import json
 import os
 import threading
 
+import torch
+
 from metrics_tpu_torch.fleet import FleetShard, MigrationCoordinator
+from metrics_tpu_torch.metric import Metric
 
 __all__ = [
+    "CallbackInJit",
+    "ComputeMutatesState",
+    "DonatedAlias",
     "GcBeforeDurableCoordinator",
+    "HostSyncUpdate",
+    "MeanWithoutCount",
+    "NarrowAccumulator",
     "NonAtomicManifestWriter",
+    "NonCommutativeMerge",
+    "NonIdentityReset",
+    "OrphanResidual",
+    "ReplicaDependentCount",
+    "StaleSuppression",
+    "SuppressedNarrowAccumulator",
     "UnfencedCheckpointShard",
     "UnlockedSharedCounter",
+    "UnownedLoader",
+    "UnscaledInt8Psum",
+    "UntouchedStatePassthrough",
 ]
+
+
+class NarrowAccumulator(Metric):
+    """MTA001: a float16 accumulator fed float32 batches. One update
+    promotes the state to f32 (signature churn: every later step
+    rebuilds) and the declared accumulator is narrower than its input
+    (precision loss)."""
+
+    _fused_forward = True
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("acc", default=torch.zeros((), dtype=torch.float16), dist_reduce_fx="sum")
+
+    def update(self, x: torch.Tensor) -> None:
+        self.acc = self.acc + torch.sum(x)
+
+    def compute(self) -> torch.Tensor:
+        return self.acc
+
+
+class SuppressedNarrowAccumulator(NarrowAccumulator):
+    """The same defect with the rule suppressed — the suppression-syntax
+    fixture."""
+
+    # metrics-tpu: allow(MTA001) — deliberate: proves class-body
+    # suppression routes findings to the `suppressed` bucket
+
+
+class CallbackInJit(Metric):
+    """MTA002: a host round trip in the update program — ``.cpu()``, numpy,
+    and back to the device. It runs fine eagerly — and would serialize
+    every compiled step on a device→host copy; the fake trace cannot read
+    the value and says so."""
+
+    _fused_forward = True
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("acc", default=torch.zeros(()), dist_reduce_fx="sum")
+
+    def update(self, x: torch.Tensor) -> None:
+        # metrics-tpu: allow(MTL101) — deliberate: the broken fixture
+        total = torch.from_numpy(torch.sum(x).cpu().numpy())
+        self.acc = self.acc + total.to(self.acc.device)
+
+    def compute(self) -> torch.Tensor:
+        return self.acc
+
+
+class HostSyncUpdate(Metric):
+    """MTA002 (concretization flavor): ``float()`` of a tensor in an
+    engine-eligible update. The first compiled step's warm-up raises on the
+    synchronizing read and demotes the metric to eager."""
+
+    _fused_forward = True
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("acc", default=torch.zeros(()), dist_reduce_fx="sum")
+
+    def update(self, x: torch.Tensor) -> None:
+        self.acc = self.acc + float(torch.sum(x))  # metrics-tpu: allow(MTL101)
+
+    def compute(self) -> torch.Tensor:
+        return self.acc
+
+
+class DonatedAlias(Metric):
+    """MTA003: one tensor assigned to two states. The two outputs of the
+    step share one buffer — two live states aliasing the same storage (the
+    JAX package's double donation)."""
+
+    _fused_forward = True
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("sum_a", default=torch.zeros(()), dist_reduce_fx="sum")
+        self.add_state("sum_b", default=torch.zeros(()), dist_reduce_fx="sum")
+
+    def update(self, x: torch.Tensor) -> None:
+        total = torch.sum(x)
+        self.sum_a = total
+        self.sum_b = total  # the alias: the same tensor as sum_a
+
+    def compute(self) -> torch.Tensor:
+        return self.sum_a
+
+
+class NonCommutativeMerge(Metric):
+    """MTA004: a custom ``dist_reduce_fx`` whose fold is order-dependent —
+    every replica layout merges to a different value."""
+
+    @staticmethod
+    def _subtract_reduce(stacked: torch.Tensor) -> torch.Tensor:
+        return stacked[0] - stacked[1:].sum(dim=0)
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("acc", default=torch.zeros(()), dist_reduce_fx=self._subtract_reduce)
+
+    def update(self, x: torch.Tensor) -> None:
+        self.acc = self.acc + torch.sum(x)
+
+    def compute(self) -> torch.Tensor:
+        return self.acc
+
+
+class MeanWithoutCount(Metric):
+    """MTA004 (mean flavor): a 'mean'-reduced state with no paired
+    sum-reduced count — mean-of-means is wrong whenever replicas see
+    different batch counts."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("avg", default=torch.zeros(()), dist_reduce_fx="mean")
+
+    def update(self, x: torch.Tensor) -> None:
+        self.avg = torch.mean(x)
+
+    def compute(self) -> torch.Tensor:
+        return self.avg
+
+
+def _unscaled_int8_psum(stacked: torch.Tensor) -> torch.Tensor:
+    """The quantized-sync anti-pattern: per-rank contributions cast straight
+    to int8 — no block scales — summed, and cast back. Fractional values
+    truncate to 0 and anything past ±127 is lost; the 'compressed' merge
+    destroys the magnitudes it claims to accumulate."""
+    return stacked.to(torch.int8).sum(dim=0).to(torch.float32)
+
+
+# the declaration that holds it to the quantized contract (MTA004 probes
+# magnitude preservation on the dequantized result, not just commutativity)
+_unscaled_int8_psum.quantized_precision = "int8"
+
+
+class UnscaledInt8Psum(Metric):
+    """MTA004 (quantized flavor): an int8 psum WITHOUT block scales. Still
+    commutative — the classic probe alone would pass it — but not
+    magnitude-preserving, which is the property that makes a quantized
+    merge sound."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("acc", default=torch.zeros((8,)), dist_reduce_fx=_unscaled_int8_psum)
+
+    def update(self, x: torch.Tensor) -> None:
+        self.acc = self.acc + torch.reshape(x, self.acc.shape)
+
+    def compute(self) -> torch.Tensor:
+        return torch.sum(self.acc)
+
+
+class ReplicaDependentCount(Metric):
+    """MTA005: a sum-reduced state that counts *update calls*, not data.
+    One replica over the whole batch counts 1; R replicas over shards
+    count R — `compute(reduce(states_1..R)) != compute(update-on-concat)`
+    the moment this runs data-parallel. The classic replica-dependence
+    defect: state encodes the execution topology, not the stream."""
+
+    _fused_forward = True
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("total", default=torch.zeros(()), dist_reduce_fx="sum")
+        self.add_state("batches", default=torch.zeros(()), dist_reduce_fx="sum")
+
+    def update(self, x: torch.Tensor) -> None:
+        self.total = self.total + torch.sum(x)
+        self.batches = self.batches + 1.0  # per-CALL, not per-sample
+
+    def compute(self) -> torch.Tensor:
+        return self.total / torch.clamp(self.batches, min=1.0)
+
+
+class NonIdentityReset(Metric):
+    """MTA006 (reset flavor): a sum-reduced state whose reset value is 1,
+    not the reduction's identity 0. Every sync round folds the phantom 1
+    of each freshly-reset (or idle) replica into the merged state.
+    Deliberately eager-only: with an engine opt-in the same defect would
+    *also* surface as MTA005 replica-inequivalence — which is the point
+    of the reset-identity rule catching it earlier and cheaper."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("acc", default=torch.ones(()), dist_reduce_fx="sum")
+
+    def update(self, x: torch.Tensor) -> None:
+        self.acc = self.acc + torch.sum(x)
+
+    def compute(self) -> torch.Tensor:
+        return self.acc
+
+
+class ComputeMutatesState(Metric):
+    """MTA006 (purity flavor): ``compute`` writes a registered state.
+    After one compute the accumulated count is doubled, so every
+    compute-then-keep-accumulating loop (step-value logging mid-epoch)
+    silently corrupts the epoch state. Caught by the concrete value
+    check."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("total", default=torch.zeros(()), dist_reduce_fx="sum")
+
+    def update(self, x: torch.Tensor) -> None:
+        self.total = self.total + torch.sum(x)
+
+    def compute(self) -> torch.Tensor:
+        self.total = self.total * 2.0  # the mutation
+        return self.total
+
+
+class OrphanResidual(Metric):
+    """MTA006 (residual flavor): a state named like an error-feedback
+    companion (``*__qres``) with no ``sync_precision`` entry pairing it.
+    The residual exemption from every sync/reduction rule only covers
+    REGISTERED companions — an orphan is ordinary state wearing the
+    exemption's name."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("hist", default=torch.zeros((8,)), dist_reduce_fx="sum")
+        self.add_state("hist__qres", default=torch.zeros((8,)), dist_reduce_fx="sum")
+
+    def update(self, x: torch.Tensor) -> None:
+        self.hist = self.hist + torch.reshape(x, self.hist.shape)
+
+    def compute(self) -> torch.Tensor:
+        return torch.sum(self.hist)
+
+
+class UntouchedStatePassthrough(Metric):
+    """MTA007: an engine-eligible metric registering a state its update
+    never writes. The step hands the SAME storage back every dispatch —
+    the engine's buffer and the metric's attribute share it for a state
+    that never changes, and two disjoint buffer generations are impossible.
+    Configuration belongs in plain attributes, not in state."""
+
+    _fused_forward = True
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("acc", default=torch.zeros(()), dist_reduce_fx="sum")
+        self.add_state("version", default=torch.zeros(()), dist_reduce_fx="sum")
+
+    def update(self, x: torch.Tensor) -> None:
+        self.acc = self.acc + torch.sum(x)  # `version` never written
+
+    def compute(self) -> torch.Tensor:
+        return self.acc
+
+
+class UnownedLoader(Metric):
+    """MTA007 (load flavor): a ``load_state_dict`` override that imports
+    checkpoint values without the ``_device_owned`` copy and without
+    delegating to the library loader. The loaded states alias the caller's
+    storage (a checkpoint's tensors, another metric's states)."""
+
+    _fused_forward = True
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("acc", default=torch.zeros(()), dist_reduce_fx="sum")
+
+    def update(self, x: torch.Tensor) -> None:
+        self.acc = self.acc + torch.sum(x)
+
+    def compute(self) -> torch.Tensor:
+        return self.acc
+
+    def load_state_dict(self, state_dict, prefix="", strict=False, _warn_on_zero_match=True):
+        for key in self._defaults:
+            if prefix + key in state_dict:
+                setattr(self, key, torch.as_tensor(state_dict[prefix + key]))
+
+
+class StaleSuppression(Metric):
+    """MTL105: a class-body allow for a rule whose violation no longer
+    exists (the program is clean). The unused-noqa analogue — the allow
+    must be deleted, or the next REAL buffer alias here sails through
+    pre-suppressed."""
+
+    # metrics-tpu: allow(MTA003) — STALE on purpose: nothing here aliases
+
+    _fused_forward = True
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("acc", default=torch.zeros(()), dist_reduce_fx="sum")
+
+    def update(self, x: torch.Tensor) -> None:
+        self.acc = self.acc + torch.sum(x)
+
+    def compute(self) -> torch.Tensor:
+        return self.acc
 
 
 class UnlockedSharedCounter:

@@ -155,6 +155,44 @@ def _abstract_leaf(x: Any) -> tuple:
     return ("val", type(x), x)
 
 
+def fake_trace(fn: Callable, call: tuple) -> Tuple[Any, Any]:
+    """Trace ``fn(*call)`` with ``make_fx`` over fake tensors: every tensor
+    leaf of ``call`` becomes a fake tensor of its shape, dtype and device
+    (the card's, for a step on the card), so nothing runs, launches or
+    allocates on a device. Returns ``(graph_module, out)``: the graph has
+    one placeholder per tensor leaf of ``call`` and returns the tensor
+    leaves of ``fn``'s output, both in :func:`_flatten` order (dict keys
+    sorted, as a JAX treedef sorts them); ``out`` is that output with its
+    tensors as :class:`LeafSpec`. A host read inside ``fn`` raises out of
+    the trace (a fake tensor has no value); it is never caught here.
+    :class:`LeafSpec` leaves of ``call`` stand for tensors of their spec."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    leaves: List[Any] = []
+    structure = _flatten(call, leaves)
+    is_tensor = [isinstance(x, (torch.Tensor, LeafSpec)) for x in leaves]
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fakes = [
+            torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device)
+            if isinstance(x, torch.Tensor) else torch.empty(x.shape, dtype=x.dtype, device=x.device)
+            for x, t in zip(leaves, is_tensor) if t
+        ]
+    traced: Dict[str, Any] = {}
+
+    def flat_fn(*tensors):
+        it = iter(tensors)
+        out = fn(*_unflatten(structure, iter([next(it) if t else x for x, t in zip(leaves, is_tensor)])))
+        out_leaves: List[Any] = []
+        traced["structure"] = _flatten(out, out_leaves)
+        traced["leaves"] = [LeafSpec(x.shape, x.dtype, x.device) if isinstance(x, torch.Tensor) else x
+                            for x in out_leaves]
+        return [x for x in out_leaves if isinstance(x, torch.Tensor)]
+
+    graph = make_fx(flat_fn, tracing_mode="fake", _allow_non_fake_inputs=True)(*fakes)
+    return graph, _unflatten(traced["structure"], iter(traced["leaves"]))
+
+
 def _cohort_call(states: dict, args: tuple, kwargs: dict, health_state: Optional[dict]) -> Tuple[dict, tuple]:
     """The cohort step's states and call tree: with health accounting the
     accumulators ride among the states and the validity mask and step index
@@ -949,6 +987,71 @@ class CompiledStepEngine:
             new_states = dict(new_states)
             new_health = new_states.pop(_COHORT_HEALTH_KEY)
         return new_states, values, (finites[0] if finites else None), guard, new_health
+
+    # ------------------------------------------------------------------
+    # abstract steps: the programs a step would build, traced for the
+    # program audit (``metrics_tpu_torch.analysis``)
+    # ------------------------------------------------------------------
+    def abstract_step(self, *args: Any, **kwargs: Any):
+        """Trace the step function :meth:`step` would build for these inputs
+        (the unguarded program; a guard token only adds the finite-flag
+        epilogue) over fake tensors of the compiled members' current states
+        and of the call's tensors, on their devices: returns
+        ``(graph_module, out_shapes, n_donated)``. ``out_shapes`` is the
+        ``(new_states, values)`` tree with :class:`LeafSpec` leaves;
+        ``n_donated`` counts the state leaves the step writes back (the
+        buffers a step copies in and clones out, where the JAX package
+        donates), which lead the graph's placeholders.
+
+        The static-analysis hook (:mod:`metrics_tpu_torch.analysis.program`).
+        It touches no signature cache, metric state, ``trace_count``,
+        watchdog, cost ledger or telemetry, captures no CUDA graph, launches
+        no kernel and allocates no device memory. A host read in the step
+        raises out of the trace."""
+        names = self._compiled_names()
+        if not names:
+            raise ValueError(
+                "every metric in this engine runs eager"
+                f" ({self._eager_names}); there is no compiled step program"
+                " to trace"
+            )
+        states = self._current_states(names)
+        return self._abstract(self._make_step_fn(names, None), states, args, kwargs)
+
+    def abstract_cohort_step(self, *args: Any, capacity: int = 4, **kwargs: Any):
+        """:meth:`abstract_step` of the cohort step :meth:`cohort_step` would
+        build at ``capacity``: the same step function under
+        ``torch.func.vmap``. The inputs are one tenant's; the states and
+        every tensor input get a leading tenant axis of ``capacity`` here
+        (fake tensors of the stacked shapes)."""
+        names = self._compiled_names()
+        if not names:
+            raise ValueError(
+                "every metric in this engine runs eager"
+                f" ({self._eager_names}); there is no cohort step program to trace"
+            )
+
+        def stack(x):
+            if isinstance(x, torch.Tensor):
+                return LeafSpec((int(capacity),) + tuple(x.shape), x.dtype, x.device)
+            return x
+
+        states = {n: {s: stack(v) for s, v in d.items()} for n, d in self._current_states(names).items()}
+        return self._abstract(
+            self._make_cohort_step_fn(names), states,
+            tuple(stack(a) for a in args), {k: stack(v) for k, v in kwargs.items()},
+        )
+
+    @staticmethod
+    def _abstract(step_fn: Callable, states: dict, args: tuple, kwargs: dict):
+        """``(graph_module, out_shapes, n_donated)`` of ``step_fn`` over fake
+        tensors of ``states`` and the call (tensors or :class:`LeafSpec`),
+        value checks off and the hooks inside the step muted."""
+        leaves: List[Any] = []
+        _flatten(states, leaves)
+        with tracing(), _trace.muted():
+            graph, out_shapes = fake_trace(step_fn, (states, args, kwargs))
+        return graph, out_shapes, len(leaves)
 
     # ------------------------------------------------------------------
     # lookups that build nothing

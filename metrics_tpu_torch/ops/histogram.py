@@ -93,6 +93,13 @@ def _label_counts(indices: torch.Tensor, length: int, weights: Optional[torch.Te
     return label_bincount(indices, length, weights)
 
 
+@_label_counts.register_fake
+def _label_counts_fake(indices, length, weights):
+    """The counts' shape, dtype and device, for a trace over fake tensors
+    (the program audit's abstract steps)."""
+    return indices.new_empty((length,), dtype=torch.int64)
+
+
 @_label_counts.register_vmap
 def _label_counts_vmap(info, in_dims, indices, length, weights):
     """Every tenant's counts from one count over the flat ``(tenant,
@@ -115,6 +122,11 @@ def _bucket_sums(index: torch.Tensor, adds: torch.Tensor, buckets: int) -> torch
     """``adds`` summed into ``buckets`` buckets at ``index``, under ``vmap``
     one ``index_add`` over every tenant's buckets (:func:`_bucket_sums_vmap`)."""
     return torch.zeros(buckets, dtype=adds.dtype, device=index.device).index_add_(0, index, adds)
+
+
+@_bucket_sums.register_fake
+def _bucket_sums_fake(index, adds, buckets):
+    return index.new_empty((buckets,), dtype=adds.dtype)
 
 
 @_bucket_sums.register_vmap

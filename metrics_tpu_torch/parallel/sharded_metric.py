@@ -55,6 +55,9 @@ class ShardedStreamsMixin:
             self.add_state(name, default=zeros, dist_reduce_fx=None)
         # metrics-tpu: allow(MTL104) — same merge as the streams
         self.add_state("counts", default=torch.zeros(self.world, dtype=torch.int32, device=self.device))
+        # program-audit suppression scoped to exactly these states: a
+        # subclass state with a genuinely unsound reduction must still flag
+        self._analysis_allow = {"MTA004": (*self._stream_names, "counts")}
 
     def _append_streams(self, *tensors: torch.Tensor) -> None:
         """Append this rank's batch (first dim = n) to every stream, in spec

@@ -83,6 +83,9 @@ class PSNR(Metric):
             # seeded at 0.0, not at the reductions' ±inf identities (module docstring)
             self.add_state("min_target", default=torch.tensor(0.0), dist_reduce_fx="min")
             self.add_state("max_target", default=torch.tensor(0.0), dist_reduce_fx="max")
+            # the reference's seeding is kept on purpose: MTA006's
+            # reset-identity rule is suppressed for exactly these states
+            self._analysis_allow = {"MTA006": ("min_target", "max_target")}
         else:
             self.data_range = float(data_range)
         self.base = base

@@ -57,6 +57,7 @@ has only PyTorch: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.
 (``--noconftest`` because the suite's conftest pins JAX to the CPU).
 """
 import contextlib
+import gc
 import threading
 import time
 import warnings
@@ -96,6 +97,7 @@ from metrics_tpu_torch import (
     ShardedRetrievalRecall,
     StatScores,
 )
+from metrics_tpu_torch.engine import CompiledStepEngine
 from metrics_tpu_torch.functional import auroc, average_precision, precision_recall_curve, roc, ssim
 from metrics_tpu_torch.ops import segment
 from metrics_tpu_torch.functional.classification.stat_scores import _stat_scores_count, _stat_scores_fast_update
@@ -2251,3 +2253,113 @@ def test_protocol_fixtures_on_the_card_trip_exactly_their_rules(cuda_device):
         assert len(card) == len(cpu) >= entries[name]["min_violations"]
         assert counterexample_report(card).split("\n[1]")[0] == counterexample_report(cpu).split("\n[1]")[0]
         assert entries[name]["expected_rule"] in hint_for_watch_key(name)
+
+
+# ---------------------------------------------------------------------------
+# the program audit and the distributed-equivalence pass on the card
+# ---------------------------------------------------------------------------
+def _abstract_families(device):
+    rng = np.random.RandomState(0x7B0)
+    probs = rng.rand(32, 4).astype(np.float32)
+    probs /= probs.sum(1, keepdims=True)
+    mc = (torch.from_numpy(probs).to(device), torch.from_numpy(rng.randint(4, size=32)).to(device))
+    binary = (mc[0][:, 1].contiguous(), torch.from_numpy(rng.randint(2, size=32)).to(device))
+    reg = (torch.from_numpy(rng.rand(32).astype(np.float32)).to(device),) * 2
+    return [
+        (MeanSquaredError(device=device), reg),
+        (Precision(num_classes=4, average="macro", device=device), mc),
+        (BinnedAUROC(num_bins=16, device=device), binary),
+    ]
+
+
+def test_abstract_steps_on_the_card_launch_and_allocate_nothing(cuda_device):
+    """``abstract_step`` and ``abstract_cohort_step`` on card metrics trace
+    fake tensors of the card: no kernel, no copy (an agreed trace of the
+    call beside one marker kernel holds the marker alone), no device
+    allocation, no signature built."""
+    marker = torch.zeros(1, device=cuda_device)
+
+    def ops(fn):
+        prof = _steady_profile(lambda: (marker.add_(1), fn()))
+        names = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        return sum(1 for n in names if n.lower().startswith(("memcpy", "memset"))), len(names)
+
+    alone = ops(lambda: None)
+    for metric, args in _abstract_families(cuda_device):
+        engine = CompiledStepEngine(metric)
+        for trace in (lambda: engine.abstract_step(*args), lambda: engine.abstract_cohort_step(*args, capacity=4)):
+            trace()  # a first trace: lazy imports and registrations
+            gc.collect()  # other tests' garbage: no free of it may count
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            gc.disable()
+            try:
+                graph, out, n = trace()
+            finally:
+                gc.enable()
+            assert torch.cuda.memory_allocated() == before == torch.cuda.max_memory_allocated()
+            assert ops(trace) == alone, type(metric).__name__
+            assert all(v.device.type == "cuda" for v in out[0]["metric"].values())
+        assert engine.cache_info()["compiled_signatures"] == 0 and engine.trace_count == 0
+
+
+def _registry_verdicts(report):
+    def rules(entry, bucket):
+        return sorted((f["rule"], f["subject"]) for f in entry[bucket])
+
+    return {
+        fam: (
+            e["engine_eligible"],
+            rules(e, "findings"),
+            rules(e, "suppressed"),
+            None if e["distributed"] is None else (
+                e["distributed"]["replicas"],
+                e["distributed"]["bit_identical"],
+                (e["distributed"].get("topology") or {}).get("bit_identical"),
+            ),
+            report["fingerprints"].get(fam),
+        )
+        for fam, e in report["families"].items()
+    }
+
+
+def test_audit_registry_on_the_card_equals_the_cpu(cuda_device):
+    from metrics_tpu_torch.analysis import audit_registry
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        card = audit_registry(device="cuda", quantized=True, cohort=True, fingerprints=True)
+        cpu = audit_registry(device="cpu", quantized=True, cohort=True, fingerprints=True)
+    assert card["summary"] == cpu["summary"] and card["summary"]["findings"] == 0
+    assert card["summary"]["families"] == 89
+    card_v, cpu_v = _registry_verdicts(card), _registry_verdicts(cpu)
+    assert sorted(card_v) == sorted(cpu_v)
+    differ = {}
+    for fam, got in card_v.items():
+        want = cpu_v[fam]
+        if got == want:
+            continue
+        # log1p sums: the bit-identity verdicts may need the 8-ulp allowance on one device only
+        ulp_only = (fam.split("@")[0] == "MeanSquaredLogError" and got[:3] + got[4:] == want[:3] + want[4:]
+                    and got[3][0] == want[3][0])
+        if not ulp_only:
+            differ[fam] = (got, want)
+    assert not differ, differ
+
+
+def test_analysis_fixtures_on_the_card_trip_their_rules(cuda_device):
+    from metrics_tpu_torch.analysis import audit_metric, hint_for_watch_key
+    from metrics_tpu_torch.analysis import fixtures as fx
+
+    x = np.linspace(0.0, 1.0, 8).astype(np.float32)
+    for name in ("NarrowAccumulator", "SuppressedNarrowAccumulator", "CallbackInJit", "HostSyncUpdate",
+                 "DonatedAlias", "NonCommutativeMerge", "MeanWithoutCount", "UnscaledInt8Psum",
+                 "ReplicaDependentCount", "NonIdentityReset", "ComputeMutatesState", "OrphanResidual",
+                 "UntouchedStatePassthrough", "UnownedLoader", "StaleSuppression"):
+        results = [audit_metric(getattr(fx, name)(device=d), (torch.from_numpy(x).to(d),)) for d in ("cpu", "cuda")]
+        cpu, card = ({(f.rule, f.subject, f.suppressed) for f in r.findings + r.suppressed} for r in results)
+        assert card == cpu and card, name
+    engine = CompiledStepEngine(fx.NarrowAccumulator(device=cuda_device))
+    audit_metric(fx.NarrowAccumulator(device=cuda_device), (torch.from_numpy(x).to(cuda_device),))
+    assert "MTA001" in hint_for_watch_key(engine._watch_key)

@@ -84,17 +84,6 @@ JAX_INITS = {
 # names JAX exports that the port does not have yet, by the part of the
 # JAX package whose port brings them
 NOT_YET_PORTED = {
-    # analysis/program.py: the audit of each family's step program
-    "AuditResult": "analysis/program.py",
-    "audit_collection": "analysis/program.py",
-    "audit_metric": "analysis/program.py",
-    "audit_registry": "analysis/program.py",
-    "iter_eqns": "analysis/program.py",
-    # analysis/distributed.py
-    "check_donation_lifetime": "analysis/distributed.py",
-    "check_lifecycle": "analysis/distributed.py",
-    "check_replica_equivalence": "analysis/distributed.py",
-    "fingerprint_jaxpr": "analysis/distributed.py",
     # analysis/concurrency.py: the host-seam and double-buffer legs
     "check_double_buffer": "analysis/concurrency.py (double-buffer leg)",
     "check_host_seam": "analysis/concurrency.py (host-seam leg)",
