@@ -262,7 +262,9 @@ that is unset. Phases (any failure exits non-zero before the result line):
    ``costledger.py``): (a) 4m's 64-tenant health-armed cohort and 4h's
    compiled forward leg with the exporter and the ledger off and then armed
    (``exporter_scope(port=0)``, ``cost_ledger_scope()``): values, states and
-   health bit-equal, the same kernels and copies a replay and a step; (b)
+   health bit-equal, the same kernels and copies a replay and a step (off
+   and armed traced in turns, the pair of a round with the same multiset
+   of device records; each disagreeing round's difference is printed); (b)
    that cohort served through an ``AsyncServingEngine`` while an
    ``EvalSession(background_checkpoints=True)`` over the north-star
    collection takes 10 steps of 100,000 beside it and a client thread
@@ -290,8 +292,9 @@ that is unset. Phases (any failure exits non-zero before the result line):
    the rescan ms; (b) 24 two-phase handoffs of ``MeanSquaredError`` tenants
    between two live shards after a warm-up move: ms a tenant, every tenant
    on exactly one side, states bit-equal; (c) the failover leg
-   (``bench.py:756-915``) at 1,000 tenants (``FLEET_FAILOVER_TENANTS``; the
-   bench's 10,000 spent 131-155 s a replicate cycle on the card's host, and
+   (``bench.py:756-915``) at 500 tenants (``FLEET_FAILOVER_TENANTS``; the
+   bench's 10,000 spent 131-155 s a replicate cycle on the card's host, 1,000
+   up to 47.5 s the whole leg, and
    the kill schedule at 10,000 stays on the CPU in
    ``tests/test_torch_fleet_chaos.py``): 3 leased shards, 2 rows x 8
    features a tenant a step, a replicator, the dead shard's waves 4-5
@@ -303,14 +306,14 @@ that is unset. Phases (any failure exits non-zero before the result line):
    the failover (OS-assigned port): the six fleet families equal the
    coordinator's and replicator's stats; (d) a kill at each yield point
    (``prepare``, ``in_flight``, ``pre_commit``, ``pre_gc``, ``recover``)
-   and mid-rebalance over 1,000 tenants, each followed by a rebuild from
+   and mid-rebalance over 500 tenants, each followed by a rebuild from
    the journals and ``recover()``: every tenant on exactly one shard, the
    stream resubmitted from step 0 folding each step once, bit-equal to the
    twin; (e) partial waves of 1, 3, half and all but one of 5,000 tenants,
    and at capacities grown by migrations and shrunk by a restore, bit-equal
    to the full-shard dispatch; (h) one full wave through
    ``FleetShard.submit_wave`` running the kernels and copies of the cohort
-   stepped bare; (f) a binary ``AUROC`` tenant of 1M predictions moved as an
+   stepped bare (the two traced in turns, as in 4n (a)); (f) a binary ``AUROC`` tenant of 1M predictions moved as an
    eager tenant (its envelope through ``SingleProcessBackend.stream`` as a
    CUDA ``uint8`` tensor): one ``tie_scan`` launch in its ``compute()``,
    bit-equal to the unmoved tenant's, within 1e-6 of the plain scan and
@@ -339,14 +342,23 @@ that is unset. Phases (any failure exits non-zero before the result line):
    bit-identity verdicts, and fingerprints (a log1p family that needs the
    8-ulp allowance on the card only is printed); the MTA006
    purity probe's ``compute()`` of ``AUROC`` and ``AveragePrecision``
-   launches ``tie_scan`` once each; (b) the 15 metric fixtures trip exactly
-   their rules on the card, as on the CPU; (c) ``abstract_step`` and
-   ``abstract_cohort_step`` of ``MeanSquaredError``, ``Precision`` and
+   launches ``tie_scan`` once each; pass 4 (host seam, double buffer): the
+   card's 80 seam budgets equal ``SEAM_BASELINE.json``'s, every
+   engine-eligible family proven double-buffer safe, the CPU twin's
+   budgets and verdicts the card's; (b) the 19 metric fixtures trip exactly
+   their rules on the card, as on the CPU (``BlockScaledQuantizedSync``
+   none); (c) ``abstract_step``, ``abstract_cohort_step``,
+   ``abstract_double_buffer_step`` and the cohort's
+   ``abstract_double_buffer`` of ``MeanSquaredError``, ``Precision`` and
    ``BinnedAUROC`` on the card: 0 bytes allocated by each (at its end and
    at its peak, garbage collected before and no collection inside), no
-   signature built, 0 kernels and 0 copies (an agreed trace of all six beside one
-   marker kernel holds the marker alone); (d) ``hint_for_watch_key`` names MTA001
-   for ``NarrowAccumulator``'s engine key;
+   signature built, 0 kernels and 0 copies (an agreed trace of all twelve
+   beside one marker kernel holds the marker alone), and no hazard in the
+   two-generation graphs; (d) ``hint_for_watch_key`` names MTA001 for
+   ``NarrowAccumulator``'s engine key; (e) one compiled step (the CUDA
+   graph's build) and one replay of each of the three families:
+   ``first_dispatch_hazards`` over the installed states, the graph's
+   buffers and the returned value is empty after both;
 5. times on the card (CUDA events over launches queued behind a device
    sleep, so host overhead does not show, or the host clock ending in a
    synchronize for whole steps): the one-stream kernel, its plain version
@@ -392,6 +404,7 @@ lines (phase 4o's, ``fleet_*``, on a line of its own) and a
 ``{"ok": true, "device": {...}}``. Exits with 1 and prints no result when no
 CUDA device is available.
 """
+import collections
 import contextlib
 import importlib
 import json
@@ -539,8 +552,11 @@ FLEET_TENANTS = 10_000
 # 10,000 tenants its two replicate cycles took 131-155 s each on the card's
 # host (the replica manifest rewritten whole a tenant, O(n^2) in a shard's
 # tenants). The kill schedule at 10,000 stays on the CPU
-# (tests/test_torch_fleet_chaos.py::test_kill_at_every_phase_and_mid_rebalance_10k)
-FLEET_FAILOVER_TENANTS = 1_000
+# (tests/test_torch_fleet_chaos.py::test_kill_at_every_phase_and_mid_rebalance_10k).
+# 1,000 took 23.6-47.5 s on the card's host, and the whole smoke 308-391 s
+# after the card check against an aim of 340: 500 (a quarter of the
+# manifest rewrites) keeps a promoted cohort's capacity past its twin's
+FLEET_FAILOVER_TENANTS = 500
 FLEET_MOVES = 24
 FLEET_ROWS = 2
 FLEET_FEATURES = 8
@@ -1685,6 +1701,93 @@ def _retrieval_phase(torch, dev):
     return out, ms
 
 
+def _trace_once(torch, fn, pad):
+    """One ``torch.profiler`` trace of ``fn()`` with ``pad`` seconds of idle
+    card before it and of host time on each side of the call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    time.sleep(pad)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(pad)
+    return prof
+
+
+def _record_names(torch, prof):
+    """The multiset of a trace's device-record names, the ranges' own records
+    left out."""
+    return collections.Counter(e.name for e in prof.events()
+                               if e.device_type == torch.autograd.DeviceType.CUDA
+                               and not e.name.startswith(RANGE_PREFIXES))
+
+
+def _record_origins(torch, prof, names):
+    """``name -> {"stream S, thread T": records}`` of the device records
+    named in ``names``, read off the trace's Kineto events (the launch's
+    runtime call carries the thread); ``{"unavailable": ...}`` where this
+    torch's events do not expose them."""
+    try:
+        events = prof.profiler.kineto_results.events()
+        cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+        launcher = {e.correlation_id(): e.start_thread_id() for e in events
+                    if e.device_type() == cpu and e.correlation_id()}
+        out = {}
+        for e in events:
+            if e.device_type() == cuda and e.name() in names:
+                thread = launcher.get(e.correlation_id(), launcher.get(e.linked_correlation_id()))
+                where = out.setdefault(e.name(), collections.Counter())
+                where[f"stream {e.device_resource_id()}, thread {thread}"] += 1
+        return {name: dict(where) for name, where in out.items()}
+    except Exception as err:  # noqa: BLE001 — a diagnostic only
+        return {"unavailable": repr(err)}
+
+
+def _paired_device_ops(torch, first, second, shows=None, contexts=(None, None)):
+    """(kernels, copies and fills) of ``first()`` and of ``second()``, read
+    off traces taken in turns — first, second, first, second — so that both
+    counts come from the same stretch of the process: the counts of the
+    first round whose two traces hold the same multiset of device-record
+    names. ``contexts`` are context-manager factories each side's trace runs
+    inside (entered before the profiler starts). A round with a trace
+    without device records, or without one whose name contains ``shows``,
+    is lost and doubles the pad, as in :func:`_steady_profile`. A real
+    extra kernel or copy on one side shows in every trace of that side, so
+    no round agrees and the check fails; a record CUPTI gains or drops in
+    one trace only spoils that round. Returns ``(ops_first, ops_second,
+    rounds)``: ``rounds`` lists each disagreeing round's multiset
+    difference (and the records' streams and launching threads). Raises
+    when no round of ``PROFILE_TRACES_MAX`` agrees, with every round's
+    difference."""
+    lost, rounds = 0, []
+    for taken in range(1, PROFILE_TRACES_MAX + 1):
+        pad = PROFILE_PAD_S * 2 ** lost
+        pair = []
+        for fn, ctx in zip((first, second), contexts):
+            with (ctx() if ctx is not None else contextlib.nullcontext()):
+                prof = _trace_once(torch, fn, pad)
+            pair.append((prof, _record_names(torch, prof)))
+        if any(not c or (shows is not None and not any(shows in k for k in c)) for _, c in pair):
+            lost += 1
+            rounds.append({"round": taken, "lost": [sum(c.values()) for _, c in pair]})
+            continue
+        (prof_a, a), (prof_b, b) = pair
+        if a == b:
+            PROFILE_TRACES_TAKEN[f"paired {taken}"] = PROFILE_TRACES_TAKEN.get(f"paired {taken}", 0) + 1
+            PROFILE_TRACES_TAKEN["lost"] = PROFILE_TRACES_TAKEN.get("lost", 0) + lost
+            return _ops_in(torch, prof_a), _ops_in(torch, prof_b), rounds
+        only_a, only_b = dict(a - b), dict(b - a)
+        rounds.append({"round": taken, "records": [sum(a.values()), sum(b.values())],
+                       "first_only": only_a, "second_only": only_b,
+                       "first_origins": _record_origins(torch, prof_a, set(only_a)) if only_a else {},
+                       "second_origins": _record_origins(torch, prof_b, set(only_b)) if only_b else {}})
+    PROFILE_TRACES_TAKEN["paired: none agreed"] = PROFILE_TRACES_TAKEN.get("paired: none agreed", 0) + 1
+    PROFILE_TRACES_TAKEN["lost"] = PROFILE_TRACES_TAKEN.get("lost", 0) + lost
+    raise AssertionError(f"no round of {PROFILE_TRACES_MAX} traced the two calls' device work alike: {rounds}")
+
+
 def _steady_profile(torch, fn, shows=None):
     """A ``torch.profiler`` trace of ``fn()`` whose count of device records
     another trace of the same call agrees on: ``fn`` runs under the profiler
@@ -1703,21 +1806,12 @@ def _steady_profile(torch, fn, shows=None):
     drifts from the host's one the profiler keeps records by. So the card
     idles ``PROFILE_PAD_S`` before a trace, and the window holds that much
     host time on each side of the call, doubled after each lost trace."""
-    from torch.profiler import ProfilerActivity, profile
-
     cuda = torch.autograd.DeviceType.CUDA
     traces = []
     lost = 0
     PROFILE_LAST_RECORDS.clear()
     for taken in range(1, PROFILE_TRACES_MAX + 1):
-        pad = PROFILE_PAD_S * 2 ** lost
-        torch.cuda.synchronize()
-        time.sleep(pad)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            time.sleep(pad)
-            fn()
-            torch.cuda.synchronize()
-            time.sleep(pad)
+        prof = _trace_once(torch, fn, PROFILE_PAD_S * 2 ** lost)
         names = [e.name for e in prof.events() if e.device_type == cuda]
         n = len(names)
         PROFILE_LAST_RECORDS.append(n)
@@ -3590,32 +3684,54 @@ def _exporter_phase(torch, dev, card):
     def workload():
         cohort, col = health_cohort(), leg()
         values = [cohort(*w) for w in waves] + [v for b in leg_batches for v in col(*b).values()]
-        # the states before the measuring steps (each count steps two to eight times)
+        # the states before the measuring steps (each count steps two to sixteen times)
         states = [v for d in cohort._states.values() for v in d.values()]
         states += [v for v in cohort._health.values()] + [getattr(m, s) for m in col.values() for s in m._defaults]
         health = cohort.health()
-        replay = _cohort_replay_ops(torch, cohort)
-        steps = {"cohort": _device_ops(torch, lambda: cohort(*waves[0])),
-                 "leg": _device_ops(torch, lambda: col(*leg_batches[0]))}
-        return values, states, replay, steps, {k: health[k] for k in ("rows_seen", "updates", "last_step")}
+        return (cohort, col), values, states, {k: health[k] for k in ("rows_seen", "updates", "last_step")}
+
+    @contextlib.contextmanager
+    def armed_scopes():
+        with obs.exporter_scope(port=0), obs.cost_ledger_scope() as ledger:
+            yield ledger
 
     plain = workload()
-    with obs.exporter_scope(port=0), obs.cost_ledger_scope() as ledger:
+    with armed_scopes() as ledger:
         armed = workload()
         entries_a = len(ledger.entries())
-    for label, a, b in (("values", plain[0], armed[0]), ("states", plain[1], armed[1])):
+    for label, a, b in (("values", plain[1], armed[1]), ("states", plain[2], armed[2])):
         if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
             raise AssertionError(f"4n a. {label} differ with the exporter and the ledger armed")
-    if plain[2:4] != armed[2:4] or any(not np.array_equal(plain[4][k], armed[4][k]) for k in plain[4]):
-        raise AssertionError(f"4n a. kernels and copies a replay / a step off {plain[2:4]}, armed {armed[2:4]}")
+    if any(not np.array_equal(plain[3][k], armed[3][k]) for k in plain[3]):
+        raise AssertionError(f"4n a. health off {plain[3]}, armed {armed[3]}")
     if entries_a != 2:
         raise AssertionError(f"4n a. the armed ledger holds {entries_a} programs; the workload built 2")
-    out["armed_vs_off"] = {"kernels_copies_per_cohort_replay": list(plain[2]),
-                           "kernels_copies_per_step": {k: list(v) for k, v in plain[3].items()}}
+    # the kernels and copies of a replay and of a step, off and armed, traced
+    # in turns (the armed side inside the scopes): the pair of a round that
+    # holds the same device records
+    (p_cohort, p_col), (a_cohort, a_col) = plain[0], armed[0]
+    ((p_prog,), (a_prog,)) = p_cohort._engine._compiled.values(), a_cohort._engine._compiled.values()
+    counts, spoiled = {}, {}
+    for label, off_fn, armed_fn in (("cohort_replay", p_prog.graph.replay, a_prog.graph.replay),
+                                    ("cohort", lambda: p_cohort(*waves[0]), lambda: a_cohort(*waves[0])),
+                                    ("leg", lambda: p_col(*leg_batches[0]), lambda: a_col(*leg_batches[0]))):
+        try:
+            off, on, rounds = _paired_device_ops(torch, off_fn, armed_fn, contexts=(None, armed_scopes))
+        except AssertionError as err:
+            raise AssertionError(f"4n a. kernels and copies of the {label} off and armed: {err}") from None
+        if off != on:  # the same records, so never; kept for the record
+            raise AssertionError(f"4n a. kernels and copies of the {label} off {off}, armed {on}")
+        counts[label] = off
+        if rounds:
+            spoiled[label] = rounds
+    out["armed_vs_off"] = {"kernels_copies_per_cohort_replay": list(counts["cohort_replay"]),
+                           "kernels_copies_per_step": {k: list(counts[k]) for k in ("cohort", "leg")},
+                           "rounds_spoiled": spoiled}
     print(f"4n a. [{card}] a {tenants}-tenant health-armed cohort ({len(waves)} steps) and the compiled forward leg"
           f" (3 batches of {BATCH}) with the exporter and the cost ledger off, then armed: values, states and"
-          f" health bit-equal; kernels and copies a cohort replay {plain[2]}, a step {plain[3]} (agreed"
-          " torch.profiler traces) the same armed")
+          f" health bit-equal; kernels and copies a cohort replay {counts['cohort_replay']}, a step"
+          f" {({k: counts[k] for k in ('cohort', 'leg')})} off and armed (traced in turns: the same device"
+          " records)" + (f"; rounds that disagreed first: {spoiled}" if spoiled else ""))
     del plain, armed
 
     opened = []
@@ -4091,14 +4207,19 @@ def _fleet_phase(torch, dev, card):
         # h. a full wave through FleetShard.submit_wave runs the cohort's own device work
         p_dev, t_dev = (torch.from_numpy(a).to(dev) for a in _fleet_wave(keys, 0))
         steps = itertools.count(1_000)
-        via_fleet = _device_ops(torch, lambda: full.submit_wave(next(steps), keys, p_dev, t_dev))
-        bare = _device_ops(torch, lambda: full.cohort(p_dev, t_dev))
-        if via_fleet != bare:
+        # traced in turns: the pair of a round that holds the same device records
+        try:
+            via_fleet, bare, rounds = _paired_device_ops(
+                torch, lambda: full.submit_wave(next(steps), keys, p_dev, t_dev), lambda: full.cohort(p_dev, t_dev))
+        except AssertionError as err:
+            raise AssertionError(f"4o h. a full wave through submit_wave and the cohort stepped bare: {err}") from None
+        if via_fleet != bare:  # the same records, so never; kept for the record
             raise AssertionError(f"4o h. a full wave through submit_wave ran {via_fleet} kernels and copies, the"
                                  f" cohort stepped bare {bare}")
-        out["fleet_full_wave_ops"] = {"submit_wave": list(via_fleet), "cohort": list(bare)}
+        out["fleet_full_wave_ops"] = {"submit_wave": list(via_fleet), "cohort": list(bare), "rounds_spoiled": rounds}
         print(f"4o h. [{card}] one full wave of {FLEET_PARTIAL_N} tenants: {via_fleet[0]} kernels and {via_fleet[1]}"
-              " copies through FleetShard.submit_wave, the same as the cohort stepped bare")
+              " copies through FleetShard.submit_wave, the same device records as the cohort stepped bare (traced in"
+              " turns)" + (f"; rounds that disagreed first: {rounds}" if rounds else ""))
 
     # f. a binary AUROC tenant at the north-star size migrates as an eager tenant
     gen = torch.Generator(device=dev)
@@ -4146,7 +4267,7 @@ def _fleet_phase(torch, dev, card):
 def _fleet_failover_phase(torch, dev, card):
     """Phase 4o's second part, run last: the JAX bench's failover leg (c)
     with ``/metrics`` of the live fleet (g), and a kill at every yield point
-    mid-rebalance (d), at ``FLEET_FAILOVER_TENANTS`` (1,000) tenants over the
+    mid-rebalance (d), at ``FLEET_FAILOVER_TENANTS`` (500) tenants over the
     bench's 3 leased shards, rows, steps, redelivery window and kill points.
     Returns its ``fleet_*`` timings; removes the directories it writes and
     turns the exporter off."""
@@ -4528,6 +4649,9 @@ AUDIT_FIXTURE_RULES = {
     "MeanWithoutCount": "MTA004", "UnscaledInt8Psum": "MTA004", "ReplicaDependentCount": "MTA005",
     "NonIdentityReset": "MTA006", "ComputeMutatesState": "MTA006", "OrphanResidual": "MTA006",
     "UntouchedStatePassthrough": "MTA007", "UnownedLoader": "MTA007", "StaleSuppression": "MTL105",
+    "SeamRegressor": "MTA008", "DoubleBufferAliaser": "MTA009", "HostReadOfDonated": "MTA009",
+    # the positive control of the quantized merge probe: no finding
+    "BlockScaledQuantizedSync": None,
 }
 #: families whose exact tier sums log1p terms: the audit's 8-ulp allowance
 AUDIT_ULP_FAMILIES = ("MeanSquaredLogError",)
@@ -4536,7 +4660,8 @@ AUDIT_ULP_FAMILIES = ("MeanSquaredLogError",)
 def _audit_verdicts(report):
     """Per family of an ``audit_registry`` report: eligibility, findings,
     suppressions, MTA005 replica counts and bit-identity verdicts (flat and
-    two-level), and fingerprints."""
+    two-level), fingerprints, and pass 4's seam budget and double-buffer
+    verdict (safe, hazard kinds)."""
     def rules(entry, bucket):
         return sorted((f["rule"], f["subject"]) for f in entry[bucket])
 
@@ -4548,8 +4673,17 @@ def _audit_verdicts(report):
             "eligible": entry["engine_eligible"], "findings": rules(entry, "findings"),
             "suppressed": rules(entry, "suppressed"), "replicas": None if ev is None else ev["replicas"],
             "bits": bits, "fingerprints": report.get("fingerprints", {}).get(fam),
+            "host_seam": (entry["evidence"] or {}).get("host_seam"),
+            "double_buffer": _double_buffer_verdict(entry),
         }
     return verdicts
+
+
+def _double_buffer_verdict(entry):
+    """``(safe, hazard kinds)`` of a report entry's double-buffer evidence,
+    or None for an eager-only family."""
+    db = (entry["evidence"] or {}).get("double_buffer")
+    return None if db is None else (db["safe"], sorted({h["kind"] for h in db["hazards"]}))
 
 
 def _program_audit_phase(torch, dev, card):
@@ -4561,14 +4695,29 @@ def _program_audit_phase(torch, dev, card):
     base family the same eligibility, findings, suppressions, MTA005
     verdicts and fingerprints; (b) the 15
     metric fixtures on the card trip exactly their rules, as on the CPU;
-    (c) ``abstract_step`` and ``abstract_cohort_step`` of three families on
-    the card launch no kernel and no copy, allocate nothing and build
-    nothing; (d) the watchdog's hint names MTA001 for
-    ``NarrowAccumulator``'s engine key. Returns its timings."""
+    (c) ``abstract_step``, ``abstract_cohort_step``,
+    ``abstract_double_buffer_step`` and ``MetricCohort.abstract_double_buffer``
+    of three families on the card launch no kernel and no copy, allocate
+    nothing and build nothing, and the two-generation graphs hold no
+    hazard; (d) the watchdog's hint names MTA001 for
+    ``NarrowAccumulator``'s engine key; (e) one real compiled step and one
+    replay of each of the three families leave states that share no storage
+    with the graph's buffers, the defaults or the returned value. Pass 4
+    rides (a) and (b): the card's 80 seam budgets equal
+    ``SEAM_BASELINE.json``'s and its double-buffer verdicts the CPU's.
+    Returns its timings."""
     import gc
 
-    from metrics_tpu_torch import BinnedAUROC, MeanSquaredError, Precision
-    from metrics_tpu_torch.analysis import audit_metric, audit_registry, hint_for_watch_key
+    from metrics_tpu_torch import BinnedAUROC, MeanSquaredError, MetricCohort, Precision
+    from metrics_tpu_torch.analysis import (
+        audit_metric,
+        audit_registry,
+        composed_generation_hazards,
+        flatten_seam_budget,
+        hint_for_watch_key,
+        load_seam_baseline,
+    )
+    from metrics_tpu_torch.analysis import concurrency as conc
     from metrics_tpu_torch.analysis import fixtures as fx
     from metrics_tpu_torch.engine import CompiledStepEngine
 
@@ -4613,13 +4762,29 @@ def _program_audit_phase(torch, dev, card):
         differ.append(f"{fam} on the card {a}, on the CPU {b}")
     if differ:
         raise AssertionError("4q a. " + "; ".join(differ))
+    # pass 4: the card's seam budgets against the committed baseline, and
+    # every engine-eligible family proven double-buffer safe
+    baseline = load_seam_baseline()
+    seams = {fam: v["host_seam"] for fam, v in _audit_verdicts(report).items() if v["host_seam"]}
+    unequal = [fam for fam, seam in seams.items() if fam not in baseline
+               or flatten_seam_budget(seam) != baseline[fam]["budget"] or seam["states"] != baseline[fam]["states"]]
+    unsafe = {fam: _double_buffer_verdict(e) for fam, e in report["families"].items()
+              if e["engine_eligible"] and _double_buffer_verdict(e) != (True, [])}
+    if len(seams) != 80 or unequal or unsafe:
+        raise AssertionError(f"4q a. {len(seams)} seam budgets; unequal to SEAM_BASELINE.json: {unequal};"
+                             f" not proven double-buffer safe: {unsafe}")
     out.update(families=summary["families"], family_kinds=kinds, suppressed=summary["suppressed"],
-               ulp_allowance_on_the_card_only=ulp_only)
+               ulp_allowance_on_the_card_only=ulp_only, seam_budgets_equal=len(seams),
+               double_buffer_safe=len(seams) - len(unsafe), host_seam_sites=len(report["host_seam_sites"]))
     print(f"4q a. [{card}] audit_registry(device={dev.type!r}) over {summary['families']} families ({kinds}):"
           f" {summary['findings']} unsuppressed findings, {summary['suppressed']} suppressed,"
           f" {out['registry_card_s']:.2f} s; the CPU's base families in this process {out['registry_cpu_s']:.2f} s,"
-          f" the same eligibility, findings, suppressions, MTA005 verdicts and fingerprints for all {len(cpu_v)}"
-          + (f"; needing the 8-ulp allowance on the card only: {ulp_only}" if ulp_only else ""))
+          f" the same eligibility, findings, suppressions, MTA005 verdicts, fingerprints, seam budgets and"
+          f" double-buffer verdicts for all {len(cpu_v)}"
+          + (f"; needing the 8-ulp allowance on the card only: {ulp_only}" if ulp_only else "")
+          + f"; pass 4: {out['seam_budgets_equal']} seam budgets equal to SEAM_BASELINE.json's,"
+          f" {out['double_buffer_safe']} families proven double-buffer safe, {out['host_seam_sites']} host"
+          " crossing sites")
 
     # b. the metric fixtures trip exactly their rules
     t0 = time.perf_counter()
@@ -4629,12 +4794,12 @@ def _program_audit_phase(torch, dev, card):
         for where in ("cpu", dev.type):
             result = audit_metric(getattr(fx, name)(device=where), (torch.from_numpy(x).to(where),))
             sets.append({(f.rule, f.subject, f.suppressed) for f in result.findings + result.suppressed})
-        if sets[1] != sets[0] or {r for r, _, _ in sets[1]} != {rule}:
+        if sets[1] != sets[0] or {r for r, _, _ in sets[1]} != ({rule} if rule else set()):
             raise AssertionError(f"4q b. {name} on the card {sorted(sets[1])}, on the CPU {sorted(sets[0])},"
-                                 f" want {rule} alone")
+                                 f" want {rule or 'no finding'} alone")
     out["fixtures_s"] = time.perf_counter() - t0
-    print(f"4q b. [{card}] the {len(AUDIT_FIXTURE_RULES)} metric fixtures trip exactly their rules on the card,"
-          f" as on the CPU ({out['fixtures_s']:.2f} s with the CPU runs)")
+    print(f"4q b. [{card}] the {len(AUDIT_FIXTURE_RULES)} metric fixtures trip exactly their rules on the card"
+          f" (BlockScaledQuantizedSync none), as on the CPU ({out['fixtures_s']:.2f} s with the CPU runs)")
 
     # c. the abstract steps launch, allocate and build nothing: each traced
     # once for its bytes and signatures, then all six in one profiled call
@@ -4654,15 +4819,19 @@ def _program_audit_phase(torch, dev, card):
     mc = (torch.from_numpy(probs).to(dev), torch.from_numpy(rng.randint(4, size=32)).to(dev))
     binary = (mc[0][:, 1].contiguous(), torch.from_numpy(rng.randint(2, size=32)).to(dev))
     reg = (torch.from_numpy(rng.rand(32).astype(np.float32)).to(dev),) * 2
+    families = ((lambda: MeanSquaredError(device=dev), reg),
+                (lambda: Precision(num_classes=4, average="macro", device=dev), mc),
+                (lambda: BinnedAUROC(num_bins=16, device=dev), binary))
     traced, traces, engines = {}, [], []
-    for metric, args in ((MeanSquaredError(device=dev), reg),
-                         (Precision(num_classes=4, average="macro", device=dev), mc),
-                         (BinnedAUROC(num_bins=16, device=dev), binary)):
-        engine = CompiledStepEngine(metric)
-        engines.append(engine)
-        name = type(metric).__name__
+    for factory, args in families:
+        engine = CompiledStepEngine(factory())
+        cohort = MetricCohort(factory(), tenants=4)
+        engines += [engine, cohort._engine]
+        name = type(engine._metrics["metric"]).__name__
         for kind, trace in (("step", lambda e=engine, a=args: e.abstract_step(*a)),
-                            ("cohort_step", lambda e=engine, a=args: e.abstract_cohort_step(*a, capacity=4))):
+                            ("cohort_step", lambda e=engine, a=args: e.abstract_cohort_step(*a, capacity=4)),
+                            ("double_buffer", lambda e=engine, a=args: e.abstract_double_buffer_step(*a)),
+                            ("cohort_double_buffer", lambda c=cohort, a=args: c.abstract_double_buffer(*a))):
             # earlier phases' garbage is freed first, and no collection runs
             # inside the trace: a free of it would read as a change
             gc.collect()
@@ -4672,28 +4841,31 @@ def _program_audit_phase(torch, dev, card):
             gc.disable()
             try:
                 t1 = time.perf_counter()
-                graph, shapes, _ = trace()
+                graph, shapes, *counts = trace()
                 ms = (time.perf_counter() - t1) * 1e3
             finally:
                 gc.enable()
             allocated = torch.cuda.memory_allocated() - before
             peak = torch.cuda.max_memory_allocated() - before
             devices = {v.device.type for v in shapes[0]["metric"].values()}
-            if allocated or peak or devices != {"cuda"}:
+            hazards = composed_generation_hazards(graph, *counts) if len(counts) == 2 else []
+            if allocated or peak or devices != {"cuda"} or hazards:
                 raise AssertionError(f"4q c. {name}.abstract_{kind}: {allocated} bytes allocated ({peak} at the peak),"
-                                     f" states on {devices}")
+                                     f" states on {devices}, two-generation hazards {hazards}")
             traced[f"{name}.{kind}"] = {"ms": ms, "nodes": len(graph.graph.nodes)}
             traces.append(trace)
     ops = _device_ops(torch, lambda: (bump(), [trace() for trace in traces]), shows=marker_name)
     built = [e.cache_info() for e in engines if e.cache_info()["compiled_signatures"] or e.trace_count]
     if ops != alone or built:
-        raise AssertionError(f"4q c. the six abstract steps beside the marker ran (kernels, copies) {ops}, the marker"
-                             f" alone {alone}; engines that built: {built}")
+        raise AssertionError(f"4q c. the {len(traces)} abstract steps beside the marker ran (kernels, copies) {ops},"
+                             f" the marker alone {alone}; engines that built: {built}")
     out["abstract"] = traced
     out["abstract_s"] = time.perf_counter() - t0
-    print(f"4q c. [{card}] abstract_step and abstract_cohort_step of MeanSquaredError, Precision and BinnedAUROC"
-          " on the card: 0 kernels and 0 copies (an agreed trace of all six beside one marker kernel holds the"
-          " marker alone), 0 bytes allocated at the end and at the peak, no signature built; ms a trace "
+    print(f"4q c. [{card}] abstract_step, abstract_cohort_step, abstract_double_buffer_step and the cohort's"
+          " abstract_double_buffer of MeanSquaredError, Precision and BinnedAUROC on the card: 0 kernels and 0"
+          f" copies (an agreed trace of all {len(traces)} beside one marker kernel holds the marker alone), 0 bytes"
+          " allocated at the end and at the peak, no signature built, composed_generation_hazards == [] for the"
+          " six two-generation graphs; ms a trace "
           + ", ".join(f"{k} {v['ms']:.1f}" for k, v in traced.items()) + f" ({out['abstract_s']:.2f} s)")
 
     # d. the watchdog's cross-link
@@ -4702,6 +4874,31 @@ def _program_audit_phase(torch, dev, card):
     if hint is None or "MTA001" not in hint:
         raise AssertionError(f"4q d. the hint for {key}: {hint!r}")
     print(f"4q d. the watchdog's hint for {key}: {hint}")
+
+    # e. the traced verdict against a real build and replay: the installed
+    # states own their storage (no graph buffer, no default, no other
+    # state) and the returned value shares none of it
+    t0 = time.perf_counter()
+    checked = []
+    for factory, args in families:
+        metric = factory()
+        engine = CompiledStepEngine(metric, observe=False)
+        defaults = {conc._storage(d) for d in metric._defaults.values()} - {None}
+        for step in ("build", "replay"):
+            value = engine(*args)
+            states = [(s, getattr(metric, s)) for s in metric._defaults]
+            hazards = conc.first_dispatch_hazards(states, conc.engine_owned(engine), defaults, value)
+            if hazards:
+                raise AssertionError(f"4q e. {type(metric).__name__} after its {step}: {hazards}")
+        graphs = len(engine.cache_info()["graph_build_ms"])
+        if graphs != 1:
+            raise AssertionError(f"4q e. {type(metric).__name__} built {graphs} CUDA graphs, not one")
+        checked.append(type(metric).__name__)
+    torch.cuda.synchronize()
+    out["replay_s"] = time.perf_counter() - t0
+    print(f"4q e. [{card}] {', '.join(checked)}: one compiled step (the CUDA graph's build) and one replay each;"
+          " first_dispatch_hazards over the installed states, the graph's buffers, the defaults and the returned"
+          f" value == [] after both, as the traced verdict says ({out['replay_s']:.2f} s)")
     out["phase_s"] = time.perf_counter() - phase_t0
     return out
 

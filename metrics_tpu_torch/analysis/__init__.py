@@ -26,11 +26,14 @@ catalog, MTA001–MTA014 and MTL101–MTL107):
   against one on concrete grid probes (MTA005), reset identity, compute
   purity and residual coherence (MTA006), buffer lifetime and checkpoint
   ownership (MTA007), and the program fingerprints.
-* **Pass 4 — concurrency soundness, its host legs**
-  (:mod:`metrics_tpu_torch.analysis.concurrency`): the thread-shared-state
-  lint (MTL106) with its thread-shared model, and the double-buffer
-  admission checks ``AsyncServingEngine`` runs (MTA009's AST and tensor
-  legs).
+* **Pass 4 — concurrency soundness**
+  (:mod:`metrics_tpu_torch.analysis.concurrency`): each engine-eligible
+  family's host-seam budget gated against the committed
+  ``SEAM_BASELINE.json`` (MTA008) and the port's host crossing sites; the
+  double-buffer prover over the step graph and the traced two-generation
+  graph (MTA009), whose AST and tensor legs ``AsyncServingEngine``'s
+  admission runs; the thread-shared-state lint (MTL106) with its
+  thread-shared model.
 * **Pass 6 — fleet-protocol model checking**
   (:mod:`metrics_tpu_torch.analysis.protocol`): a deterministic explorer
   drives the port's REAL migration/lease/replication/failover code over
@@ -40,8 +43,7 @@ catalog, MTA001–MTA014 and MTL101–MTL107):
   failover promotion (MTA014), and the MTL107 durability lint leg — gated
   against the committed tighten-only ``PROTOCOL_BASELINE.json``.
 
-The host-seam and double-buffer provers, numerics and the sanitizer
-(passes 4–5 and MetricSan) are not ported yet.
+Numerics and the sanitizer (pass 5 and MetricSan) are not ported yet.
 
 Suppress a rule at a site with ``# metrics-tpu: allow(<RULE-ID>)``
 (stale allows are themselves flagged, MTL105).
@@ -62,6 +64,13 @@ from metrics_tpu_torch.analysis.distributed import (  # noqa: F401
     fingerprint_jaxpr,
 )
 from metrics_tpu_torch.analysis.concurrency import (  # noqa: F401
+    check_double_buffer,
+    check_host_seam,
+    composed_generation_hazards,
+    flatten_seam_budget,
+    host_seam_budget,
+    host_seam_sites,
+    load_seam_baseline,
     register_threadsan_target,
     thread_shared_model,
 )
@@ -85,19 +94,26 @@ __all__ = [
     "audit_metric",
     "audit_registry",
     "check_donation_lifetime",
+    "check_double_buffer",
+    "check_host_seam",
     "check_lifecycle",
     "check_protocol",
     "check_replica_equivalence",
+    "composed_generation_hazards",
     "counterexample_report",
     "durability_findings",
     "explore_crash_consistency",
     "explore_fencing",
     "fingerprint_jaxpr",
+    "flatten_seam_budget",
     "hint_for_watch_key",
+    "host_seam_budget",
+    "host_seam_sites",
     "iter_eqns",
     "lint_file",
     "lint_paths",
     "load_protocol_baseline",
+    "load_seam_baseline",
     "register_threadsan_target",
     "thread_shared_model",
     "tighten_protocol_baseline",

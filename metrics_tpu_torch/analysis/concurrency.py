@@ -1,12 +1,41 @@
-"""Pass 4 — concurrency soundness, its host legs: the thread-shared-state
-lint and the double-buffer admission checks of the asynchronous serving
-path.
+"""Pass 4 — concurrency soundness: the host-seam auditor, the double-buffer
+prover and the thread-shared-state analysis.
 
-Port of the host legs of ``metrics_tpu/analysis/concurrency.py``. The JAX
-package's jaxpr legs (the host-seam budget, MTA008, and the traced
-two-generation prover of MTA009) are not ported yet; what is here needs no
-program trace:
+Port of ``metrics_tpu/analysis/concurrency.py``, over the FX graphs of the
+port's step programs (:func:`~metrics_tpu_torch.engine.fake_trace`) where the
+JAX package reads jaxprs:
 
+* **MTA008 — host-seam budget.** For every engine-eligible family (and its
+  ``@cohort`` / ``@int8`` / ``@bf16`` variants) the count of host↔device
+  crossings per serving-loop phase (:func:`host_seam_budget`): the host
+  transfers inside the traced step graph, one host collective per
+  non-residual state per sync, the device fetch per compute and per
+  checkpointed state, the per-level rounds of a two-level sync. It rides
+  ``evidence["host_seam"]`` and is gated against the committed
+  ``SEAM_BASELINE.json`` at the repo root (:func:`check_host_seam`), the JAX
+  package's file, which the port only reads. :func:`host_seam_sites` names
+  where in the port's own host paths each crossing lives (the AST leg).
+* **MTA009 — double-buffer prover.** On the single step graph
+  (:func:`check_double_buffer`) and on the traced two-generation graph
+  (:func:`composed_generation_hazards`, over
+  :meth:`~metrics_tpu_torch.engine.CompiledStepEngine.abstract_double_buffer_step`):
+  the state outputs generation N+1 steps from must be fresh (no input state
+  returned, no tensor constant of the graph, no two outputs on one
+  storage) and disjoint from every value the host reads. The port copies
+  states into graph buffers where the JAX package donates them, so the
+  "donated" inputs are the graph's first ``n_donated`` placeholders and an
+  executable-owned constant is an output whose storage root
+  (:func:`~metrics_tpu_torch.analysis.program._storage_root`, which follows
+  views and in-place writes) is a ``get_attr`` tensor constant. Its AST
+  legs — :func:`_host_reference_hazards` (a registered state stashed bare
+  into a plain attribute, or reseeded bare from one) and
+  :func:`writeback_generation_monotonic` (``CompiledStepEngine.step``
+  reads the states it steps from and installs the new ones inside one
+  ``with self._lock`` extent) — are shared with the admission checks of
+  ``AsyncServingEngine``, which adds :func:`first_dispatch_hazards`: the
+  same four hazard kinds read off the real tensors after the first step
+  (the storages of the installed states, the engine's graph buffers
+  (:func:`engine_owned`), the metrics' defaults and the returned values).
 * **MTL106 — thread-shared-state lint** (wired into
   :mod:`metrics_tpu_torch.analysis.lint`). Per module, walk the call graph
   from every thread entry point (``Thread(target=...)``,
@@ -17,28 +46,10 @@ program trace:
   happen-before the spawn). The same analysis exports the
   *thread-shared model* (:func:`thread_shared_model`) and the runtime
   target registry a thread sanitizer arms.
-* **MTA009's AST and tensor legs** — what ``AsyncServingEngine``'s
-  admission runs:
-
-  * :func:`_host_reference_hazards` (with :func:`_bare_self_attrs`): the
-    AST check over a metric class's own methods for a registered state
-    stashed bare into a plain attribute, or reseeded bare from one;
-  * :func:`writeback_generation_monotonic`: the AST check that
-    ``CompiledStepEngine.step`` reads the states it steps from
-    (``_current_states``) and installs the new ones (``_write_back``)
-    inside one ``with self._lock`` extent, so two steps can never install
-    their generations out of order;
-  * :func:`first_dispatch_hazards`: the check on real tensors after the
-    first batch. The JAX package traces a two-generation program and
-    audits its jaxpr; the port has no jaxpr and donates no buffer, so it
-    compares the storages of the states the first step installed with the
-    engine's graph buffers, static inputs and captured outputs
-    (:func:`engine_owned`), the metrics' defaults, each other and the
-    values the step returned. It reports the JAX package's four hazard
-    kinds.
 """
 import ast
 import inspect
+import json
 import os
 import textwrap
 import threading
@@ -50,8 +61,16 @@ import torch
 from metrics_tpu_torch.analysis.rules import Finding
 
 __all__ = [
+    "SEAM_BASELINE_FILENAME",
+    "check_double_buffer",
+    "check_host_seam",
+    "composed_generation_hazards",
     "engine_owned",
     "first_dispatch_hazards",
+    "flatten_seam_budget",
+    "host_seam_budget",
+    "host_seam_sites",
+    "load_seam_baseline",
     "register_threadsan_target",
     "tensor_leaves",
     "thread_findings",
@@ -61,8 +80,255 @@ __all__ = [
 ]
 
 
+#: the committed per-family seam baseline at the repo root (next to
+#: FINGERPRINTS.json): the JAX package's file, read here and never written
+SEAM_BASELINE_FILENAME = "SEAM_BASELINE.json"
+
+
 # ---------------------------------------------------------------------------
-# MTA009 — the double-buffer admission checks (AST and tensor legs)
+# MTA008 — host-seam budget
+# ---------------------------------------------------------------------------
+def host_seam_budget(metric, step_closed: Any = None, cohort: bool = False) -> Dict[str, Any]:
+    """The family's host↔device crossings per serving-loop phase, derived
+    from its registered state metadata plus the traced step graph.
+
+    Phases and what each crossing is:
+
+    * ``per_dispatch`` — crossings every step pays: the host transfers in
+      the step graph (:func:`~metrics_tpu_torch.analysis.program._callback_eqns`;
+      on a CPU program a ``.cpu()`` is no transfer). The unguarded program
+      is the budgeted one; a StateGuard adds exactly one fused flag fetch (a
+      library constant, see :func:`host_seam_sites`).
+    * ``per_sync`` — one host collective per non-residual state (stacked
+      cohort states sync as one gather each, whatever the tenant count),
+      the device put re-installing each merged state, the quantized-payload
+      count, and the two rounds per state a two-level sync pays.
+    * ``per_compute`` — the epoch-end value fetch plus the sync the compute
+      triggers when a backend is installed.
+    * ``per_checkpoint`` — one device fetch per registered state (residual
+      companions included).
+    * ``per_health`` (cohort variants) — the one device fetch of a
+      ``MetricCohort.health()`` snapshot, tenant-count independent.
+    """
+    from metrics_tpu_torch.analysis.program import _callback_eqns
+
+    residuals = set(metric._sync_residual_names())
+    reductions = getattr(metric, "_reductions", {})
+    synced = [s for s in reductions if s not in residuals]
+    precisions = metric.sync_precisions()
+    quantized = [s for s in synced if precisions.get(s, "exact") != "exact"]
+    callbacks = len(_callback_eqns(step_closed)) if step_closed is not None else 0
+    budget: Dict[str, Any] = {
+        # the state inventory the counts derive from: the gate binds only a
+        # matching configuration (one class can register other states under
+        # another configuration)
+        "states": sorted(metric._defaults),
+        "per_dispatch": {"callbacks": callbacks},
+        "per_sync": {
+            "host_collectives": len(synced),
+            "quantized_payloads": len(quantized),
+            "device_puts": len(synced),
+            "two_level": {"level0_rounds": len(synced), "level1_rounds": len(synced)},
+        },
+        "per_compute": {"device_fetches": 1, "host_collectives": len(synced)},
+        "per_checkpoint": {"device_fetches": len(metric._defaults)},
+        # what a step costs in crossings when nothing syncs, computes or
+        # checkpoints: the number a device-resident serving loop keeps at 0
+        "steady_per_step": callbacks,
+    }
+    if cohort:
+        budget["per_health"] = {"device_fetches": 1}
+    return budget
+
+
+def flatten_seam_budget(budget: Dict[str, Any], prefix: str = "") -> Dict[str, int]:
+    """``{"per_sync.host_collectives": 2, ...}``: the flat numeric keys the
+    committed baseline compares against (the ``states`` inventory is
+    compared separately, not counted)."""
+    flat: Dict[str, int] = {}
+    for key, value in budget.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, dict):
+            flat.update(flatten_seam_budget(value, prefix=f"{name}."))
+        elif isinstance(value, (int, float)) and not isinstance(value, bool):
+            flat[name] = int(value)
+    return flat
+
+
+def _repo_root() -> str:
+    import metrics_tpu_torch
+
+    return os.path.dirname(os.path.dirname(os.path.abspath(metrics_tpu_torch.__file__)))
+
+
+_BASELINE_CACHE: Dict[str, Optional[Dict[str, Dict[str, Any]]]] = {}
+
+
+def load_seam_baseline(path: Optional[str] = None) -> Optional[Dict[str, Dict[str, Any]]]:
+    """The committed per-family seam budgets (``family -> {"states",
+    "budget"}``), or None when no baseline is committed. Cached per path."""
+    path = path or os.path.join(_repo_root(), SEAM_BASELINE_FILENAME)
+    if path not in _BASELINE_CACHE:
+        try:
+            with open(path, "r", encoding="utf-8") as fh:
+                _BASELINE_CACHE[path] = json.load(fh).get("budgets") or {}
+        except (OSError, ValueError):
+            _BASELINE_CACHE[path] = None
+    return _BASELINE_CACHE[path]
+
+
+def check_host_seam(
+    metric,
+    findings: List[Finding],
+    infos: List[str],
+    family: Optional[str] = None,
+    step_closed: Any = None,
+    cohort: bool = False,
+    baseline: Optional[Dict[str, Dict[str, Any]]] = None,
+) -> Dict[str, Any]:
+    """MTA008: derive the family's host-seam budget and gate it against the
+    committed baseline. Returns the budget (the ``evidence["host_seam"]``
+    entry). Families with no committed entry are measured but not gated;
+    the registry tests pin that every audited family has one."""
+    cls = type(metric).__name__
+    family = family or cls
+    budget = host_seam_budget(metric, step_closed=step_closed, cohort=cohort)
+    base = load_seam_baseline() if baseline is None else baseline
+    entry = (base or {}).get(family)
+    if entry is None:
+        return budget
+    # the lookup is name-keyed: a configuration that registers another
+    # state inventory than the recorded one is another seam, measured but
+    # not gated here
+    recorded_states = entry.get("states")
+    if recorded_states is not None and list(recorded_states) != budget["states"]:
+        infos.append(
+            f"{cls}: committed seam baseline for {family!r} records states"
+            f" {list(recorded_states)} but this configuration registers"
+            f" {budget['states']}; budget measured, not gated"
+        )
+        return budget
+    allowed_budget = entry.get("budget", entry)
+    flat = flatten_seam_budget(budget)
+    regressed = False
+    for key in sorted(flat):
+        allowed = int(allowed_budget.get(key, 0))
+        if flat[key] > allowed:
+            regressed = True
+            findings.append(Finding(
+                "MTA008", f"{cls}.{key}",
+                f"host-seam budget regression: {flat[key]} {key} crossings"
+                f" vs the committed baseline of {allowed} — a new"
+                " host<->device crossing entered this family's serving"
+                " loop. If intended, hand-edit this family's entry in"
+                " SEAM_BASELINE.json and justify the crossing in review"
+                " (`make lint` only auto-refreshes DECREASES: it refuses"
+                " to rewrite the baseline over a red audit)",
+                detail={"family": family, "key": key, "got": flat[key], "baseline": allowed},
+            ))
+    if regressed:
+        from metrics_tpu_torch.observability import telemetry as _obs
+
+        if _obs.enabled():
+            _obs.get().count("analysis.seam.regressions")
+    return budget
+
+
+# -- the host-side crossing sites (AST leg; library-level, cached) ----------
+#: PyTorch's crossing calls, where the JAX package names ``device_get``,
+#: ``device_put`` and its backend's ``gather``: reads of a tensor's values on
+#: the host (and the engine's pinned reads), copies onto a device, and the
+#: collectives a sync routes through its policy
+_CROSSING_CALLS = {
+    "item": "device_fetch",
+    "cpu": "device_fetch",
+    "tolist": "device_fetch",
+    "numpy": "device_fetch",
+    "asarray": "device_fetch",
+    "_flags_to_host": "device_fetch",
+    "_read_after": "device_fetch",
+    "as_tensor": "device_put",
+    "copy_": "device_put",
+    "gather_all_tensors": "host_collective",
+    "all_gather": "host_collective",
+    "all_gather_object": "host_collective",
+    "apply_sync_policy": "host_collective",
+}
+
+_SITES_CACHE: List[Dict[str, str]] = []
+
+
+def _to_kind(node: ast.Call) -> Optional[str]:
+    """The crossing of a ``.to(...)`` call: to the CPU is a device fetch, to
+    a device named by a variable (``device=dev``, ``.to(self.device)``) a
+    device put; a dtype cast is no crossing."""
+    targets = list(node.args) + [kw.value for kw in node.keywords if kw.arg == "device"]
+    for arg in targets:
+        if isinstance(arg, ast.Constant) and arg.value == "cpu":
+            return "device_fetch"
+        name = arg.attr if isinstance(arg, ast.Attribute) else arg.id if isinstance(arg, ast.Name) else ""
+        if "dev" in name.lower():
+            return "device_put"
+    return "device_put" if any(kw.arg == "device" for kw in node.keywords) else None
+
+
+def host_seam_sites() -> List[Dict[str, str]]:
+    """Every host↔device crossing call site on the port's serving-loop host
+    paths, classified by phase: the AST leg of the seam audit. The budgets
+    count how often a phase crosses; this table names where in the port
+    each crossing lives.
+
+    Crossing kinds: ``device_fetch`` (``.item()``, ``.cpu()``,
+    ``.tolist()``, ``.numpy()``, ``np.asarray``, ``.to("cpu")``, the
+    engine's pinned reads), ``device_put`` (``torch.as_tensor``,
+    ``.to(device)``, ``copy_``) and ``host_collective`` (the backend's
+    gathers and the sync policy that wraps them). Cached per process."""
+    if _SITES_CACHE:
+        return list(_SITES_CACHE)
+    from metrics_tpu_torch import cohort as _cohort
+    from metrics_tpu_torch import engine as _engine
+    from metrics_tpu_torch import metric as _metric
+    from metrics_tpu_torch.reliability import checkpoint as _ckpt
+
+    surfaces = [
+        ("dispatch", _engine.CompiledStepEngine.step),
+        ("dispatch", _engine.CompiledStepEngine._apply_guard_verdicts),
+        ("sync", _metric.Metric._sync_dist_impl),
+        ("sync", _cohort.MetricCohort._sync_stacked),
+        ("compute", _metric.Metric._wrap_compute),
+        ("checkpoint", _ckpt.save_envelope),
+        ("checkpoint", _ckpt._np),
+        ("health", _cohort.MetricCohort.health),
+    ]
+    for phase, fn in surfaces:
+        try:
+            src = textwrap.dedent(inspect.getsource(fn))
+            base_line = inspect.getsourcelines(fn)[1]
+            rel = os.path.relpath(inspect.getsourcefile(fn), _repo_root())
+            tree = ast.parse(src)
+        except (OSError, TypeError, SyntaxError):
+            continue
+        for node in ast.walk(tree):
+            if not isinstance(node, ast.Call):
+                continue
+            name = (
+                node.func.attr if isinstance(node.func, ast.Attribute)
+                else node.func.id if isinstance(node.func, ast.Name) else None
+            )
+            kind = _to_kind(node) if name == "to" else _CROSSING_CALLS.get(name or "")
+            if kind is None:
+                continue
+            _SITES_CACHE.append({
+                "phase": phase,
+                "site": f"{rel}:{base_line + node.lineno - 1}",
+                "call": name,
+                "kind": kind,
+            })
+    return list(_SITES_CACHE)
+
+
+# ---------------------------------------------------------------------------
+# MTA009 — double-buffer prover
 # ---------------------------------------------------------------------------
 _WRITEBACK_CACHE: Dict[str, bool] = {}
 
@@ -229,6 +495,171 @@ def first_dispatch_hazards(
         ptr = _storage(t)
         if ptr is not None and (ptr in seen or ptr in owned):
             hazards.append({"kind": "cross_generation_alias", "position": len(states) + off, "state": seen.get(ptr)})
+    return hazards
+
+
+def _graph_roles(closed: Any, n_donated: int, n_state_outputs: int):
+    """``(donated, state_out, rest)`` of a step graph: the storage roots of
+    its first ``n_donated`` placeholders (the states it steps from, copied
+    into graph buffers where the JAX package donates them), and its first
+    ``n_state_outputs`` outputs and the rest, each as ``(output, storage
+    root)``; a non-node output (a literal) has root None."""
+    from metrics_tpu_torch.analysis.program import _outputs, _placeholders, _storage_root
+
+    donated = set(_placeholders(closed)[:n_donated])
+    roots = [(v, _storage_root(v) if isinstance(v, torch.fx.Node) else None) for v in _outputs(closed)]
+    return donated, roots[:n_state_outputs], roots[n_state_outputs:]
+
+
+def _is_constant(root: Any) -> bool:
+    """A literal output, or one whose storage is a tensor constant of the
+    graph (a ``get_attr``): storage the program owns and hands back on
+    every call."""
+    return root is None or (isinstance(root, torch.fx.Node) and root.op == "get_attr")
+
+
+def check_double_buffer(
+    metric,
+    findings: List[Finding],
+    infos: List[str],
+    step_closed: Any = None,
+    n_donated: int = 0,
+    n_state_outputs: int = 0,
+    engine_eligible: bool = False,
+) -> Optional[Dict[str, Any]]:
+    """MTA009: prove (or refute) two-generation safety for one family.
+    Returns the ``evidence["double_buffer"]`` verdict, or None for families
+    that never run compiled (eager-only).
+
+    Generation N steps from buffer set A (the first ``n_donated``
+    placeholders), produces state outputs B (the first ``n_state_outputs``
+    outputs: what ``_write_back`` installs and generation N+1 steps from)
+    and host-read outputs V (the rest). Safe iff B is fully fresh and
+    disjoint from A ∪ V. A hazard a pass-1/3 rule already diagnoses (an
+    input state in B: MTA007's passthrough; duplicates: MTA003) marks the
+    verdict unsafe without a second finding. MTA009 findings are the
+    hazards only this pass sees: a graph constant in B, a host-read output
+    aliased into B beyond what MTA003 reported, and the AST-level host
+    references."""
+    if not engine_eligible:
+        return None
+    cls = type(metric).__name__
+    evidence: Dict[str, Any] = {"safe": True, "hazards": [], "writeback_locked": writeback_generation_monotonic()}
+    # a buffer-lifetime defect (MTA007) already voids two generations: fold
+    # it into the verdict without a second finding
+    for f in findings:
+        if f.rule == "MTA007":
+            evidence["safe"] = False
+            evidence["hazards"].append({"kind": "donation_lifetime", "subject": f.subject, "diagnosed_as": "MTA007"})
+    if not evidence["writeback_locked"]:
+        evidence["safe"] = False
+        evidence["hazards"].append({"kind": "writeback_unordered"})
+        findings.append(Finding(
+            "MTA009", f"{cls}.step",
+            "the engine's donate->dispatch->write_back sequence is not"
+            " serialized under the engine lock: two concurrent steps could"
+            " install generations out of order",
+        ))
+    if step_closed is None:
+        # nothing traced, nothing proven — but a verdict already refuted
+        # stays refuted
+        if evidence["safe"] is True:
+            evidence["safe"] = None
+        infos.append(f"{cls}: MTA009 double-buffer verdict not provable from the step program — it did not trace")
+    else:
+        donated, state_out, value_out = _graph_roles(step_closed, n_donated, n_state_outputs)
+        seen: Dict[Any, int] = {}
+        for pos, (v, root) in enumerate(state_out):
+            if _is_constant(root):
+                # every generation hands back the same buffer
+                evidence["safe"] = False
+                evidence["hazards"].append({"kind": "const_state_output", "position": pos, "var": str(v)})
+                findings.append(Finding(
+                    "MTA009", f"{cls}.step",
+                    f"state output position {pos} is an executable-owned"
+                    f" constant ({v}): generation N and N+1 share (and"
+                    " double-donate) one buffer — ping-pong generations can"
+                    " never be disjoint for this state",
+                    detail={"position": pos, "var": str(v)},
+                ))
+                continue
+            if root in donated:
+                evidence["safe"] = False
+                evidence["hazards"].append(
+                    {"kind": "donated_passthrough", "position": pos, "var": str(v), "diagnosed_as": "MTA007"}
+                )
+            if root in seen:
+                evidence["safe"] = False
+                evidence["hazards"].append(
+                    {"kind": "duplicate_state_output", "position": pos, "var": str(v), "diagnosed_as": "MTA003"}
+                )
+            seen[root] = pos
+        mta003_reported = any(f.rule == "MTA003" and f.subject.endswith(".step") for f in findings)
+        for off, (v, root) in enumerate(value_out):
+            if root is None:
+                continue
+            if root in seen or root in donated:
+                position = n_state_outputs + off
+                evidence["safe"] = False
+                evidence["hazards"].append({"kind": "host_read_of_donated", "position": position, "var": str(v)})
+                if not (mta003_reported and root in seen):
+                    findings.append(Finding(
+                        "MTA009", f"{cls}.step",
+                        f"host-read output (position {position},"
+                        f" var {v}) aliases a buffer the next generation"
+                        " donates: reading the batch value while dispatch N+1"
+                        " is enqueued touches an in-flight donated buffer",
+                        detail={"position": position, "var": str(v)},
+                    ))
+    for flavor, method, attr, lineno in _host_reference_hazards(type(metric), set(metric._defaults)):
+        evidence["safe"] = False
+        evidence["hazards"].append({"kind": flavor, "method": method, "attr": attr})
+        if flavor == "state_ref_escape":
+            message = (
+                f"{method}() stashes registered state into plain attribute"
+                f" {attr!r} (line {lineno}): a host reference the next"
+                " donated dispatch kills — any later read (guard epilogue,"
+                " health fetch, telemetry gauge, user code) touches an"
+                " in-flight donated buffer"
+            )
+        else:
+            message = (
+                f"{method}() reseeds registered state {attr!r} from a"
+                f" host-cached attribute (line {lineno}): generation N+1's"
+                " state buffer aliases storage generation N donated — the"
+                " two generations ping-pong requires to be disjoint share"
+                " one buffer"
+            )
+        findings.append(Finding(
+            "MTA009", f"{cls}.{attr}", message, detail={"method": method, "attr": attr, "flavor": flavor},
+        ))
+    return evidence
+
+
+def composed_generation_hazards(closed: Any, n_donated: int, n_state_outputs: int) -> List[Dict[str, Any]]:
+    """Hazards of the two-generation graph
+    (:meth:`~metrics_tpu_torch.engine.CompiledStepEngine.abstract_double_buffer_step`):
+    generation N's state outputs (the first ``n_state_outputs`` outputs,
+    what generation N+1 steps from) must be fresh (no input state, no graph
+    constant, pairwise distinct storage) and disjoint from every later
+    output (either generation's host-read values, generation N+1's states).
+    An empty list: the interleave is alias-free. The cross-check of
+    :func:`check_double_buffer` on the real composition."""
+    donated, state_out, rest = _graph_roles(closed, n_donated, n_state_outputs)
+    hazards: List[Dict[str, Any]] = []
+    seen: Set[Any] = set()
+    for pos, (v, root) in enumerate(state_out):
+        if _is_constant(root):
+            hazards.append({"kind": "const_state_output", "position": pos, "var": str(v)})
+            continue
+        if root in donated:
+            hazards.append({"kind": "donated_passthrough", "position": pos, "var": str(v)})
+        if root in seen:
+            hazards.append({"kind": "duplicate_state_output", "position": pos, "var": str(v)})
+        seen.add(root)
+    for off, (v, root) in enumerate(rest):
+        if root is not None and (root in seen or root in donated):
+            hazards.append({"kind": "cross_generation_alias", "position": n_state_outputs + off, "var": str(v)})
     return hazards
 
 

@@ -3,7 +3,9 @@ fires.
 
 Port of ``metrics_tpu/analysis/fixtures.py``: the metric fixtures of the
 program audit (pass 1) and of the distributed-equivalence and lifecycle
-pass (pass 3), and the host fixtures. The mirror of
+pass (pass 3), of the host-seam and double-buffer pass (pass 4), the
+positive control of the quantized merge probe, and the host fixtures. The
+mirror of
 :mod:`metrics_tpu_torch.reliability.faultinject` for the static analyzer:
 faultinject injects runtime faults to prove the *dynamic* defenses catch
 them; these fixtures encode defects to prove the *static* passes catch
@@ -12,8 +14,9 @@ one rule and is otherwise clean, so the tests can pin "this fixture trips
 this rule and nothing else". The fleet fixtures subclass the port's own
 fleet classes and override the hooks those classes name for the purpose
 (``MigrationCoordinator._commit_target``, ``FleetShard._check_fence``). The
-fixtures of the host-seam, double-buffer, numerics and sanitizer passes
-come with those passes.
+fixtures of the numerics and sanitizer passes come with those passes.
+``SeamRegressor`` keeps the JAX package's class name: the committed
+``SEAM_BASELINE.json`` budgets it by that name.
 
 The metric fixtures take the :class:`~metrics_tpu_torch.Metric` base's
 ``device`` (the card by default; ``"cpu"`` on the CPU).
@@ -31,10 +34,13 @@ from metrics_tpu_torch.fleet import FleetShard, MigrationCoordinator
 from metrics_tpu_torch.metric import Metric
 
 __all__ = [
+    "BlockScaledQuantizedSync",
     "CallbackInJit",
     "ComputeMutatesState",
     "DonatedAlias",
+    "DoubleBufferAliaser",
     "GcBeforeDurableCoordinator",
+    "HostReadOfDonated",
     "HostSyncUpdate",
     "MeanWithoutCount",
     "NarrowAccumulator",
@@ -43,6 +49,7 @@ __all__ = [
     "NonIdentityReset",
     "OrphanResidual",
     "ReplicaDependentCount",
+    "SeamRegressor",
     "StaleSuppression",
     "SuppressedNarrowAccumulator",
     "UnfencedCheckpointShard",
@@ -348,6 +355,98 @@ class StaleSuppression(Metric):
 
     def compute(self) -> torch.Tensor:
         return self.acc
+
+
+class SeamRegressor(Metric):
+    """MTA008: a family whose host-seam budget regressed past its committed
+    baseline. The entry for this class in ``SEAM_BASELINE.json`` budgets ONE
+    host-synced state; the class registers THREE — every sync now pays three
+    host collectives, every checkpoint three fetches. The program itself is
+    sound (all states written, sum-reduced, fused), so only the seam gate
+    fires: a crossing-count creep no other rule sees."""
+
+    _fused_forward = True
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("hits", default=torch.zeros(()), dist_reduce_fx="sum")
+        self.add_state("misses", default=torch.zeros(()), dist_reduce_fx="sum")
+        self.add_state("weight", default=torch.zeros(()), dist_reduce_fx="sum")
+
+    def update(self, x: torch.Tensor) -> None:
+        self.hits = self.hits + torch.sum(x)
+        self.misses = self.misses + torch.sum(1.0 - x)
+        self.weight = self.weight + x.shape[0]
+
+    def compute(self) -> torch.Tensor:
+        return self.hits / torch.clamp(self.hits + self.misses, min=1.0)
+
+
+class DoubleBufferAliaser(Metric):
+    """MTA009 (generation-alias flavor): ``reset()`` reseeds the registered
+    state from a tensor held on the instance since construction. Every
+    generation after a reset starts on the same held tensor, so two state
+    generations can never be disjoint. The single step graph is clean (the
+    merge makes a new tensor), which is why the prover has an AST leg."""
+
+    _fused_forward = True
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self._pool = torch.zeros((), device=self.device)  # the held tensor
+        self.add_state("acc", default=torch.zeros(()), dist_reduce_fx="sum")
+
+    def update(self, x: torch.Tensor) -> None:
+        self.acc = self.acc + torch.sum(x)
+
+    def compute(self) -> torch.Tensor:
+        return self.acc
+
+    def reset(self) -> None:
+        super().reset()
+        self.acc = self._pool  # the alias: every generation shares _pool
+
+
+class HostReadOfDonated(Metric):
+    """MTA009 (host-read flavor): ``compute`` stashes the live state in a
+    plain attribute — a host reference that outlives the compute. The next
+    step replaces the state, and a later read of the stash (an exporter
+    scrape, user code) reads a tensor a step in flight may write. The prover
+    refuses the stash at the assignment."""
+
+    _fused_forward = True
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("acc", default=torch.zeros(()), dist_reduce_fx="sum")
+        self._last_value = None
+
+    def update(self, x: torch.Tensor) -> None:
+        self.acc = self.acc + torch.sum(x)
+
+    def compute(self) -> torch.Tensor:
+        self._last_value = self.acc  # the escape: a host ref to live state
+        return self.acc
+
+
+class BlockScaledQuantizedSync(Metric):
+    """The POSITIVE control of the quantized MTA004 probe: a 64-bin 'sum'
+    state on the int8 sync tier (block-scaled, with its error-feedback
+    residual). Must audit clean — the probe runs on the dequantized
+    composite and the residual companion is exempt from every reduction
+    rule."""
+
+    _fused_forward = True
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("hist", default=torch.zeros((64,)), dist_reduce_fx="sum", sync_precision="int8")
+
+    def update(self, x: torch.Tensor) -> None:
+        self.hist = self.hist + torch.zeros_like(self.hist) + torch.sum(x) / self.hist.shape[0]
+
+    def compute(self) -> torch.Tensor:
+        return torch.sum(self.hist)
 
 
 class UnlockedSharedCounter:

@@ -36,9 +36,15 @@ violation. They are reported as ``infos`` for visibility.
 :func:`audit_registry` runs the audit over every metric family in
 :func:`registry_cases` (the JAX package's 29 families, its factories and
 its inputs) on a device (the card unless the caller asks for the CPU) and
-returns a JSON-able report. Passes 4 and 5 (the host-seam and double-buffer
-provers, numerics) are not ported yet: ``AuditResult.evidence`` stays
-None and the report has no ``host_seam_sites`` key.
+returns a JSON-able report. For every engine-eligible family (and its
+``@cohort`` / ``@int8`` / ``@bf16`` variants) pass 4
+(:mod:`metrics_tpu_torch.analysis.concurrency`) adds
+``AuditResult.evidence = {"host_seam": ..., "double_buffer": ...}``: the
+host-seam budget gated against ``SEAM_BASELINE.json`` (MTA008) and the
+double-buffer verdict over the step graph (MTA009); the report names the
+port's host crossing sites (``host_seam_sites``). Pass 5 (numerics) is not
+ported yet: no entry has a ``numerics`` key, and an eager-only family's
+evidence stays None.
 
 Differences from the JAX package, by design: tensors carry no
 ``weak_type``, so MTA001 has no weak-type check (PyTorch's 0-dim type
@@ -282,8 +288,9 @@ class AuditResult:
     # graph digests (ops × dtypes × shapes) of the update and compiled
     # step programs, when fingerprinting was requested
     fingerprints: Optional[Dict[str, Optional[str]]] = None
-    # pass-4/5 evidence (host seam, double buffer, numerics): None until
-    # those passes are ported
+    # pass-4 evidence of engine-eligible families: {"host_seam": budget,
+    # "double_buffer": verdict}; None for eager-only families (pass 5's
+    # "numerics" key is not ported yet)
     evidence: Optional[Dict[str, Any]] = None
 
     def to_dict(self) -> Dict[str, Any]:
@@ -604,17 +611,18 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 def _audit_engine_program(
     metric, args: tuple, kwargs: dict, findings: List[Finding]
-) -> Optional[Tuple[Any, int]]:
+) -> Optional[Tuple[Any, int, int]]:
     """Trace the step function the engine would build (update + batch-local
     compute + merge) and audit it: host transfers (MTA002) and buffers
-    aliased across outputs (MTA003). Returns ``(graph, n_donated)`` for the
-    donation-lifetime pass, or None when the step does not trace."""
-    from metrics_tpu_torch.engine import CompiledStepEngine
+    aliased across outputs (MTA003). Returns ``(graph, n_donated,
+    n_state_outputs)`` for the donation-lifetime and double-buffer passes,
+    or None when the step does not trace."""
+    from metrics_tpu_torch.engine import CompiledStepEngine, _count_specs
 
     cls = type(metric).__name__
     engine = CompiledStepEngine(metric, observe=False)
     try:
-        graph, _shapes, n_donated = engine.abstract_step(*args, **kwargs)
+        graph, out_shapes, n_donated = engine.abstract_step(*args, **kwargs)
     except Exception as err:  # noqa: BLE001 — the trace failure is the finding
         kind = _trace_error_kind(err)
         msg = str(err).splitlines()[0] if str(err) else type(err).__name__
@@ -643,7 +651,29 @@ def _audit_engine_program(
             f" program (output positions {positions}): donation double-books"
             " the buffer (state/state or state/batch-value alias)",
         ))
-    return graph, n_donated
+    # the state leaves lead the outputs: what _write_back installs and the
+    # next generation steps from
+    return graph, n_donated, _count_specs(out_shapes[0])
+
+
+def _pass4_evidence(
+    metric, findings: List[Finding], infos: List[str], graph: Any, n_donated: int, n_state_outs: int,
+    family: Optional[str] = None, cohort: bool = False,
+) -> Dict[str, Any]:
+    """``{"host_seam": ..., "double_buffer": ...}`` of an engine-eligible
+    family's step graph (None when it did not trace): MTA008 and MTA009."""
+    from metrics_tpu_torch.analysis import concurrency as _conc
+
+    return {
+        "host_seam": _conc.check_host_seam(
+            metric, findings, infos, family=family, step_closed=graph, cohort=cohort
+        ),
+        "double_buffer": _conc.check_double_buffer(
+            metric, findings, infos, step_closed=graph,
+            n_donated=n_donated if graph is not None else 0,
+            n_state_outputs=n_state_outs, engine_eligible=True,
+        ),
+    }
 
 
 def _route_suppressions(
@@ -721,9 +751,10 @@ def audit_metric(
     soundness); pass 3 (``distributed=True``): MTA005 (N-replica
     equivalence on concrete probes), MTA006 (state lifecycle: reset
     identity, compute purity, residual coherence), MTA007 (donation
-    lifetime). ``fingerprint=True`` additionally digests the update and
-    step graphs for the drift sentinel. Passes 4 and 5 are not ported yet
-    (``evidence`` stays None).
+    lifetime); pass 4 (engine-eligible metrics): MTA008 (host-seam budget
+    against ``SEAM_BASELINE.json``) and MTA009 (double-buffer safety),
+    their evidence in ``evidence``. ``fingerprint=True`` additionally
+    digests the update and step graphs for the drift sentinel.
 
     Suppression: any rule named in a ``# metrics-tpu: allow(...)`` comment
     at class-body level (or in an iterable ``_analysis_allow`` attribute)
@@ -748,11 +779,11 @@ def audit_metric(
         metric, args, kwargs, findings, result.infos,
         traceable_contract=eager_reason is None,
     )
-    engine_graph, n_donated = None, 0
+    engine_graph, n_donated, n_state_outs = None, 0, 0
     if eager_reason is None:
         traced = _audit_engine_program(metric, args, kwargs, findings)
         if traced is not None:
-            engine_graph, n_donated = traced
+            engine_graph, n_donated, n_state_outs = traced
     elif not any(isinstance(d, list) for d in metric._defaults.values()):
         result.infos.append(f"{cls} runs eager in engines: {eager_reason}")
 
@@ -771,6 +802,12 @@ def audit_metric(
             engine_closed=engine_graph, n_donated=n_donated,
             engine_eligible=eager_reason is None,
             update_closed=update_graph,
+        )
+    # pass 4 — concurrency soundness (engine-eligible families: only the
+    # compiled serving loop has a host seam and state generations)
+    if eager_reason is None:
+        result.evidence = _pass4_evidence(
+            metric, findings, result.infos, engine_graph, n_donated, n_state_outs
         )
     if fingerprint:
         result.fingerprints = {
@@ -941,7 +978,9 @@ QUANTIZED_AUDIT_TIERS = ("int8", "bf16")
 _COHORT_AUDIT_CAPACITY = 4
 
 
-def _audit_cohort_variant(metric, args: tuple, fingerprint: bool = False) -> AuditResult:
+def _audit_cohort_variant(
+    metric, args: tuple, fingerprint: bool = False, family: Optional[str] = None
+) -> AuditResult:
     """A slim audit of the vmapped cohort step of an engine-eligible
     family (reported as ``<Family>@cohort``): the per-tenant math is the
     already-audited base program, so what the cohort changes — and what is
@@ -949,21 +988,24 @@ def _audit_cohort_variant(metric, args: tuple, fingerprint: bool = False) -> Aud
     MTA002 (no host transfer survives the vmap), MTA003 (no buffer aliased
     into two outputs of the stacked step), MTA007 (no stacked input state
     returned unchanged — two disjoint buffer generations must stay
-    structurally possible for cohorts too). ``fingerprint=True`` digests the
-    vmapped step graph for the drift sentinel. The pass-4 legs (host seam,
-    double buffer) are not ported yet."""
+    structurally possible for cohorts too), and pass 4: the host-seam budget
+    of the stacked serving loop (MTA008: one collective per state whatever
+    the tenant count, plus the health fetch) and the double-buffer verdict
+    on the stacked step (MTA009). ``fingerprint=True`` digests the vmapped
+    step graph for the drift sentinel."""
     from metrics_tpu_torch.analysis import distributed as _dist
-    from metrics_tpu_torch.engine import CompiledStepEngine
+    from metrics_tpu_torch.engine import CompiledStepEngine, _count_specs
 
     cls = type(metric).__name__
     engine = CompiledStepEngine(metric, observe=False)
     result = AuditResult(name=cls, engine_eligible=True, eager_reason=None)
     findings: List[Finding] = []
-    graph = None
+    graph, n_donated, n_state_outs = None, 0, 0
     try:
-        graph, _shapes, n_donated = engine.abstract_cohort_step(
+        graph, shapes, n_donated = engine.abstract_cohort_step(
             *args, capacity=_COHORT_AUDIT_CAPACITY
         )
+        n_state_outs = _count_specs(shapes[0])
     except Exception as err:  # noqa: BLE001 — the trace failure is the finding
         kind = _trace_error_kind(err)
         msg = str(err).splitlines()[0] if str(err) else type(err).__name__
@@ -998,6 +1040,10 @@ def _audit_cohort_variant(metric, args: tuple, fingerprint: bool = False) -> Aud
                 " state",
                 detail={"position": pos},
             ))
+    result.evidence = _pass4_evidence(
+        metric, findings, result.infos, graph, n_donated, n_state_outs,
+        family=family or f"{cls}@cohort", cohort=True,
+    )
     if fingerprint:
         result.fingerprints = {
             "cohort_step": _dist.fingerprint_jaxpr(graph) if graph is not None else None,
@@ -1006,7 +1052,9 @@ def _audit_cohort_variant(metric, args: tuple, fingerprint: bool = False) -> Aud
     return result
 
 
-def _audit_quantized_variant(metric, args: tuple, probe_cache: Optional[Dict[str, Any]] = None) -> AuditResult:
+def _audit_quantized_variant(
+    metric, args: tuple, probe_cache: Optional[Dict[str, Any]] = None, family: Optional[str] = None
+) -> AuditResult:
     """A slimmer audit for a ``sync_precision=`` variant of an already-
     audited family: the *update program* is unchanged by the tier (the
     residual companion is registered, never written), so re-running
@@ -1014,8 +1062,10 @@ def _audit_quantized_variant(metric, args: tuple, probe_cache: Optional[Dict[str
     state tree, the step program, and the merge. Audited here: MTA004
     (quantized merge probes), MTA002/MTA003 on the variant's step
     (residuals ride the states), MTA005 at the tier's documented bound
-    through the real codec, MTA006 (residual coherence) and MTA007. The
-    pass-4 legs are not ported yet."""
+    through the real codec, MTA006 (residual coherence), MTA007, and pass 4:
+    the tier's own host-seam budget (MTA008: the residual companion raises
+    the checkpoint fetch count, the payloads count as quantized) and the
+    double-buffer verdict on the variant's step (MTA009)."""
     from metrics_tpu_torch.analysis import distributed as _dist
     from metrics_tpu_torch.engine import CompiledStepEngine
 
@@ -1026,11 +1076,11 @@ def _audit_quantized_variant(metric, args: tuple, probe_cache: Optional[Dict[str
     )
     findings: List[Finding] = []
     _audit_reductions(metric, findings)
-    engine_graph, n_donated = None, 0
+    engine_graph, n_donated, n_state_outs = None, 0, 0
     if eager_reason is None:
         traced = _audit_engine_program(metric, args, {}, findings)
         if traced is not None:
-            engine_graph, n_donated = traced
+            engine_graph, n_donated, n_state_outs = traced
         result.distributed = _dist.check_replica_equivalence(
             metric, args, {}, findings, result.infos, probe_cache=probe_cache
         )
@@ -1040,6 +1090,10 @@ def _audit_quantized_variant(metric, args: tuple, probe_cache: Optional[Dict[str
         engine_closed=engine_graph, n_donated=n_donated,
         engine_eligible=eager_reason is None,
     )
+    if eager_reason is None:
+        result.evidence = _pass4_evidence(
+            metric, findings, result.infos, engine_graph, n_donated, n_state_outs, family=family
+        )
     _route_suppressions(metric, findings, result, check_staleness=False)
     return result
 
@@ -1069,9 +1123,11 @@ def audit_registry(
 
     The clean-baseline contract: ``report["summary"]["findings"] == 0``.
     Suppressed findings and design notes (eager-only families) stay
-    visible in the report without failing the gate. Passes 4 and 5 are not
-    ported yet: every entry's ``evidence`` is None and the report has no
-    ``host_seam_sites`` key.
+    visible in the report without failing the gate. Every engine-eligible
+    entry carries pass 4's ``evidence`` (``host_seam``, ``double_buffer``);
+    ``report["host_seam_sites"]`` names the port's host crossing sites, and
+    with telemetry on the ``analysis.seam.crossings`` gauge sums the
+    registry's per-sync collectives and steady per-step crossings.
     """
     cases = registry_cases(device)
     from metrics_tpu_torch.engine import CompiledStepEngine
@@ -1098,7 +1154,9 @@ def audit_registry(
         )
         note(name, base)
         if cohort and base.engine_eligible:
-            note(f"{name}@cohort", _audit_cohort_variant(factory(), args, fingerprint=fingerprints))
+            note(f"{name}@cohort", _audit_cohort_variant(
+                factory(), args, fingerprint=fingerprints, family=f"{name}@cohort"
+            ))
         if not quantized:
             continue
         for tier in QUANTIZED_AUDIT_TIERS:
@@ -1111,18 +1169,35 @@ def audit_registry(
                 continue
             if CompiledStepEngine._static_ineligibility(variant) is not None:
                 continue  # the tier only matters where the engine compiles
-            note(f"{name}@{tier}", _audit_quantized_variant(variant, args, probe_cache=probe_cache))
+            note(f"{name}@{tier}", _audit_quantized_variant(
+                variant, args, probe_cache=probe_cache, family=f"{name}@{tier}"
+            ))
+    from metrics_tpu_torch.analysis import concurrency as _conc
+    from metrics_tpu_torch.observability import telemetry as _obs
+
     report = {
         "schema": "metrics_tpu.analysis_report",
         "version": 4,
         "rules": {rid: r.to_dict() for rid, r in sorted(RULES.items())},
         "families": families,
+        # the AST leg of the seam audit: where each host<->device crossing
+        # lives in the port's serving-loop host paths; the budgets above
+        # count how often each phase crosses
+        "host_seam_sites": _conc.host_seam_sites(),
         "summary": {
             "families": len(families),
             "findings": totals["findings"],
             "suppressed": totals["suppressed"],
         },
     }
+    if _obs.enabled():
+        # the registry's per-sync host collectives plus steady per-step
+        # crossings: the number a device-resident serving loop drives to 0
+        crossings = 0
+        for entry in families.values():
+            flat = _conc.flatten_seam_budget((entry.get("evidence") or {}).get("host_seam") or {})
+            crossings += flat.get("per_sync.host_collectives", 0) + flat.get("steady_per_step", 0)
+        _obs.get().gauge("analysis.seam.crossings", crossings)
     if fingerprints:
         report["fingerprints"] = prints
     if write_path is not None:

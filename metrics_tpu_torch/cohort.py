@@ -1110,6 +1110,15 @@ class MetricCohort:
         capacity bucket, health) program)."""
         return self._engine.cache_info()
 
+    def abstract_double_buffer(self, *args: Any, **kwargs: Any):
+        """The two-generation composition of this cohort's vmapped step at
+        its current capacity, traced over fake tensors from one tenant's
+        sample inputs (nothing built, launched or written): the cohort
+        spelling of
+        :meth:`~metrics_tpu_torch.engine.CompiledStepEngine.abstract_double_buffer_step`.
+        Returns ``(graph_module, out_shapes, n_donated, n_state_outputs)``."""
+        return self._engine.abstract_double_buffer_step(*args, capacity=self._capacity, **kwargs)
+
     def keys(self):
         return self._template.keys()
 

@@ -147,6 +147,13 @@ class LeafSpec:
         self.shape, self.dtype, self.device = tuple(shape), dtype, device
 
 
+def _count_specs(tree: Any) -> int:
+    """The :class:`LeafSpec` leaves of a traced output tree (its tensors)."""
+    leaves: List[Any] = []
+    _flatten(tree, leaves)
+    return sum(isinstance(x, LeafSpec) for x in leaves)
+
+
 def _abstract_leaf(x: Any) -> tuple:
     """Cache-key atom of one input leaf: tensors key on (shape, dtype,
     device); anything else on its type and value (a capture bakes it in)."""
@@ -1030,6 +1037,51 @@ class CompiledStepEngine:
                 "every metric in this engine runs eager"
                 f" ({self._eager_names}); there is no cohort step program to trace"
             )
+        states, args, kwargs = self._stacked_abstract_inputs(names, args, kwargs, capacity)
+        return self._abstract(self._make_cohort_step_fn(names), states, args, kwargs)
+
+    def abstract_double_buffer_step(self, *args: Any, capacity: Optional[int] = None, **kwargs: Any):
+        """Trace the two-generation composition of the step function over
+        fake tensors (nothing built, nothing launched): generation N steps
+        from the compiled members' current states, generation N+1 from
+        generation N's state outputs, both on the same batch, and both
+        generations' values are returned. Returns ``(graph_module,
+        out_shapes, n_donated, n_state_outputs)``: ``out_shapes`` is the
+        ``(new_states_N, values_N, new_states_N+1, values_N+1)`` tree of
+        :class:`LeafSpec` leaves, and generation N's state outputs lead the
+        graph's outputs (what ``_write_back`` installs and generation N+1
+        steps from). The hook behind the MTA009 prover's cross-check
+        (:func:`metrics_tpu_torch.analysis.concurrency.composed_generation_hazards`).
+        ``capacity`` traces the vmapped cohort step over stacked states
+        instead, as :meth:`abstract_cohort_step` does. Like
+        :meth:`abstract_step` it traces the unguarded program and touches
+        no signature cache, metric state, counter, watchdog, cost ledger or
+        telemetry."""
+        names = self._compiled_names()
+        if not names:
+            raise ValueError(
+                "every metric in this engine runs eager"
+                f" ({self._eager_names}); there is no step program to trace"
+            )
+        if capacity is None:
+            step = self._make_step_fn(names, None)
+            states = self._current_states(names)
+        else:
+            step = self._make_cohort_step_fn(names)
+            states, args, kwargs = self._stacked_abstract_inputs(names, args, kwargs, capacity)
+
+        def two_generations(states0, batch0, batch1):
+            new0, vals0 = step(states0, *batch0)
+            new1, vals1 = step(new0, *batch1)
+            return new0, vals0, new1, vals1
+
+        graph, out_shapes, n_donated = self._abstract(two_generations, states, (args, kwargs), (args, kwargs))
+        return graph, out_shapes, n_donated, _count_specs(out_shapes[0])
+
+    def _stacked_abstract_inputs(self, names: Tuple[str, ...], args: tuple, kwargs: dict, capacity: int):
+        """The current states and the call with a leading tenant axis of
+        ``capacity`` on every tensor (as :class:`LeafSpec`): what a cohort
+        of that capacity feeds its step."""
 
         def stack(x):
             if isinstance(x, torch.Tensor):
@@ -1037,20 +1089,18 @@ class CompiledStepEngine:
             return x
 
         states = {n: {s: stack(v) for s, v in d.items()} for n, d in self._current_states(names).items()}
-        return self._abstract(
-            self._make_cohort_step_fn(names), states,
-            tuple(stack(a) for a in args), {k: stack(v) for k, v in kwargs.items()},
-        )
+        return states, tuple(stack(a) for a in args), {k: stack(v) for k, v in kwargs.items()}
 
     @staticmethod
-    def _abstract(step_fn: Callable, states: dict, args: tuple, kwargs: dict):
-        """``(graph_module, out_shapes, n_donated)`` of ``step_fn`` over fake
-        tensors of ``states`` and the call (tensors or :class:`LeafSpec`),
-        value checks off and the hooks inside the step muted."""
+    def _abstract(step_fn: Callable, states: dict, *call: Any):
+        """``(graph_module, out_shapes, n_donated)`` of ``step_fn(states,
+        *call)`` over fake tensors of ``states`` and the call (tensors or
+        :class:`LeafSpec`), value checks off and the hooks inside the step
+        muted."""
         leaves: List[Any] = []
         _flatten(states, leaves)
         with tracing(), _trace.muted():
-            graph, out_shapes = fake_trace(step_fn, (states, args, kwargs))
+            graph, out_shapes = fake_trace(step_fn, (states,) + call)
         return graph, out_shapes, len(leaves)
 
     # ------------------------------------------------------------------

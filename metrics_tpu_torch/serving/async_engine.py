@@ -16,9 +16,13 @@ one from one (the AST check), and the engine's read of the states and its
 write-back must run inside one lock extent. A refused target is served on
 the blocking path (``strict=True`` raises :class:`ServingAdmissionError`).
 The JAX package then traces a two-generation program at the first batch;
-the port, which has no trace and donates nothing, runs the first batch on
-the caller thread and checks the real tensors it installed
-(``analysis.concurrency.first_dispatch_hazards``).
+the port, which donates nothing, runs the first batch on the caller thread
+and checks the real tensors it installed
+(``analysis.concurrency.first_dispatch_hazards``): on the card those are
+the CUDA graph's static buffers, which only a real replay makes. The traced
+prover (``CompiledStepEngine.abstract_double_buffer_step`` with
+``analysis.concurrency.composed_generation_hazards``, and
+``evidence["double_buffer"]`` of the program audit) is its cross-check.
 
 What CUDA needs that JAX's asynchronous dispatch gave for free:
 

@@ -7,9 +7,7 @@ their own names. The walker cases trace their programs over fake tensors
 of the card (``device="cuda"``; a fake tensor needs no card), where a
 ``.cpu()`` is a device→host transfer, and nest them in ``torch.cond`` and
 ``map`` bodies. The metric cases run on the CPU, where the audit traces the
-CPU's program. Left out: the two cases that read pass-4 evidence
-(``test_hint_names_pass4_rules_for_watch_keys``,
-``test_hint_name_keying_caveat_extends_to_pass4``).
+CPU's program.
 """
 import warnings
 
@@ -465,6 +463,58 @@ def test_hint_names_pass3_rules_for_watch_keys():
     audit_metric(fx.UntouchedStatePassthrough(device=CPU), _X)
     hint = hint_for_watch_key("engine[UntouchedStatePassthrough]")
     assert hint is not None and "MTA007" in hint and "donation-lifetime" in hint
+
+
+def test_hint_names_pass4_rules_for_watch_keys():
+    """Watchdog attributions cover the pass-4 rules: a family whose last
+    audit holds MTA008 (seam regression) or MTA009 (double-buffer hazard)
+    findings gets a hint naming them."""
+    audit_metric(fx.SeamRegressor(device=CPU), _X)
+    hint = hint_for_watch_key("engine[SeamRegressor]")
+    assert hint is not None and "MTA008" in hint and "host-seam-regression" in hint
+
+    audit_metric(fx.HostReadOfDonated(device=CPU), _X)
+    hint = hint_for_watch_key("engine[HostReadOfDonated]")
+    assert hint is not None and "MTA009" in hint and "double-buffer-unsafe" in hint
+
+    audit_metric(fx.DoubleBufferAliaser(device=CPU), _X)
+    hint = hint_for_watch_key("engine[DoubleBufferAliaser]")
+    assert hint is not None and "MTA009" in hint
+
+
+class _OneCleanState(M.Metric):
+    """A clean one-state family: its seam budget matches the deliberately
+    tight committed SeamRegressor baseline exactly, so a same-named audit
+    of THIS class clears the pass-4 hint."""
+
+    _fused_forward = True
+
+    def __init__(self):
+        super().__init__(device=CPU)
+        self.add_state("acc", default=torch.zeros(()), dist_reduce_fx="sum")
+
+    def update(self, x):
+        self.acc = self.acc + torch.sum(x)
+
+    def compute(self):
+        return self.acc
+
+
+@pytest.mark.parametrize("fixture", ["SeamRegressor", "HostReadOfDonated"], ids=["MTA008", "MTA009"])
+def test_hint_name_keying_caveat_extends_to_pass4(fixture):
+    """The name-keyed caveat, re-pinned for the pass-4 rules: a same-named
+    clean class re-audited afterwards clears the hint (latest audit wins),
+    and re-auditing the broken one re-arms it."""
+    broken = getattr(fx, fixture)
+    audit_metric(broken(device=CPU), _X)
+    assert hint_for_watch_key(f"engine[{fixture}]") is not None
+
+    clean = type(fixture, (_OneCleanState,), {})
+    audit_metric(clean(), _X)
+    assert hint_for_watch_key(f"engine[{fixture}]") is None
+
+    audit_metric(broken(device=CPU), _X)
+    assert hint_for_watch_key(f"engine[{fixture}]") is not None
 
 
 @pytest.mark.parametrize("rule", ["MTA013", "MTA014"], ids=["MTA013", "MTA014"])

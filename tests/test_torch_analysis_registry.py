@@ -6,8 +6,8 @@ One module-scoped fixture per package runs its whole registry once
 ``device="cpu"``): 29 families with their ``@cohort``, ``@int8`` and
 ``@bf16`` variants. The two reports must have the same families, the same
 eligibility, the same findings and suppressions of the rules both packages
-run (MTA001–MTA007 and MTL105; the JAX package's audit also runs passes 4
-and 5) and the same MTA005 evidence. The registry cases of
+run (MTA001–MTA009 and MTL105; the JAX package's audit also runs pass 5)
+and the same MTA005 evidence. The registry cases of
 ``tests/analysis/test_distributed.py`` are mirrored here under their own
 names, on the port's report. Beside them: each of the 15 metric fixtures
 against its JAX twin, the grid probes and the merged replica states against
@@ -27,7 +27,7 @@ from metrics_tpu_torch.analysis.program import registry_cases
 
 CPU = "cpu"
 #: the rules both packages' audits run
-COMPARED = {"MTA001", "MTA002", "MTA003", "MTA004", "MTA005", "MTA006", "MTA007", "MTL105"}
+COMPARED = {"MTA001", "MTA002", "MTA003", "MTA004", "MTA005", "MTA006", "MTA007", "MTA008", "MTA009", "MTL105"}
 #: families whose exact tier sums transcendental terms (log1p): the 8-ulp allowance
 ULP_FAMILIES = {"MeanSquaredLogError"}
 
@@ -100,10 +100,16 @@ def test_registry_equivalence_evidence_equals_jax(registry_report, jax_report):
 
 
 def test_registry_report_is_clean_and_names_no_unported_evidence(registry_report):
+    """Clean, with pass 4's evidence on exactly the engine-eligible entries
+    and no pass-5 ``numerics`` key (not ported yet)."""
     assert registry_report["schema"] == "metrics_tpu.analysis_report"
     assert registry_report["summary"] == {"families": 89, "findings": 0, "suppressed": 0}
-    assert "host_seam_sites" not in registry_report
-    assert all(entry["evidence"] is None for entry in registry_report["families"].values())
+    assert registry_report["host_seam_sites"]
+    for fam, entry in registry_report["families"].items():
+        if entry["engine_eligible"]:
+            assert set(entry["evidence"]) == {"host_seam", "double_buffer"}, fam
+        else:
+            assert entry["evidence"] is None, fam
 
 
 # ---------------------------------------------------------------------------

@@ -48,7 +48,11 @@ while the serving worker's step is still queued, carrying the drained
 state); and the fleet-protocol explorers with every shard's cohort on the
 card (coverage equal to the CPU run's and the committed baseline's, the
 fleet fixtures tripping exactly their rules with the CPU's minimal
-counterexample). Counts read off a ``torch.profiler`` trace read a trace
+counterexample); and the program audit's pass 4 on the card (80 seam budgets
+equal to ``SEAM_BASELINE.json``'s, every engine-eligible family proven
+double-buffer safe as on the CPU, the two-generation traces allocating
+nothing and holding no hazard, and the traced verdict borne out by
+``first_dispatch_hazards`` after a real CUDA-graph build and replay). Counts read off a ``torch.profiler`` trace read a trace
 that a second trace of the same call agrees with (``_steady_profile``).
 
 Every test here is marked ``cuda`` and skips without a card. This file
@@ -2324,13 +2328,24 @@ def _registry_verdicts(report):
     }
 
 
-def test_audit_registry_on_the_card_equals_the_cpu(cuda_device):
+_REPORTS = {}
+
+
+def _registry_reports():
+    """The registry audit on the card and on the CPU, run once for the
+    tests that read them."""
     from metrics_tpu_torch.analysis import audit_registry
 
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        card = audit_registry(device="cuda", quantized=True, cohort=True, fingerprints=True)
-        cpu = audit_registry(device="cpu", quantized=True, cohort=True, fingerprints=True)
+    if not _REPORTS:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for device in ("cuda", "cpu"):
+                _REPORTS[device] = audit_registry(device=device, quantized=True, cohort=True, fingerprints=True)
+    return _REPORTS["cuda"], _REPORTS["cpu"]
+
+
+def test_audit_registry_on_the_card_equals_the_cpu(cuda_device):
+    card, cpu = _registry_reports()
     assert card["summary"] == cpu["summary"] and card["summary"]["findings"] == 0
     assert card["summary"]["families"] == 89
     card_v, cpu_v = _registry_verdicts(card), _registry_verdicts(cpu)
@@ -2348,6 +2363,72 @@ def test_audit_registry_on_the_card_equals_the_cpu(cuda_device):
     assert not differ, differ
 
 
+def test_pass4_evidence_on_the_card_equals_the_baseline(cuda_device):
+    """The card's seam budgets are the committed ``SEAM_BASELINE.json``'s,
+    family by family (80: 20 bases, 20 @cohort, 20 @int8, 20 @bf16), and
+    every engine-eligible family is proven double-buffer safe, as on the
+    CPU."""
+    from metrics_tpu_torch.analysis import flatten_seam_budget, load_seam_baseline
+
+    card, cpu = _registry_reports()
+    baseline = load_seam_baseline()
+    seams = {f: e["evidence"]["host_seam"] for f, e in card["families"].items() if e["evidence"]}
+    assert len(seams) == 80
+    for fam, seam in seams.items():
+        assert flatten_seam_budget(seam) == baseline[fam]["budget"] and seam["states"] == baseline[fam]["states"], fam
+        db, cpu_db = card["families"][fam]["evidence"]["double_buffer"], cpu["families"][fam]["evidence"]["double_buffer"]
+        assert db == cpu_db and db["safe"] is True and db["hazards"] == [], fam
+        assert cpu["families"][fam]["evidence"]["host_seam"] == seam, fam
+    assert all(e["evidence"] is None for e in card["families"].values() if not e["engine_eligible"])
+    assert card["host_seam_sites"] == cpu["host_seam_sites"]
+
+
+def test_two_generation_traces_on_the_card_hold_no_hazard(cuda_device):
+    """``abstract_double_buffer_step`` and the cohort's
+    ``abstract_double_buffer`` on card metrics: fake tensors of the card,
+    no device allocation, no signature built, and no hazard in the
+    two-generation graph."""
+    from metrics_tpu_torch import MetricCohort
+    from metrics_tpu_torch.analysis import composed_generation_hazards
+
+    for metric, args in _abstract_families(cuda_device):
+        engine = CompiledStepEngine(metric)
+        cohort = MetricCohort(metric.clone(), tenants=4)
+        for trace in (lambda: engine.abstract_double_buffer_step(*args), lambda: cohort.abstract_double_buffer(*args)):
+            trace()  # a first trace: lazy imports and registrations
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            gc.disable()
+            try:
+                graph, out, n_donated, n_state = trace()
+            finally:
+                gc.enable()
+            assert torch.cuda.memory_allocated() == before == torch.cuda.max_memory_allocated()
+            assert composed_generation_hazards(graph, n_donated, n_state) == [], type(metric).__name__
+            assert n_state == n_donated and all(v.device.type == "cuda" for v in out[2]["metric"].values())
+        assert engine.cache_info()["compiled_signatures"] == 0 and engine.trace_count == 0
+        assert cohort.cache_info()["compiled_signatures"] == 0
+
+
+def test_traced_double_buffer_verdict_holds_after_a_real_replay(cuda_device):
+    """What the prover says of the step graph holds of a real CUDA graph:
+    after its build and after a replay, the installed states share no
+    storage with the graph's static buffers, the defaults, each other or
+    the returned value."""
+    from metrics_tpu_torch.analysis import concurrency as conc
+
+    for metric, args in _abstract_families(cuda_device):
+        engine = CompiledStepEngine(metric, observe=False)
+        defaults = {conc._storage(d) for d in metric._defaults.values()} - {None}
+        for _ in range(2):
+            value = engine(*args)
+            states = [(s, getattr(metric, s)) for s in metric._defaults]
+            assert conc.first_dispatch_hazards(states, conc.engine_owned(engine), defaults, value) == []
+        assert len(engine.cache_info()["graph_build_ms"]) == 1, type(metric).__name__
+
+
 def test_analysis_fixtures_on_the_card_trip_their_rules(cuda_device):
     from metrics_tpu_torch.analysis import audit_metric, hint_for_watch_key
     from metrics_tpu_torch.analysis import fixtures as fx
@@ -2356,10 +2437,12 @@ def test_analysis_fixtures_on_the_card_trip_their_rules(cuda_device):
     for name in ("NarrowAccumulator", "SuppressedNarrowAccumulator", "CallbackInJit", "HostSyncUpdate",
                  "DonatedAlias", "NonCommutativeMerge", "MeanWithoutCount", "UnscaledInt8Psum",
                  "ReplicaDependentCount", "NonIdentityReset", "ComputeMutatesState", "OrphanResidual",
-                 "UntouchedStatePassthrough", "UnownedLoader", "StaleSuppression"):
+                 "UntouchedStatePassthrough", "UnownedLoader", "StaleSuppression", "SeamRegressor",
+                 "DoubleBufferAliaser", "HostReadOfDonated", "BlockScaledQuantizedSync"):
         results = [audit_metric(getattr(fx, name)(device=d), (torch.from_numpy(x).to(d),)) for d in ("cpu", "cuda")]
         cpu, card = ({(f.rule, f.subject, f.suppressed) for f in r.findings + r.suppressed} for r in results)
-        assert card == cpu and card, name
+        # the quantized probe's positive control trips nothing
+        assert card == cpu and bool(card) == (name != "BlockScaledQuantizedSync"), name
     engine = CompiledStepEngine(fx.NarrowAccumulator(device=cuda_device))
     audit_metric(fx.NarrowAccumulator(device=cuda_device), (torch.from_numpy(x).to(cuda_device),))
     assert "MTA001" in hint_for_watch_key(engine._watch_key)

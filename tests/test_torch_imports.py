@@ -84,12 +84,6 @@ JAX_INITS = {
 # names JAX exports that the port does not have yet, by the part of the
 # JAX package whose port brings them
 NOT_YET_PORTED = {
-    # analysis/concurrency.py: the host-seam and double-buffer legs
-    "check_double_buffer": "analysis/concurrency.py (double-buffer leg)",
-    "check_host_seam": "analysis/concurrency.py (host-seam leg)",
-    "host_seam_budget": "analysis/concurrency.py (host-seam leg)",
-    "host_seam_sites": "analysis/concurrency.py (host-seam leg)",
-    "load_seam_baseline": "analysis/concurrency.py (host-seam leg)",
     # analysis/numerics.py
     "check_numerics": "analysis/numerics.py",
     "equivariance_verdict": "analysis/numerics.py",
