@@ -34,6 +34,15 @@ catalog, MTA001–MTA014 and MTL101–MTL107):
   graph (MTA009), whose AST and tensor legs ``AsyncServingEngine``'s
   admission runs; the thread-shared-state lint (MTL106) with its
   thread-shared model.
+* **Pass 5 — numerical soundness**
+  (:mod:`metrics_tpu_torch.analysis.numerics`): per-state
+  overflow/ulp-absorption horizons in rows by interval evaluation of each
+  family's traced update graph under declared per-batch input domains
+  (MTA010), cancellation-shaped subtractions in compute graphs and every
+  family's relative error on adversarial ill-conditioned probes against a
+  float64 oracle (MTA011), and a bitwise metamorphic check of declared
+  scale-invariant/-equivariant families under power-of-two rescaling
+  (MTA012) — gated against the committed ``NUMERICS_BASELINE.json``.
 * **Pass 6 — fleet-protocol model checking**
   (:mod:`metrics_tpu_torch.analysis.protocol`): a deterministic explorer
   drives the port's REAL migration/lease/replication/failover code over
@@ -43,7 +52,7 @@ catalog, MTA001–MTA014 and MTL101–MTL107):
   failover promotion (MTA014), and the MTL107 durability lint leg — gated
   against the committed tighten-only ``PROTOCOL_BASELINE.json``.
 
-Numerics and the sanitizer (pass 5 and MetricSan) are not ported yet.
+The sanitizer (MetricSan) is not ported yet.
 
 Suppress a rule at a site with ``# metrics-tpu: allow(<RULE-ID>)``
 (stale allows are themselves flagged, MTL105).
@@ -74,6 +83,14 @@ from metrics_tpu_torch.analysis.concurrency import (  # noqa: F401
     register_threadsan_target,
     thread_shared_model,
 )
+from metrics_tpu_torch.analysis.numerics import (  # noqa: F401
+    check_numerics,
+    equivariance_verdict,
+    eval_jaxpr_intervals,
+    load_numerics_baseline,
+    measure_error_budget,
+    state_horizons,
+)
 from metrics_tpu_torch.analysis.lint import lint_file, lint_paths  # noqa: F401
 from metrics_tpu_torch.analysis.protocol import (  # noqa: F401
     check_protocol,
@@ -97,11 +114,14 @@ __all__ = [
     "check_double_buffer",
     "check_host_seam",
     "check_lifecycle",
+    "check_numerics",
     "check_protocol",
     "check_replica_equivalence",
     "composed_generation_hazards",
     "counterexample_report",
     "durability_findings",
+    "equivariance_verdict",
+    "eval_jaxpr_intervals",
     "explore_crash_consistency",
     "explore_fencing",
     "fingerprint_jaxpr",
@@ -112,9 +132,12 @@ __all__ = [
     "iter_eqns",
     "lint_file",
     "lint_paths",
+    "load_numerics_baseline",
     "load_protocol_baseline",
     "load_seam_baseline",
+    "measure_error_budget",
     "register_threadsan_target",
+    "state_horizons",
     "thread_shared_model",
     "tighten_protocol_baseline",
 ]

@@ -3,9 +3,9 @@ fires.
 
 Port of ``metrics_tpu/analysis/fixtures.py``: the metric fixtures of the
 program audit (pass 1) and of the distributed-equivalence and lifecycle
-pass (pass 3), of the host-seam and double-buffer pass (pass 4), the
-positive control of the quantized merge probe, and the host fixtures. The
-mirror of
+pass (pass 3), of the host-seam and double-buffer pass (pass 4), of the
+numerics pass (pass 5), the positive control of the quantized merge probe,
+and the host fixtures. The mirror of
 :mod:`metrics_tpu_torch.reliability.faultinject` for the static analyzer:
 faultinject injects runtime faults to prove the *dynamic* defenses catch
 them; these fixtures encode defects to prove the *static* passes catch
@@ -14,9 +14,10 @@ one rule and is otherwise clean, so the tests can pin "this fixture trips
 this rule and nothing else". The fleet fixtures subclass the port's own
 fleet classes and override the hooks those classes name for the purpose
 (``MigrationCoordinator._commit_target``, ``FleetShard._check_fence``). The
-fixtures of the numerics and sanitizer passes come with those passes.
-``SeamRegressor`` keeps the JAX package's class name: the committed
-``SEAM_BASELINE.json`` budgets it by that name.
+fixtures of the sanitizer come with it. ``SeamRegressor`` and
+``CancellingVariance`` keep the JAX package's class names: the committed
+``SEAM_BASELINE.json`` and ``NUMERICS_BASELINE.json`` gate them by those
+names.
 
 The metric fixtures take the :class:`~metrics_tpu_torch.Metric` base's
 ``device`` (the card by default; ``"cpu"`` on the CPU).
@@ -36,12 +37,15 @@ from metrics_tpu_torch.metric import Metric
 __all__ = [
     "BlockScaledQuantizedSync",
     "CallbackInJit",
+    "CancellingVariance",
     "ComputeMutatesState",
     "DonatedAlias",
     "DoubleBufferAliaser",
+    "EpsilonThresholdAUROC",
     "GcBeforeDurableCoordinator",
     "HostReadOfDonated",
     "HostSyncUpdate",
+    "Int32RowCounter",
     "MeanWithoutCount",
     "NarrowAccumulator",
     "NonAtomicManifestWriter",
@@ -427,6 +431,86 @@ class HostReadOfDonated(Metric):
     def compute(self) -> torch.Tensor:
         self._last_value = self.acc  # the escape: a host ref to live state
         return self.acc
+
+
+class Int32RowCounter(Metric):
+    """MTA010: an int32 row counter. Sound in every per-step sense — the
+    program is clean, the reduction is a sum, replicas agree — and it
+    saturates after 2³¹ rows. The interval pass bounds its per-row increment
+    at exactly 1 and derives a horizon far below the 2⁴⁰-row fleet floor."""
+
+    _fused_forward = True
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("rows", default=torch.zeros((), dtype=torch.int32), dist_reduce_fx="sum")
+        self.add_state("acc", default=torch.zeros(()), dist_reduce_fx="sum")
+
+    def update(self, x: torch.Tensor) -> None:
+        self.rows = self.rows + torch.tensor(x.shape[0], dtype=torch.int32, device=x.device)
+        self.acc = self.acc + torch.sum(x)
+
+    def compute(self) -> torch.Tensor:
+        return self.acc / torch.clamp_min(self.rows.to(torch.float32), 1.0)
+
+
+class CancellingVariance(Metric):
+    """MTA011: variance via E[x²]−E[x]² — the catastrophic-cancellation
+    shape. Structurally detected (both subtraction operands descend from
+    accumulated sums) AND measured: on mean-shifted probes the f32 result
+    loses every significant digit against the float64 oracle, blowing the
+    deliberately-tight budget committed for this class in
+    ``NUMERICS_BASELINE.json`` — exactly how a conditioning regression in a
+    real family would fail the gate."""
+
+    _fused_forward = True
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("sum_x", default=torch.zeros(()), dist_reduce_fx="sum")
+        self.add_state("sum_x2", default=torch.zeros(()), dist_reduce_fx="sum")
+        self.add_state("count", default=torch.zeros(()), dist_reduce_fx="sum")
+
+    def update(self, x: torch.Tensor) -> None:
+        self.sum_x = self.sum_x + torch.sum(x)
+        self.sum_x2 = self.sum_x2 + torch.sum(x * x)
+        self.count = self.count + x.shape[0]
+
+    def compute(self) -> torch.Tensor:
+        n = torch.clamp_min(self.count, 1.0)
+        mean = self.sum_x / n
+        return self.sum_x2 / n - mean * mean  # the cancellation
+
+
+class EpsilonThresholdAUROC(Metric):
+    """MTA012: a rank metric (declared scale-invariant in the pass-5
+    equivariance table) hiding an ABSOLUTE epsilon: scores below 1e-3 are
+    snapped to zero before ranking. At scale 1.0 every oracle test passes;
+    rescale the same scores by 2⁻¹⁰ (exact in IEEE floats) and different
+    scores cross the epsilon, the tie structure changes, and the result
+    drifts — the metamorphic probe catches what no fixed-scale test can."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("scores", default=[], dist_reduce_fx=None)
+
+    def update(self, x: torch.Tensor) -> None:
+        self.scores.append(x)
+
+    def compute(self) -> torch.Tensor:
+        s = torch.cat([torch.reshape(v, (-1,)) for v in self.scores])
+        # the median of an even count is the mean of the middle two
+        target = (s > torch.quantile(s, 0.5)).to(torch.float32)
+        s = torch.where(torch.abs(s) < 1e-3, 0.0, s)  # the hidden epsilon
+        # pairwise Mann-Whitney AUROC (ties contribute 1/2): when the
+        # epsilon collapses scores to ties, strict wins become halves and
+        # the value drifts — exactly what the metamorphic probe measures
+        wins = (s[:, None] > s[None, :]).to(torch.float32)
+        ties = (s[:, None] == s[None, :]).to(torch.float32)
+        pair = target[:, None] * (1.0 - target[None, :])
+        n_pairs = torch.sum(pair)
+        u = torch.sum(pair * (wins + 0.5 * ties))
+        return u / torch.clamp_min(n_pairs, 1.0)
 
 
 class BlockScaledQuantizedSync(Metric):

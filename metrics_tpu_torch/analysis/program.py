@@ -42,9 +42,11 @@ returns a JSON-able report. For every engine-eligible family (and its
 ``AuditResult.evidence = {"host_seam": ..., "double_buffer": ...}``: the
 host-seam budget gated against ``SEAM_BASELINE.json`` (MTA008) and the
 double-buffer verdict over the step graph (MTA009); the report names the
-port's host crossing sites (``host_seam_sites``). Pass 5 (numerics) is not
-ported yet: no entry has a ``numerics`` key, and an eager-only family's
-evidence stays None.
+port's host crossing sites (``host_seam_sites``). Pass 5
+(:mod:`metrics_tpu_torch.analysis.numerics`) adds ``evidence["numerics"]``
+to every entry, eager-only families included: overflow horizons (MTA010),
+cancellation sites and the float64-measured error budget (MTA011) and the
+equivariance verdict (MTA012), gated against ``NUMERICS_BASELINE.json``.
 
 Differences from the JAX package, by design: tensors carry no
 ``weak_type``, so MTA001 has no weak-type check (PyTorch's 0-dim type
@@ -288,9 +290,9 @@ class AuditResult:
     # graph digests (ops × dtypes × shapes) of the update and compiled
     # step programs, when fingerprinting was requested
     fingerprints: Optional[Dict[str, Optional[str]]] = None
-    # pass-4 evidence of engine-eligible families: {"host_seam": budget,
-    # "double_buffer": verdict}; None for eager-only families (pass 5's
-    # "numerics" key is not ported yet)
+    # pass-4 evidence of engine-eligible families ({"host_seam": budget,
+    # "double_buffer": verdict}) and pass 5's {"numerics": ...} on every
+    # family (eager-only families carry only that key)
     evidence: Optional[Dict[str, Any]] = None
 
     def to_dict(self) -> Dict[str, Any]:
@@ -676,6 +678,19 @@ def _pass4_evidence(
     }
 
 
+def _add_pass5_evidence(
+    result: AuditResult, metric, findings: List[Finding], args: tuple, kwargs: Optional[dict] = None,
+    family: Optional[str] = None, cache: Optional[Dict[str, Any]] = None,
+) -> None:
+    """Adds ``evidence["numerics"]`` (pass 5: MTA010–MTA012) to any family's
+    result; ``cache`` is the family's probe cache, shared by its variants."""
+    from metrics_tpu_torch.analysis import numerics as _num
+
+    result.evidence = {**(result.evidence or {}), "numerics": _num.check_numerics(
+        metric, findings, result.infos, args=args, kwargs=kwargs, family=family, cache=cache,
+    )}
+
+
 def _route_suppressions(
     metric, findings: List[Finding], result: AuditResult, check_staleness: bool = True
 ) -> None:
@@ -752,9 +767,12 @@ def audit_metric(
     equivalence on concrete probes), MTA006 (state lifecycle: reset
     identity, compute purity, residual coherence), MTA007 (donation
     lifetime); pass 4 (engine-eligible metrics): MTA008 (host-seam budget
-    against ``SEAM_BASELINE.json``) and MTA009 (double-buffer safety),
-    their evidence in ``evidence``. ``fingerprint=True`` additionally
-    digests the update and step graphs for the drift sentinel.
+    against ``SEAM_BASELINE.json``) and MTA009 (double-buffer safety);
+    pass 5 (every metric): MTA010 (overflow horizons), MTA011 (cancellation
+    sites and the float64-measured error budget) and MTA012 (equivariance),
+    gated against ``NUMERICS_BASELINE.json``; their evidence in
+    ``evidence``. ``fingerprint=True`` additionally digests the update and
+    step graphs for the drift sentinel.
 
     Suppression: any rule named in a ``# metrics-tpu: allow(...)`` comment
     at class-body level (or in an iterable ``_analysis_allow`` attribute)
@@ -809,6 +827,9 @@ def audit_metric(
         result.evidence = _pass4_evidence(
             metric, findings, result.infos, engine_graph, n_donated, n_state_outs
         )
+    # pass 5 — numerical soundness (every family: eager-only accumulators
+    # saturate just as surely as compiled ones)
+    _add_pass5_evidence(result, metric, findings, args, kwargs, cache=_probe_cache)
     if fingerprint:
         result.fingerprints = {
             "update": _dist.fingerprint_jaxpr(update_graph) if update_graph is not None else None,
@@ -979,7 +1000,8 @@ _COHORT_AUDIT_CAPACITY = 4
 
 
 def _audit_cohort_variant(
-    metric, args: tuple, fingerprint: bool = False, family: Optional[str] = None
+    metric, args: tuple, fingerprint: bool = False, family: Optional[str] = None,
+    probe_cache: Optional[Dict[str, Any]] = None,
 ) -> AuditResult:
     """A slim audit of the vmapped cohort step of an engine-eligible
     family (reported as ``<Family>@cohort``): the per-tenant math is the
@@ -991,8 +1013,9 @@ def _audit_cohort_variant(
     structurally possible for cohorts too), and pass 4: the host-seam budget
     of the stacked serving loop (MTA008: one collective per state whatever
     the tenant count, plus the health fetch) and the double-buffer verdict
-    on the stacked step (MTA009). ``fingerprint=True`` digests the vmapped
-    step graph for the drift sentinel."""
+    on the stacked step (MTA009), and pass 5 from the family's shared
+    ``probe_cache`` (the stacked states hold the same math). ``fingerprint=True``
+    digests the vmapped step graph for the drift sentinel."""
     from metrics_tpu_torch.analysis import distributed as _dist
     from metrics_tpu_torch.engine import CompiledStepEngine, _count_specs
 
@@ -1044,6 +1067,7 @@ def _audit_cohort_variant(
         metric, findings, result.infos, graph, n_donated, n_state_outs,
         family=family or f"{cls}@cohort", cohort=True,
     )
+    _add_pass5_evidence(result, metric, findings, args, family=family or f"{cls}@cohort", cache=probe_cache)
     if fingerprint:
         result.fingerprints = {
             "cohort_step": _dist.fingerprint_jaxpr(graph) if graph is not None else None,
@@ -1064,8 +1088,9 @@ def _audit_quantized_variant(
     (residuals ride the states), MTA005 at the tier's documented bound
     through the real codec, MTA006 (residual coherence), MTA007, and pass 4:
     the tier's own host-seam budget (MTA008: the residual companion raises
-    the checkpoint fetch count, the payloads count as quantized) and the
-    double-buffer verdict on the variant's step (MTA009)."""
+    the checkpoint fetch count, the payloads count as quantized), the
+    double-buffer verdict on the variant's step (MTA009) and pass 5 from the
+    family's shared ``probe_cache`` (the residual companions are exempt)."""
     from metrics_tpu_torch.analysis import distributed as _dist
     from metrics_tpu_torch.engine import CompiledStepEngine
 
@@ -1094,6 +1119,7 @@ def _audit_quantized_variant(
         result.evidence = _pass4_evidence(
             metric, findings, result.infos, engine_graph, n_donated, n_state_outs, family=family
         )
+    _add_pass5_evidence(result, metric, findings, args, family=family, cache=probe_cache)
     _route_suppressions(metric, findings, result, check_staleness=False)
     return result
 
@@ -1124,10 +1150,14 @@ def audit_registry(
     The clean-baseline contract: ``report["summary"]["findings"] == 0``.
     Suppressed findings and design notes (eager-only families) stay
     visible in the report without failing the gate. Every engine-eligible
-    entry carries pass 4's ``evidence`` (``host_seam``, ``double_buffer``);
-    ``report["host_seam_sites"]`` names the port's host crossing sites, and
-    with telemetry on the ``analysis.seam.crossings`` gauge sums the
-    registry's per-sync collectives and steady per-step crossings.
+    entry carries pass 4's ``evidence`` (``host_seam``, ``double_buffer``),
+    and every entry pass 5's (``numerics``);
+    ``report["host_seam_sites"]`` names the port's host crossing sites. With
+    telemetry on, the ``analysis.seam.crossings`` gauge sums the registry's
+    per-sync collectives and steady per-step crossings, the
+    ``analysis.numerics.horizon_min`` gauge holds the shortest finite
+    horizon and ``analysis.numerics.findings`` counts unsuppressed pass-5
+    findings.
     """
     cases = registry_cases(device)
     from metrics_tpu_torch.engine import CompiledStepEngine
@@ -1155,7 +1185,8 @@ def audit_registry(
         note(name, base)
         if cohort and base.engine_eligible:
             note(f"{name}@cohort", _audit_cohort_variant(
-                factory(), args, fingerprint=fingerprints, family=f"{name}@cohort"
+                factory(), args, fingerprint=fingerprints, family=f"{name}@cohort",
+                probe_cache=probe_cache,
             ))
         if not quantized:
             continue
@@ -1198,6 +1229,21 @@ def audit_registry(
             flat = _conc.flatten_seam_budget((entry.get("evidence") or {}).get("host_seam") or {})
             crossings += flat.get("per_sync.host_collectives", 0) + flat.get("steady_per_step", 0)
         _obs.get().gauge("analysis.seam.crossings", crossings)
+        # numerics evidence: the registry's shortest finite horizon (rows)
+        # and the count of unsuppressed pass-5 findings
+        from metrics_tpu_torch.analysis import numerics as _num
+
+        horizon_min = _num.min_horizon_rows({
+            fam: (entry.get("evidence") or {}).get("numerics") for fam, entry in families.items()
+        })
+        numerics_findings = sum(
+            1 for entry in families.values() for f in entry["findings"]
+            if f.get("rule") in ("MTA010", "MTA011", "MTA012")
+        )
+        if horizon_min is not None:
+            _obs.get().gauge("analysis.numerics.horizon_min", horizon_min)
+        if numerics_findings:
+            _obs.get().count("analysis.numerics.findings", numerics_findings)
     if fingerprints:
         report["fingerprints"] = prints
     if write_path is not None:

@@ -21,6 +21,10 @@ class CohenKappa(Metric):
 
     _fused_forward = True  # additive counter states: one-update forward
 
+    # metrics-tpu: allow(MTA010) — deliberate: confmat stays int32. The
+    # kappa expected-agreement arithmetic needs exact cell counts; the
+    # 2^31-rows horizon is recorded in NUMERICS_BASELINE.json and
+    # StateGuard(overflow_margin=...) warns before saturation at run time.
     def __init__(
         self,
         num_classes: int,

@@ -27,6 +27,11 @@ class ConfusionMatrix(Metric):
 
     _fused_forward = True  # additive counter states: one-update forward
 
+    # metrics-tpu: allow(MTA010) — deliberate: the confusion matrix stays
+    # int32. Exact cell counts are the family contract (normalization and
+    # the IoU/derived ratios divide exact ints; doctests pin int32); the
+    # 2^31-rows-per-cell horizon is recorded in NUMERICS_BASELINE.json and
+    # StateGuard(overflow_margin=...) is the runtime warn-before-saturate.
     def __init__(
         self,
         num_classes: int,

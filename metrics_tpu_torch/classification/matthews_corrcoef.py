@@ -23,6 +23,10 @@ class MatthewsCorrcoef(Metric):
 
     _fused_forward = True  # additive counter states: one-update forward
 
+    # metrics-tpu: allow(MTA010) — deliberate: confmat stays int32. The
+    # MCC determinant arithmetic needs exact cell counts; the 2^31-rows
+    # horizon is recorded in NUMERICS_BASELINE.json for review and
+    # StateGuard(overflow_margin=...) warns before saturation at run time.
     def __init__(
         self,
         num_classes: int,

@@ -37,6 +37,12 @@ class StatScores(Metric):
 
     _fused_forward = True  # additive counter states: one-update forward
 
+    # metrics-tpu: allow(MTA010) — deliberate: tp/fp/tn/fn stay int32.
+    # Exact integer counts are this family's contract (every derived
+    # Precision/Recall/F1/FBeta ratio and the doctests pin int32), the
+    # 2^31-row saturation horizon is recorded per state in
+    # NUMERICS_BASELINE.json for review, and the runtime mitigation is
+    # StateGuard(overflow_margin=...) — warn + count before saturation.
     def __init__(
         self,
         threshold: float = 0.5,

@@ -6,11 +6,10 @@ The cases of ``tests/analysis/test_fixtures_fire.py`` are mirrored under
 their own names. Each audits the port's fixture and the JAX package's twin
 on the same seeded numpy batch and compares the ``(rule, subject,
 suppressed)`` triples, then checks what the JAX case checks on the port.
-Left out until pass 5 (numerics) is ported: the three numerics fixtures
-(``Int32RowCounter``, ``CancellingVariance``, ``EpsilonThresholdAUROC``),
-their parameters of ``test_fixture_trips_exactly_its_rule`` and their
-three cases. The JAX audit also runs pass 5, so its triples are compared
-over the rules the port runs.
+One JAX triple is not an oracle: the JAX package's measured budget does not
+run on JAX 0.9 (``jax.experimental.enable_x64`` is gone), so its
+``CancellingVariance`` trips no MTA011. The port's does, as the JAX cases
+intend, and that fixture's triples are compared without MTA011.
 """
 import inspect
 import re
@@ -25,8 +24,11 @@ from metrics_tpu_torch.analysis import fixtures as fx
 from metrics_tpu_torch.metric import Metric
 
 CPU = "cpu"
-#: the rules the port's audit runs (pass 5's MTA010–MTA012 are not ported)
-PORTED_RULES = {"MTA001", "MTA002", "MTA003", "MTA004", "MTA005", "MTA006", "MTA007", "MTA008", "MTA009", "MTL105"}
+#: the rules the port's audit runs
+PORTED_RULES = {"MTA001", "MTA002", "MTA003", "MTA004", "MTA005", "MTA006", "MTA007", "MTA008", "MTA009", "MTA010",
+                "MTA011", "MTA012", "MTL105"}
+#: rules whose JAX triples are no oracle, per fixture (see above)
+RED_IN_JAX = {"CancellingVariance": {"MTA011"}}
 _NP_X = np.linspace(0.0, 1.0, 8).astype(np.float32)
 _X = (torch.as_tensor(_NP_X),)
 
@@ -48,6 +50,9 @@ EXPECTED = [
     ("SeamRegressor", "MTA008"),
     ("DoubleBufferAliaser", "MTA009"),
     ("HostReadOfDonated", "MTA009"),
+    ("Int32RowCounter", "MTA010"),
+    ("CancellingVariance", "MTA011"),
+    ("EpsilonThresholdAUROC", "MTA012"),
     ("StaleSuppression", "MTL105"),
 ]
 
@@ -60,20 +65,22 @@ def _jax_audit(metric):
     return jax_audit_metric(metric, (jnp.asarray(_NP_X),))
 
 
-def _triples(result):
+def _triples(result, skip=frozenset()):
     return sorted(
-        (f.rule, f.subject, f.suppressed) for f in result.findings + result.suppressed if f.rule in PORTED_RULES
+        (f.rule, f.subject, f.suppressed) for f in result.findings + result.suppressed
+        if f.rule in PORTED_RULES - skip
     )
 
 
 def _both(name):
     """The port's and the JAX package's audit of fixture ``name``; their
-    triples must be equal."""
+    triples must be equal (over the rules whose JAX triples are oracles)."""
     from metrics_tpu.analysis import fixtures as jfx
 
     port = audit_metric(getattr(fx, name)(device=CPU), _X)
     ref = _jax_audit(getattr(jfx, name)())
-    assert _triples(port) == _triples(ref), name
+    skip = RED_IN_JAX.get(name, frozenset())
+    assert _triples(port, skip) == _triples(ref, skip), name
     return port, ref
 
 
@@ -290,6 +297,47 @@ def test_seam_regressor_names_the_exceeded_budget():
     assert len(sync) == 1
     assert sync[0].detail["got"] == 3 and sync[0].detail["baseline"] == 1
     assert "SEAM_BASELINE.json" in sync[0].message
+
+
+def test_int32_row_counter_names_state_horizon_and_floor():
+    """The MTA010 fixture's finding carries the exact horizon (2^31 - 1 rows
+    for a 1-per-row int32 counter), the fleet floor it breaches, and the
+    remediation pair (widen, or suppress + StateGuard(overflow_margin)) —
+    the JAX package's detail."""
+    result, ref = _both("Int32RowCounter")
+    f, = result.findings
+    assert f.subject == "Int32RowCounter.rows"
+    assert f.detail["kind"] == "int-overflow"
+    assert abs(f.detail["rows"] - 2 ** 31) < 2 ** 10
+    assert f.detail["floor"] == float(2 ** 40)
+    assert "overflow_margin" in f.message
+    assert f.detail == ref.findings[0].detail
+
+
+def test_cancelling_variance_blows_its_committed_budget():
+    """The MTA011 fixture is structurally flagged AND measured: its
+    NUMERICS_BASELINE.json entry commits a 2^-20 budget, the adversarial
+    probes observe 1.0 (everything lost), and the finding names both. The
+    JAX case is red on JAX 0.9 (its budget cannot run); the port asserts
+    the case's intent, with the JAX package's site."""
+    result, ref = _both("CancellingVariance")
+    f, = result.findings
+    assert f.rule == "MTA011"
+    assert f.detail["observed"] > f.detail["baseline"]
+    assert f.detail["sites"] >= 1
+    assert "NUMERICS_BASELINE.json" in f.message
+    ev = result.evidence["numerics"]["cancellation"]
+    assert ev["sites"] and ev["sites"][0]["primitive"] == "sub"
+    assert ev["sites"] == ref.evidence["numerics"]["cancellation"]["sites"]
+
+
+def test_epsilon_threshold_auroc_names_the_failing_scale():
+    result, ref = _both("EpsilonThresholdAUROC")
+    f, = result.findings
+    assert f.rule == "MTA012"
+    assert any(r["scale"] == 2.0 ** -10 for r in f.detail["failing"])
+    assert "scale-invariant" in f.message
+    assert [r["scale"] for r in f.detail["failing"]] == [r["scale"] for r in ref.findings[0].detail["failing"]]
 
 
 def test_double_buffer_fixtures_void_the_ping_pong_verdict():

@@ -252,14 +252,14 @@ def test_healthy_run_keeps_pass4_counters_at_zero():
 
 def test_evidence_rides_the_report_schema(registry_report):
     """``evidence["host_seam"]`` / ``evidence["double_buffer"]`` ride the
-    report of every engine-eligible family; eager-only families carry none
-    (the JAX package's also carry pass 5's ``numerics``, not ported yet)."""
+    report of every engine-eligible family beside pass 5's ``numerics``;
+    eager-only families carry ``numerics`` alone, as the JAX package's do."""
     report = registry_report[0]
     entry = report["families"]["MeanSquaredError"]
-    assert set(entry["evidence"]) == {"host_seam", "double_buffer"}
+    assert set(entry["evidence"]) == {"host_seam", "double_buffer", "numerics"}
     assert entry["evidence"]["double_buffer"]["writeback_locked"] is True
     eager = report["families"]["AUROC"]
     assert eager["engine_eligible"] is False
-    assert eager["evidence"] is None
+    assert set(eager["evidence"]) == {"numerics"}
     assert report["version"] == 4
     assert report["host_seam_sites"] == host_seam_sites()

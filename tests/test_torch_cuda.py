@@ -2372,15 +2372,78 @@ def test_pass4_evidence_on_the_card_equals_the_baseline(cuda_device):
 
     card, cpu = _registry_reports()
     baseline = load_seam_baseline()
-    seams = {f: e["evidence"]["host_seam"] for f, e in card["families"].items() if e["evidence"]}
+    seams = {f: e["evidence"]["host_seam"] for f, e in card["families"].items() if e["evidence"].get("host_seam")}
     assert len(seams) == 80
     for fam, seam in seams.items():
         assert flatten_seam_budget(seam) == baseline[fam]["budget"] and seam["states"] == baseline[fam]["states"], fam
         db, cpu_db = card["families"][fam]["evidence"]["double_buffer"], cpu["families"][fam]["evidence"]["double_buffer"]
         assert db == cpu_db and db["safe"] is True and db["hazards"] == [], fam
         assert cpu["families"][fam]["evidence"]["host_seam"] == seam, fam
-    assert all(e["evidence"] is None for e in card["families"].values() if not e["engine_eligible"])
+    assert all(set(e["evidence"]) == {"numerics"} for e in card["families"].values() if not e["engine_eligible"])
     assert card["host_seam_sites"] == cpu["host_seam_sites"]
+
+
+def test_pass5_evidence_on_the_card_equals_the_cpu(cuda_device):
+    """Pass 5 on the card: every entry's horizons, cancellation sites,
+    float64 verdict, skipped probes and equivariance verdict are the CPU
+    twin's; the horizons equal ``NUMERICS_BASELINE.json``'s, and every
+    measured budget is at or under its committed one (R2Score's, whose
+    allow records why, excepted)."""
+    from metrics_tpu_torch.analysis.numerics import load_numerics_baseline
+
+    card, cpu = _registry_reports()
+    base = load_numerics_baseline()
+    for fam, entry in card["families"].items():
+        ev, twin = entry["evidence"]["numerics"], cpu["families"][fam]["evidence"]["numerics"]
+        assert ev["horizons"] == twin["horizons"], fam
+        assert ev["equivariance"] == twin["equivariance"], fam
+        got, want = ev["cancellation"], twin["cancellation"]
+        assert got["sites"] == want["sites"], fam
+        assert got.get("float64") == want.get("float64") and got.get("skipped") == want.get("skipped"), fam
+        assert (got["budget"] is None) == (want["budget"] is None), fam
+        for state, h in base[fam]["horizons"].items():
+            assert (ev["horizons"][state]["kind"], ev["horizons"][state]["rows"]) == (h["kind"], h["rows"]), fam
+        if got["budget"] is not None and fam.split("@")[0] != "R2Score":
+            assert got["budget"] <= base[fam]["error_budget"], (fam, got["budget"])
+    assert card["summary"] == {"families": 89, "findings": 0, "suppressed": 100}
+
+
+def test_float64_oracle_leg_runs_in_float64_on_the_card(cuda_device):
+    """The oracle leg's states and value are float64 on the card too, and
+    the measured budgets are the CPU's: f32-epsilon scale for a plain sum
+    (the card's rounding differs), every digit lost for the cancellation."""
+    from metrics_tpu_torch.analysis import numerics as num
+
+    x = np.linspace(0.0, 1.0, 8).astype(np.float32)
+    for name in ("SeamRegressor", "CancellingVariance"):
+        from metrics_tpu_torch.analysis import fixtures as fx
+
+        probe = (torch.from_numpy(x).to(cuda_device, torch.float64),)
+        value = num._float64_leg(getattr(fx, name)(device=cuda_device), probe)
+        assert value.dtype == torch.float64 and value.device.type == "cuda", name
+        card = num.measure_error_budget(getattr(fx, name)(device=cuda_device), (torch.from_numpy(x).to(cuda_device),))
+        cpu = num.measure_error_budget(getattr(fx, name)(device="cpu"), (torch.from_numpy(x),))
+        assert card["float64"] is cpu["float64"] is True and "skipped" not in card, name
+        if name == "SeamRegressor":
+            assert card["budget"] < 1e-5 and cpu["budget"] < 1e-5
+        else:
+            assert card["budget"] == cpu["budget"] == 1.0
+
+
+def test_numerics_fixtures_on_the_card(cuda_device):
+    """``Int32RowCounter``'s lifted row count is a point on the card (its
+    horizon is 2^31 - 1 rows), and ``EpsilonThresholdAUROC`` is bit-stable
+    at 0.5 and not at 2^-10 there."""
+    from metrics_tpu_torch.analysis import audit_metric
+    from metrics_tpu_torch.analysis import fixtures as fx
+    from metrics_tpu_torch.analysis.numerics import state_horizons
+
+    x = (torch.linspace(0.0, 1.0, 8, device=cuda_device),)
+    assert state_horizons(fx.Int32RowCounter(device=cuda_device), x, {})["rows"]["rows"] == 2.0 ** 31 - 1
+    result = audit_metric(fx.EpsilonThresholdAUROC(device=cuda_device), x)
+    assert {f.rule for f in result.findings} == {"MTA012"}
+    scales = {s["scale"]: s["bit_stable"] for s in result.evidence["numerics"]["equivariance"]["scales"]}
+    assert scales == {0.5: True, 2.0 ** -10: False}
 
 
 def test_two_generation_traces_on_the_card_hold_no_hazard(cuda_device):
@@ -2438,7 +2501,8 @@ def test_analysis_fixtures_on_the_card_trip_their_rules(cuda_device):
                  "DonatedAlias", "NonCommutativeMerge", "MeanWithoutCount", "UnscaledInt8Psum",
                  "ReplicaDependentCount", "NonIdentityReset", "ComputeMutatesState", "OrphanResidual",
                  "UntouchedStatePassthrough", "UnownedLoader", "StaleSuppression", "SeamRegressor",
-                 "DoubleBufferAliaser", "HostReadOfDonated", "BlockScaledQuantizedSync"):
+                 "DoubleBufferAliaser", "HostReadOfDonated", "Int32RowCounter", "CancellingVariance",
+                 "EpsilonThresholdAUROC", "BlockScaledQuantizedSync"):
         results = [audit_metric(getattr(fx, name)(device=d), (torch.from_numpy(x).to(d),)) for d in ("cpu", "cuda")]
         cpu, card = ({(f.rule, f.subject, f.suppressed) for f in r.findings + r.suppressed} for r in results)
         # the quantized probe's positive control trips nothing

@@ -84,13 +84,6 @@ JAX_INITS = {
 # names JAX exports that the port does not have yet, by the part of the
 # JAX package whose port brings them
 NOT_YET_PORTED = {
-    # analysis/numerics.py
-    "check_numerics": "analysis/numerics.py",
-    "equivariance_verdict": "analysis/numerics.py",
-    "eval_jaxpr_intervals": "analysis/numerics.py",
-    "load_numerics_baseline": "analysis/numerics.py",
-    "measure_error_budget": "analysis/numerics.py",
-    "state_horizons": "analysis/numerics.py",
     # analysis/sanitizer.py
     "MetricSan": "analysis/sanitizer.py",
     "MetricSanError": "analysis/sanitizer.py",
