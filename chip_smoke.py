@@ -369,6 +369,23 @@ that is unset. Phases (any failure exits non-zero before the result line):
    alone over the 29 roots timed on the card and the CPU, and the
    ``tie_scan`` records of one pass over ``AUROC`` and
    ``AveragePrecision`` in an agreed profile (5 each);
+4r. MetricSan on the card (``analysis/sanitizer.py``), after 4q: (a) under
+   ``san_scope(raise_on_violation=True)``, the JAX bench's regression leg
+   as a ``compiled=True`` collection (5 forward batches of 100,000, one
+   build, every later step one graph replay), a 64-tenant cohort (3 steps
+   and ``compute()``), an eager binary ``AUROC`` over 1M predictions (one
+   ``tie_scan`` launch) and a world-size-1 sync of an exact and of an
+   ``int8`` state: no violation, and every value and state bit-equal to an
+   unarmed twin's; (b) a replay's and a compiled step's kernels and copies
+   armed against disarmed (``_paired_device_ops``), 0 host synchronizations in an
+   armed replayed step, and the AUROC compute's ``tie_scan`` launches equal;
+   (c) both forms of ``donation_unsafe_engine`` on a CUDA graph (the freed
+   defaults, the graph's buffers handed out): one MTA007 and one flight
+   dump each; (d) ThreadSan over an armed ``AsyncServingEngine`` serve loop
+   whose worker steps on its own stream: 0 races, a nonzero
+   ``san.thread.watched_attrs``; (e) the host ms of a compiled step and of an
+   eager forward, disarmed and armed in turns (median of 5), beside the
+   card's name and power limit;
 5. times on the card (CUDA events over launches queued behind a device
    sleep, so host overhead does not show, or the host clock ending in a
    synchronize for whole steps): the one-stream kernel, its plain version
@@ -5082,6 +5099,202 @@ def _pass5_on_the_card(torch, dev, card, report, cpu_report):
     return out
 
 
+SAN_STEPS = 5
+SAN_TENANTS = 64
+SAN_COHORT_STEPS = 3
+SAN_SERVE_STEPS = 8
+
+
+def _sanitizer_phase(torch, dev, card):
+    """Phase 4r: MetricSan on the card. Returns the phase's timings; leaves
+    the sanitizer disarmed (``Metric`` without its interceptor), every
+    pipeline closed and telemetry off."""
+    import tempfile
+
+    import metrics_tpu_torch.observability as obs
+    from metrics_tpu_torch import (
+        AUROC,
+        ExplainedVariance,
+        MeanAbsoluteError,
+        MeanSquaredError,
+        MetricCohort,
+        MetricCollection,
+        PSNR,
+        R2Score,
+    )
+    from metrics_tpu_torch.analysis import san_scope
+    from metrics_tpu_torch.engine import CompiledStepEngine
+    from metrics_tpu_torch.metric import Metric
+    from metrics_tpu_torch.observability import flight
+    from metrics_tpu_torch.ops import tie_scan
+    from metrics_tpu_torch.reliability import faultinject
+    from metrics_tpu_torch.serving import AsyncServingEngine
+
+    out = {"card": card}
+    part_s = out["part_s"] = {}
+    t_part = time.perf_counter()
+    scan = tie_scan.tie_group_reduce
+    _, _, reg_p, reg_t = _regression_leg_inputs(torch, dev)
+    reg_batches = [(reg_p[b * BATCH:(b + 1) * BATCH], reg_t[b * BATCH:(b + 1) * BATCH]) for b in range(SAN_STEPS)]
+    rs = np.random.RandomState(SEED + 90)
+    waves = [tuple(torch.from_numpy(rs.rand(SAN_TENANTS, COHORT_ROWS).astype(np.float32)).to(dev) for _ in range(2))
+             for _ in range(SAN_COHORT_STEPS)]
+    scores = torch.from_numpy(np.round(rs.rand(MAIN_N), 3).astype(np.float32)).to(dev)
+    labels = (torch.from_numpy(rs.rand(MAIN_N).astype(np.float32)).to(dev) < scores).to(torch.int32)
+
+    def armed():
+        return san_scope(raise_on_violation=True)
+
+    # a. healthy runs, armed against an unarmed twin
+    def workload():
+        col = MetricCollection([MeanSquaredError(), MeanAbsoluteError(), R2Score(), PSNR(), ExplainedVariance()],
+                               compiled=True)
+        values = [v for b in reg_batches for v in col(*b).values()] + list(col.compute().values())
+        cohort = MetricCohort(MetricCollection([MeanSquaredError(), MeanAbsoluteError()]), tenants=SAN_TENANTS)
+        values += [v for w in waves for v in cohort(*w).values()] + list(cohort.compute().values())
+        auroc = AUROC(pos_label=1)
+        auroc.update(scores, labels)
+        before = scan.launches
+        values.append(auroc.compute())
+        launches = scan.launches - before
+        synced = []
+        for tier in ("exact", "int8"):
+            m = MeanSquaredError()
+            if tier != "exact":
+                m.set_sync_precision(tier)
+            m.update(*reg_batches[0])
+            m._sync_dist()
+            synced.append(m)
+        values += [getattr(m, s) for m in synced for s in m._defaults]
+        states = [getattr(m, s) for m in col.values() for s in m._defaults]
+        states += [v for d in cohort._states.values() for v in d.values()]
+        torch.cuda.synchronize()
+        return (col, cohort), values, states, launches
+
+    plain = workload()
+    with armed() as san:
+        on = workload()
+    if san.violations:
+        raise AssertionError(f"4r a. healthy runs under MetricSan: {san.violations}")
+    for label, a, b in (("values", plain[1], on[1]), ("states", plain[2], on[2])):
+        if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"4r a. {label} differ with MetricSan armed")
+    (p_col, p_cohort), (a_col, a_cohort) = plain[0], on[0]
+    if a_col._engine.trace_count != 1 or a_col._engine.eager_fallbacks or a_cohort._engine.trace_count != 1:
+        raise AssertionError(f"4r a. the armed leg built {a_col._engine.trace_count} graphs (eager:"
+                             f" {a_col._engine.eager_fallbacks}), the cohort {a_cohort._engine.trace_count}")
+    if plain[3] != 1 or on[3] != 1:
+        raise AssertionError(f"4r b. the AUROC compute launched tie_scan {plain[3]} times unarmed, {on[3]} armed")
+    print(f"4r a. [{card}] under san_scope(raise_on_violation=True): the regression leg compiled ({SAN_STEPS}"
+          f" batches of {BATCH}, one build), a {SAN_TENANTS}-tenant cohort ({SAN_COHORT_STEPS} steps + compute),"
+          f" AUROC over {MAIN_N} (tie_scan launched {on[3]} time, as unarmed) and world-1 syncs of an exact and"
+          " an int8 state: 0 violations, values and states bit-equal to the unarmed twin's")
+    part_s["a"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # b. no device work added: a replay and a step, armed against disarmed, traced in turns
+    ((p_prog,), (a_prog,)) = p_col._engine._compiled.values(), a_col._engine._compiled.values()
+    counts, spoiled = {}, {}
+    for label, off_fn, on_fn in (("replay", p_prog.graph.replay, a_prog.graph.replay),
+                                 ("step", lambda: p_col(*reg_batches[0]), lambda: a_col(*reg_batches[0]))):
+        try:
+            off, on_ops, rounds = _paired_device_ops(torch, off_fn, on_fn, contexts=(None, armed))
+        except AssertionError as err:
+            raise AssertionError(f"4r b. kernels and copies of the {label} disarmed and armed: {err}") from None
+        counts[label] = off
+        if rounds:
+            spoiled[label] = rounds
+    with armed() as san:
+        syncs = _syncs(torch, lambda: a_col(*reg_batches[1]))
+    if syncs or san.violations:
+        raise AssertionError(f"4r b. an armed replayed step synchronized the host at {syncs} ({san.violations})")
+    out["armed_vs_off"] = {k: list(v) for k, v in counts.items()}
+    out["rounds_spoiled"] = spoiled
+    out["syncs_per_armed_step"] = len(syncs)
+    print(f"4r b. kernels and copies disarmed and armed (traced in turns: the same device records): {counts};"
+          f" 0 host syncs in an armed replayed step" + (f"; rounds that disagreed first: {spoiled}" if spoiled else ""))
+    del plain, on, a_col, a_cohort, a_prog, p_cohort, p_prog
+    part_s["b"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # c. the injectors on a CUDA graph: one MTA007 and one dump each
+    x = torch.linspace(0.0, 1.0, 4096, device=dev)
+    for form in ("free", "graph"):
+        with tempfile.TemporaryDirectory(dir="build") as d, flight.flight_scope(d), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            with san_scope() as san:
+                engine = CompiledStepEngine(MeanSquaredError())
+                engine.step(x, x * 0.5)
+                engine.step(x, x * 0.5)
+                healthy = list(san.violations)
+                with faultinject.donation_unsafe_engine(form):
+                    engine.step(x, x * 0.5)
+                torch.cuda.synchronize()
+            dumps = [f for f in os.listdir(d) if f.startswith("flight-")]
+            reasons = [json.load(open(os.path.join(d, f)))["reason"] for f in dumps]
+        got = [(v["rule"], v["subject"]) for v in san.violations]
+        if healthy or got != [("MTA007", "MeanSquaredError")] or reasons != ["metricsan_use_after_donate"]:
+            raise AssertionError(f"4r c. donation_unsafe_engine({form!r}): violations {san.violations}, dumps {reasons}")
+        out[f"injector_{form}"] = {"violations": len(got), "dumps": len(dumps)}
+        del engine
+    print("4r c. donation_unsafe_engine on a CUDA graph: form 'free' (defaults freed) and form 'graph' (the graph's"
+          " buffers handed out without the clone) each 1 MTA007 use_after_donate on MeanSquaredError, 1 flight dump")
+    part_s["c"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # d. ThreadSan over an armed serve loop, the worker on its own stream
+    with obs.telemetry_scope() as tel:
+        races0 = tel.counters.get("san.thread.races", 0)
+        with armed() as san:
+            watched = tel.gauges.get("san.thread.watched_attrs", 0)
+            col = MetricCollection([MeanSquaredError(), MeanAbsoluteError()], compiled=True)
+            pipe = AsyncServingEngine(col)
+            try:
+                for i in range(SAN_SERVE_STEPS):
+                    pipe.forward(*reg_batches[i % SAN_STEPS])
+                pipe.drain()
+                served = col.compute()
+                stats = dict(pipe.stats)
+            finally:
+                pipe.close()
+        races = tel.counters.get("san.thread.races", 0) - races0
+    if san.violations or races or watched <= 0 or stats["dispatches"] < 1:
+        raise AssertionError(f"4r d. ThreadSan over the serve loop: {san.violations}, races {races}, watched"
+                             f" {watched}, pipeline stats {stats}")
+    if not all(bool(torch.isfinite(v)) for v in served.values()):
+        raise AssertionError(f"4r d. the served collection's values {served}")
+    out["threadsan"] = {"races": races, "watched_attrs": watched, "worker_dispatches": stats["dispatches"],
+                        "inline_steps": stats["inline_steps"]}
+    print(f"4r d. ThreadSan over an AsyncServingEngine serve loop ({SAN_SERVE_STEPS} batches, {stats['dispatches']}"
+          f" stepped by the worker on its own stream): 0 races, san.thread.watched_attrs = {watched:g}")
+    part_s["d"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # e. the price of arming: host ms of a compiled step (a replay) and of an
+    # eager forward, disarmed and armed in turns (each armed scope's first
+    # call, which probes the class's reset once, untimed)
+    eager = MeanSquaredError()
+    eager(*reg_batches[0])
+    price = {}
+    for label, fn in (("compiled_step", lambda: p_col(*reg_batches[1])),
+                      ("eager_forward", lambda: eager(*reg_batches[1]))):
+        off_ms, on_ms = [], []
+        for _ in range(5):
+            off_ms.append(_host_ms(torch, fn, trials=1))
+            with armed():
+                fn()
+                on_ms.append(_host_ms(torch, fn, trials=1))
+        price[label] = {"disarmed_ms": float(np.median(off_ms)), "armed_ms": float(np.median(on_ms))}
+    out["host_ms"] = price
+    part_s["e"] = time.perf_counter() - t_part
+    if "__setattr__" in Metric.__dict__:
+        raise AssertionError("4r: Metric keeps the sanitizer's interceptor after disarming")
+    print(f"4r e. [{card}] host ms a step (median of 5), disarmed / armed: compiled step"
+          f" {price['compiled_step']['disarmed_ms']:.4f} / {price['compiled_step']['armed_ms']:.4f}, eager forward"
+          f" {price['eager_forward']['disarmed_ms']:.4f} / {price['eager_forward']['armed_ms']:.4f}")
+    return out
+
+
 def main() -> int:
     card_index = _pin_one_card()
     import torch
@@ -5942,6 +6155,18 @@ def main() -> int:
                              f" {audit_timings['tie_scan_launches']} against {counts()}")
     print(f"4q. {audit_timings['phase_s']:.1f} s")
     print(json.dumps({"timings": {"program_audit": audit_timings}}))
+
+    # ---- 4r. MetricSan on the card -----------------------------------------------
+    zero_counts()
+    t0 = time.perf_counter()
+    san_timings = _sanitizer_phase(torch, dev, card)
+    san_timings["phase_s"] = time.perf_counter() - t0
+    san_timings["scan_launches"] = counts()
+    # (a)'s two AUROC computes launch it once each, nothing else launches a scan
+    if counts()["tie_scan"] != 2 or any(v for k, v in counts().items() if k != "tie_scan"):
+        raise AssertionError(f"phase 4r: the two AUROC computes launch tie_scan once each and nothing else: {counts()}")
+    print(f"4r. {san_timings['phase_s']:.1f} s")
+    print(json.dumps({"timings": {"sanitizer": san_timings}}))
 
     # ---- 5. times ---------------------------------------------------------
     all_preds = torch.cat(list(collection["AUROC"].preds))

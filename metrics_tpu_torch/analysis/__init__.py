@@ -52,7 +52,13 @@ catalog, MTA001–MTA014 and MTL101–MTL107):
   failover promotion (MTA014), and the MTL107 durability lint leg — gated
   against the committed tighten-only ``PROTOCOL_BASELINE.json``.
 
-The sanitizer (MetricSan) is not ported yet.
+**MetricSan** (:mod:`metrics_tpu_torch.analysis.sanitizer`) is the opt-in
+runtime twin: armed by ``METRICS_TPU_SAN=1``, :func:`enable_san` or
+:func:`san_scope`, it catches at run time what the passes cannot see (a
+freed or graph-owned buffer reachable after a dispatch, MTA007; a state
+write outside the lifecycle and a non-identity reset, MTA006; a
+world-size-1 sync that is no identity, MTA005; a cross-thread race,
+MTL106) and reports each under the rule it refutes.
 
 Suppress a rule at a site with ``# metrics-tpu: allow(<RULE-ID>)``
 (stale allows are themselves flagged, MTL105).
@@ -101,10 +107,19 @@ from metrics_tpu_torch.analysis.protocol import (  # noqa: F401
     load_protocol_baseline,
     tighten_protocol_baseline,
 )
+from metrics_tpu_torch.analysis.sanitizer import (  # noqa: F401
+    MetricSan,
+    MetricSanError,
+    disable_san,
+    enable_san,
+    san_scope,
+)
 
 __all__ = [
     "AuditResult",
     "Finding",
+    "MetricSan",
+    "MetricSanError",
     "Rule",
     "RULES",
     "audit_collection",
@@ -119,7 +134,9 @@ __all__ = [
     "check_replica_equivalence",
     "composed_generation_hazards",
     "counterexample_report",
+    "disable_san",
     "durability_findings",
+    "enable_san",
     "equivariance_verdict",
     "eval_jaxpr_intervals",
     "explore_crash_consistency",
@@ -137,6 +154,7 @@ __all__ = [
     "load_seam_baseline",
     "measure_error_budget",
     "register_threadsan_target",
+    "san_scope",
     "state_horizons",
     "thread_shared_model",
     "tighten_protocol_baseline",

@@ -1109,9 +1109,9 @@ def thread_shared_model(root: Optional[str] = None) -> List[Dict[str, Any]]:
     """The statically inferred thread-shared surface of the package:
     ``[{"module", "qualname", "attrs", "lock"}]`` for every class whose
     instance attributes are reachable from more than one thread entry
-    point — locked or not. This is what a thread sanitizer instruments
-    at arm time (the JAX package's ThreadSan; the port's sanitizer is not
-    ported yet): properly locked attrs verify their discipline
+    point — locked or not. This is what ThreadSan
+    (:mod:`metrics_tpu_torch.analysis.sanitizer`) instruments at arm
+    time: properly locked attrs verify their discipline
     dynamically, flagged ones reproduce the static finding when the race
     actually happens. Classes
     defined inside function bodies (``<locals>`` qualnames) cannot be

@@ -68,6 +68,7 @@ from metrics_tpu_torch.analysis.program import (
     iter_eqns,
 )
 from metrics_tpu_torch.analysis.rules import Finding
+from metrics_tpu_torch.metric import _san_allow_ctx
 from metrics_tpu_torch.parallel import quantize as _q
 from metrics_tpu_torch.utilities.data import (
     dim_zero_cat,
@@ -192,10 +193,11 @@ def _states_after_update(metric, args: tuple, kwargs: dict) -> Dict[str, Any]:
 
 def _compute_on_states(metric, states: Dict[str, Any]) -> Any:
     """``compute`` evaluated on an explicit state dict (epoch-end
-    semantics), leaving the live metric untouched."""
+    semantics), leaving the live metric untouched. Telemetry is muted and
+    MetricSan's allow scope open: the probe is no step and no violation."""
     saved = metric._snapshot_state()
     try:
-        with _muted():
+        with _muted(), _san_allow_ctx():
             for k, v in states.items():
                 setattr(metric, k, v)
             metric._computed = None
@@ -676,10 +678,11 @@ def _trace_compute_mutations(metric, probe_states: Dict[str, Any]) -> Optional[L
         saved = metric._snapshot_state()
         try:
             versions = {k: v._version for k, v in states.items()}
-            for k, v in states.items():
-                setattr(metric, k, v)
-            metric._computed = None
-            value = metric.compute()
+            with _san_allow_ctx():
+                for k, v in states.items():
+                    setattr(metric, k, v)
+                metric._computed = None
+                value = metric.compute()
             for k in states:
                 if getattr(metric, k) is not states[k] or states[k]._version != versions[k]:
                     mutated.append(k)
@@ -817,7 +820,7 @@ def check_lifecycle(
     saved = metric._snapshot_state()
     mutated_concrete: List[str] = []
     try:
-        with _muted():
+        with _muted(), _san_allow_ctx():
             for k, v in given.items():
                 setattr(metric, k, v)
             metric._computed = None

@@ -13,8 +13,9 @@ them before anything runs. Each fixture is surgical — it violates exactly
 one rule and is otherwise clean, so the tests can pin "this fixture trips
 this rule and nothing else". The fleet fixtures subclass the port's own
 fleet classes and override the hooks those classes name for the purpose
-(``MigrationCoordinator._commit_target``, ``FleetShard._check_fence``). The
-fixtures of the sanitizer come with it. ``SeamRegressor`` and
+(``MigrationCoordinator._commit_target``, ``FleetShard._check_fence``).
+``ComputeMutatesState``, ``NonIdentityReset`` and ``UnlockedSharedCounter``
+are MetricSan's drills too. ``SeamRegressor`` and
 ``CancellingVariance`` keep the JAX package's class names: the committed
 ``SEAM_BASELINE.json`` and ``NUMERICS_BASELINE.json`` gate them by those
 names.

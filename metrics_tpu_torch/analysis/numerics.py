@@ -892,6 +892,7 @@ def _compute_closed(metric) -> Optional[Tuple[Any, List[str]]]:
     states (telemetry muted), plus the state-leaf order; None when compute
     does not trace (eager-only families: list states, host reads)."""
     from metrics_tpu_torch.analysis.program import _fake_trace
+    from metrics_tpu_torch.metric import _san_allow_ctx
 
     names = sorted(k for k, d in metric._defaults.items() if not isinstance(d, list))
     if len(names) != len(metric._defaults):
@@ -900,10 +901,11 @@ def _compute_closed(metric) -> Optional[Tuple[Any, List[str]]]:
     def fn(states):
         saved = metric._snapshot_state()
         try:
-            for k, v in states.items():
-                setattr(metric, k, v)
-            metric._computed = None
-            return metric.compute()
+            with _san_allow_ctx():
+                for k, v in states.items():
+                    setattr(metric, k, v)
+                metric._computed = None
+                return metric.compute()
         finally:
             metric._restore_state(saved)
             metric._computed = None

@@ -312,15 +312,19 @@ class AuditResult:
 def _update_program(metric) -> Callable:
     """The metric's update as a pure ``states, args, kwargs -> new_states``
     function (the same temporary-attribute reuse the engine's step function
-    performs), restorable even when tracing raises."""
+    performs), restorable even when tracing raises. Runs under MetricSan's
+    allow scope: an analysis probe must never register as a runtime
+    violation."""
+    from metrics_tpu_torch.metric import _san_allow_ctx
 
     def fn(states, args, kwargs):
         saved = metric._snapshot_state()
         try:
-            for k, v in states.items():
-                setattr(metric, k, v)
-            metric.update(*args, **metric._filter_kwargs(**kwargs))
-            return {k: getattr(metric, k) for k in metric._defaults}
+            with _san_allow_ctx():
+                for k, v in states.items():
+                    setattr(metric, k, v)
+                metric.update(*args, **metric._filter_kwargs(**kwargs))
+                return {k: getattr(metric, k) for k in metric._defaults}
         finally:
             metric._restore_state(saved)
             metric._computed = None

@@ -58,7 +58,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from metrics_tpu_torch.engine import CompiledStepEngine, LeafSpec, _flags_to_host, _HostMirror
-from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.metric import Metric, _san_allow_ctx
 from metrics_tpu_torch.observability import exporter as _exporter
 from metrics_tpu_torch.observability import flight as _flight
 from metrics_tpu_torch.observability import telemetry as _obs
@@ -67,6 +67,7 @@ from metrics_tpu_torch.parallel import hierarchy as _hier
 from metrics_tpu_torch.parallel import quantize as _quant
 from metrics_tpu_torch.parallel.backend import get_sync_backend, is_distributed_initialized
 from metrics_tpu_torch.reliability import sync as _rsync
+from metrics_tpu_torch.utilities import env as _env
 from metrics_tpu_torch.utilities.data import _is_concrete, tracing
 from metrics_tpu_torch.utilities.distributed import gather_all_tensors
 from metrics_tpu_torch.utilities.prints import warn_once
@@ -573,8 +574,9 @@ class MetricCohort:
         self._drain_serving()
         clones = OrderedDict((n, deepcopy(m)) for n, m in self._template.items())
         for name, clone in clones.items():
-            for sname in clone._defaults:
-                setattr(clone, sname, self._states[name][sname][int(tenant)].clone())
+            with _san_allow_ctx():
+                for sname in clone._defaults:
+                    setattr(clone, sname, self._states[name][sname][int(tenant)].clone())
             clone._computed = None
         if self._single:
             return clones["metric"]
@@ -677,6 +679,13 @@ class MetricCohort:
             self._publish_health(new_health)
         if finites is not None:
             self._apply_guard_verdicts(guard, names, finites)
+        if _env.san_enabled():
+            # MetricSan use-after-donate canary: the cohort's graphs own only
+            # its stacked buffers; the template metrics' registered defaults
+            # and attributes must be neither freed nor one of them
+            from metrics_tpu_torch.analysis import sanitizer as _san
+
+            _san.on_engine_dispatch(self._template, names, self._engine._graph_storages())
         out = {name: (self._valid_rows(values[name]) if name in values else None) for name in names}
         return out["metric"] if self._single else out
 
@@ -770,8 +779,9 @@ class MetricCohort:
         saved = m._snapshot_state()
         prev_sync = m._to_sync
         try:
-            for sname in m._defaults:
-                setattr(m, sname, rows[sname])
+            with _san_allow_ctx():
+                for sname in m._defaults:
+                    setattr(m, sname, rows[sname])
             # the cohort syncs once for all tenants, before this runs
             m._to_sync = False
             m._computed = None

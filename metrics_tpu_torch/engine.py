@@ -98,6 +98,7 @@ from metrics_tpu_torch.observability import telemetry as _obs
 from metrics_tpu_torch.observability import trace as _trace
 from metrics_tpu_torch.parallel.backend import is_distributed_initialized
 from metrics_tpu_torch.reliability import guard as _rguard
+from metrics_tpu_torch.utilities import env as _env
 from metrics_tpu_torch.utilities.checks import shared_canonicalization
 from metrics_tpu_torch.utilities.data import apply_to_collection, tracing
 from metrics_tpu_torch.utilities.prints import warn_once
@@ -309,7 +310,7 @@ class _Graph:
     reads that live outside its pool (pinned, so they outlive every
     replay)."""
 
-    __slots__ = ("graph", "inputs", "states", "outputs", "pins", "pool_bytes", "build_ms")
+    __slots__ = ("graph", "inputs", "states", "outputs", "pins", "pool_bytes", "build_ms", "_storage_ptrs")
 
     def __init__(self, graph, inputs, states, outputs, pins, pool_bytes, build_ms):
         self.graph = graph
@@ -319,6 +320,19 @@ class _Graph:
         self.pins = pins
         self.pool_bytes = pool_bytes
         self.build_ms = build_ms
+        self._storage_ptrs = None
+
+    def storage_ptrs(self) -> frozenset:
+        """Storage pointers of the static inputs, state buffers and outputs:
+        what a replay writes (fixed for the graph's life; made on first
+        request)."""
+        if self._storage_ptrs is None:
+            self._storage_ptrs = frozenset(
+                t.untyped_storage().data_ptr()
+                for t in pytree.tree_leaves((self.inputs, self.states, self.outputs))
+                if isinstance(t, torch.Tensor) and t.numel()
+            )
+        return self._storage_ptrs
 
 
 class CompiledStepEngine:
@@ -829,6 +843,13 @@ class CompiledStepEngine:
                 self._write_back(names, new_states, values)
                 if finites:
                     self._apply_guard_verdicts(guard, names, finites[0])
+                if _env.san_enabled():
+                    # MetricSan use-after-donate canary: after a successful
+                    # dispatch no freed buffer and no graph buffer may remain
+                    # reachable from the metrics; lazy, cold off-path
+                    from metrics_tpu_torch.analysis import sanitizer as _san
+
+                    _san.on_engine_dispatch(self._metrics, names, self._graph_storages())
                 for name in names:
                     out[name] = values.get(name)
 
@@ -857,6 +878,16 @@ class CompiledStepEngine:
                 guard.handle_violation(
                     self._metrics[name], None, context=f"compiled step ({name})", already_rolled_back=rolled_back
                 )
+
+    def _graph_storages(self) -> set:
+        """Storage pointers of every cached graph's static inputs, state
+        buffers and outputs: what a replay writes (the sanitizer's canary
+        reads them; empty on the CPU, which builds no graph)."""
+        ptrs = set()
+        for program in self._compiled.values():
+            if program is not None:
+                ptrs |= program.storage_ptrs()
+        return ptrs
 
     def _buffer_ptrs(self) -> set:
         """Data pointers of the engine's state buffers."""

@@ -21,6 +21,7 @@ import inspect
 import operator
 import time as _time
 from abc import ABC, abstractmethod
+from contextlib import nullcontext
 from copy import deepcopy
 from typing import Any, Callable, Dict, Optional, Sequence, Union
 
@@ -34,6 +35,7 @@ from metrics_tpu_torch.parallel import quantize as _quant
 from metrics_tpu_torch.parallel.backend import get_sync_backend, is_distributed_initialized
 from metrics_tpu_torch.reliability import guard as _rguard
 from metrics_tpu_torch.reliability import sync as _rsync
+from metrics_tpu_torch.utilities import env as _env
 from metrics_tpu_torch.utilities.checks import shared_canonicalization
 from metrics_tpu_torch.utilities.data import (
     _flatten,
@@ -71,6 +73,24 @@ def _device_owned(v: Any, device: torch.device) -> torch.Tensor:
     """A checkpoint value as state on ``device`` that aliases nothing the
     caller holds: a copy, even when it already lies there."""
     return torch.as_tensor(v).detach().to(device, copy=True)
+
+
+_NULL_CTX = nullcontext()
+
+
+def _san_allow_ctx():
+    """Sanctioned state-write scope for MetricSan's write interceptor.
+
+    The update wrapper and forward's residual-seeding writes are
+    legitimate lifecycle writes that are not reachable through the
+    class-level methods the sanitizer wraps at arm time, so they declare
+    themselves here. Zero-overhead when MetricSan is off: one flag read
+    and a shared (reentrant) null context."""
+    if _env.san_enabled():
+        from metrics_tpu_torch.analysis import sanitizer as _san
+
+        return _san.allow_state_writes()
+    return _NULL_CTX
 
 
 def _resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
@@ -348,8 +368,9 @@ class Metric(ABC):
                 # persistent values, so a dist_sync_on_step sync compensates
                 # the previous step sync's error instead of starting from
                 # the reset zeros every step
-                for res_name in self._sync_residual_names():
-                    setattr(self, res_name, cache[res_name])
+                with _san_allow_ctx():
+                    for res_name in self._sync_residual_names():
+                        setattr(self, res_name, cache[res_name])
                 try:
                     self._batch_local_pass = True
                     try:
@@ -371,8 +392,9 @@ class Metric(ABC):
                     # hold the values seeded above)
                     post_sync_residuals = {r: getattr(self, r) for r in self._sync_residual_names()}
                     self._restore_state(cache)
-                    for r, v in post_sync_residuals.items():
-                        setattr(self, r, v)
+                    with _san_allow_ctx():
+                        for r, v in post_sync_residuals.items():
+                            setattr(self, r, v)
                     self._to_sync = True
                     self._computed = None
 
@@ -390,8 +412,9 @@ class Metric(ABC):
             self.reset()
             # sync-stream seeding, as on the classic path: a step sync must
             # compensate the previous sync's error, not restart from zero
-            for res_name in self._sync_residual_names():
-                setattr(self, res_name, accumulated[res_name])
+            with _san_allow_ctx():
+                for res_name in self._sync_residual_names():
+                    setattr(self, res_name, accumulated[res_name])
             try:
                 self.update(*args, **kwargs)  # the ONLY update: batch stats
             except BaseException:
@@ -615,7 +638,7 @@ class Metric(ABC):
             self._computed = None
             # telemetry: wall time, call count and a profiler range
             # (`metrics_tpu.<Name>.update`); a shared null context when off
-            with _obs.metric_scope(self, "update"):
+            with _obs.metric_scope(self, "update"), _san_allow_ctx():
                 args = apply_to_collection(args, torch.Tensor, self._to_own_device)
                 kwargs = apply_to_collection(kwargs, torch.Tensor, self._to_own_device)
                 # reliability hook: with a StateGuard installed the update
@@ -668,8 +691,9 @@ class Metric(ABC):
                 # sync must compensate
                 post_sync_residuals = {r: getattr(self, r) for r in self._sync_residual_names()}
                 self._restore_state(cache)
-                for r, v in post_sync_residuals.items():
-                    setattr(self, r, v)
+                with _san_allow_ctx():
+                    for r, v in post_sync_residuals.items():
+                        setattr(self, r, v)
             return self._computed
 
         return wrapped_func

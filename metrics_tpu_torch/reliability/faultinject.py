@@ -6,11 +6,9 @@ here injects one production failure mode — NaN/Inf in update inputs, a sync
 backend that fails or hangs (one level of a hierarchical backend, an
 unreachable slice, a simulated multi-slice fleet in one process), a step
 engine build that fails, a corrupted checkpoint envelope, a preempted or
-skewed eval session, a torn checkpoint file, a cut transport — as a scoped
-context manager (or a function) that restores the previous world on exit.
-
-Not ported yet: ``donation_unsafe_engine`` (its only reader is the
-sanitizer of ``analysis/``; the port donates no buffer). ``slow_consumer``
+skewed eval session, a torn checkpoint file, a cut transport, a step engine
+that bypasses its defensive copies — as a scoped context manager (or a
+function) that restores the previous world on exit. ``slow_consumer``
 and ``preempt_at_step(during="background_write")`` drill ``serving/``;
 ``expire_lease`` and ``kill_at_migration_phase`` drill ``fleet/``.
 
@@ -46,6 +44,7 @@ __all__ = [
     "preempt_at_step",
     "slow_consumer",
     "torn_write",
+    "donation_unsafe_engine",
     "cursor_skew",
 ]
 
@@ -663,6 +662,54 @@ def torn_write(path: Any, keep_fraction: float = 0.5) -> int:
     new_size = int(size * keep_fraction)
     os.truncate(path, new_size)
     return new_size
+
+
+@contextmanager
+def donation_unsafe_engine(form: str = "free") -> Iterator[None]:
+    """While active, :class:`~metrics_tpu_torch.engine.CompiledStepEngine`
+    bypasses one of its defensive copies after each successful step, so a
+    buffer the dispatch consumed stays reachable from the metrics. The JAX
+    package's injector deletes the live states that alias a registered
+    default, as XLA donation would; the port donates nothing (every state is
+    copied into the graph's buffers and cloned out) and its ``reset()``
+    clones the defaults, so the hazard takes the two forms the
+    use-after-donate canary of :mod:`metrics_tpu_torch.analysis.sanitizer`
+    looks for (MTA007):
+
+    * ``form="free"`` (any device): every step reads the registered
+      defaults in place (``reset()`` inside the step; on the card the graph
+      reads them on every replay). After the step the injector frees their
+      storage, as a dispatch that consumed them without the clone would:
+      the step itself succeeds and the dead buffers stay reachable through
+      ``_defaults``.
+    * ``form="graph"`` (the card): the step's states and values are handed
+      out as the captured graph's own buffers, without the clone, so the
+      metric's live states are buffers the next replay overwrites. On the
+      CPU there is no graph and this form changes nothing.
+
+    A metric stepped under either form is spoiled; build a new one."""
+    from metrics_tpu_torch.engine import CompiledStepEngine  # lazy: cycle-free
+
+    if form not in ("free", "graph"):
+        raise ValueError(f"form must be 'free' or 'graph', got {form!r}")
+    orig = CompiledStepEngine._run
+
+    def unsafe(self, program, make_step, states, *rest, **kwargs):
+        out = orig(self, program, make_step, states, *rest, **kwargs)
+        if form == "graph":
+            return out if program is None else (program.states,) + program.outputs
+        for name in states:
+            m = self._metrics.get(name)
+            for default in (m._defaults.values() if m is not None else ()):
+                if isinstance(default, torch.Tensor) and default.numel():
+                    default.untyped_storage().resize_(0)  # what donation would have done
+        return out
+
+    CompiledStepEngine._run = unsafe
+    try:
+        yield
+    finally:
+        CompiledStepEngine._run = orig
 
 
 @contextmanager

@@ -7,9 +7,9 @@ invariants — MTA003 aliasing and MTA007 passthrough on the STACKED states,
 MTA002 host transfers — and pass 4's evidence rides every ``@cohort``
 family. Where the JAX case hand-builds a vmapped jaxpr, the port builds the
 same program with ``make_fx`` over ``torch.func.vmap``, on fake tensors of
-the card (a fake tensor needs no card). Left out until the port's
-sanitizer (MetricSan) lands: ``test_metricsan_clean_across_cohort_lifecycle``
-and ``test_metricsan_still_flags_external_pokes_with_cohort_armed``.
+the card (a fake tensor needs no card). The two MetricSan cases hold the
+cohort's lifecycle sanctioned and an external poke of a template member
+flagged; each disarms the sanitizer after it.
 """
 import warnings
 
@@ -145,3 +145,61 @@ def test_hint_for_watch_key_resolves_cohort_suffix():
     assert hint == hint_for_watch_key("engine[NarrowAccumulator]")
     jax_audit_metric(jfx.NarrowAccumulator(), (_jx(),))
     assert jax_hint("engine[NarrowAccumulator]@cohort").split(" on ")[0] == hint.split(" on ")[0]
+
+
+# ---------------------------------------------------------------------------
+# MetricSan: the cohort lifecycle is sanctioned, external pokes are not
+# ---------------------------------------------------------------------------
+def _batches(n, b=8, seed=0):
+    rng = np.random.RandomState(seed)
+    return (
+        torch.as_tensor(rng.rand(n, b).astype(np.float32)),
+        torch.as_tensor(rng.rand(n, b).astype(np.float32)),
+    )
+
+
+@pytest.fixture()
+def _disarm_after():
+    from metrics_tpu_torch.analysis.sanitizer import disable_san
+    from metrics_tpu_torch.metric import Metric
+
+    yield
+    disable_san()
+    assert "__setattr__" not in Metric.__dict__
+
+
+def test_metricsan_clean_across_cohort_lifecycle(_disarm_after):
+    from metrics_tpu_torch.analysis import san_scope
+
+    with san_scope() as s:
+        cohort = M.MetricCohort(M.MetricCollection([M.MeanSquaredError(device=CPU)]), tenants=2)
+        p, t = _batches(2)
+        cohort(p, t)
+        cohort.compute()
+        cohort.add_tenant()
+        p3, t3 = _batches(3, seed=1)
+        cohort(p3, t3)
+        cohort.remove_tenant(1, return_state=True)
+        sd = dict(cohort._named_states())
+        fresh = M.MetricCohort(M.MetricCollection([M.MeanSquaredError(device=CPU)]), tenants=3)
+        fresh.load_state_dict(sd)
+        fresh.compute()
+        assert s.violations == [], [v for v in s.violations]
+
+
+def test_metricsan_still_flags_external_pokes_with_cohort_armed(_disarm_after):
+    from metrics_tpu_torch.analysis import san_scope
+    from metrics_tpu_torch.utilities import prints
+
+    # the warning is once per process and subject: another file's case on
+    # this worker may have poked the same state first
+    prints._WARN_ONCE_SEEN.discard("metricsan:state_write_outside_update:MeanSquaredError.sum_squared_error")
+    with san_scope() as s:
+        cohort = M.MetricCohort(M.MetricCollection([M.MeanSquaredError(device=CPU)]), tenants=2)
+        p, t = _batches(2)
+        cohort(p, t)
+        # poking a TEMPLATE member's registered state from outside any
+        # lifecycle context is exactly what the interceptor exists for
+        with pytest.warns(UserWarning):
+            cohort._template["MeanSquaredError"].sum_squared_error = torch.ones(())
+        assert any(v["check"] == "state_write_outside_update" for v in s.violations)

@@ -357,7 +357,8 @@ def test_identity_probe_is_two_sided():
 def test_psnr_running_range_quirk_is_suppressed_not_silent():
     """PSNR(data_range=None) seeds its running min/max trackers with 0.0
     to match the reference — a documented parity quirk, routed to the
-    suppressed bucket with the rationale at the registration site."""
+    suppressed bucket with the rationale at the registration site, and
+    honored by MetricSan's runtime probe."""
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         x = torch.linspace(0.1, 1.0, 8)
@@ -366,6 +367,11 @@ def test_psnr_running_range_quirk_is_suppressed_not_silent():
     assert {(f.rule, f.subject) for f in result.suppressed} == {
         ("MTA006", "PSNR.min_target"), ("MTA006", "PSNR.max_target"),
     }
+    from metrics_tpu_torch.analysis import san_scope
+
+    with san_scope() as san:
+        M.PSNR(device=CPU).reset()
+    assert san.violations == []
 
 
 def test_fingerprint_digest_reflects_static_params():

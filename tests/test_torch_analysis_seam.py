@@ -240,14 +240,52 @@ def test_host_seam_sites_name_the_library_crossings():
 
 
 def test_healthy_run_keeps_pass4_counters_at_zero():
-    """The seam half of the JAX case: a clean audit moves no
-    ``analysis.seam.regressions``. Its MetricSan half (a locked threaded run
-    moves no ``san.thread.races``) waits for the port's sanitizer."""
-    with obs.telemetry_scope() as tel:
-        seam0 = tel.counters.get("analysis.seam.regressions", 0)
-        result = audit_metric(M.MeanSquaredError(device=CPU), (_X, _X))
-        assert result.findings == []
-        assert tel.counters.get("analysis.seam.regressions", 0) == seam0
+    """Healthy-run-zero pin for the new counter namespaces: a clean audit
+    plus a properly-locked threaded run moves neither
+    ``analysis.seam.regressions`` nor ``san.thread.races``."""
+    import threading
+
+    from metrics_tpu_torch.analysis import concurrency as conc
+    from metrics_tpu_torch.analysis import register_threadsan_target, san_scope
+
+    class _LockedCounter:
+        def __init__(self):
+            self._lock = threading.Lock()
+            self.value = 0
+
+        def spin(self):
+            t = threading.Thread(target=self._worker, daemon=True)
+            t.start()
+            t.join(timeout=10)
+            assert not t.is_alive()
+
+        def _worker(self):
+            with self._lock:
+                self.value += 1
+
+        def bump(self):
+            with self._lock:
+                self.value += 1
+
+    register_threadsan_target(_LockedCounter, ("value",), "_lock")
+    try:
+        with obs.telemetry_scope() as tel:
+            # the registry is process-global and scope does not clear it:
+            # pin the DELTA this healthy run contributes, not the totals
+            seam0 = tel.counters.get("analysis.seam.regressions", 0)
+            races0 = tel.counters.get("san.thread.races", 0)
+            result = audit_metric(M.MeanSquaredError(device=CPU), (_X, _X))
+            assert result.findings == []
+            with san_scope() as san:
+                c = _LockedCounter()
+                c.spin()
+                c.bump()
+            assert san.violations == []
+            assert tel.counters.get("analysis.seam.regressions", 0) == seam0
+            assert tel.counters.get("san.thread.races", 0) == races0
+    finally:
+        with conc._TARGET_LOCK:
+            conc._EXTRA_TARGETS[:] = [t for t in conc._EXTRA_TARGETS if t[0] is not _LockedCounter]
 
 
 def test_evidence_rides_the_report_schema(registry_report):

@@ -2510,3 +2510,104 @@ def test_analysis_fixtures_on_the_card_trip_their_rules(cuda_device):
     engine = CompiledStepEngine(fx.NarrowAccumulator(device=cuda_device))
     audit_metric(fx.NarrowAccumulator(device=cuda_device), (torch.from_numpy(x).to(cuda_device),))
     assert "MTA001" in hint_for_watch_key(engine._watch_key)
+
+
+# ---------------------------------------------------------------------------
+# MetricSan on the card
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def san_disarmed_after():
+    from metrics_tpu_torch.analysis.sanitizer import disable_san
+    from metrics_tpu_torch.metric import Metric
+
+    yield
+    disable_san()
+    assert "__setattr__" not in Metric.__dict__
+
+
+def test_metricsan_reset_probe_survives_the_first_build_on_the_card(cuda_device, san_disarmed_after):
+    """Armed before the first build of a compiled collection holding a
+    non-identity reset: the resets inside the warm-up (sync debug mode
+    "error") and the capture are not probed and leave the class unprobed,
+    the replays equal an unarmed twin's, and the first eager ``reset()``
+    still reports its one MTA006."""
+    from metrics_tpu_torch.analysis import fixtures as fx
+    from metrics_tpu_torch.analysis import san_scope
+
+    class FusedNonIdentityReset(fx.NonIdentityReset):
+        _fused_forward = True  # engine-eligible: its resets run inside the build
+
+    x = torch.linspace(0.0, 1.0, 64, device=cuda_device)
+
+    def run(col):
+        outs = [col(x * (i + 1))["bad"] for i in range(3)]
+        return outs, col.compute()["bad"]
+
+    twin = run(MetricCollection({"bad": FusedNonIdentityReset(device=cuda_device)}, compiled=True))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with san_scope() as san:
+            col = MetricCollection({"bad": FusedNonIdentityReset(device=cuda_device)}, compiled=True)
+            armed = run(col)
+            assert col._engine.trace_count == 1 and not col._engine.eager_fallbacks
+            assert san.violations == []
+            col.reset()
+    assert [(v["rule"], v["check"], v["subject"]) for v in san.violations] == [
+        ("MTA006", "non_identity_reset", "FusedNonIdentityReset.acc")
+    ]
+    for a, b in zip(armed[0] + [armed[1]], twin[0] + [twin[1]]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("form", ["free", "graph"])
+def test_metricsan_donation_injectors_on_the_card(cuda_device, san_disarmed_after, tmp_path, form):
+    """Each form of ``donation_unsafe_engine`` on a CUDA graph: exactly one
+    MTA007 and one flight dump; a healthy replay before it none."""
+    import glob
+    import json
+
+    from metrics_tpu_torch import MeanSquaredError
+    from metrics_tpu_torch.analysis import san_scope
+    from metrics_tpu_torch.observability import flight
+    from metrics_tpu_torch.reliability import faultinject
+
+    x = torch.linspace(0.0, 1.0, 64, device=cuda_device)
+    with flight.flight_scope(tmp_path), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with san_scope() as san:
+            m = MeanSquaredError(device=cuda_device)
+            engine = CompiledStepEngine(m)
+            engine.step(x, x * 0.5)
+            engine.step(x, x * 0.5)
+            assert engine.trace_count == 1 and san.violations == []
+            with faultinject.donation_unsafe_engine(form):
+                engine.step(x, x * 0.5)
+            torch.cuda.synchronize()
+    assert [(v["rule"], v["subject"]) for v in san.violations] == [("MTA007", "MeanSquaredError")]
+    assert ("captured graph" in san.violations[0]["message"]) == (form == "graph")
+    dumps = glob.glob(str(tmp_path / "flight-*.json"))
+    assert len(dumps) == 1
+    payload = json.loads(open(dumps[0]).read())
+    assert payload["reason"] == "metricsan_use_after_donate" and "MTA007" in payload["hint"]
+
+
+def test_lint_gate_on_the_card_matches_the_committed_fingerprints(cuda_device, tmp_path):
+    """``scripts/torch_lint_metrics.py --device cuda --skip-protocol``: green
+    under ``--strict``, and its digests equal ``FINGERPRINTS_TORCH.json``
+    (written on the CPU: the digests carry no device)."""
+    import importlib.util
+    import json
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("torch_lint_metrics_on_card",
+                                                  os.path.join(repo, "scripts", "torch_lint_metrics.py"))
+    lm = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(lm)
+    report = tmp_path / "ANALYSIS_TORCH.json"
+    rc = lm.main(["--device", "cuda", "--skip-protocol", "--strict", "--diff-fingerprints", "--json", str(report)])
+    out = json.loads(report.read_text())
+    assert rc == 0 and out["summary"] == {"unsuppressed_findings": 0}
+    with open(os.path.join(repo, "FINGERPRINTS_TORCH.json")) as fh:
+        assert out["fingerprints"] == json.load(fh)["fingerprints"]
+    assert out["fingerprint_drift"] == 0

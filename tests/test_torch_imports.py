@@ -1,5 +1,6 @@
-"""The port stands alone: nothing under ``metrics_tpu_torch/``, and not
-``chip_smoke.py``, imports JAX or the JAX package."""
+"""The port stands alone: nothing under ``metrics_tpu_torch/``, not
+``chip_smoke.py`` and no ``scripts/torch_*.py``, imports JAX or the JAX
+package."""
 import ast
 import os
 import subprocess
@@ -9,7 +10,10 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "metrics_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = (
+    sorted((REPO / "metrics_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    + sorted((REPO / "scripts").glob("torch_*.py"))
+)
 FORBIDDEN = {"jax", "jaxlib", "metrics_tpu"}
 
 
@@ -84,12 +88,6 @@ JAX_INITS = {
 # names JAX exports that the port does not have yet, by the part of the
 # JAX package whose port brings them
 NOT_YET_PORTED = {
-    # analysis/sanitizer.py
-    "MetricSan": "analysis/sanitizer.py",
-    "MetricSanError": "analysis/sanitizer.py",
-    "disable_san": "analysis/sanitizer.py",
-    "enable_san": "analysis/sanitizer.py",
-    "san_scope": "analysis/sanitizer.py",
     # not ported by design: the JAX package's numpy twin of its SPMD sample
     # sort for CPU meshes, where XLA's co-sort is slow; the port's
     # sample_sort_auroc_ap runs on any device

@@ -1,10 +1,11 @@
 """The port's ``serving/`` against the JAX package's, on the CPU.
 
-Every case of ``tests/bases/test_serving.py`` is mirrored but two: the
-``FINGERPRINTS.json`` case audits jaxprs (``analysis/``, not ported), and
-``test_healthz_reports_degraded_on_slo_breach`` needs the exporter (the rest
-of ``observability/``, not ported): its ``healthz_payload()`` part is held
-directly. With them, the two admission cases of
+Every case of ``tests/bases/test_serving.py`` is mirrored but one:
+``test_healthz_reports_degraded_on_slo_breach`` lives with the exporter's
+cases (``tests/test_torch_exporter.py``); its ``healthz_payload()`` part is
+also held here directly. The fingerprint case holds the port's digests
+against the port's own ``FINGERPRINTS_TORCH.json`` (the JAX package's
+``FINGERPRINTS.json`` digests jaxprs, another IR). With them, the two admission cases of
 ``tests/analysis/test_serving_concurrency.py``, run against the port's own
 admission checks (``analysis/concurrency.py``) with test-only twins of the JAX package's
 ``DoubleBufferAliaser`` and ``HostReadOfDonated``
@@ -1022,6 +1023,26 @@ def test_batch_followable_admission_to_checkpoint_commit(tmp_path, _tracing):
            if e.get("cat") == "flow" and e["args"].get("batch") == fid]
     assert phs[0] == "s" and phs[-1] == "f" and len(phs) >= 3
     pipe.close()
+
+
+def test_engine_step_fingerprints_match_committed_baseline():
+    """FINGERPRINTS_TORCH.json no-drift pin for the serving work: the
+    audited update/step graph digests of representative families must
+    equal the committed file — the engine's generation counter is host-side
+    only and must not perturb any traced program."""
+    import json
+    import os
+
+    from metrics_tpu_torch.analysis.program import audit_metric, registry_cases
+
+    with open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "FINGERPRINTS_TORCH.json")) as f:
+        committed = json.load(f)["fingerprints"]
+    cases = {name: (factory, args) for name, factory, args in registry_cases(CPU)}
+    for family in ("Accuracy", "MeanSquaredError", "R2Score"):
+        factory, args = cases[family]
+        result = audit_metric(factory(), args, distributed=False, fingerprint=True)
+        assert result.fingerprints["update"] == committed[family]["update"], family
+        assert result.fingerprints["step"] == committed[family]["step"], family
 
 
 def test_dispatch_generation_advances_monotonically():
