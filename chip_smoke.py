@@ -386,6 +386,19 @@ that is unset. Phases (any failure exits non-zero before the result line):
    ``san.thread.watched_attrs``; (e) the host ms of a compiled step and of an
    eager forward, disarmed and armed in turns (median of 5), beside the
    card's name and power limit;
+4s. the repo's verification tools on the card, after 4r: (a) the port's
+   correctness tier (``scripts/torch_correctness.py``, the JAX package's
+   ``tpu_correctness.py`` ported) at full size in this process: all 32
+   checks within their tolerances against its float64 oracles, and every
+   ``tie_scan`` launch of its adversarial streams (signed zeros, ±inf
+   scores, a tie storm far longer than a tile, a permutation, a single
+   class, a positive class of 2^24 + 2^20 in a stream of about 22M)
+   against its plain version on the same sorted stream, on the card, within
+   1e-6 with equal class totals; (b) the sharded fuzz
+   (``scripts/torch_fuzz_sharded.py``) at world 1 for ``VERIFY_FUZZ_TRIALS``
+   seeded trials: 0 mismatches. The launches of each ``tie_scan`` entry in
+   (a) and (b) are printed; each of the four entries and the offset form
+   launches at least once;
 5. times on the card (CUDA events over launches queued behind a device
    sleep, so host overhead does not show, or the host clock ending in a
    synchronize for whole steps): the one-stream kernel, its plain version
@@ -5295,6 +5308,65 @@ def _sanitizer_phase(torch, dev, card):
     return out
 
 
+# phase 4s: the sharded fuzz's trials on the card (a few seconds at world 1)
+VERIFY_FUZZ_TRIALS = 100
+VERIFY_FUZZ_SEED = 0
+
+
+def _load_script(name: str):
+    """``scripts/<name>.py`` as a module of this process (phase 4s calls its
+    functions here, on the card this run pinned)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def _verification_phase(torch, dev, card):
+    """Phase 4s: the correctness tier at full size and the sharded fuzz at
+    world 1, on the card. Returns the phase's timings."""
+    tier = _load_script("torch_correctness")
+    fuzz = _load_script("torch_fuzz_sharded")
+    out = {"card": card}
+
+    # a. the tier: every check, and every adversarial launch against its plain version
+    t0 = time.perf_counter()
+    result = tier.run_tier(dev, scale=1.0, emit=lambda line: print(f"4s a. {line}"))
+    out["tier_s"] = time.perf_counter() - t0
+    out["tier_launches"] = result["launches"]
+    out["checks"] = {name: c["abs_err"] for name, c in result["checks"].items()}
+    failed = sorted(name for name, c in result["checks"].items() if not c["ok"])
+    if len(result["checks"]) != 32 or failed:
+        raise AssertionError(f"phase 4s (a): {len(result['checks'])} checks, failed: {failed}")
+    adv = result["adversarial"]
+    unlaunched = sorted(name for name, records in adv.items() if not records)
+    disagree = sorted(f"{name}: {r['entry']}" for name, records in adv.items() for r in records if not r["ok"])
+    if unlaunched or disagree or len(adv) != 8:
+        raise AssertionError(f"phase 4s (a): adversarial checks without a launch {unlaunched}, kernel against plain"
+                             f" beyond {tier.ADV_TOL}: {disagree} ({len(adv)} checks)")
+    out["adv_launches"] = {name: [r["entry"] for r in records] for name, records in adv.items()}
+    out["adv_max_abs_err"] = max(r["abs_err"] for records in adv.values() for r in records)
+    print(f"4s a. [{card}] 32 checks in {out['tier_s']:.2f} s; {sum(map(len, adv.values()))} adversarial launches,"
+          f" kernel against plain within {out['adv_max_abs_err']:.3g}; launches {result['launches']}")
+
+    # b. the sharded fuzz at world 1: the sharded metrics, the sample sort and the binned ones against the exact ones
+    t0 = time.perf_counter()
+    fuzzed = fuzz.fuzz(VERIFY_FUZZ_TRIALS, VERIFY_FUZZ_SEED, dev, 1)
+    out["fuzz_s"] = time.perf_counter() - t0
+    out["fuzz"] = {"trials": VERIFY_FUZZ_TRIALS, "matched": fuzzed["matched"], "rejected": fuzzed["rejected"],
+                   "mismatches": len(fuzzed["mismatches"])}
+    for line in fuzzed["mismatches"]:
+        print(f"4s b. {line}")
+    print(f"4s b. {fuzz.summary(VERIFY_FUZZ_TRIALS, 1, dev, fuzzed)} in {out['fuzz_s']:.2f} s")
+    if fuzzed["mismatches"]:
+        raise AssertionError(f"phase 4s (b): {len(fuzzed['mismatches'])} mismatches in the sharded fuzz")
+    return out
+
+
 def main() -> int:
     card_index = _pin_one_card()
     import torch
@@ -6167,6 +6239,18 @@ def main() -> int:
         raise AssertionError(f"phase 4r: the two AUROC computes launch tie_scan once each and nothing else: {counts()}")
     print(f"4r. {san_timings['phase_s']:.1f} s")
     print(json.dumps({"timings": {"sanitizer": san_timings}}))
+
+    # ---- 4s. the verification tools: the correctness tier and the sharded fuzz -------
+    zero_counts()
+    t0 = time.perf_counter()
+    verify_timings = _verification_phase(torch, dev, card)
+    verify_timings["phase_s"] = time.perf_counter() - t0
+    verify_timings["scan_launches"] = counts()
+    print(f"4s. launches of each tie_scan entry in (a) and (b): {counts()}")
+    if not all(counts().values()):
+        raise AssertionError(f"phase 4s: every tie_scan entry and the offset form must launch: {counts()}")
+    print(f"4s. {verify_timings['phase_s']:.1f} s")
+    print(json.dumps({"timings": {"verification": verify_timings}}))
 
     # ---- 5. times ---------------------------------------------------------
     all_preds = torch.cat(list(collection["AUROC"].preds))

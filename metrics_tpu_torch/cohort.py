@@ -629,8 +629,12 @@ class MetricCohort:
             if self._health is None:
                 return False
             health_state = dict(self._health)
-            health_state["valid"] = LeafSpec((self._capacity,), torch.int8, self._device)
-            health_state["step"] = LeafSpec((), torch.int32, self._device)
+            # the device of a tensor, as the step's own leaves key on: a
+            # cohort built on "cuda" holds tensors on "cuda:0", and the two
+            # devices compare unequal
+            device = self._health["rows_seen"].device
+            health_state["valid"] = LeafSpec((self._capacity,), torch.int8, device)
+            health_state["step"] = LeafSpec((), torch.int32, device)
         return n > 0 and self._engine.cohort_is_built(
             self._states, stacked_args, stacked_kwargs, capacity=self._capacity, health_state=health_state
         )

@@ -2611,3 +2611,73 @@ def test_lint_gate_on_the_card_matches_the_committed_fingerprints(cuda_device, t
     with open(os.path.join(repo, "FINGERPRINTS_TORCH.json")) as fh:
         assert out["fingerprints"] == json.load(fh)["fingerprints"]
     assert out["fingerprint_drift"] == 0
+
+
+def _script(name):
+    """``scripts/<name>.py`` loaded as a module of this process."""
+    import importlib.util
+    import os
+    import sys
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_correctness_tier_on_the_card_with_every_adversarial_launch_against_plain(cuda_device):
+    """``scripts/torch_correctness.py`` at full size: the 32 checks within
+    their tolerances, and each adversarial check's launches equal to their
+    plain versions on the same sorted streams (±inf scores, the tie storm,
+    the positive class past 2^24 counted exactly)."""
+    tier = _script("torch_correctness")
+    result = tier.run_tier(cuda_device, scale=1.0, emit=lambda line: None)
+    assert len(result["checks"]) == 32
+    assert not [name for name, c in result["checks"].items() if not c["ok"]], result["checks"]
+    adv = result["adversarial"]
+    assert len(adv) == 8 and all(adv.values()), {name: len(r) for name, r in adv.items()}
+    assert not [(name, r) for name, records in adv.items() for r in records if not r["ok"]]
+    assert [r["entry"] for r in adv["adv_weighted_gather_epilogue"]] == ["tie_scan_w"]
+    assert adv["adv_auroc_2p24_counts"][0]["totals"] == [float((1 << 24) + (1 << 20)), float(1 << 22)]
+    assert result["ok"] and result["launches"]["tie_scan"] >= 7 and result["launches"]["offsets"] >= 2
+
+
+def test_sharded_fuzz_on_the_card_at_world_1(cuda_device):
+    """``scripts/torch_fuzz_sharded.py``'s domains on the card: the sharded,
+    sample-sort and binned metrics against the exact ones, 0 mismatches,
+    with the one-stream and the class-batched kernels launched."""
+    from metrics_tpu_torch.ops import tie_scan
+
+    fuzz = _script("torch_fuzz_sharded")
+    one, rows = tie_scan.tie_group_reduce, tie_scan.tie_group_reduce_rows
+    before = (one.launches, rows.launches)
+    result = fuzz.fuzz(60, 1, cuda_device, 1)
+    assert result["mismatches"] == [] and result["matched"] + result["rejected"] == 60
+    assert one.launches > before[0] and rows.launches > before[1]
+
+
+@pytest.mark.parametrize("device", ["cuda", "cuda:0"])
+def test_serving_a_health_armed_cohort_hands_its_steps_to_the_worker(cuda_device, device):
+    """A cohort with health tracking, built on "cuda" or "cuda:0": after
+    the first batch every step runs on the worker (one inline step), and
+    the values are the blocking path's bits."""
+    from metrics_tpu_torch import MetricCohort
+    from metrics_tpu_torch.serving import AsyncServingEngine
+
+    rng = np.random.default_rng(81)
+    batches = [(torch.from_numpy(rng.random((8, 32), dtype=np.float32)).to(cuda_device),
+                torch.from_numpy(rng.integers(0, 2, (8, 32))).to(cuda_device)) for _ in range(5)]
+    blocking = MetricCohort(Accuracy(device=device), tenants=8, track_health=True)
+    for b in batches:
+        blocking(*b)
+    served = MetricCohort(Accuracy(device=device), tenants=8, track_health=True)
+    pipe = AsyncServingEngine(served)
+    assert pipe.is_async, pipe.refusal_reason
+    for b in batches:
+        pipe.forward(*b)
+    got, want = pipe.compute(), blocking.compute()
+    assert torch.equal(got, want)
+    assert pipe.stats["dispatches"] == 5 and pipe.stats["inline_steps"] == 1
+    pipe.close()
