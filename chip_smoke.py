@@ -399,6 +399,27 @@ that is unset. Phases (any failure exits non-zero before the result line):
    seeded trials: 0 mismatches. The launches of each ``tie_scan`` entry in
    (a) and (b) are printed; each of the four entries and the offset form
    launches at least once;
+4t. the precision policy on the card, after 4s (``scripts/torch_precision.py``
+   in this process at full size): (a) the JAX package's 16 half-precision
+   classification cases on the forward leg's 1M rows (the binary ones on
+   1M rows of the JAX fixture's recipe from the same seed), in bfloat16 and
+   float16, through ``forward`` and the functional form, against the
+   port's float32 value on the card within each case's JAX tolerance, AUROC
+   and AP also against the float64 oracle of the half-rounded scores within
+   1e-6, and the regression pack's 7 half cases on the regression leg's 1M
+   rows against the same call on the CPU; (b) phase 3's north-star step on
+   bf16 scores through a collection cast with ``half()`` and one cast with
+   ``bfloat16()`` (equal bits; Accuracy equal to the CPU's; AUROC within
+   1e-6 of the oracle) and phase 4's one-vs-rest AUROC and AP at 50,000 x
+   1,000 in bf16 against per-class oracles; (c) ``ShardedAUROC`` with a
+   bf16 buffer (half the float32 one's bytes) over phase 3b's 45,840,617
+   scores at world 1, and a float32 one cast with ``bfloat16()``
+   mid-accumulation, against the oracle; (d) a ``compiled=True`` Accuracy +
+   ``BinnedAUROC(512)`` cast with ``bfloat16()`` and fed float32 batches,
+   bit-equal to eager, built twice. Every ``tie_scan`` / ``tie_scan_rows``
+   launch of (a)–(c) is held against its plain version (1e-6, class totals
+   equal) with its stream's distinct keys and largest tie group printed; no
+   plain scan runs on the card while the legs drive, and no value leaves it;
 5. times on the card (CUDA events over launches queued behind a device
    sleep, so host overhead does not show, or the host clock ending in a
    synchronize for whole steps): the one-stream kernel, its plain version
@@ -5367,6 +5388,31 @@ def _verification_phase(torch, dev, card):
     return out
 
 
+def _precision_phase(torch, dev, card, arrays):
+    """Phase 4t: ``scripts/torch_precision.py``'s four legs on the card over
+    this run's numpy ``arrays`` (the ``forward``, ``regression``, ``stream``,
+    ``ovr`` and ``sharded`` entries of the script's ``make_inputs``; the
+    binary cases' rows are drawn here from ``SEED``). Returns the phase's
+    timings; raises when a check failed."""
+    precision = _load_script("torch_precision")
+    inputs = dict(arrays, binary=precision.binary_leg(MAIN_N, SEED), sharded_batch=SHARDED_BATCH, batches=BATCHES,
+                  num_bins=NUM_BINS)
+    result = precision.run(dev, inputs, emit=lambda line: print(f"4t {line}"))
+    if not result["ok"]:
+        raise AssertionError(f"phase 4t: {len(result['failures'])} failed checks: {result['failures']}")
+    scans = result["scans"]
+    out = {"card": card, "launches": result["launches"], "legs": result["legs"],
+           "scans": len(scans), "scan_max_abs_err": max((s["abs_err"] for s in scans), default=0.0),
+           "largest_tie_group": max((s["largest_tie_group"] for s in scans), default=0),
+           "plain_calls_on_card": result["plain_calls_on_card"]}
+    for leg, timings in result["legs"].items():
+        print(f"4t {leg}. [{card}] {timings['drive_s']:.2f} s driving, {timings['leg_s']:.2f} s with the checks;"
+              f" launches {timings['launches']}")
+    print(f"4t. [{card}] {len(scans)} tie_scan launches against their plain versions within"
+          f" {out['scan_max_abs_err']:.3g}; largest tie group {out['largest_tie_group']}")
+    return out
+
+
 def main() -> int:
     card_index = _pin_one_card()
     import torch
@@ -6251,6 +6297,22 @@ def main() -> int:
         raise AssertionError(f"phase 4s: every tie_scan entry and the offset form must launch: {counts()}")
     print(f"4s. {verify_timings['phase_s']:.1f} s")
     print(json.dumps({"timings": {"verification": verify_timings}}))
+
+    # ---- 4t. the precision policy: half inputs, half states, the bf16 buffer, the engine's graph ----
+    zero_counts()
+    t0 = time.perf_counter()
+    precision_timings = _precision_phase(torch, dev, card, {
+        "forward": _forward_leg_inputs(torch, dev)[:2], "regression": _regression_leg_inputs(torch, dev)[:2],
+        "stream": (preds_np, target_np), "ovr": (mc_scores_np, mc_target_np), "sharded": (cr_preds_np, cr_target_np),
+    })
+    precision_timings["phase_s"] = time.perf_counter() - t0
+    precision_timings["scan_launches"] = counts()
+    print(f"4t. launches of each tie_scan entry in (a)-(c): {counts()}")
+    if (counts()["tie_scan"] < 1 or counts()["tie_scan_rows"] < 1
+            or any(v for k, v in counts().items() if k not in ("tie_scan", "tie_scan_rows"))):
+        raise AssertionError(f"phase 4t: tie_scan and tie_scan_rows must launch, and nothing else: {counts()}")
+    print(f"4t. {precision_timings['phase_s']:.1f} s")
+    print(json.dumps({"timings": {"precision": precision_timings}}))
 
     # ---- 5. times ---------------------------------------------------------
     all_preds = torch.cat(list(collection["AUROC"].preds))

@@ -463,7 +463,8 @@ def engine_owned(engine: Any) -> Set[int]:
     owned = {_storage(b) for b in engine._state_buffers.values()}
     for program in list(engine._compiled.values()):
         if program is not None:
-            owned |= {_storage(t) for t in tensor_leaves((program.inputs, program.states, program.outputs))}
+            owned |= {_storage(t) for t in tensor_leaves((program.inputs, program.states, program.merged,
+                                                          program.outputs))}
     owned.discard(None)
     return owned
 

@@ -315,6 +315,20 @@ class MetricCollection:
             m.astype(dtype)
         return self
 
+    def bfloat16(self) -> "MetricCollection":
+        return self.astype(torch.bfloat16)
+
+    def float16(self) -> "MetricCollection":
+        return self.astype(torch.float16)
+
+    def half(self) -> "MetricCollection":
+        """Shorthand for :meth:`bfloat16`, as in the JAX package (not
+        ``nn.Module.half()``'s float16)."""
+        return self.bfloat16()
+
+    def float(self) -> "MetricCollection":
+        return self.astype(torch.float32)
+
     def _set_prefix(self, k: str) -> str:
         return k if self.prefix is None else self.prefix + k
 

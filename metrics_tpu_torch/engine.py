@@ -81,6 +81,7 @@ sharing the LRU with the plain signatures. Its states are the stacked ones
 it is given, copied into buffers keyed by the stacked shape. It has no
 eager fallback: a failed build or replay drops the program and raises.
 """
+import gc
 import threading
 import time
 from collections import OrderedDict
@@ -303,19 +304,35 @@ def _host_reads_raise():
         torch.cuda.set_sync_debug_mode(prev)
 
 
+@contextmanager
+def _no_cyclic_gc():
+    """Python's cyclic garbage collector off for the block (as it was after)."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 class _Graph:
     """One captured signature: the graph, its static inputs, the state
-    buffers it merges into, its captured outputs after the states (the
-    values, and with a guard the stacked finite flags), and the tensors it
-    reads that live outside its pool (pinned, so they outlive every
-    replay)."""
+    buffers the states are copied into, where a replay leaves the merged
+    states (those buffers, or a captured tensor for a state the step gives
+    another dtype or shape, as float32 batches promote bfloat16 states), its
+    captured outputs after the states (the values, and with a guard the
+    stacked finite flags), and the tensors it reads that live outside its
+    pool (pinned, so they outlive every replay)."""
 
-    __slots__ = ("graph", "inputs", "states", "outputs", "pins", "pool_bytes", "build_ms", "_storage_ptrs")
+    __slots__ = ("graph", "inputs", "states", "merged", "outputs", "pins", "pool_bytes", "build_ms",
+                 "_storage_ptrs")
 
-    def __init__(self, graph, inputs, states, outputs, pins, pool_bytes, build_ms):
+    def __init__(self, graph, inputs, states, merged, outputs, pins, pool_bytes, build_ms):
         self.graph = graph
         self.inputs = inputs
         self.states = states
+        self.merged = merged
         self.outputs = outputs
         self.pins = pins
         self.pool_bytes = pool_bytes
@@ -329,7 +346,7 @@ class _Graph:
         if self._storage_ptrs is None:
             self._storage_ptrs = frozenset(
                 t.untyped_storage().data_ptr()
-                for t in pytree.tree_leaves((self.inputs, self.states, self.outputs))
+                for t in pytree.tree_leaves((self.inputs, self.states, self.merged, self.outputs))
                 if isinstance(t, torch.Tensor) and t.numel()
             )
         return self._storage_ptrs
@@ -672,16 +689,26 @@ class CompiledStepEngine:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
-        # the warm-up was the build's run of the hooks: the capture is muted
-        with torch.cuda.device(dev), tracing(), _trace.muted():
+        # the warm-up was the build's run of the hooks: the capture is muted.
+        # No cyclic collection inside the capture (``torch.cuda.graph`` runs
+        # one just before it): one that frees an earlier graph calls its
+        # reset, which is illegal while this thread captures, and the capture
+        # is invalidated
+        with torch.cuda.device(dev), tracing(), _trace.muted(), _no_cyclic_gc():
             # thread_local: other threads' CUDA calls stay legal during the capture
             with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
                 new_states, *outputs = step_fn(buffers, *call)
+                merged = {n: {} for n in new_states}
                 for n, d in new_states.items():
                     for s, v in d.items():
-                        buffers[n][s].copy_(v)
+                        buf = buffers[n][s]
+                        if v.dtype == buf.dtype and v.shape == buf.shape:
+                            merged[n][s] = buf.copy_(v)
+                        else:  # copying into the buffer would cast the state back
+                            merged[n][s] = v
         pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        return _Graph(graph, inputs, buffers, tuple(outputs), pins, pool_bytes, (time.perf_counter() - t0) * 1e3)
+        return _Graph(graph, inputs, buffers, merged, tuple(outputs), pins, pool_bytes,
+                      (time.perf_counter() - t0) * 1e3)
 
     def _warm_up(self, step_fn: Callable, states: dict, call: tuple) -> torch.cuda.Stream:
         """Run ``step_fn(states, *call)`` once uncaptured on a new side
@@ -719,7 +746,7 @@ class CompiledStepEngine:
                     return make_step()(states, *_unflatten(structure, iter(leaves)))
             program.graph.replay()
         # clones: nothing handed out is a buffer the next replay writes
-        return apply_to_collection((program.states,) + program.outputs, torch.Tensor, torch.clone)
+        return apply_to_collection((program.merged,) + program.outputs, torch.Tensor, torch.clone)
 
     def _current_states(self, names: Tuple[str, ...]) -> Dict[str, Dict[str, torch.Tensor]]:
         return {n: {s: getattr(self._metrics[n], s) for s in self._metrics[n]._defaults} for n in names}

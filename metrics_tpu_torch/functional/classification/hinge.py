@@ -3,6 +3,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from metrics_tpu_torch.utilities.data import promote_accumulator
 from metrics_tpu_torch.utilities.enums import DataType, EnumStr
 
 
@@ -86,6 +87,10 @@ def _hinge_update(
         preds, target = preds.squeeze(), target.squeeze()
 
     mode = _check_shape_and_type_consistency_hinge(preds, target)
+    # half-precision scores are promoted before the margins are summed: a
+    # float16 sum passes 65,504, its largest value, within tens of thousands
+    # of rows (the JAX package keeps the input dtype and returns inf or NaN)
+    preds = promote_accumulator(preds)
 
     if mode == DataType.MULTICLASS:
         if multiclass_mode is None or multiclass_mode == MulticlassMode.CRAMMER_SINGER:

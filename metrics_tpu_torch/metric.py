@@ -778,6 +778,25 @@ class Metric(ABC):
         self._computed = None
         return self
 
+    def bfloat16(self) -> "Metric":
+        """Shorthand for ``astype(torch.bfloat16)``."""
+        return self.astype(torch.bfloat16)
+
+    def float16(self) -> "Metric":
+        """Shorthand for ``astype(torch.float16)``: IEEE half, when it is
+        what is wanted."""
+        return self.astype(torch.float16)
+
+    def half(self) -> "Metric":
+        """Shorthand for :meth:`bfloat16`, as in the JAX package: ``half()``
+        here means bfloat16, not ``nn.Module.half()``'s float16 (use
+        :meth:`float16` for that)."""
+        return self.bfloat16()
+
+    def float(self) -> "Metric":
+        """Shorthand for ``astype(torch.float32)``."""
+        return self.astype(torch.float32)
+
     def persistent(self, mode: bool = False) -> None:
         """Post-init toggle: should states be saved in ``state_dict``?"""
         for key in self._persistent:

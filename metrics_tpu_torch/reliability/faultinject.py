@@ -697,7 +697,7 @@ def donation_unsafe_engine(form: str = "free") -> Iterator[None]:
     def unsafe(self, program, make_step, states, *rest, **kwargs):
         out = orig(self, program, make_step, states, *rest, **kwargs)
         if form == "graph":
-            return out if program is None else (program.states,) + program.outputs
+            return out if program is None else (program.merged,) + program.outputs
         for name in states:
             m = self._metrics.get(name)
             for default in (m._defaults.values() if m is not None else ()):

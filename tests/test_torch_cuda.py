@@ -52,7 +52,10 @@ counterexample); and the program audit's pass 4 on the card (80 seam budgets
 equal to ``SEAM_BASELINE.json``'s, every engine-eligible family proven
 double-buffer safe as on the CPU, the two-generation traces allocating
 nothing and holding no hazard, and the traced verdict borne out by
-``first_dispatch_hazards`` after a real CUDA-graph build and replay). Counts read off a ``torch.profiler`` trace read a trace
+``first_dispatch_hazards`` after a real CUDA-graph build and replay); and
+the precision policy on the card (``scripts/torch_precision.py``'s legs at a
+fifth of phase 4t's sizes, the shorthands equal to ``astype`` on the card,
+and float16 hinge margins summed past float16's range). Counts read off a ``torch.profiler`` trace read a trace
 that a second trace of the same call agrees with (``_steady_profile``).
 
 Every test here is marked ``cuda`` and skips without a card. This file
@@ -2681,3 +2684,83 @@ def test_serving_a_health_armed_cohort_hands_its_steps_to_the_worker(cuda_device
     assert torch.equal(got, want)
     assert pipe.stats["dispatches"] == 5 and pipe.stats["inline_steps"] == 1
     pipe.close()
+
+
+def test_half_precision_legs_on_the_card(cuda_device):
+    """``scripts/torch_precision.py``'s four legs on the card at a fifth of
+    phase 4t's sizes: every check holds, every ``tie_scan`` /
+    ``tie_scan_rows`` launch equals its plain version, no plain scan runs on
+    the card while the legs drive, and the engine builds twice."""
+    precision = _script("torch_precision")
+    result = precision.run(cuda_device, precision.make_inputs(0.2), emit=lambda line: None)
+    assert result["ok"], result["failures"]
+    assert result["launches"]["tie_scan"] >= 30 and result["launches"]["tie_scan_rows"] == 2
+    assert result["plain_calls_on_card"] == 0 and all(s["ok"] for s in result["scans"])
+    assert result["legs"]["d"]["builds"] == 2 and not result["legs"]["d"]["eager_fallbacks"]
+
+
+@pytest.mark.parametrize("shorthand, dtype", [("half", torch.bfloat16), ("bfloat16", torch.bfloat16),
+                                              ("float16", torch.float16), ("float", torch.float32)])
+def test_half_shorthands_on_the_card_equal_astype(cuda_device, shorthand, dtype):
+    """A collection on the card cast mid-epoch by a shorthand holds the
+    states ``astype`` leaves, on the card; integer counters keep int32."""
+    rng = np.random.default_rng(91)
+    p = torch.from_numpy(rng.random(4096, dtype=np.float32)).to(cuda_device)
+    t = torch.from_numpy((rng.random(4096) < 0.4).astype(np.int64)).to(cuda_device)
+
+    def fed():
+        col = MetricCollection([Accuracy(), BinnedAUROC(num_bins=64), StatScores()])
+        col.update(p, t)
+        return col
+
+    a, b = fed(), fed()
+    assert getattr(a, shorthand)() is a
+    b.astype(dtype)
+    for name in a.keys():
+        for state in a[name]._defaults:
+            x, y = getattr(a[name], state), getattr(b[name], state)
+            assert x.device.type == "cuda" and x.dtype == y.dtype and torch.equal(x, y), (name, state)
+    assert a["BinnedAUROC"].hist_pos.dtype == dtype and a["StatScores"].tp.dtype == torch.int32
+    a.update(p, t)
+    assert all(v.device.type == "cuda" for v in a.compute().values())
+
+
+def test_half_hinge_sums_float16_margins_in_float32_on_the_card(cuda_device):
+    """70,000 float16 rows pass float16's range in the margins' sum: the
+    hinge on the card equals the float32 hinge of the rounded scores."""
+    from metrics_tpu_torch.functional import hinge
+
+    rng = np.random.default_rng(92)
+    p = rng.random((70_000, 4), dtype=np.float32)
+    p /= p.sum(1, keepdims=True)
+    half = torch.from_numpy(p).to(cuda_device).to(torch.float16)
+    t = torch.from_numpy(rng.integers(0, 4, 70_000)).to(cuda_device)
+    got, want = hinge(half, t), hinge(half.float(), t)
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got)) and abs(float(got) - float(want)) <= 1e-6
+
+
+def test_half_compiled_bf16_states_promote_as_eager_on_the_card(cuda_device):
+    """A compiled collection cast with ``bfloat16()`` and fed float32
+    batches: the first graph's histogram states come out float32 (the
+    step's dtype, not its buffers'), as eager's do; the next signature builds
+    once more, and every step and state is eager's bits."""
+    rng = np.random.default_rng(93)
+    p = torch.from_numpy(rng.random(60_000, dtype=np.float32)).to(cuda_device)
+    t = torch.from_numpy((rng.random(60_000) < p.cpu().numpy()).astype(np.int64)).to(cuda_device)
+
+    def make(compiled):
+        return MetricCollection([Accuracy(), BinnedAUROC(num_bins=128)], compiled=compiled).bfloat16()
+
+    eager, compiled = make(False), make(True)
+    for b in range(6):
+        sl = slice(b * 10_000, (b + 1) * 10_000)
+        ve, vc = eager(p[sl], t[sl]), compiled(p[sl], t[sl])
+        assert all(torch.equal(ve[k], vc[k]) for k in ve), (b, ve, vc)
+        for name in ("Accuracy", "BinnedAUROC"):
+            for state in eager[name]._defaults:
+                x, y = getattr(compiled[name], state), getattr(eager[name], state)
+                assert x.dtype == y.dtype and torch.equal(x, y), (b, name, state, x.dtype, y.dtype)
+    assert compiled["BinnedAUROC"].hist_pos.dtype == torch.float32
+    assert compiled["Accuracy"].correct.dtype == torch.bfloat16
+    info = compiled._engine.cache_info()
+    assert info["trace_count"] == 2 and not info["eager_fallbacks"]

@@ -17,7 +17,7 @@ import torch
 import metrics_tpu as jm
 from metrics_tpu.functional import accuracy as jax_accuracy
 from metrics_tpu.functional import auroc as jax_auroc
-from metrics_tpu_torch import AUROC, Accuracy, Metric, MetricCollection
+from metrics_tpu_torch import AUROC, Accuracy, BinnedAUROC, Metric, MetricCollection
 from metrics_tpu_torch.functional import accuracy, auroc
 from metrics_tpu_torch.interop import state_from_jax
 from metrics_tpu_torch.parallel.backend import SyncBackend, set_sync_backend
@@ -315,6 +315,26 @@ def test_state_from_jax_keeps_bfloat16_states():
     ours = Accuracy(device=CPU).astype(torch.bfloat16)
     ours.load_state_dict(carried, strict=True)
     assert float(ours.correct) == float(ref.correct) and float(ours.compute()) == float(ref.compute())
+    # states cast by JAX's .half() (bfloat16 there too), into the port's .half() metric and collection
+    ref = jm.Accuracy().half()
+    ref.update(jnp.asarray(p), jnp.asarray(t))
+    ref.half().persistent(True)
+    carried = state_from_jax({k: np.asarray(v) for k, v in ref.state_dict().items()})
+    ours = Accuracy(device=CPU).half()
+    ours.load_state_dict(carried, strict=True)
+    assert ours.correct.dtype == ours.total.dtype == torch.bfloat16
+    assert float(ours.compute()) == float(ref.compute())
+    ref_col = jm.MetricCollection([jm.Accuracy(), jm.BinnedAUROC(num_bins=16)])
+    ref_col.update(jnp.asarray(p), jnp.asarray(t))
+    ref_col.half().persistent(True)
+    carried = state_from_jax({k: np.asarray(v) for k, v in ref_col.state_dict().items()})
+    assert {carried[k].dtype for k in carried} == {torch.bfloat16}
+    ours_col = MetricCollection([Accuracy(device=CPU), BinnedAUROC(num_bins=16, device=CPU)]).half()
+    ours_col.load_state_dict(carried, strict=True)
+    got, want = ours_col.compute(), ref_col.compute()
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert float(got[k]) == float(want[k]), k
 
 
 class _ThreadWorld(SyncBackend):

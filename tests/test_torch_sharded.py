@@ -359,3 +359,38 @@ def test_lifecycle_at_world_1():
     coll.update(torch.from_numpy(p), torch.from_numpy(t))
     values = coll.compute()
     assert abs(float(values["AUROC"]) - float(values["ShardedAUROC"])) < PORT_TOL
+
+
+def _bf16_rounded(preds: np.ndarray) -> np.ndarray:
+    return torch.from_numpy(preds).to(torch.bfloat16).float().numpy()
+
+
+def test_bf16_preds_buffer_quantizes_scores():
+    """Port of JAX's case at world 1: ``preds_dtype=torch.bfloat16`` halves
+    the buffer, and the value is the exact AUROC of the bf16-rounded scores,
+    equal to JAX's over its mesh."""
+    preds, target = _binary(512, 29)
+    m = ShardedAUROC(capacity_per_device=512, preds_dtype=torch.bfloat16, device=CPU)
+    m.update(torch.from_numpy(preds), torch.from_numpy(target))
+    assert m.buf_preds.dtype == torch.bfloat16
+    assert m.buf_preds.nbytes * 2 == ShardedAUROC(capacity_per_device=512, device=CPU).buf_preds.nbytes
+    got = float(m.compute())
+    _assert_close(got, roc_auc_score(target, _bf16_rounded(preds)), PORT_TOL)
+    ref = jm.ShardedAUROC(capacity_per_device=512 // WORLD, preds_dtype=jnp.bfloat16)
+    ref.update(jnp.asarray(preds), jnp.asarray(target))
+    _assert_close(got, float(ref.compute()), JAX_TOL)
+
+
+def test_astype_mid_accumulation_quantizes_the_buffer():
+    """Port of JAX's ``test_astype_preserves_sharding_mid_accumulation`` at
+    world 1: ``bfloat16()`` after an update casts the buffer in place of its
+    slots (fill kept), and later updates are written in bf16; the value is
+    the exact AUROC of the bf16-rounded scores."""
+    preds, target = _binary(512, 31)
+    m = ShardedAUROC(capacity_per_device=512, device=CPU)
+    m.update(torch.from_numpy(preds[:256]), torch.from_numpy(target[:256]))
+    assert m.bfloat16() is m
+    assert m.buf_preds.dtype == torch.bfloat16 and m.buf_target.dtype == torch.int32 and m._n_seen == 256
+    m.update(torch.from_numpy(preds[256:]), torch.from_numpy(target[256:]))
+    assert m.buf_preds.dtype == torch.bfloat16
+    _assert_close(float(m.compute()), roc_auc_score(target, _bf16_rounded(preds)), PORT_TOL)
